@@ -1,0 +1,263 @@
+"""Serial leaf-wise tree learner on the order-based route.
+
+Counterpart of lightgbm_tpu/learners/serial.py ``grow_tree`` on its
+canonical route (``opt = rec = pooled = False``, ``init_tree=None``):
+the best-first growth of SerialTreeLearner (serial_tree_learner.cpp:
+116-150).
+
+* The row partition is a leaf-sorted permutation ``order`` plus per-leaf
+  ``(begin, count)`` ranges (DataPartition, data_partition.hpp:91-139).
+  A split stably partitions only the parent's range: left-going rows
+  keep their order at the front, right-going rows follow
+  (serial.py:219-249).
+* Only the SMALLER child's histogram is built from data, by positional
+  count with ties to the left (serial.py:866); its rows are one
+  contiguous slice of ``order``, gathered (serial.py:252-264).  The larger
+  child is parent - smaller.  Every live leaf's histogram stays resident
+  in one ``[L, F, B, 3]`` buffer.
+* Both children are searched in one ``search2`` call; the root is
+  searched through the same call (its two inputs are the root histogram).
+* Leaf numbering matches the reference: the left child keeps the
+  parent's index, the right child takes ``step + 1`` (tree.cpp:78-89).
+
+PyTorch runs eagerly with dynamic shapes, so the JAX version's static
+capacity tiers and masked no-op steps are not ported: each split slices
+the exact range, and the loop stops at the first step without a positive
+gain (the JAX loop runs its remaining steps as no-ops; the tree is the
+same).  Per-leaf bookkeeping (the best-split table, ranges, node table)
+lives on the host; the per-row work and both kernels run on the device.
+Host syncs: two at the root (its row-order totals, its search row), then
+two per split — the partition's left count (needed to slice the smaller
+child) and the two children's search rows (needed to pick the next leaf).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..models.tree import Tree
+from ..ops.cuda_histogram import histogram_single_leaf
+from ..ops.cuda_search import pack_meta, search2_rows
+
+# host syncs since the last reset (chip_smoke.py reads and resets it)
+HOST_SYNCS = 0
+
+# best-split table rows: 0-10 are the search kernel's [2, 16] row layout
+# (pallas_search._unpack), 11-14 the per-leaf half of the Tree
+_BG, _BF, _BT = 0, 1, 2
+_BLSG, _BLSH, _BLC = 3, 4, 5
+_BRSG, _BRSH, _BRC = 6, 7, 8
+_BLO, _BRO = 9, 10
+_BLV, _BLCNT, _BLPAR, _BLDEP = 11, 12, 13, 14
+_BROWS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeLearnerParams:
+    """Scalar tree-growth constraints (TreeConfig, config.h:165-190)."""
+
+    min_data_in_leaf: float
+    min_sum_hessian_in_leaf: float
+    lambda_l1: float
+    lambda_l2: float
+    min_gain_to_split: float
+    max_depth: int  # <= 0 means unlimited
+
+    @staticmethod
+    def from_config(cfg) -> "TreeLearnerParams":
+        f32 = lambda v: float(np.float32(v))  # noqa: E731 — the f32 value
+        return TreeLearnerParams(
+            min_data_in_leaf=f32(cfg.min_data_in_leaf),
+            min_sum_hessian_in_leaf=f32(cfg.min_sum_hessian_in_leaf),
+            lambda_l1=f32(cfg.lambda_l1),
+            lambda_l2=f32(cfg.lambda_l2),
+            min_gain_to_split=f32(cfg.min_gain_to_split),
+            max_depth=int(cfg.max_depth),
+        )
+
+    def can_split(self, depth: int) -> bool:
+        return self.max_depth <= 0 or depth < self.max_depth
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    return t.cpu().numpy()
+
+
+def _root_sums(gm: torch.Tensor, hm: torch.Tensor,
+               m: torch.Tensor) -> np.ndarray:
+    """Root (Σ g·m, Σ h·m, Σ m), each summed in row order in float32 —
+    the order of the JAX package's one-segment segment_sum on the CPU.
+    The leaf outputs and gains take differences of these totals, so
+    their rounding carries into every split; a row-order sum on the
+    host gives the same totals on any device.  One device-to-host copy
+    of 12 bytes per row, and the tree's first host sync."""
+    x = _host(torch.stack([gm, hm, m]))
+    if x.shape[1] == 0:
+        return np.zeros(3, np.float32)
+    return np.cumsum(x, axis=1, dtype=np.float32)[:, -1]
+
+
+def _partition(order: torch.Tensor, frow: torch.Tensor, thr: int,
+               is_cat: bool, begin: int, pcnt: int) -> int:
+    """Stably partition ``order[begin:begin+pcnt]`` in place by the
+    split decision (lefts first, then rights, each in the old order);
+    returns the left count.  The positions are the JAX version's:
+    lefts at (lefts before them), rights at nleft + (rights before)."""
+    rows = order[begin:begin + pcnt]
+    vals = frow.index_select(0, rows).to(torch.int32)
+    go = (vals == thr) if is_cat else (vals <= thr)
+    lcnt = torch.cumsum(go.to(torch.int64), 0)  # lefts up to and incl. j
+    nleft_t = lcnt[-1]
+    j = torch.arange(pcnt, device=order.device)
+    newpos = torch.where(go, lcnt - 1, nleft_t + j - lcnt)
+    out = torch.empty_like(rows)
+    out[newpos] = rows
+    rows.copy_(out)
+    return int(_host(nleft_t))
+
+
+def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+              bag_mask: torch.Tensor, feature_mask, num_bins_per_feature,
+              is_categorical, params: TreeLearnerParams, num_bins: int,
+              max_leaves: int) -> Tuple[Tree, torch.Tensor]:
+    """Grow one tree; returns (tree, leaf_id per row).
+
+    ``bins_T`` [F, n] uint8/uint16; ``grad``/``hess``/``bag_mask`` [n]
+    float32; ``feature_mask``/``num_bins_per_feature``/``is_categorical``
+    [F]."""
+    def hist_fn(b, g, h, m):
+        return histogram_single_leaf(b, g, h, m, num_bins)
+
+    dev = bins_T.device
+    F, n = bins_T.shape
+    L = max_leaves
+    is_cat_h = np.asarray(torch.as_tensor(is_categorical).cpu(), bool)
+    meta = pack_meta(feature_mask, num_bins_per_feature, is_categorical, dev)
+    consts = [params.min_data_in_leaf, params.min_sum_hessian_in_leaf,
+              params.lambda_l1, params.lambda_l2, params.min_gain_to_split]
+
+    # ---- root (LeafSplits::Init, leaf_splits.hpp:51-92)
+    hist0 = hist_fn(bins_T, grad, hess, bag_mask)
+    sg0, sh0, c0 = (float(v) for v in _root_sums(
+        grad * bag_mask, hess * bag_mask, bag_mask))
+    rows = search2_rows(hist0, hist0, [float(params.can_split(0)),
+                                       sg0, sh0, c0, sg0, sh0, c0] + consts,
+                        meta)
+    best = np.zeros((_BROWS, L), np.float32)
+    best[_BG] = -np.inf
+    best[_BF] = -1.0
+    best[_BLPAR] = -1.0
+    best[:11, 0] = _host(rows)[0, :11]
+
+    hists = torch.zeros((L, F, num_bins, 3), dtype=hist0.dtype, device=dev)
+    hists[0] = hist0
+    order = torch.arange(n, dtype=torch.int64, device=dev)
+    begin = np.zeros(L, np.int64)
+    count = np.zeros(L, np.int64)
+    count[0] = n
+    tree_i = np.zeros((5, L), np.int32)  # feat, thr, dtype, lch, rch
+    tree_i[0] = -1
+    tree_f = np.zeros((3, L), np.float32)  # gain, int_value, int_count
+    nleaves = 1
+
+    for step in range(L - 1):
+        best_leaf = int(np.argmax(best[_BG]))
+        if not best[_BG, best_leaf] > 0.0:
+            break
+        node, new_leaf = step, step + 1
+        bcol = best[:, best_leaf].copy()
+        f, thr = int(bcol[_BF]), int(bcol[_BT])
+        is_cat = bool(is_cat_h[f])
+        lc, rc = bcol[_BLC], bcol[_BRC]
+        depth_child = int(bcol[_BLDEP]) + 1
+
+        # ---- partition the parent's range (DataPartition::Split)
+        b0, pcnt = int(begin[best_leaf]), int(count[best_leaf])
+        nleft = _partition(order, bins_T[f], thr, is_cat, b0, pcnt)
+        nright = pcnt - nleft
+
+        # ---- smaller child's histogram from its contiguous range; the
+        # sibling by subtraction
+        small_is_left = nleft <= nright
+        cnt_s = nleft if small_is_left else nright
+        begin_s = b0 if small_is_left else b0 + nleft
+        rs = order[begin_s:begin_s + cnt_s]
+        h_small = hist_fn(bins_T.index_select(1, rs), grad.index_select(0, rs),
+                          hess.index_select(0, rs),
+                          bag_mask.index_select(0, rs))
+        h_large = hists[best_leaf] - h_small
+        h_left, h_right = ((h_small, h_large) if small_is_left
+                           else (h_large, h_small))
+        rows = search2_rows(
+            h_left, h_right,
+            [float(params.can_split(depth_child)),
+             float(bcol[_BLSG]), float(bcol[_BLSH]), float(lc),
+             float(bcol[_BRSG]), float(bcol[_BRSH]), float(rc)] + consts,
+            meta)
+        hists[best_leaf] = h_left
+        hists[new_leaf] = h_right
+        res = _host(rows)
+
+        # ---- best-split table + ranges: the left child takes the
+        # parent's column, the right child the new leaf's
+        tail = np.array([0.0, 0.0, node, depth_child, 0.0], np.float32)
+        best[:11, best_leaf] = res[0, :11]
+        best[11:, best_leaf] = tail
+        best[_BLV, best_leaf], best[_BLCNT, best_leaf] = bcol[_BLO], lc
+        best[:11, new_leaf] = res[1, :11]
+        best[11:, new_leaf] = tail
+        best[_BLV, new_leaf], best[_BLCNT, new_leaf] = bcol[_BRO], rc
+        begin[new_leaf] = b0 + nleft
+        count[best_leaf], count[new_leaf] = nleft, nright
+
+        # ---- node table (Tree::Split, tree.cpp:52-96)
+        parent = int(bcol[_BLPAR])
+        if parent >= 0:
+            side = 3 if tree_i[3, parent] == ~best_leaf else 4
+            tree_i[side, parent] = node
+        tree_i[:, node] = [f, thr, int(is_cat), ~best_leaf, ~new_leaf]
+        tree_f[:, node] = [bcol[_BG], bcol[_BLV], np.float32(lc + rc)]
+        nleaves += 1
+
+    li = L - 1
+
+    def t(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dt).to(dev)
+
+    tree = Tree(
+        num_leaves=nleaves,
+        split_feature=t(tree_i[0, :li], torch.int32),
+        split_feature_real=torch.full((li,), -1, dtype=torch.int32,
+                                      device=dev),
+        threshold_bin=t(tree_i[1, :li], torch.int32),
+        threshold_real=torch.zeros(li, dtype=torch.float32, device=dev),
+        decision_type=t(tree_i[2, :li], torch.int32),
+        left_child=t(tree_i[3, :li], torch.int32),
+        right_child=t(tree_i[4, :li], torch.int32),
+        split_gain=t(tree_f[0, :li], torch.float32),
+        internal_value=t(tree_f[1, :li], torch.float32),
+        internal_count=t(tree_f[2, :li], torch.float32),
+        leaf_value=t(best[_BLV], torch.float32),
+        leaf_count=t(best[_BLCNT], torch.float32),
+        leaf_parent=t(best[_BLPAR], torch.int32),
+        leaf_depth=t(best[_BLDEP], torch.int32),
+    )
+
+    # ---- leaf of every row from the final ranges: leaves own disjoint
+    # contiguous spans of ``order``, laid out in ``begin`` order
+    live = [lf for lf in range(nleaves) if count[lf] > 0]
+    live.sort(key=lambda lf: begin[lf])
+    leaf_of_pos = torch.repeat_interleave(
+        torch.tensor(live, dtype=torch.int32, device=dev),
+        torch.tensor([int(count[lf]) for lf in live], dtype=torch.int64,
+                     device=dev),
+        output_size=n)
+    leaf_id = torch.empty(n, dtype=torch.int32, device=dev)
+    leaf_id[order] = leaf_of_pos
+    return tree, leaf_id

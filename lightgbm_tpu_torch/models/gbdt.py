@@ -1,0 +1,398 @@
+"""GBDT boosting driver.
+
+Counterpart of lightgbm_tpu/models/gbdt.py for the slice: single-device
+leaf-wise growth on the order-based route.  Each iteration computes the
+objective's gradients, re-draws the bagging mask and the feature sample
+(numpy RandomState, draw for draw the JAX package's), grows one tree per
+class, applies shrinkage, updates train scores through the final row ->
+leaf map and valid scores through a binned walk.  Model text save/load is
+the reference format, byte-compatible with the JAX package's.
+
+Not ported in this slice (ROADMAP queue A), and refused with
+NotImplementedError rather than ignored: depthwise/hybrid growth,
+parallel learners, objectives other than binary, hist_dtype=float64,
+histogram_pool_size > 0.  Forest batching, the lagged stop check,
+guards, checkpoints and telemetry are not carried.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..io.dataset import BinnedDataset
+from ..learners.serial import TreeLearnerParams, grow_tree
+from ..metrics import Metric, create_metrics
+from ..objectives import ObjectiveFunction
+from .tree import (Tree, empty_tree, finalize_thresholds_device,
+                   pack_threshold_bounds, predict_binned, predict_raw)
+
+# leaf_count/internal_count ride the float32 histogram count channel,
+# integer-exact only up to 2**24 rows (lightgbm_tpu/learners/serial.py:78)
+F32_COUNT_EXACT_ROWS = 1 << 24
+
+
+def check_supported(config: Config) -> None:
+    """Refuse every configuration outside the slice, naming its ROADMAP
+    item."""
+    def no(what: str, item: str) -> None:
+        raise NotImplementedError(
+            f"{what} is not ported to lightgbm_tpu_torch yet (ROADMAP "
+            f"queue {item})")
+
+    if config.tree_growth != "leafwise":
+        no(f"tree_growth={config.tree_growth}", "A: depthwise/hybrid")
+    if config.tree_learner != "serial":
+        no(f"tree_learner={config.tree_learner}", "A: parallel")
+    if config.objective != "binary" or int(config.num_class) > 1:
+        no(f"objective={config.objective}", "A: other objectives")
+    if config.boosting_type != "gbdt":
+        no(f"boosting_type={config.boosting_type}", "A: other objectives")
+    if config.hist_dtype != "float32":
+        no("hist_dtype=float64", "A: float64 histograms")
+    if float(config.histogram_pool_size) > 0:
+        no("histogram_pool_size>0", "A: histogram pool")
+
+
+def transform_scores(out: np.ndarray, num_class: int, sigmoid: float,
+                     objective_name: str) -> np.ndarray:
+    """GBDT::Predict's host-side f64 output transform (gbdt.cpp:631-645)."""
+    if sigmoid > 0 and num_class == 1 and objective_name == "binary":
+        return 1.0 / (1.0 + np.exp(-2.0 * sigmoid * out[0]))
+    return out[0]
+
+
+class GBDT:
+    """Gradient Boosting Decision Trees (gbdt.h:17), K = 1."""
+
+    name = "gbdt"
+
+    def __init__(self, config: Config, train_set: Optional[BinnedDataset] = None,
+                 objective: Optional[ObjectiveFunction] = None,
+                 device="cpu"):
+        self.config = config
+        self.device = torch.device(device)
+        self.num_class = int(config.num_class)
+        self.learning_rate = float(config.learning_rate)
+        self.max_leaves = config.num_leaves_
+        self.models: List[Tree] = []
+        self.iter_ = 0
+        self.label_idx = 0
+        self.max_feature_idx = -1
+        self.feature_names: List[str] = []
+        self.sigmoid = float(config.sigmoid)
+        self.objective = objective
+        self.train_set: Optional[BinnedDataset] = None
+        self.train_metrics: List[Metric] = []
+        self.valid_metrics: List[List[Metric]] = []
+        self._valid_bins: List[torch.Tensor] = []
+        self._valid_scores: List[torch.Tensor] = []
+        self._bag_rng = np.random.RandomState(config.bagging_seed)
+        self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
+        if train_set is not None:
+            self.reset_training_data(train_set, objective)
+
+    # ------------------------------------------------------------------ setup
+    def reset_training_data(self, train_set: BinnedDataset,
+                            objective: Optional[ObjectiveFunction]) -> None:
+        """GBDT::ResetTrainingData (gbdt.cpp:49-122)."""
+        check_supported(self.config)
+        n = train_set.num_data
+        if n > F32_COUNT_EXACT_ROWS:
+            raise ValueError(
+                f"num_data={n} exceeds the float32 integer-exact envelope "
+                f"({F32_COUNT_EXACT_ROWS}) of the histogram count channel")
+        self.train_set = train_set
+        self.objective = objective
+        self.num_data = n
+        self.max_feature_idx = train_set.num_total_features - 1
+        self.feature_names = list(train_set.feature_names)
+        if objective is not None and objective.name == "binary":
+            self.sigmoid = objective.sigmoid
+        dev = self.device
+        self._bins_T = train_set.bins_T(dev)
+        self._num_bins = max(int(train_set.max_num_bin), 2)
+        self._nbpf = torch.as_tensor(train_set.num_bins_per_feature,
+                                     device=dev)
+        self._is_cat = torch.as_tensor(train_set.is_categorical, device=dev)
+        self._params = TreeLearnerParams.from_config(self.config)
+        self._bounds_mat, self._real_feat_dev = pack_threshold_bounds(
+            train_set.bin_thresholds_real(), train_set.real_feature_indices,
+            dev)
+        init = train_set.metadata.init_score
+        scores = (np.zeros((1, n), np.float32) if init is None
+                  else np.asarray(init, np.float32).reshape(1, n))
+        self._scores = torch.from_numpy(scores).to(dev)
+        self._bag_mask = torch.ones(n, dtype=torch.float32, device=dev)
+        self.train_metrics = create_metrics(self.config, train_set.metadata, n)
+
+    def add_valid_dataset(self, valid_set: BinnedDataset) -> None:
+        """GBDT::AddValidDataset (gbdt.cpp:124-140); replays the trees
+        already trained onto the new set."""
+        if self.train_set is None or not self.train_set.check_align(valid_set):
+            raise ValueError("validation set is not aligned with the "
+                             "training set's bin mappers")
+        self.valid_metrics.append(
+            create_metrics(self.config, valid_set.metadata, valid_set.num_data))
+        vb = torch.from_numpy(np.ascontiguousarray(valid_set.X_bin)) \
+            .to(self.device).to(torch.int32)
+        init = valid_set.metadata.init_score
+        vs = (np.zeros((1, valid_set.num_data), np.float32) if init is None
+              else np.asarray(init, np.float32).reshape(1, -1))
+        acc = torch.from_numpy(vs).to(self.device)
+        for tree in self.models:
+            acc[0] += predict_binned(tree, vb)
+        self._valid_bins.append(vb)
+        self._valid_scores.append(acc)
+
+    # --------------------------------------------------------------- sampling
+    def _update_bagging(self) -> None:
+        """GBDT::Bagging (gbdt.cpp:157-208): every bagging_freq iterations
+        draw floor(n * bagging_fraction) rows."""
+        cfg = self.config
+        if cfg.bagging_fraction >= 1.0 or cfg.bagging_freq <= 0:
+            return
+        if self.iter_ % cfg.bagging_freq != 0:
+            return
+        n = self.num_data
+        idx = self._bag_rng.choice(n, size=int(n * cfg.bagging_fraction),
+                                   replace=False)
+        mask = np.zeros(n, np.float32)
+        mask[idx] = 1.0
+        self._bag_mask = torch.from_numpy(mask).to(self.device)
+
+    def _sample_features(self) -> torch.Tensor:
+        """Per-tree feature_fraction sample (serial_tree_learner.cpp:
+        160-165)."""
+        F = self.train_set.num_features
+        frac = float(self.config.feature_fraction)
+        mask = np.ones(F, bool)
+        if frac < 1.0:
+            idx = self._feat_rng.choice(F, size=max(1, int(F * frac)),
+                                        replace=False)
+            mask[:] = False
+            mask[idx] = True
+        return torch.from_numpy(mask).to(self.device)
+
+    # ------------------------------------------------------------------ train
+    def grow(self, grad: torch.Tensor, hess: torch.Tensor,
+             feature_mask: torch.Tensor):
+        """One tree on the current bagging mask: (tree, leaf_id)."""
+        return grow_tree(self._bins_T, grad, hess, self._bag_mask,
+                         feature_mask, self._nbpf, self._is_cat,
+                         self._params, self._num_bins, self.max_leaves)
+
+    def train_one_iter(self) -> bool:
+        """One boosting iteration (gbdt.cpp:217-252).  Returns True when
+        no tree could be grown (training should stop)."""
+        grad, hess = self.objective.get_gradients(self._scores[0])
+        self._update_bagging()
+        fmask = self._sample_features()
+        tree, leaf_id = self.grow(grad.contiguous(), hess.contiguous(), fmask)
+        # shrinkage + train-score update through the row -> leaf map +
+        # threshold finalization (gbdt.cpp:229-247)
+        tree = tree.shrink(self.learning_rate)
+        self._scores[0] += tree.leaf_value[leaf_id.to(torch.int64)]
+        tree = finalize_thresholds_device(tree, self._bounds_mat,
+                                          self._real_feat_dev)
+        for vi, vb in enumerate(self._valid_bins):
+            self._valid_scores[vi][0] += predict_binned(tree, vb)
+        self.models.append(tree)
+        self.iter_ += 1
+        return tree.num_leaves <= 1
+
+    # ------------------------------------------------------------------- eval
+    def eval_at(self, data_idx: int) -> Dict[str, float]:
+        """Metrics on train (0) or valid set ``data_idx`` (1..)."""
+        if data_idx == 0:
+            scores, metrics = self._scores, self.train_metrics
+        else:
+            scores = self._valid_scores[data_idx - 1]
+            metrics = self.valid_metrics[data_idx - 1]
+        host = scores[0].cpu().numpy()
+        return {m.name: m.eval(host) for m in metrics}
+
+    # ---------------------------------------------------------------- predict
+    def _raw_scores(self, X, num_iteration: int = -1) -> np.ndarray:
+        """Σ over trees of raw-feature walks, accumulated in float32 in
+        tree order, returned as float64 [1, n]."""
+        n_iter = len(self.models)
+        if num_iteration > 0:
+            n_iter = min(n_iter, num_iteration)
+        Xt = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(
+            self.device)
+        acc = torch.zeros((1, Xt.shape[0]), dtype=torch.float32,
+                          device=self.device)
+        for tree in self.models[:n_iter]:
+            acc[0] += predict_raw(tree, Xt)
+        return acc.cpu().numpy().astype(np.float64)
+
+    def predict_raw_score(self, X, num_iteration: int = -1) -> np.ndarray:
+        return self._raw_scores(X, num_iteration)[0]
+
+    def predict(self, X, num_iteration: int = -1) -> np.ndarray:
+        return transform_scores(self._raw_scores(X, num_iteration),
+                                self.num_class, self.sigmoid,
+                                self.objective_name())
+
+    def objective_name(self) -> str:
+        if self.objective is not None:
+            return self.objective.name
+        return getattr(self, "_loaded_objective", "")
+
+    # ------------------------------------------------------------- model text
+    def feature_importance_array(self, importance_type: str = "split"
+                                 ) -> np.ndarray:
+        imp = np.zeros(self.max_feature_idx + 1, np.float64)
+        for tree in self.models:
+            nl = tree.num_leaves
+            sfr = tree.split_feature_real.cpu().numpy()[: nl - 1]
+            gains = tree.split_gain.cpu().numpy()[: nl - 1]
+            for j, f in enumerate(sfr):
+                if f >= 0:
+                    imp[f] += gains[j] if importance_type == "gain" else 1
+        return imp
+
+    def feature_importance(self) -> Dict[str, int]:
+        imp = self.feature_importance_array("split")
+        names = self.feature_names or [
+            f"Column_{i}" for i in range(self.max_feature_idx + 1)]
+        return {names[i]: int(imp[i]) for i in range(len(imp)) if imp[i] > 0}
+
+    def save_model_to_string(self, num_iteration: int = -1) -> str:
+        """Reference text format (gbdt.cpp:479-521), byte-compatible with
+        lightgbm_tpu's GBDT.save_model_to_string."""
+        out = [self.name, f"num_class={self.num_class}",
+               f"label_index={self.label_idx}",
+               f"max_feature_idx={self.max_feature_idx}"]
+        if self.objective_name():
+            out.append(f"objective={self.objective_name()}")
+        out.append(f"sigmoid={_fmt(self.sigmoid)}")
+        names = self.feature_names or [
+            f"Column_{i}" for i in range(self.max_feature_idx + 1)]
+        out.append("feature_names=" + " ".join(names))
+        out.append("")
+        num_used = len(self.models)
+        if num_iteration > 0:
+            num_used = min(num_iteration * self.num_class, num_used)
+        for i in range(num_used):
+            out.append(f"Tree={i}")
+            out.append(_tree_to_string(self.models[i]))
+        out.append("")
+        out.append("feature importances:")
+        pairs = sorted(self.feature_importance().items(), key=lambda kv: -kv[1])
+        for name, cnt in pairs:
+            out.append(f"{name}={cnt}")
+        return "\n".join(out) + "\n"
+
+    def load_model_from_string(self, model_str: str) -> None:
+        """gbdt.cpp:523-592."""
+        lines = model_str.splitlines()
+        kv = {}
+        blocks: List[List[str]] = []
+        i = 0
+        while i < len(lines):
+            line = lines[i].strip()
+            if line.startswith("Tree="):
+                i += 1
+                block = []
+                while (i < len(lines) and not lines[i].startswith("Tree=")
+                       and not lines[i].startswith("feature importances")):
+                    block.append(lines[i])
+                    i += 1
+                blocks.append(block)
+                continue
+            if "=" in line:
+                k, v = line.split("=", 1)
+                kv.setdefault(k.strip(), v.strip())
+            i += 1
+        self.num_class = int(kv.get("num_class", 1))
+        if self.num_class != 1:
+            raise NotImplementedError(
+                "multiclass models are not ported to lightgbm_tpu_torch yet "
+                "(ROADMAP queue A: other objectives)")
+        self.label_idx = int(kv.get("label_index", 0))
+        self.max_feature_idx = int(kv.get("max_feature_idx", -1))
+        self.sigmoid = float(kv.get("sigmoid", -1.0))
+        self._loaded_objective = kv.get("objective", "")
+        self.feature_names = kv.get("feature_names", "").split()
+        self.models = [_tree_from_lines(b, self.device) for b in blocks]
+        self.iter_ = 0
+
+    @property
+    def num_trees(self) -> int:
+        return len(self.models)
+
+
+def _fmt(x) -> str:
+    """Compact float formatting matching C++ default ostream behavior."""
+    x = float(x)
+    if x == int(x) and abs(x) < 1e15:
+        return str(int(x))
+    return repr(x)
+
+
+def _arr_str(a: torch.Tensor, n: int, fmt=str) -> str:
+    return " ".join(fmt(v) for v in a.cpu().numpy()[:n])
+
+
+def _tree_to_string(tree: Tree) -> str:
+    """Tree::ToString (tree.cpp:124-151)."""
+    nl = tree.num_leaves
+    ni = max(nl - 1, 0)
+    f = lambda v: _fmt(float(v))  # noqa: E731
+    cnt = lambda v: str(int(float(v)))  # noqa: E731
+    out = [f"num_leaves={nl}",
+           "split_feature=" + _arr_str(tree.split_feature_real, ni),
+           "split_gain=" + _arr_str(tree.split_gain, ni, f),
+           "threshold=" + _arr_str(tree.threshold_real, ni, f),
+           "decision_type=" + _arr_str(tree.decision_type, ni),
+           "left_child=" + _arr_str(tree.left_child, ni),
+           "right_child=" + _arr_str(tree.right_child, ni),
+           "leaf_parent=" + _arr_str(tree.leaf_parent, nl),
+           "leaf_value=" + _arr_str(tree.leaf_value, nl, f),
+           "leaf_count=" + _arr_str(tree.leaf_count, nl, cnt),
+           "internal_value=" + _arr_str(tree.internal_value, ni, f),
+           "internal_count=" + _arr_str(tree.internal_count, ni, cnt),
+           ""]
+    return "\n".join(out)
+
+
+def _tree_from_lines(lines: List[str], device) -> Tree:
+    """Tree::Tree(const string&) (tree.cpp:193-231).  Bin-space fields
+    are not in the text format; loaded trees predict on raw values."""
+    kv = {}
+    for line in lines:
+        if "=" in line:
+            k, v = line.split("=", 1)
+            if k.strip() and v.strip():
+                kv[k.strip()] = v.strip()
+    nl = int(kv["num_leaves"])
+    max_leaves = max(nl, 2)
+    t = empty_tree(max_leaves, device)
+
+    def padded(key, n, total, dtype, fill=0):
+        v = np.full(total, fill, dtype)
+        if n and key in kv:
+            v[:n] = np.array(kv[key].split()[:n], np.float64).astype(dtype)
+        return torch.from_numpy(v).to(device)
+
+    ni, li = nl - 1, max_leaves - 1
+    return t.replace(
+        num_leaves=nl,
+        split_feature=padded("split_feature", ni, li, np.int32),
+        split_feature_real=padded("split_feature", ni, li, np.int32),
+        threshold_real=padded("threshold", ni, li, np.float32),
+        decision_type=padded("decision_type", ni, li, np.int32),
+        left_child=padded("left_child", ni, li, np.int32),
+        right_child=padded("right_child", ni, li, np.int32),
+        split_gain=padded("split_gain", ni, li, np.float32),
+        internal_value=padded("internal_value", ni, li, np.float32),
+        internal_count=padded("internal_count", ni, li, np.float32),
+        leaf_value=padded("leaf_value", nl, max_leaves, np.float32),
+        leaf_count=padded("leaf_count", nl, max_leaves, np.float32),
+        leaf_parent=padded("leaf_parent", nl, max_leaves, np.int32, -1),
+    )

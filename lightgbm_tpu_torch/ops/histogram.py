@@ -1,0 +1,40 @@
+"""Histogram construction — the plain PyTorch version.
+
+Counterpart of lightgbm_tpu/ops/histogram.py ``histogram_feature_major``:
+``hist[F, num_bins, 3]`` = (Σ g·m, Σ h·m, Σ m) over one masked row set.
+It is the CPU path of ``ops/cuda_histogram.histogram_single_leaf`` and
+the oracle the CUDA kernel is held against on the card; nothing on the
+training path calls it for a CUDA tensor.
+
+The sums follow the kernel's order: rows in blocks of ``CHUNK_ROWS``,
+each block summed in row order (``index_add_`` is sequential on the
+CPU), the block partials then added in block order.  On the CPU the two
+agree bitwise, so trees grown with the plain version and with the
+kernel see the same histograms.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# rows per block; must equal kChunk in csrc/histogram.cu
+CHUNK_ROWS = 2048
+
+
+def histogram_feature_major(bins_T: torch.Tensor, grad: torch.Tensor,
+                            hess: torch.Tensor, mask: torch.Tensor,
+                            num_bins: int) -> torch.Tensor:
+    """``bins_T`` [F, n] integer bins (feature-major); ``grad``/``hess``/
+    ``mask`` [n].  Returns [F, num_bins, 3] in ``grad``'s dtype."""
+    F, n = bins_T.shape
+    dev, dt = grad.device, grad.dtype
+    stats = torch.stack([grad * mask, hess * mask, mask.to(dt)], dim=-1)
+    offs = torch.arange(F, device=dev)[:, None] * num_bins
+    out = torch.zeros(F * num_bins, 3, dtype=dt, device=dev)
+    for r0 in range(0, n, CHUNK_ROWS):
+        r1 = min(n, r0 + CHUNK_ROWS)
+        keys = bins_T[:, r0:r1].to(torch.int64) + offs
+        part = torch.zeros_like(out)
+        part.index_add_(0, keys.reshape(-1), stats[r0:r1].repeat(F, 1))
+        out += part
+    return out.reshape(F, num_bins, 3)

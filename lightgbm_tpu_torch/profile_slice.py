@@ -1,0 +1,107 @@
+"""Where the time of one tree goes on the card, at the bench shape.
+
+    python -m lightgbm_tpu_torch.profile_slice [--rows N] [--trees T]
+
+Trains the bench model (bench.py's config: binary, HIGGS-like rows from
+seed 7, 28 features, 255 bins, 255 leaves) through the port's entry
+points, warms one tree, then grows ``--trees`` trees under
+``torch.profiler`` with CPU and CUDA activities (after the same number
+timed without it).  Prints one JSON object: host wall per tree with and
+without the profiler, device busy time per tree (the union of kernel and
+copy intervals on the card), the idle share (1 - busy / wall), and the
+device time per kernel name summed over the profiled trees, largest
+first.  Needs a CUDA card; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+
+
+def _make_data(n: int, seed: int = 7):
+    """bench.py make_data (train rows only)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 28).astype(np.float32)
+    w1, w2 = rng.randn(28), rng.randn(28)
+    z = X @ w1 + 0.5 * (X**2 - 1.0) @ w2 + 0.8 * X[:, 0] * X[:, 1]
+    z = (z - z.mean()) / z.std()
+    return X, (z + 0.5 * rng.randn(n) > 0).astype(np.float32)
+
+
+def _busy_us(events) -> float:
+    """Length of the union of device intervals (microseconds)."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in iv:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--trees", type=int, default=3)
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_slice: needs a CUDA card", file=sys.stderr)
+        return 2
+    import lightgbm_tpu_torch as lt
+
+    X, y = _make_data(args.rows)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 100, "verbose": -1}
+    ds = lt.Dataset(X, label=y, max_bin=255, params=params)
+    booster = lt.Booster(params=params, train_set=ds)
+    booster.update()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.trees):
+        booster.update()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.trees):
+            booster.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = _busy_us(dev_events) * 1e-6
+    per_kernel = {}
+    for e in dev_events:
+        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "rows": args.rows, "trees": args.trees,
+        "wall_s_per_tree_unprofiled": plain_wall / args.trees,
+        "wall_s_per_tree_profiled": wall / args.trees,
+        "device_busy_s_per_tree": busy_s / args.trees,
+        "idle_share": 1.0 - busy_s / wall,
+        "device_events": len(dev_events),
+        "kernel_ms_per_tree": {k[:80]: v / 1e3 / args.trees for k, v in top},
+    }, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

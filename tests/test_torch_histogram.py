@@ -1,0 +1,116 @@
+"""The port's single-row-set histogram (lightgbm_tpu_torch.ops.cuda_histogram)
+against the JAX package's.
+
+On the CPU the port's ``histogram_single_leaf`` is its plain PyTorch
+version; the JAX side runs its Pallas kernel in interpret mode, as
+tests/test_pallas_histogram.py does.  The count channel is exact; g and h
+sums agree to f32 rounding (rtol/atol 1e-5: the Pallas kernel sums each
+512-row chunk as a one-hot matmul, the port row by row in 2048-row
+blocks).  The CUDA kernel itself runs only on the card (chip_smoke.py and
+the ``cuda``-marked test below).
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from lightgbm_tpu.ops.histogram import histogram_feature_major as jax_hist_fm
+from lightgbm_tpu.ops.pallas_histogram import (
+    histogram_single_leaf as jax_single_leaf)
+from lightgbm_tpu_torch.ops import cuda_histogram
+from lightgbm_tpu_torch.ops.cuda_histogram import histogram_single_leaf
+from lightgbm_tpu_torch.ops.histogram import (
+    CHUNK_ROWS, histogram_feature_major)
+
+SHAPES = [(5, 700, 37, np.uint8), (28, 2048, 255, np.uint8),
+          (3, 500, 300, np.uint16)]
+
+
+def _inputs(F, cap, B, dt, seed=11):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, B, size=(F, cap)).astype(dt),
+            rng.randn(cap).astype(np.float32),
+            np.abs(rng.randn(cap)).astype(np.float32),
+            (rng.rand(cap) < 0.7).astype(np.float32))
+
+
+def _port(bins, g, h, m, B):
+    return histogram_single_leaf(*(torch.from_numpy(a) for a in (bins, g, h, m)),
+                                 B).numpy()
+
+
+@pytest.mark.parametrize("F,cap,B,dt", SHAPES)
+def test_matches_jax_pallas_interpret(F, cap, B, dt):
+    bins, g, h, m = _inputs(F, cap, B, dt)
+    ours = _port(bins, g, h, m, B)
+    ref = np.asarray(jax_single_leaf(
+        jnp.asarray(bins), jnp.asarray(g), jnp.asarray(h), jnp.asarray(m),
+        num_bins=B, interpret=True))
+    assert ours.shape == (F, B, 3) and ours.dtype == np.float32
+    np.testing.assert_array_equal(ours[..., 2], ref[..., 2])
+    np.testing.assert_allclose(ours[..., :2], ref[..., :2], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("F,cap,B,dt", SHAPES)
+def test_matches_jax_segment_sum(F, cap, B, dt):
+    """Up to CHUNK_ROWS rows both sum each bin in row order: bitwise."""
+    bins, g, h, m = _inputs(F, cap, B, dt, seed=3)
+    ours = _port(bins, g, h, m, B)
+    ref = np.asarray(jax_hist_fm(jnp.asarray(bins), jnp.asarray(g),
+                                 jnp.asarray(h), jnp.asarray(m), num_bins=B))
+    np.testing.assert_array_equal(ours, ref)
+
+
+def test_block_order_is_the_kernels():
+    """Past CHUNK_ROWS rows the plain version adds per-block partials in
+    block order, as the kernel's second pass does."""
+    F, B = 4, 19
+    cap = 2 * CHUNK_ROWS + 123
+    bins, g, h, m = _inputs(F, cap, B, np.uint8, seed=5)
+    ours = _port(bins, g, h, m, B)
+    want = np.zeros((F, B, 3), np.float32)
+    for r0 in range(0, cap, CHUNK_ROWS):
+        sl = slice(r0, r0 + CHUNK_ROWS)
+        want = want + np.asarray(jax_hist_fm(
+            jnp.asarray(bins[:, sl]), jnp.asarray(g[sl]), jnp.asarray(h[sl]),
+            jnp.asarray(m[sl]), num_bins=B))
+    np.testing.assert_array_equal(ours, want)
+    np.testing.assert_array_equal(ours, _port(bins, g, h, m, B))  # repeatable
+
+
+def test_plain_version_matches_float64():
+    bins, g, h, m = _inputs(6, 5000, 40, np.uint8, seed=9)
+    ours = histogram_feature_major(
+        *(torch.from_numpy(a) for a in (bins, g, h, m)), 40).numpy()
+    ref = histogram_feature_major(
+        torch.from_numpy(bins), *(torch.from_numpy(a).double()
+                                  for a in (g, h, m)), 40).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_entry_has_no_cpu_fallback():
+    """The kernel entry point never quietly runs the plain version."""
+    bins, g, h, m = _inputs(2, 64, 8, np.uint8)
+    before = cuda_histogram.LAUNCHES
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the entry would launch the kernel")
+    with pytest.raises((RuntimeError, ValueError)):
+        cuda_histogram.histogram_single_leaf_cuda(
+            *(torch.from_numpy(a) for a in (bins, g, h, m)), 8)
+    assert cuda_histogram.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
+    for F, cap, B, dt in SHAPES + [(28, 60_000, 255, np.uint8)]:
+        bins, g, h, m = _inputs(F, cap, B, dt)
+        dev = [torch.from_numpy(a).cuda() for a in (bins, g, h, m)]
+        a = histogram_single_leaf(*dev, B)
+        b = histogram_single_leaf(*dev, B)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        np.testing.assert_array_equal(a.cpu().numpy(), _port(bins, g, h, m, B))

@@ -1,0 +1,127 @@
+"""Package contracts of the PyTorch port: it stands without JAX and
+without lightgbm_tpu, runs on CUDA unless asked for the CPU, and refuses
+what it has not ported instead of ignoring it."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.backend import resolve_device
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "lightgbm_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "lightgbm_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(PKG):
+        out += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(out)
+
+
+def test_no_jax_or_reference_imports():
+    bad = []
+    for path in _sources():
+        with open(path, encoding="utf-8") as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path}: {n}" for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+_BLOCKED_RUN = r"""
+import sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == f or name.startswith(f + ".")
+               for f in ("jax", "jaxlib", "lightgbm_tpu")):
+            raise ImportError("refused: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+import lightgbm_tpu_torch as lt
+rng = np.random.RandomState(0)
+X = rng.randn(600, 4)
+y = (X[:, 0] + X[:, 1] > 0).astype(np.float32)
+b = lt.train({"objective": "binary", "num_leaves": 7, "verbose": -1},
+             lt.Dataset(X, label=y, device="cpu"), 2, device="cpu")
+assert b.num_trees() == 2
+assert not any(m == "jax" or m.startswith(("jax.", "lightgbm_tpu."))
+               or m == "lightgbm_tpu" for m in sys.modules)
+print("OK")
+"""
+
+
+def test_imports_and_trains_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("OK")
+
+
+def _data():
+    rng = np.random.RandomState(1)
+    X = rng.randn(300, 3)
+    return X, (X[:, 0] > 0).astype(np.float32)
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is usable")
+    X, y = _data()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lt.train({"objective": "binary", "verbose": -1},
+                 lt.Dataset(X, label=y, device="cpu"), 1)
+    with pytest.raises(RuntimeError):
+        lt.Dataset(X, label=y)
+    with pytest.raises(RuntimeError):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    {"tree_growth": "depthwise"},
+    {"tree_growth": "hybrid"},
+    {"objective": "regression"},
+    {"objective": "multiclass", "num_class": 3},
+    {"objective": "lambdarank"},
+    {"hist_dtype": "float64"},
+    {"histogram_pool_size": 1.0},
+    {"tree_learner": "data"},
+    {"boosting_type": "dart"},
+    {"metric": "l2"},
+], ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()))
+def test_out_of_slice_configs_raise(extra):
+    X, y = _data()
+    params = {"objective": "binary", "verbose": -1, **extra}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lt.train(params, lt.Dataset(X, label=y, device="cpu"), 1,
+                 device="cpu")
+
+
+def test_sparse_input_raises():
+    sp = pytest.importorskip("scipy.sparse")
+    X, y = _data()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lt.Dataset(sp.csr_matrix(X), label=y, device="cpu").construct()
