@@ -8,19 +8,34 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 
 1. prints the card (nvidia-smi name and power limit), the build times and
    each kernel's registers / shared memory (nvcc -Xptxas -v);
-2. holds the histogram kernel against its plain PyTorch version (float64)
-   at the main path's shapes, checks two launches are bitwise equal, and
-   times kernel, plain version and one PyTorch ``index_add_`` call;
-3. holds the split-search kernel against its plain version on 100 random
-   cases and the crafted ties, and times both;
-4. trains the bench model (bench.py's config: binary, 1M x 28 HIGGS-like
+2. holds the histogram kernel (K1) against its plain PyTorch version
+   (float64) at the main path's shapes, checks two launches are bitwise
+   equal, and times kernel, plain version and one PyTorch ``index_add_``
+   call;
+3. holds the split-search kernel (K3) against its plain version on 100
+   random cases and the crafted ties, and times both;
+4. holds the record-window histogram (K1') against its plain version and
+   against K1 on the unpacked rows, bitwise, at the record route's shapes
+   (the 1M-row root, a 60k window at an unaligned begin, u16 bins), and
+   times it beside its plain version and ``index_add_``;
+5. holds the fused subtract + search + buffer update (K4) against its
+   plain version on 100 random cases and the crafted ties;
+6. holds the record partition (K6 compact, K7 place) against its plain
+   versions on the 1M-row root window, a 60k interior window at an
+   unaligned begin, all-left, all-right and a ragged last tile: the whole
+   record after the split bitwise, rows outside the window untouched;
+7. trains the bench model (bench.py's config: binary, 1M x 28 HIGGS-like
    rows from seed 7 plus 200k valid rows, 255 bins, 255 leaves) through
-   ``lightgbm_tpu_torch``'s entry points: one warm tree, then 10 timed
-   trees; checks both kernels launched once per tree plus once per split,
-   and that train/valid AUC land in the band the JAX package recorded for
-   the same data and config;
-5. grows 2 trees at 100k rows on the card (kernels) and on the CPU
-   (plain versions) and requires them to be structurally identical.
+   ``lightgbm_tpu_torch``'s entry points, once on the record route (the
+   default on the card) and once on the order route
+   (``LGBM_TPU_OPT_HISTS=0``): one warm tree, then 10 timed trees each;
+   checks every kernel of the route launched the expected number of times
+   and no other, and that train/valid AUC land in the band the JAX package
+   recorded for the same data and config;
+8. grows 2 trees at 100k rows on the card on both routes and on the CPU
+   (plain versions): the two card routes must be bitwise equal in every
+   tree field and in the train scores, and both structurally identical to
+   the CPU trees.
 
 Every phase must pass or the script exits non-zero without a result.  The
 line before the last is the kernels' JSON record, the last line the
@@ -30,6 +45,7 @@ exits non-zero.  Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -51,6 +67,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 STRUCT = ("split_feature", "threshold_bin", "decision_type", "left_child",
           "right_child", "leaf_count", "leaf_parent", "leaf_depth")
+TREE_FIELDS = STRUCT + ("split_feature_real", "threshold_real", "split_gain",
+                        "internal_value", "internal_count", "leaf_value")
 
 
 def make_data(n: int, seed: int = 7, n_valid: int = 0):
@@ -220,6 +238,7 @@ def _search_cases(rng, F, B):
 
 def phase_search(torch):
     from lightgbm_tpu_torch.ops import cuda_search
+    from lightgbm_tpu_torch.ops.split import search2_rows
 
     rng = np.random.RandomState(1)
     F, B = N_FEAT, NUM_BINS
@@ -234,7 +253,7 @@ def phase_search(torch):
             scal += [float(v) for v in hcur[2].sum(axis=0)]
         scal += consts
         k = cuda_search._search2_rows_cuda(hl, hr, scal, meta)
-        p = cuda_search._search2_rows_plain(hl, hr, scal, meta)
+        p = search2_rows(hl, hr, scal, meta)
         kk, pp = k.cpu().numpy(), p.cpu().numpy()
         check((kk[:, 1:3] == pp[:, 1:3]).all(),
               f"search: feature/threshold differ {kk[:, 1:3]} vs {pp[:, 1:3]}")
@@ -250,8 +269,7 @@ def phase_search(torch):
           f"search: tie resolved to {tie[0, 1:3]}")
     ms = time_ms(torch, lambda: cuda_search._search2_rows_cuda(
         hl, hr, scal, meta))
-    plain_ms = time_ms(torch, lambda: cuda_search._search2_rows_plain(
-        hl, hr, scal, meta))
+    plain_ms = time_ms(torch, lambda: search2_rows(hl, hr, scal, meta))
     nbytes = 2 * F * B * 12 + F * 16 + 2 * 16 * 4
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     say(f"[search] cases={n} bitwise_equal={bitwise} max_abs_err={worst:.3g} "
@@ -261,10 +279,241 @@ def phase_search(torch):
 
 
 # --------------------------------------------------------------- phase 4
-def phase_main_path(torch, lt):
-    from lightgbm_tpu_torch.learners import serial
-    from lightgbm_tpu_torch.ops import cuda_histogram, cuda_search
+def _random_record(torch, rng, F, n, B, dt):
+    from lightgbm_tpu_torch.ops.record import build_record
 
+    bins = torch.from_numpy(rng.randint(0, B, (F, n)).astype(dt)).cuda()
+    g = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
+    h = torch.from_numpy(np.abs(rng.randn(n)).astype(np.float32)).cuda()
+    m = torch.from_numpy((rng.rand(n) < 0.8).astype(np.float32)).cuda()
+    return bins, g, h, m, build_record(bins, g, h, m)
+
+
+def phase_record_histogram(torch):
+    from lightgbm_tpu_torch.ops import cuda_histogram
+    from lightgbm_tpu_torch.ops import histogram as plain
+    from lightgbm_tpu_torch.ops.histogram import histogram_feature_major
+    from lightgbm_tpu_torch.ops.record import bins_per_word, num_words
+
+    rng = np.random.RandomState(2)
+    shapes = [("root", 28, ROWS, 0, ROWS, 255, np.uint8),
+              ("mid-split", 28, ROWS, 333_333, 60_000, 255, np.uint8),
+              ("uint16", 28, 100_000, 0, 100_000, 300, np.uint16)]
+    record = None
+    for name, F, n, begin, cnt, B, dt in shapes:
+        bins, g, h, m, rec = _random_record(torch, rng, F, n, B, dt)
+        k = bins_per_word(bins.dtype)
+        sl = slice(begin, begin + cnt)
+        ub, ug, uh, um = (bins[:, sl].contiguous(), g[sl].contiguous(),
+                          h[sl].contiguous(), m[sl].contiguous())
+
+        def kernel():
+            return cuda_histogram.histogram_record_window_cuda(
+                rec, begin, cnt, F, k, B)
+
+        a, b = kernel(), kernel()
+        k1 = cuda_histogram.histogram_single_leaf_cuda(ub, ug, uh, um, B)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"K1' {name}: launches not bitwise equal")
+        check(torch.equal(a, k1), f"K1' {name}: differs from K1 on the "
+              "unpacked rows")
+        cpu = plain.histogram_record_window(rec.cpu(), begin, cnt, F, k, B)
+        plain_err = float((a.cpu() - cpu).abs().max())
+        check(plain_err == 0.0 and torch.equal(a.cpu(), cpu),
+              f"K1' {name}: differs from its plain version")
+        ref = histogram_feature_major(ub, ug.double(), uh.double(),
+                                      um.double(), B)
+        max_err = float((a.double() - ref)[..., :2].abs().max())
+
+        keys = (ub.to(torch.int64) + torch.arange(F, device="cuda")[:, None]
+                * B).reshape(-1)
+        src = torch.stack([ug * um, uh * um, um], -1).repeat(F, 1)
+
+        def library():
+            return torch.zeros(F * B, 3, device="cuda").index_add_(
+                0, keys, src)
+
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, lambda: plain.histogram_record_window(
+            rec, begin, cnt, F, k, B))
+        lib_ms = time_ms(torch, library)
+        nbytes = (num_words(F, k) + 3) * 4 * cnt + F * B * 12
+        bound = max(nbytes / HBM_BYTES_PER_S, 3 * F * cnt / F32_FLOPS) * 1e3
+        say(f"[hist-record {name}] F={F} n={n} begin={begin} cnt={cnt} B={B} "
+            f"{np.dtype(dt).name} bitwise: launches, ==K1, ==plain "
+            f"max_abs_err_vs_plain={plain_err} "
+            f"max_abs_err_vs_f64={max_err:.3g} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={bound:.5f}")
+        if name == "root":
+            record = dict(max_abs_err=plain_err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, library_ms=lib_ms)
+        del bins, g, h, m, rec, ub, ug, uh, um, keys, src
+    return record
+
+
+# --------------------------------------------------------------- phase 5
+def phase_search_update(torch):
+    from lightgbm_tpu_torch.ops import cuda_search
+    from lightgbm_tpu_torch.ops.split import search2_update
+
+    rng = np.random.RandomState(3)
+    F, B, L, parent, new = N_FEAT, NUM_BINS, 4, 1, 3
+    worst, n = 0.0, 0
+    for i, (hs, fmask, nbpf, iscat, consts) in enumerate(
+            _search_cases(rng, F, B)):
+        hl, hr = (torch.from_numpy(a).cuda() for a in hs)
+        hists = torch.from_numpy(
+            rng.randn(L, F, B, 3).astype(np.float32)).cuda()
+        hists[parent] = hl + hr
+        small_is_left = i % 2 == 0
+        small = hl if small_is_left else hr
+        meta = cuda_search.pack_meta(torch.from_numpy(fmask),
+                                     torch.from_numpy(nbpf),
+                                     torch.from_numpy(iscat), "cuda")
+        scal = [1.0]
+        for hcur in hs:  # leaf totals: feature 2's sums
+            scal += [float(v) for v in hcur[2].sum(axis=0)]
+        scal += consts
+        hk, hp = hists.clone(), hists.clone()
+        k = cuda_search._search2_update_cuda(hk, small, parent, new,
+                                             small_is_left, scal, meta)
+        p = search2_update(hp, small, parent, new, small_is_left, scal, meta)
+        check(torch.equal(hk, hp), "K4: updated buffer differs from the "
+              "plain version's")
+        check(torch.equal(hk[[0, 2]], hists[[0, 2]]), "K4: other rows moved")
+        kk, pp = k.cpu().numpy(), p.cpu().numpy()
+        check((kk[:, 1:3] == pp[:, 1:3]).all(),
+              f"K4: feature/threshold differ {kk[:, 1:3]} vs {pp[:, 1:3]}")
+        fin = np.isfinite(pp[:, :11]) & (pp[:, 1:2] >= 0)
+        np.testing.assert_allclose(kk[:, :11][fin], pp[:, :11][fin],
+                                   rtol=1e-5, atol=1e-6)
+        worst = max(worst, float(np.abs(kk[:, :11][fin] - pp[:, :11][fin])
+                                 .max(initial=0.0)))
+        n += 1
+    # the last case is the crafted tie (small = left = tie, parent = 2 tie)
+    check(int(kk[0, 1]) == 2 and int(kk[0, 2]) == B // 2 - 1,
+          f"K4: tie resolved to {kk[0, 1:3]}")
+    ms = time_ms(torch, lambda: cuda_search._search2_update_cuda(
+        hk, small, parent, new, True, scal, meta))
+    plain_ms = time_ms(torch, lambda: search2_update(
+        hp, small, parent, new, True, scal, meta))
+    nbytes = 4 * F * B * 12 + F * 16 + 2 * 16 * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"[search-update] cases={n} rows bitwise, max_abs_err={worst:.3g} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.6f}")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                library_ms=None)
+
+
+# --------------------------------------------------------------- phase 6
+def phase_partition(torch):
+    from lightgbm_tpu_torch.ops import cuda_record
+    from lightgbm_tpu_torch.ops import record as R
+
+    rng = np.random.RandomState(4)
+    F, n, B = N_FEAT, ROWS, NUM_BINS
+    *_, rec = _random_record(torch, rng, F, n, B, np.uint8)
+    k, W = 4, rec.shape[0]
+    T = R.TILE
+    cases = [("root", 0, n, 13, 127, False),
+             ("interior", 333_333, 60_000, 6, 90, False),
+             ("all-left", 1000, 200_000, 20, B - 1, False),
+             ("all-right", 1000, 200_000, 20, B, True),
+             ("ragged", 12_345, 5 * T + 77, 27, 40, True)]
+    out = {}
+    for name, begin, pcnt, f, thr, is_cat in cases:
+        rk, rp = rec.clone(), rec.clone()
+        nl_k = int(R.partition_window(rk, f, thr, is_cat, begin, pcnt, 3, 9,
+                                      k))
+        go = R.go_flags(rp, f, thr, is_cat, begin, pcnt, k)
+        comp_p, cl, cr = R.compact_tiles(rp[:W - 1, begin:begin + pcnt], go)
+        nl_p = int(cl.sum())
+        R.place_runs(rp, comp_p, cl, cr, begin, pcnt, nl_p, 3, 9)
+        torch.cuda.synchronize()
+        check(nl_k == nl_p, f"K6/K7 {name}: nleft {nl_k} != {nl_p}")
+        err = int((rk.to(torch.int64) - rp.to(torch.int64)).abs().max())
+        check(err == 0 and torch.equal(rk, rp),
+              f"K6/K7 {name}: record differs from the plain version's")
+        check(torch.equal(rk[:, :begin], rec[:, :begin])
+              and torch.equal(rk[:, begin + pcnt:], rec[:, begin + pcnt:]),
+              f"K6/K7 {name}: rows outside the window moved")
+        comp, counts = cuda_record.compact_cuda(rec, f, thr, is_cat, begin,
+                                                pcnt, k)
+        check(torch.equal(counts[0], cl) and torch.equal(counts[1], cr),
+              f"K6 {name}: tile counts differ")
+        lane = torch.arange(T, device="cuda")[None]
+        for half, cnt in ((slice(0, T), cl), (slice(T, 2 * T), cr)):
+            valid = lane < cnt[:, None]
+            check(torch.equal(comp[:, :, half].permute(1, 0, 2)[:, valid],
+                              comp_p[:, :, half].permute(1, 0, 2)[:, valid]),
+                  f"K6 {name}: run lanes differ")
+        expect = {"all-left": pcnt, "all-right": 0}.get(name)
+        check(expect is None or nl_k == expect, f"K6/K7 {name}: nleft {nl_k}")
+        say(f"[partition {name}] begin={begin} pcnt={pcnt} f={f} thr={thr} "
+            f"cat={is_cat} nleft={nl_k}: record bitwise == plain, outside "
+            "untouched, K6 runs == plain")
+        if name == "root":
+            out = dict(begin=begin, pcnt=pcnt, f=f, thr=thr, is_cat=is_cat,
+                       rk=rk, comp=comp, counts=counts, cl=cl, cr=cr,
+                       comp_p=comp_p, nleft=nl_k, err=float(err))
+    # times at the root split
+    o = out
+    win = rec[:W - 1, :n]
+    k6_ms = time_ms(torch, lambda: cuda_record.compact_cuda(
+        rec, o["f"], o["thr"], o["is_cat"], 0, n, k))
+    k6_plain = time_ms(torch, lambda: R.compact_tiles(
+        win, R.go_flags(rec, o["f"], o["thr"], o["is_cat"], 0, n, k)))
+    rk = o["rk"]  # K7 rewrites the same columns with the same values
+    snap = rk.clone()
+    k7_ms = time_ms(torch, lambda: cuda_record.place_cuda(
+        rk, o["comp"], o["counts"], 0, n, 3, 9))
+    rp2 = rec.clone()
+    k7_plain = time_ms(torch, lambda: R.place_runs(
+        rp2, o["comp_p"], o["cl"], o["cr"], 0, n, o["nleft"], 3, 9))
+    check(torch.equal(rk, snap) and torch.equal(rp2, snap),
+          "K7: repeated launches changed the record")
+    # K6 reads the W-1 rows above the leaf id and writes them to comp; K7
+    # reads them back and writes all W rows (the leaf id stamped)
+    k6_bound = 2 * (W - 1) * 4 * n / HBM_BYTES_PER_S * 1e3
+    k7_bound = (2 * W - 1) * 4 * n / HBM_BYTES_PER_S * 1e3
+    say(f"[partition root times] K6 ms={k6_ms:.4f} plain_ms={k6_plain:.4f} "
+        f"bound_ms={k6_bound:.5f} K7 ms={k7_ms:.4f} plain_ms={k7_plain:.4f} "
+        f"bound_ms={k7_bound:.5f}")
+    err = o["err"]
+    del rec, rk, rp2, snap, win, out, o
+    return (dict(max_abs_err=err, ms=k6_ms, plain_ms=k6_plain,
+                 bound_ms=k6_bound, library_ms=None),
+            dict(max_abs_err=err, ms=k7_ms, plain_ms=k7_plain,
+                 bound_ms=k7_bound, library_ms=None))
+
+
+# --------------------------------------------------------------- phase 7
+@contextlib.contextmanager
+def opt_hists(value: str):
+    """``LGBM_TPU_OPT_HISTS`` set to ``value`` inside, restored after: "0"
+    selects the order route, "1" the record route (on the card)."""
+    saved = os.environ.get("LGBM_TPU_OPT_HISTS")
+    os.environ["LGBM_TPU_OPT_HISTS"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("LGBM_TPU_OPT_HISTS", None)
+        else:
+            os.environ["LGBM_TPU_OPT_HISTS"] = saved
+
+
+def reset_counts():
+    """Every kernel's launch count and the host-sync count to 0."""
+    from lightgbm_tpu_torch.learners import serial
+    from lightgbm_tpu_torch.ops import reset_launch_counts
+
+    reset_launch_counts()
+    serial.HOST_SYNCS = 0
+
+
+def make_bench_data(lt):
     t0 = time.perf_counter()
     X, y, Xv, yv = make_data(ROWS, seed=7, n_valid=VALID_ROWS)
     params = {"objective": "binary", "num_leaves": NUM_LEAVES,
@@ -272,69 +521,104 @@ def phase_main_path(torch, lt):
               "min_data_in_leaf": MIN_DATA, "metric": "auc", "verbose": -1}
     train_set = lt.Dataset(X, label=y, max_bin=NUM_BINS, params=params)
     train_set.construct()
+    valid_set = train_set.create_valid(Xv, label=yv)
     say(f"[main] data + binning {time.perf_counter() - t0:.1f}s")
+    return params, train_set, valid_set, Xv
 
-    warm = lt.train(params, train_set, num_boost_round=1)  # warm-up tree
-    torch.cuda.synchronize()
-    del warm
-    booster = lt.Booster(params=params, train_set=train_set)
-    torch.cuda.reset_peak_memory_stats()
-    cuda_histogram.LAUNCHES = cuda_search.LAUNCHES = serial.HOST_SYNCS = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TREES):
-        booster.update()
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = (cuda_histogram.LAUNCHES, cuda_search.LAUNCHES)
-    syncs = serial.HOST_SYNCS
-    peak = torch.cuda.max_memory_allocated()
+
+def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
+    """The bench model on one route: 1 warm tree, then TREES timed trees
+    with every kernel count set to 0 just before and read just after."""
+    from lightgbm_tpu_torch.learners import serial
+    from lightgbm_tpu_torch.ops import launch_counts
+
+    with opt_hists("0" if route == "order" else "1"):
+        warm = lt.train(params, train_set, num_boost_round=1)
+        torch.cuda.synchronize()
+        del warm
+        booster = lt.Booster(params=params, train_set=train_set)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TREES):
+            booster.update()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = launch_counts()
+        syncs = serial.HOST_SYNCS
+        peak = torch.cuda.max_memory_allocated()
     trees = booster._gbdt.models
-    expect = sum(1 + (t.num_leaves - 1) for t in trees)
     leaves = [t.num_leaves for t in trees]
-
+    splits = sum(nl - 1 for nl in leaves)
+    if route == "record":
+        expect = {"K1": 0, "K1'": TREES + splits, "K3": TREES, "K4": splits,
+                  "K6": splits, "K7": splits}
+    else:
+        expect = {"K1": TREES + splits, "K1'": 0, "K3": TREES + splits,
+                  "K4": 0, "K6": 0, "K7": 0}
     train_auc = booster.eval_train()[0][2]
-    booster.add_valid(train_set.create_valid(Xv, label=yv), "valid")
+    booster.add_valid(valid_set, "valid")
     valid_auc = booster.eval_valid()[0][2]
     pv = booster.predict(Xv[:1000])
-    say(f"[main] {TREES} trees {elapsed:.3f}s s/tree={elapsed / TREES:.4f} "
-        f"leaves={leaves} train_auc={train_auc:.6f} valid_auc={valid_auc:.6f} "
-        f"hist_launches={launches[0]} search_launches={launches[1]} "
-        f"expected={expect} host_syncs_per_tree={syncs / TREES:.1f} "
-        f"peak_mem_bytes={peak}")
-    check(len(trees) == TREES, "main: tree count")
-    check(launches[0] > 0 and launches[1] > 0, "main: a kernel never launched")
-    check(launches[0] == expect and launches[1] == expect,
-          f"main: launches {launches} != 1 + splits per tree ({expect})")
+    say(f"[main {route}] {TREES} trees {elapsed:.3f}s "
+        f"s/tree={elapsed / TREES:.4f} leaves={leaves} "
+        f"train_auc={train_auc:.6f} valid_auc={valid_auc:.6f} "
+        f"launches={json.dumps(counts)} expected={json.dumps(expect)} "
+        f"host_syncs_per_tree={syncs / TREES:.1f} peak_mem_bytes={peak}")
+    check(len(trees) == TREES, f"main {route}: tree count")
+    check(all(counts[name] > 0 for name, want in expect.items() if want),
+          f"main {route}: a kernel of the route never launched")
+    check(counts == expect, f"main {route}: launches {counts} != {expect}")
     check(abs(train_auc - AUC_TRAIN) <= AUC_TOL,
-          f"main: train AUC {train_auc} outside {AUC_TRAIN}+-{AUC_TOL}")
+          f"main {route}: train AUC {train_auc} outside "
+          f"{AUC_TRAIN}+-{AUC_TOL}")
     check(abs(valid_auc - AUC_VALID) <= AUC_TOL,
-          f"main: valid AUC {valid_auc} outside {AUC_VALID}+-{AUC_TOL}")
+          f"main {route}: valid AUC {valid_auc} outside "
+          f"{AUC_VALID}+-{AUC_TOL}")
     check(pv.shape == (1000,) and bool(np.isfinite(pv).all())
-          and bool(((pv > 0) & (pv < 1)).all()), "main: predictions")
-    return launches
+          and bool(((pv > 0) & (pv < 1)).all()), f"main {route}: predictions")
+    return dict(counts=counts, s_per_tree=elapsed / TREES,
+                auc=(train_auc, valid_auc))
 
 
-# --------------------------------------------------------------- phase 5
-def phase_kernel_vs_plain_trees(torch, lt):
+# --------------------------------------------------------------- phase 8
+def phase_trees(torch, lt):
+    from lightgbm_tpu_torch.ops import launch_counts
+
     X, y = make_data(100_000, seed=11)
     params = {"objective": "binary", "num_leaves": NUM_LEAVES,
               "max_bin": NUM_BINS, "learning_rate": LEARNING_RATE,
               "min_data_in_leaf": MIN_DATA, "verbose": -1}
-    models = {}
-    for dev in ("cuda", "cpu"):
-        ds = lt.Dataset(X, label=y, max_bin=NUM_BINS, device=dev)
-        b = lt.train(params, ds, num_boost_round=2, device=dev)
-        models[dev] = b._gbdt.models
-    same = True
-    for a, b in zip(models["cuda"], models["cpu"]):
-        same &= a.num_leaves == b.num_leaves
+    runs = {}
+    for name, dev, opt in (("record", "cuda", "1"), ("order", "cuda", "0"),
+                           ("cpu", "cpu", "1")):
+        with opt_hists(opt):
+            reset_counts()
+            ds = lt.Dataset(X, label=y, max_bin=NUM_BINS, device=dev)
+            b = lt.train(params, ds, num_boost_round=2, device=dev)
+            counts = launch_counts()
+        runs[name] = (b._gbdt.models, b._gbdt._scores.cpu(), counts)
+    check(runs["record"][2]["K6"] > 0 and runs["record"][2]["K1"] == 0
+          and runs["order"][2]["K1"] > 0 and runs["order"][2]["K6"] == 0
+          and not any(runs["cpu"][2].values()),
+          f"trees: routes not taken as asked {[r[2] for r in runs.values()]}")
+    bitwise = torch.equal(runs["record"][1], runs["order"][1])
+    struct_cpu = True
+    for a, b, c in zip(*(runs[r][0] for r in ("record", "order", "cpu"))):
+        bitwise &= a.num_leaves == b.num_leaves
+        struct_cpu &= a.num_leaves == c.num_leaves
+        for k in TREE_FIELDS:
+            bitwise &= bool(torch.equal(getattr(a, k), getattr(b, k)))
         for k in STRUCT:
-            same &= bool(torch.equal(getattr(a, k).cpu(), getattr(b, k)))
-    leaves = [t.num_leaves for t in models["cuda"]]
-    say(f"[trees] 2 trees at 100k rows, leaves={leaves}: kernel-grown == "
-        f"plain-grown: {same}")
-    check(same, "kernel-grown and plain-grown trees differ")
+            struct_cpu &= bool(torch.equal(getattr(a, k).cpu(),
+                                           getattr(c, k)))
+    leaves = [t.num_leaves for t in runs["record"][0]]
+    say(f"[trees] 2 trees at 100k rows, leaves={leaves}: record route == "
+        f"order route on the card (every tree field, train scores): "
+        f"{bitwise}; card == CPU plain (structure): {struct_cpu}")
+    check(bitwise, "record-route and order-route trees differ on the card")
+    check(struct_cpu, "kernel-grown and plain-grown trees differ")
 
 
 def main() -> int:
@@ -360,24 +644,50 @@ def main() -> int:
     card = phase_build(torch)
     hist = phase_histogram(torch)
     search = phase_search(torch)
-    launches = phase_main_path(torch, lt)
-    phase_kernel_vs_plain_trees(torch, lt)
+    hist_rec = phase_record_histogram(torch)
+    update = phase_search_update(torch)
+    compact, place = phase_partition(torch)
+    data = make_bench_data(lt)
+    main_rec = phase_main_path(torch, lt, "record", *data)
+    main_ord = phase_main_path(torch, lt, "order", *data)
+    say(f"[main record] s/tree={main_rec['s_per_tree']:.4f}")
+    say(f"[main order]  s/tree={main_ord['s_per_tree']:.4f}")
+    check(main_rec["auc"] == main_ord["auc"],
+          f"the two routes' AUCs differ: {main_rec['auc']} vs "
+          f"{main_ord['auc']}")
+    del data
+    phase_trees(torch, lt)
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s "
         f"on {card}")
+    src = "lightgbm_tpu_torch/csrc/"
+    rec_n, ord_n = main_rec["counts"], main_ord["counts"]
     kernels = [
         dict(name="histogram_single_leaf", route="cuda",
-             source="lightgbm_tpu_torch/csrc/histogram.cu",
+             source=src + "histogram.cu",
              replaces="lightgbm_tpu/ops/pallas_histogram.py:193",
-             launches=launches[0], bound_by="bytes", **hist),
-        dict(name="search2", route="cuda",
-             source="lightgbm_tpu_torch/csrc/search.cu",
+             path="order", launches=ord_n["K1"], bound_by="bytes", **hist),
+        dict(name="search2", route="cuda", source=src + "search.cu",
              replaces="lightgbm_tpu/ops/pallas_search.py:264",
-             launches=launches[1], bound_by="bytes", **search),
+             path="order", launches=ord_n["K3"], bound_by="bytes", **search),
+        dict(name="histogram_record_window", route="cuda",
+             source=src + "histogram.cu",
+             replaces="lightgbm_tpu/ops/pallas_histogram.py:193",
+             path="record", launches=rec_n["K1'"], bound_by="bytes",
+             **hist_rec),
+        dict(name="search2_update", route="cuda", source=src + "search.cu",
+             replaces="lightgbm_tpu/ops/pallas_search.py:409",
+             path="record", launches=rec_n["K4"], bound_by="bytes", **update),
+        dict(name="record_compact", route="cuda", source=src + "record.cu",
+             replaces="lightgbm_tpu/ops/record.py:1205", path="record",
+             launches=rec_n["K6"], bound_by="bytes", **compact),
+        dict(name="record_place", route="cuda", source=src + "record.cu",
+             replaces="lightgbm_tpu/ops/record.py:977", path="record",
+             launches=rec_n["K7"], bound_by="bytes", **place),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

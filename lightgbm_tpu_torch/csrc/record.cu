@@ -1,0 +1,163 @@
+// Kernels 6 and 7: the record route's partition of one leaf's window.
+//
+// The record is [W, ld] int32, row-major (ops/record.py): Wb words of packed
+// bins, then grad, hess and mask bit patterns, the row id and the leaf id
+// (row W-1).  A split stably partitions the parent's window
+// [begin, begin+pcnt): the left-going columns first, then the right-going
+// ones, each in their old order, and the child ids go into the leaf-id row.
+// The leaf-id row is only stamped, never carried, so the run buffer comp
+// holds the other R = W-1 rows.
+//
+// K6 `compact` replaces the TPU kernel lightgbm_tpu/ops/record.py
+// _compact_kernel_prefix / _compact_kernel (pallas_calls at :1205 / :1217,
+// reached through partition_window :1153), with the go flags computed in the
+// kernel from the split feature's packed word as _tile_go (:214) does.  One
+// block per tile of kTile columns, one thread per column: the thread reads its
+// column's split word, decides go, and a block-wide exclusive scan (warp
+// ballots + popcounts, then the 16 warp totals) gives its stable position
+// among the tile's lefts or rights.  It copies its column's R words to lane
+// `pos` (left) or kTile + `pos` (right) of comp[t] ([R, 2*kTile]) and thread
+// 0 writes the tile's counts.  Lanes past a run's count are not written.
+//
+// K7 `place` replaces the TPU kernel lightgbm_tpu/ops/record.py _place_kernel
+// (pallas_call at :977, reached through place_runs :914; the TPU record route
+// calls it from partition_window, :1229-1237).  One block per tile: lane l <
+// cl[t] copies comp[t][:, l] to column begin + loff[t] + l of the record, lane
+// l < cr[t] copies comp[t][:, kTile + l] to begin + nleft + roff[t] + l, and
+// each writes its child's id into the leaf-id row.  The TPU kernel lets a
+// later tile overwrite an earlier tile's garbage tail because its grid runs
+// in order (record.py:52-55); CUDA blocks run in any order, so each block
+// writes exactly its valid columns and nothing else.  K7 reads only comp,
+// never the record window it writes, so the in-place write is safe.  nleft =
+// loff[nt-1] + cl[nt-1] is read on the device, so no host read sits between
+// the two launches.
+//
+// Bound on the H100: memory.  K6 must read the window's R rows and write as
+// many to comp, 2*R*4*pcnt bytes; K7 must read comp's R rows and write all W
+// rows of the window, (R+W)*4*pcnt bytes.  At the root split of the bench
+// shape (W=12, 1M rows) that is 88 MB (0.0263 ms at 3.35 TB/s) and 92 MB
+// (0.0275 ms).  No arithmetic to speak of.  This first design moves each
+// column word by word (4-byte accesses, coalesced across the threads of a
+// tile).
+//
+// Both kernels run on the caller's stream and allocate nothing; the wrapper
+// (ops/cuda_record.py) allocates comp, the counts and the offsets.  Each C
+// entry returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 512;  // columns per tile = threads per block
+constexpr int kWarps = kTile / 32;
+
+__global__ void __launch_bounds__(kTile)
+    compact_kernel(const int* __restrict__ rec, int64_t ld, int W,
+                   int64_t begin, int64_t pcnt, int fword, int fshift,
+                   unsigned fmask, int thr, int is_cat,
+                   int* __restrict__ comp,     // [nt, W-1, 2*kTile]
+                   int* __restrict__ counts) {  // [2, nt]: cl, cr
+  __shared__ int s_warp[2][kWarps];
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int64_t j = (int64_t)t * kTile + tid;  // column within the window
+  const bool valid = j < pcnt;
+  bool go = false;
+  if (valid) {
+    const unsigned w = (unsigned)rec[(int64_t)fword * ld + begin + j];
+    const int fv = (int)((w >> fshift) & fmask);
+    go = is_cat ? (fv == thr) : (fv <= thr);
+  }
+  const bool right = valid && !go;
+  const unsigned bl = __ballot_sync(0xffffffffu, go);
+  const unsigned br = __ballot_sync(0xffffffffu, right);
+  const int lane = tid & 31, warp = tid >> 5;
+  if (lane == 0) {
+    s_warp[0][warp] = __popc(bl);
+    s_warp[1][warp] = __popc(br);
+  }
+  __syncthreads();
+  int lbase = 0, rbase = 0, ltot = 0, rtot = 0;
+  for (int i = 0; i < kWarps; ++i) {
+    if (i < warp) {
+      lbase += s_warp[0][i];
+      rbase += s_warp[1][i];
+    }
+    ltot += s_warp[0][i];
+    rtot += s_warp[1][i];
+  }
+  if (tid == 0) {
+    counts[t] = ltot;
+    counts[gridDim.x + t] = rtot;
+  }
+  if (!valid) return;
+  const unsigned below = (1u << lane) - 1u;
+  const int dest = go ? lbase + __popc(bl & below)
+                      : kTile + rbase + __popc(br & below);
+  const int R = W - 1;  // every row but the leaf id
+  int* out = comp + (int64_t)t * R * 2 * kTile + dest;
+  const int* src = rec + begin + j;
+  for (int w = 0; w < R; ++w)
+    out[(int64_t)w * 2 * kTile] = src[(int64_t)w * ld];
+}
+
+__global__ void __launch_bounds__(kTile)
+    place_kernel(const int* __restrict__ comp, const int* __restrict__ counts,
+                 const int* __restrict__ offs,  // [2, nt]: loff, roff
+                 int* __restrict__ rec, int64_t ld, int W, int64_t begin,
+                 int left_leaf, int right_leaf) {
+  const int nt = gridDim.x;
+  const int t = blockIdx.x;
+  const int l = threadIdx.x;
+  const int lrow = W - 1;  // the leaf-id row; comp holds the rows above it
+  const int* tile = comp + (int64_t)t * lrow * 2 * kTile;
+  const int64_t nleft = (int64_t)offs[nt - 1] + counts[nt - 1];
+  if (l < counts[t]) {
+    const int64_t dst = begin + offs[t] + l;
+    for (int w = 0; w < lrow; ++w)
+      rec[(int64_t)w * ld + dst] = tile[(int64_t)w * 2 * kTile + l];
+    rec[(int64_t)lrow * ld + dst] = left_leaf;
+  }
+  if (l < counts[nt + t]) {
+    const int64_t dst = begin + nleft + offs[nt + t] + l;
+    for (int w = 0; w < lrow; ++w)
+      rec[(int64_t)w * ld + dst] = tile[(int64_t)w * 2 * kTile + kTile + l];
+    rec[(int64_t)lrow * ld + dst] = right_leaf;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Columns per tile: comp is [ceil(pcnt / tile), W - 1, 2 * tile] int32.
+int lgbm_record_tile() { return kTile; }
+
+// go = (bin == thr) if is_cat else (bin <= thr), bin = (word >> fshift) &
+// fmask of record row `fword`.  All pointers are device pointers; `stream`
+// is a cudaStream_t.
+int lgbm_record_compact(const int* rec, int64_t ld, int W, int64_t begin,
+                        int64_t pcnt, int fword, int fshift, unsigned fmask,
+                        int thr, int is_cat, int* comp, int* counts,
+                        void* stream) {
+  const int64_t nt = (pcnt + kTile - 1) / kTile;
+  if (nt > 0)
+    compact_kernel<<<(unsigned)nt, kTile, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        rec, ld, W, begin, pcnt, fword, fshift, fmask, thr, is_cat, comp,
+        counts);
+  return (int)cudaGetLastError();
+}
+
+int lgbm_record_place(const int* comp, const int* counts, const int* offs,
+                      int64_t nt, int* rec, int64_t ld, int W, int64_t begin,
+                      int left_leaf, int right_leaf, void* stream) {
+  if (nt > 0)
+    place_kernel<<<(unsigned)nt, kTile, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+        comp, counts, offs, rec, ld, W, begin, left_leaf, right_leaf);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,22 +1,32 @@
-"""Serial leaf-wise tree learner on the order-based route.
+"""Serial leaf-wise tree learner: the order route and the record route.
 
 Counterpart of lightgbm_tpu/learners/serial.py ``grow_tree`` on its
-canonical route (``opt = rec = pooled = False``, ``init_tree=None``):
-the best-first growth of SerialTreeLearner (serial_tree_learner.cpp:
-116-150).
+canonical route (``opt = rec = pooled = False``, ``init_tree=None``) and
+on its record route (``hist_fn_raw`` given, the fused mega kernel off:
+serial.py:817-829, :874-889, :944-965): the best-first growth of
+SerialTreeLearner (serial_tree_learner.cpp:116-150).
 
-* The row partition is a leaf-sorted permutation ``order`` plus per-leaf
-  ``(begin, count)`` ranges (DataPartition, data_partition.hpp:91-139).
-  A split stably partitions only the parent's range: left-going rows
-  keep their order at the front, right-going rows follow
-  (serial.py:219-249).
+* Order route: the row partition is a leaf-sorted permutation ``order``
+  plus per-leaf ``(begin, count)`` ranges (DataPartition,
+  data_partition.hpp:91-139).  A split stably partitions only the
+  parent's range: left-going rows keep their order at the front,
+  right-going rows follow (serial.py:219-249).  The smaller child's rows
+  are one contiguous slice of ``order``, gathered (serial.py:252-264).
+* Record route: the partition is the packed record itself
+  (ops/record.py), kept leaf-sorted by the same stable split of the
+  parent's window (kernels 6 and 7 on the card).  The smaller child's
+  histogram reads its window straight from the record (``hist_fn_raw``,
+  kernel 1'), and one call subtracts, routes, updates the buffer rows and
+  searches both children (``search2_update``, kernel 4).  Each leaf's
+  rows sit in the record in the order ``order`` would hold them, so both
+  routes sum the same rows in the same order and grow bitwise-equal
+  trees.
 * Only the SMALLER child's histogram is built from data, by positional
-  count with ties to the left (serial.py:866); its rows are one
-  contiguous slice of ``order``, gathered (serial.py:252-264).  The larger
-  child is parent - smaller.  Every live leaf's histogram stays resident
-  in one ``[L, F, B, 3]`` buffer.
-* Both children are searched in one ``search2`` call; the root is
-  searched through the same call (its two inputs are the root histogram).
+  count with ties to the left (serial.py:866).  The larger child is
+  parent - smaller.  Every live leaf's histogram stays resident in one
+  ``[L, F, B, 3]`` buffer.
+* Both children are searched in one call; the root is searched through
+  the two-child search (its two inputs are the root histogram).
 * Leaf numbering matches the reference: the left child keeps the
   parent's index, the right child takes ``step + 1`` (tree.cpp:78-89).
 
@@ -25,10 +35,11 @@ capacity tiers and masked no-op steps are not ported: each split slices
 the exact range, and the loop stops at the first step without a positive
 gain (the JAX loop runs its remaining steps as no-ops; the tree is the
 same).  Per-leaf bookkeeping (the best-split table, ranges, node table)
-lives on the host; the per-row work and both kernels run on the device.
-Host syncs: two at the root (its row-order totals, its search row), then
-two per split — the partition's left count (needed to slice the smaller
-child) and the two children's search rows (needed to pick the next leaf).
+lives on the host; the per-row work and the kernels run on the device.
+Host syncs, on both routes: two at the root (its row-order totals, its
+search row), then two per split — the partition's left count (needed to
+slice the smaller child) and the two children's search rows (needed to
+pick the next leaf).
 """
 
 from __future__ import annotations
@@ -41,7 +52,9 @@ import torch
 
 from ..models.tree import Tree
 from ..ops.cuda_histogram import histogram_single_leaf
-from ..ops.cuda_search import pack_meta, search2_rows
+from ..ops.cuda_search import pack_meta, search2_rows, search2_update
+from ..ops.record import (bins_per_word, build_record, leaf_row,
+                          partition_window, row_id_row)
 
 # host syncs since the last reset (chip_smoke.py reads and resets it)
 HOST_SYNCS = 0
@@ -104,11 +117,12 @@ def _root_sums(gm: torch.Tensor, hm: torch.Tensor,
 
 
 def _partition(order: torch.Tensor, frow: torch.Tensor, thr: int,
-               is_cat: bool, begin: int, pcnt: int) -> int:
+               is_cat: bool, begin: int, pcnt: int) -> torch.Tensor:
     """Stably partition ``order[begin:begin+pcnt]`` in place by the
     split decision (lefts first, then rights, each in the old order);
-    returns the left count.  The positions are the JAX version's:
-    lefts at (lefts before them), rights at nleft + (rights before)."""
+    returns the left count as a 0-d tensor.  The positions are the JAX
+    version's: lefts at (lefts before them), rights at nleft + (rights
+    before)."""
     rows = order[begin:begin + pcnt]
     vals = frow.index_select(0, rows).to(torch.int32)
     go = (vals == thr) if is_cat else (vals <= thr)
@@ -119,21 +133,25 @@ def _partition(order: torch.Tensor, frow: torch.Tensor, thr: int,
     out = torch.empty_like(rows)
     out[newpos] = rows
     rows.copy_(out)
-    return int(_host(nleft_t))
+    return nleft_t
 
 
 def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               bag_mask: torch.Tensor, feature_mask, num_bins_per_feature,
               is_categorical, params: TreeLearnerParams, num_bins: int,
-              max_leaves: int) -> Tuple[Tree, torch.Tensor]:
+              max_leaves: int, hist_fn_raw=None) -> Tuple[Tree, torch.Tensor]:
     """Grow one tree; returns (tree, leaf_id per row).
 
     ``bins_T`` [F, n] uint8/uint16; ``grad``/``hess``/``bag_mask`` [n]
     float32; ``feature_mask``/``num_bins_per_feature``/``is_categorical``
-    [F]."""
+    [F].  ``hist_fn_raw(rec, begin, cnt, F, k, num_bins)``, the record
+    window histogram (ops/cuda_histogram.histogram_record_window), selects
+    the record route, as it selects the JAX package's (serial.py:391-400);
+    without it the order route runs."""
     def hist_fn(b, g, h, m):
         return histogram_single_leaf(b, g, h, m, num_bins)
 
+    rec_route = hist_fn_raw is not None
     dev = bins_T.device
     F, n = bins_T.shape
     L = max_leaves
@@ -143,7 +161,13 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               params.lambda_l1, params.lambda_l2, params.min_gain_to_split]
 
     # ---- root (LeafSplits::Init, leaf_splits.hpp:51-92)
-    hist0 = hist_fn(bins_T, grad, hess, bag_mask)
+    if rec_route:
+        k = bins_per_word(bins_T.dtype)
+        rec = build_record(bins_T, grad, hess, bag_mask)
+        hist0 = hist_fn_raw(rec, 0, n, F, k, num_bins)
+    else:
+        order = torch.arange(n, dtype=torch.int64, device=dev)
+        hist0 = hist_fn(bins_T, grad, hess, bag_mask)
     sg0, sh0, c0 = (float(v) for v in _root_sums(
         grad * bag_mask, hess * bag_mask, bag_mask))
     rows = search2_rows(hist0, hist0, [float(params.can_split(0)),
@@ -157,7 +181,6 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
     hists = torch.zeros((L, F, num_bins, 3), dtype=hist0.dtype, device=dev)
     hists[0] = hist0
-    order = torch.arange(n, dtype=torch.int64, device=dev)
     begin = np.zeros(L, np.int64)
     count = np.zeros(L, np.int64)
     count[0] = n
@@ -179,7 +202,12 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
         # ---- partition the parent's range (DataPartition::Split)
         b0, pcnt = int(begin[best_leaf]), int(count[best_leaf])
-        nleft = _partition(order, bins_T[f], thr, is_cat, b0, pcnt)
+        if rec_route:
+            nleft_t = partition_window(rec, f, thr, is_cat, b0, pcnt,
+                                       best_leaf, new_leaf, k)
+        else:
+            nleft_t = _partition(order, bins_T[f], thr, is_cat, b0, pcnt)
+        nleft = int(_host(nleft_t))
         nright = pcnt - nleft
 
         # ---- smaller child's histogram from its contiguous range; the
@@ -187,21 +215,25 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         small_is_left = nleft <= nright
         cnt_s = nleft if small_is_left else nright
         begin_s = b0 if small_is_left else b0 + nleft
-        rs = order[begin_s:begin_s + cnt_s]
-        h_small = hist_fn(bins_T.index_select(1, rs), grad.index_select(0, rs),
-                          hess.index_select(0, rs),
-                          bag_mask.index_select(0, rs))
-        h_large = hists[best_leaf] - h_small
-        h_left, h_right = ((h_small, h_large) if small_is_left
-                           else (h_large, h_small))
-        rows = search2_rows(
-            h_left, h_right,
-            [float(params.can_split(depth_child)),
-             float(bcol[_BLSG]), float(bcol[_BLSH]), float(lc),
-             float(bcol[_BRSG]), float(bcol[_BRSH]), float(rc)] + consts,
-            meta)
-        hists[best_leaf] = h_left
-        hists[new_leaf] = h_right
+        scal = [float(params.can_split(depth_child)),
+                float(bcol[_BLSG]), float(bcol[_BLSH]), float(lc),
+                float(bcol[_BRSG]), float(bcol[_BRSH]), float(rc)] + consts
+        if rec_route:
+            h_small = hist_fn_raw(rec, begin_s, cnt_s, F, k, num_bins)
+            rows = search2_update(hists, h_small, best_leaf, new_leaf,
+                                  small_is_left, scal, meta)
+        else:
+            rs = order[begin_s:begin_s + cnt_s]
+            h_small = hist_fn(bins_T.index_select(1, rs),
+                              grad.index_select(0, rs),
+                              hess.index_select(0, rs),
+                              bag_mask.index_select(0, rs))
+            h_large = hists[best_leaf] - h_small
+            h_left, h_right = ((h_small, h_large) if small_is_left
+                               else (h_large, h_small))
+            rows = search2_rows(h_left, h_right, scal, meta)
+            hists[best_leaf] = h_left
+            hists[new_leaf] = h_right
         res = _host(rows)
 
         # ---- best-split table + ranges: the left child takes the
@@ -249,6 +281,13 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         leaf_depth=t(best[_BLDEP], torch.int32),
     )
 
+    leaf_id = torch.empty(n, dtype=torch.int32, device=dev)
+    if rec_route:
+        # every split stamped its children's ids into the record's leaf-id
+        # row (serial.py:1148-1154)
+        W = rec.shape[0]
+        leaf_id[rec[row_id_row(W)].to(torch.int64)] = rec[leaf_row(W)]
+        return tree, leaf_id
     # ---- leaf of every row from the final ranges: leaves own disjoint
     # contiguous spans of ``order``, laid out in ``begin`` order
     live = [lf for lf in range(nleaves) if count[lf] > 0]
@@ -258,6 +297,5 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         torch.tensor([int(count[lf]) for lf in live], dtype=torch.int64,
                      device=dev),
         output_size=n)
-    leaf_id = torch.empty(n, dtype=torch.int32, device=dev)
     leaf_id[order] = leaf_of_pos
     return tree, leaf_id

@@ -1,7 +1,8 @@
 """GBDT boosting driver.
 
 Counterpart of lightgbm_tpu/models/gbdt.py for the slice: single-device
-leaf-wise growth on the order-based route.  Each iteration computes the
+leaf-wise growth, on the record route on the card and the order-based
+route on the CPU (``_leafwise_hist_fn_raw``).  Each iteration computes the
 objective's gradients, re-draws the bagging mask and the feature sample
 (numpy RandomState, draw for draw the JAX package's), grows one tree per
 class, applies shrinkage, updates train scores through the final row ->
@@ -17,6 +18,7 @@ guards, checkpoints and telemetry are not carried.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -27,6 +29,7 @@ from ..io.dataset import BinnedDataset
 from ..learners.serial import TreeLearnerParams, grow_tree
 from ..metrics import Metric, create_metrics
 from ..objectives import ObjectiveFunction
+from ..ops.cuda_histogram import histogram_record_window
 from .tree import (Tree, empty_tree, finalize_thresholds_device,
                    pack_threshold_bounds, predict_binned, predict_raw)
 
@@ -178,12 +181,27 @@ class GBDT:
         return torch.from_numpy(mask).to(self.device)
 
     # ------------------------------------------------------------------ train
+    def _leafwise_hist_fn_raw(self):
+        """The record-window histogram that selects ``grow_tree``'s record
+        route (gbdt.py:413-432): on a CUDA device with float32 histograms,
+        unless ``LGBM_TPU_OPT_HISTS=0`` (the JAX package's knob, read per
+        call as it reads it).  Otherwise None, the order route — always on
+        the CPU, as the JAX package's is None off the TPU.  At the bench
+        shape the JAX package takes the fused mega route (kernel 8) here;
+        until that kernel is ported the port takes the record route."""
+        if (self.device.type == "cuda"
+                and self.config.hist_dtype == "float32"
+                and os.environ.get("LGBM_TPU_OPT_HISTS", "1") != "0"):
+            return histogram_record_window
+        return None
+
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              feature_mask: torch.Tensor):
         """One tree on the current bagging mask: (tree, leaf_id)."""
         return grow_tree(self._bins_T, grad, hess, self._bag_mask,
                          feature_mask, self._nbpf, self._is_cat,
-                         self._params, self._num_bins, self.max_leaves)
+                         self._params, self._num_bins, self.max_leaves,
+                         hist_fn_raw=self._leafwise_hist_fn_raw())
 
     def train_one_iter(self) -> bool:
         """One boosting iteration (gbdt.cpp:217-252).  Returns True when

@@ -1,1 +1,30 @@
-"""Histogram and split-search ops: the CUDA kernels and their plain PyTorch versions."""
+"""The port's ops: the CUDA kernels, their wrappers and their plain PyTorch
+versions (histogram, split search, the packed record's partition)."""
+
+import importlib
+from typing import Dict
+
+# each ported kernel's launch count: (module under ops/, counter name)
+KERNEL_COUNTERS = {
+    "K1": ("cuda_histogram", "LAUNCHES"),
+    "K1'": ("cuda_histogram", "RECORD_LAUNCHES"),
+    "K3": ("cuda_search", "LAUNCHES"),
+    "K4": ("cuda_search", "UPDATE_LAUNCHES"),
+    "K6": ("cuda_record", "COMPACT_LAUNCHES"),
+    "K7": ("cuda_record", "PLACE_LAUNCHES"),
+}
+
+
+def _counter(name):
+    mod, attr = KERNEL_COUNTERS[name]
+    return importlib.import_module(f"{__name__}.{mod}"), attr
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel since the last ``reset_launch_counts``."""
+    return {name: getattr(*_counter(name)) for name in KERNEL_COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    for name in KERNEL_COUNTERS:
+        setattr(*_counter(name), 0)

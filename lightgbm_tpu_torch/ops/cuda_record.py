@@ -1,0 +1,133 @@
+"""The record partition's CUDA kernels: K6 (compact) and K7 (place).
+
+Counterparts of lightgbm_tpu/ops/record.py ``partition_window``'s
+compaction kernel and ``place_runs``.  ``partition_window_cuda`` is what
+``ops/record.partition_window`` runs on a CUDA record: K6 compacts the
+window's tiles into ``comp`` (every row but the leaf id) and writes the
+per-tile counts, one torch cumsum turns the counts into run offsets and
+the left total (the JAX package computes them in XLA outside its kernels
+too), and K7 copies the runs back into the record at their offsets and
+stamps the child ids.  Each wrapper adds one
+to its launch count when it launches its kernel (csrc/record.cu says what
+they replace, their bound and their design).  The plain versions are in
+ops/record.py.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .record import TILE, _run_offsets
+
+# kernel launches since the last reset (chip_smoke.py reads and resets them)
+COMPACT_LAUNCHES = 0
+PLACE_LAUNCHES = 0
+
+_VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_I64 = ctypes.c_int64
+
+
+def _lib():
+    lib = _build.load("record")
+    if not getattr(lib, "_typed", False):
+        lib.lgbm_record_tile.restype = _I
+        lib.lgbm_record_tile.argtypes = []
+        lib.lgbm_record_compact.restype = _I
+        lib.lgbm_record_compact.argtypes = [
+            _VP, _I64, _I, _I64, _I64, _I, _I, _U, _I, _I, _VP, _VP, _VP]
+        lib.lgbm_record_place.restype = _I
+        lib.lgbm_record_place.argtypes = [
+            _VP, _VP, _VP, _I64, _VP, _I64, _I, _I64, _I, _I, _VP]
+        if lib.lgbm_record_tile() != TILE:
+            raise RuntimeError("csrc/record.cu kTile differs from "
+                               "ops/record.py TILE")
+        lib._typed = True
+    return lib
+
+
+def _check_record(rec: torch.Tensor, begin: int, pcnt: int) -> None:
+    if rec.device.type != "cuda":
+        raise ValueError(f"rec must be a CUDA tensor, got {rec.device}")
+    if rec.dtype != torch.int32 or rec.dim() != 2 or not rec.is_contiguous():
+        raise ValueError("rec must be a contiguous [W, n] int32 tensor")
+    if rec.shape[0] < 6:
+        raise ValueError(f"rec has {rec.shape[0]} rows; a record has >= 6")
+    if begin < 0 or pcnt < 0 or begin + pcnt > rec.shape[1]:
+        raise ValueError(f"window [{begin}, {begin + pcnt}) is outside "
+                         f"[0, {rec.shape[1]})")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def compact_cuda(rec: torch.Tensor, f: int, thr: int, is_cat: bool,
+                 begin: int, pcnt: int, k: int):
+    """K6 over window ``[begin, begin+pcnt)``: (comp [nt, W-1, 2*TILE],
+    counts [2, nt] int32 = (cl, cr)).  Lanes past a run's count are
+    left unwritten."""
+    global COMPACT_LAUNCHES
+    _check_record(rec, begin, pcnt)
+    if k not in (2, 4):
+        raise ValueError(f"k must be 2 or 4 bins per word, got {k}")
+    W, n = rec.shape
+    if not 0 <= f < (W - 5) * k:
+        raise ValueError(f"feature {f} is not in the record's {W - 5} words")
+    shift = 32 // k
+    nt = -(-pcnt // TILE)
+    dev = rec.device
+    comp = torch.empty((nt, W - 1, 2 * TILE), dtype=torch.int32,
+                       device=dev)
+    counts = torch.empty((2, nt), dtype=torch.int32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        code = lib.lgbm_record_compact(
+            rec.data_ptr(), n, W, begin, pcnt, f // k, (f % k) * shift,
+            (1 << shift) - 1, int(thr), int(bool(is_cat)), comp.data_ptr(),
+            counts.data_ptr(), _stream(dev))
+    _build.check(code, "record compact kernel")
+    if nt:
+        COMPACT_LAUNCHES += 1
+    return comp, counts
+
+
+def place_cuda(rec: torch.Tensor, comp: torch.Tensor, counts: torch.Tensor,
+               begin: int, pcnt: int, left_leaf: int,
+               right_leaf: int) -> torch.Tensor:
+    """K7: the runs of ``comp`` (K6's output for window ``[begin,
+    begin+pcnt)``) back into that window of ``rec``, in place, with the
+    child ids in the leaf-id row.  Returns nleft, a 0-d tensor on the
+    card from the run offsets' scan."""
+    global PLACE_LAUNCHES
+    _check_record(rec, begin, pcnt)
+    W, n = rec.shape
+    nt = -(-pcnt // TILE)
+    if comp.dtype != torch.int32 or comp.shape != (nt, W - 1, 2 * TILE) \
+            or comp.device != rec.device or not comp.is_contiguous():
+        raise ValueError(f"comp must be a contiguous [{nt}, {W - 1}, "
+                         f"{2 * TILE}] int32 tensor on {rec.device}")
+    if counts.dtype != torch.int32 or counts.shape != (2, nt) \
+            or counts.device != rec.device or not counts.is_contiguous():
+        raise ValueError(f"counts must be a contiguous [2, {nt}] int32 tensor")
+    offs, nleft = _run_offsets(counts)
+    lib = _lib()
+    with torch.cuda.device(rec.device):
+        code = lib.lgbm_record_place(
+            comp.data_ptr(), counts.data_ptr(), offs.data_ptr(), nt,
+            rec.data_ptr(), n, W, begin, int(left_leaf), int(right_leaf),
+            _stream(rec.device))
+    _build.check(code, "record place kernel")
+    if nt:
+        PLACE_LAUNCHES += 1
+    return nleft
+
+
+def partition_window_cuda(rec, f, thr, is_cat, begin, pcnt, left_leaf,
+                          right_leaf, k) -> torch.Tensor:
+    """K6 then K7; returns nleft as a 0-d tensor on the card (nothing is
+    read on the host here)."""
+    comp, counts = compact_cuda(rec, f, thr, is_cat, begin, pcnt, k)
+    return place_cuda(rec, comp, counts, begin, pcnt, left_leaf, right_leaf)

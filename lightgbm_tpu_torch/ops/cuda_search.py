@@ -1,13 +1,18 @@
-"""Two-child split search: the CUDA kernel and its dispatch.
+"""Two-child split search: the CUDA kernels and their dispatch.
 
-Counterpart of lightgbm_tpu/ops/pallas_search.py ``search2_pallas``.
-``search2`` takes both children's [F, B, 3] histograms and returns two
-SplitResults; ``search2_rows`` is the same search in the packed [2, 16]
-row layout of pallas_search._unpack (gain, feature, threshold, lg, lh,
-lc, rg, rh, rc, left_out, right_out, 0...), which the grower consumes.
-On CUDA tensors it launches kernel 2 (csrc/search.cu, which says what it
-replaces, its bound and its design) and adds one to ``LAUNCHES``; on CPU
-tensors it runs the plain version (ops/split.py).
+Counterpart of lightgbm_tpu/ops/pallas_search.py ``search2_pallas`` and
+``search2_update_pallas``.  ``search2`` takes both children's [F, B, 3]
+histograms and returns two SplitResults; ``search2_rows`` is the same
+search in the packed [2, 16] row layout of pallas_search._unpack (gain,
+feature, threshold, lg, lh, lc, rg, rh, rc, left_out, right_out, 0...),
+which the grower consumes.  On CUDA tensors it launches kernel 3
+(csrc/search.cu, which says what it replaces, its bound and its design)
+and adds one to ``LAUNCHES``; on CPU tensors it runs the plain version
+(ops/split.py).  ``search2_update`` is the record route's step: the
+larger child by subtraction from the parent's buffer row, both children
+written into the ``[L, F, B, 3]`` buffer in place, and both searched;
+kernel 4 on the card (counted in ``UPDATE_LAUNCHES``), the plain version
+on the CPU.
 """
 
 from __future__ import annotations
@@ -18,10 +23,12 @@ from typing import Sequence, Tuple
 import torch
 
 from . import _build
-from .split import SplitResult, find_best_split_leaves
+from . import split as plain
+from .split import SplitResult
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
-LAUNCHES = 0
+# kernel launches since the last reset (chip_smoke.py reads and resets them)
+LAUNCHES = 0  # kernel 3
+UPDATE_LAUNCHES = 0  # kernel 4
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -32,6 +39,9 @@ def _lib():
         lib.lgbm_search2.restype = _I
         lib.lgbm_search2.argtypes = [_VP, _VP, _VP, _I, _I] + [_F] * 13 + [
             _VP, _VP]
+        lib.lgbm_search2_update.restype = _I
+        lib.lgbm_search2_update.argtypes = [_VP, _VP, _I, _I, _I, _VP, _I,
+                                            _I] + [_F] * 12 + [_VP, _VP]
         lib.lgbm_search2_max_features.restype = _I
         lib.lgbm_search2_max_features.argtypes = []
         lib._typed = True
@@ -59,26 +69,31 @@ def search2_rows(h_left: torch.Tensor, h_right: torch.Tensor,
     ``scal`` = (can, lsg, lsh, lc, rsg, rsh, rc, min_data, min_hess, l1,
     l2, min_gain) as Python floats; ``meta`` is ``pack_meta``'s [F, 4]."""
     if h_left.device.type == "cpu":
-        return _search2_rows_plain(h_left, h_right, scal, meta)
+        return plain.search2_rows(h_left, h_right, scal, meta)
     return _search2_rows_cuda(h_left, h_right, scal, meta)
 
 
-def _search2_rows_plain(h_left, h_right, scal, meta):
-    can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = scal
-    dt, dev = h_left.dtype, h_left.device
-    res = find_best_split_leaves(
-        torch.stack([h_left, h_right]),
-        torch.tensor([lsg, rsg], dtype=dt, device=dev),
-        torch.tensor([lsh, rsh], dtype=dt, device=dev),
-        torch.tensor([lc, rc], dtype=dt, device=dev),
-        meta[:, 0] > 0, meta[:, 1], meta[:, 2] > 0, md, mh, l1, l2, mg,
-        torch.tensor([bool(can), bool(can)], device=dev))
-    out = torch.zeros((2, 16), dtype=torch.float32, device=dev)
-    out[:, :11] = torch.stack([a.to(torch.float32) for a in res], dim=1)
-    return out
+def _check_search(hists, meta, scal, F, lib, per_feature_factor=1):
+    """Shared argument checks of kernels 3 and 4."""
+    for name, t in hists:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous CUDA tensor")
+    dev = hists[0][1].device
+    if (meta.dtype != torch.int32 or meta.shape != (F, 4)
+            or meta.device != dev or not meta.is_contiguous()):
+        raise ValueError(f"meta must be a contiguous [{F}, 4] int32 tensor "
+                         f"on {dev}")
+    if len(scal) != 12:
+        raise ValueError("scal must hold 12 values")
+    max_f = lib.lgbm_search2_max_features() // per_feature_factor
+    if F > max_f:
+        raise ValueError(f"the search kernel takes at most {max_f} features")
 
 
 def _search2_rows_cuda(h_left, h_right, scal, meta):
+    """Kernel 3 on the card (raises on anything it does not take)."""
     global LAUNCHES
     F, B, three = h_left.shape
     dev = h_left.device
@@ -86,21 +101,11 @@ def _search2_rows_cuda(h_left, h_right, scal, meta):
         raise ValueError(
             f"histograms must both be [F, B, 3], got {tuple(h_left.shape)} "
             f"and {tuple(h_right.shape)}")
-    for name, t in (("h_left", h_left), ("h_right", h_right)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {dev}")
-    if (meta.dtype != torch.int32 or meta.shape != (F, 4)
-            or meta.device != dev or not meta.is_contiguous()):
-        raise ValueError(f"meta must be a contiguous [{F}, 4] int32 tensor "
-                         f"on {dev}")
-    if len(scal) != 12:
-        raise ValueError("scal must hold 12 values")
+    if h_right.device != dev:
+        raise ValueError(f"h_right is on {h_right.device}, h_left on {dev}")
     lib = _lib()
-    if F > lib.lgbm_search2_max_features():
-        raise ValueError(f"search kernel takes at most "
-                         f"{lib.lgbm_search2_max_features()} features")
+    _check_search([("h_left", h_left), ("h_right", h_right)], meta, scal, F,
+                  lib)
     can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = (
         float(v) for v in scal)
     out = torch.empty((2, 16), dtype=torch.float32, device=dev)
@@ -112,6 +117,54 @@ def _search2_rows_cuda(h_left, h_right, scal, meta):
             out.data_ptr(), stream)
     _build.check(code, "search kernel")
     LAUNCHES += 1
+    return out
+
+
+def search2_update(hists: torch.Tensor, h_small: torch.Tensor, parent: int,
+                   new_leaf: int, small_is_left: bool, scal: Sequence[float],
+                   meta: torch.Tensor) -> torch.Tensor:
+    """``hists[parent]`` <- left child, ``hists[new_leaf]`` <- right child
+    (``h_small`` and ``hists[parent] - h_small``, routed by
+    ``small_is_left``), in place; returns both children's [2, 16] rows.
+    ``scal`` and ``meta`` as for ``search2_rows``."""
+    if hists.device.type == "cpu":
+        return plain.search2_update(hists, h_small, parent, new_leaf,
+                                    small_is_left, scal, meta)
+    return _search2_update_cuda(hists, h_small, parent, new_leaf,
+                                small_is_left, scal, meta)
+
+
+def _search2_update_cuda(hists, h_small, parent, new_leaf, small_is_left,
+                         scal, meta):
+    """Kernel 4 on the card (raises on anything it does not take)."""
+    global UPDATE_LAUNCHES
+    if hists.dim() != 4 or hists.shape[3] != 3 \
+            or h_small.shape != hists.shape[1:]:
+        raise ValueError(f"hists must be [L, F, B, 3] and h_small [F, B, 3], "
+                         f"got {tuple(hists.shape)} and "
+                         f"{tuple(h_small.shape)}")
+    L, F, B, _ = hists.shape
+    if not (0 <= parent < L and 0 <= new_leaf < L and parent != new_leaf):
+        raise ValueError(f"rows {parent} and {new_leaf} must be distinct "
+                         f"rows of the {L}-row buffer")
+    if h_small.device != hists.device:
+        raise ValueError(f"h_small is on {h_small.device}, hists on "
+                         f"{hists.device}")
+    lib = _lib()
+    _check_search([("hists", hists), ("h_small", h_small)], meta, scal, F,
+                  lib, per_feature_factor=2)
+    can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = (
+        float(v) for v in scal)
+    dev = hists.device
+    out = torch.empty((2, 16), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.lgbm_search2_update(
+            hists.data_ptr(), h_small.data_ptr(), parent, new_leaf,
+            int(bool(small_is_left)), meta.data_ptr(), F, B, can, lsg, lsh,
+            lc, rsg, rsh, rc, md, mh, l1, l2, mg, out.data_ptr(), stream)
+    _build.check(code, "search-update kernel")
+    UPDATE_LAUNCHES += 1
     return out
 
 

@@ -1,10 +1,12 @@
-"""Histogram construction — the plain PyTorch version.
+"""Histogram construction — the plain PyTorch versions.
 
 Counterpart of lightgbm_tpu/ops/histogram.py ``histogram_feature_major``:
 ``hist[F, num_bins, 3]`` = (Σ g·m, Σ h·m, Σ m) over one masked row set.
 It is the CPU path of ``ops/cuda_histogram.histogram_single_leaf`` and
 the oracle the CUDA kernel is held against on the card; nothing on the
-training path calls it for a CUDA tensor.
+training path calls it for a CUDA tensor.  ``histogram_record_window`` is
+the same sums over a window of the packed record (ops/record.py), the
+plain version of kernel 1'.
 
 The sums follow the kernel's order: rows in blocks of ``CHUNK_ROWS``,
 each block summed in row order (``index_add_`` is sequential on the
@@ -16,6 +18,8 @@ kernel see the same histograms.
 from __future__ import annotations
 
 import torch
+
+from .record import unpack_window
 
 # rows per block; must equal kChunk in csrc/histogram.cu
 CHUNK_ROWS = 2048
@@ -38,3 +42,13 @@ def histogram_feature_major(bins_T: torch.Tensor, grad: torch.Tensor,
         part.index_add_(0, keys.reshape(-1), stats[r0:r1].repeat(F, 1))
         out += part
     return out.reshape(F, num_bins, 3)
+
+
+def histogram_record_window(rec: torch.Tensor, begin: int, cnt: int, F: int,
+                            k: int, num_bins: int) -> torch.Tensor:
+    """Columns ``[begin, begin+cnt)`` of the ``[W, n]`` record (``k`` bins
+    per word) -> [F, num_bins, 3] float32: ``unpack_window`` then
+    ``histogram_feature_major``, in the same summation order."""
+    bins, g, h, m = unpack_window(rec[:, begin:begin + cnt], F, k,
+                                  torch.uint8 if k == 4 else torch.uint16)
+    return histogram_feature_major(bins, g, h, m, num_bins)

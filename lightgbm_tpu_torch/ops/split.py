@@ -15,12 +15,15 @@ reference's FindBestThresholdForNumerical / ForCategorical scans
   maxima, so it does not lean on which maximum ``argmax`` returns.
 
 This is the CPU path of ``ops/cuda_search.search2`` and the oracle the
-CUDA kernel is held against on the card.
+CUDA kernel is held against on the card.  ``search2_rows`` packs a
+two-child search into the kernels' [2, 16] rows; ``search2_update`` is
+the plain version of kernel 4 (subtract, route, update the buffer rows,
+search).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -168,3 +171,39 @@ def find_best_split(hist, sum_grad, sum_hess, num_data, feature_mask,
         min_sum_hessian_in_leaf, lambda_l1, lambda_l2, min_gain_to_split,
         torch.as_tensor(can_split).reshape(1))
     return SplitResult(*[a[0] for a in res])
+
+
+def search2_rows(h_left: torch.Tensor, h_right: torch.Tensor,
+                 scal: Sequence[float], meta: torch.Tensor) -> torch.Tensor:
+    """Both children's best splits as the [2, 16] float32 rows of
+    pallas_search._unpack.  ``scal`` = (can, lsg, lsh, lc, rsg, rsh, rc,
+    min_data, min_hess, l1, l2, min_gain); ``meta`` [F, 4] int32 =
+    (feature_mask, num_bins, is_categorical, 0)."""
+    can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = scal
+    dt, dev = h_left.dtype, h_left.device
+    res = find_best_split_leaves(
+        torch.stack([h_left, h_right]),
+        torch.tensor([lsg, rsg], dtype=dt, device=dev),
+        torch.tensor([lsh, rsh], dtype=dt, device=dev),
+        torch.tensor([lc, rc], dtype=dt, device=dev),
+        meta[:, 0] > 0, meta[:, 1], meta[:, 2] > 0, md, mh, l1, l2, mg,
+        torch.tensor([bool(can), bool(can)], device=dev))
+    out = torch.zeros((2, 16), dtype=torch.float32, device=dev)
+    out[:, :11] = torch.stack([a.to(torch.float32) for a in res], dim=1)
+    return out
+
+
+def search2_update(hists: torch.Tensor, h_small: torch.Tensor, parent: int,
+                   new_leaf: int, small_is_left: bool, scal: Sequence[float],
+                   meta: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 4 (pallas_search.search2_update_pallas):
+    ``h_large = hists[parent] - h_small``, the two routed to left and
+    right by ``small_is_left``, written in place to ``hists[parent]``
+    (left) and ``hists[new_leaf]`` (right), then both searched.  Returns
+    the [2, 16] rows."""
+    h_large = hists[parent] - h_small
+    h_left, h_right = ((h_small, h_large) if small_is_left
+                       else (h_large, h_small))
+    hists[parent] = h_left
+    hists[new_leaf] = h_right
+    return search2_rows(hists[parent], hists[new_leaf], scal, meta)

@@ -6,11 +6,14 @@ Trains the bench model (bench.py's config: binary, HIGGS-like rows from
 seed 7, 28 features, 255 bins, 255 leaves) through the port's entry
 points, warms one tree, then grows ``--trees`` trees under
 ``torch.profiler`` with CPU and CUDA activities (after the same number
-timed without it).  Prints one JSON object: host wall per tree with and
-without the profiler, device busy time per tree (the union of kernel and
-copy intervals on the card), the idle share (1 - busy / wall), and the
-device time per kernel name summed over the profiled trees, largest
-first.  Needs a CUDA card; exits non-zero without one.
+timed without it).  It traces whatever route ``train`` takes: the record
+route by default, the order route under ``LGBM_TPU_OPT_HISTS=0``.
+Prints one JSON object: host wall per tree with and without the profiler,
+device busy time per tree (the union of kernel and copy intervals on the
+card), the idle share (1 - busy / wall), the device time per kernel name
+summed over the profiled trees, largest first, and each ported kernel's
+launches per profiled tree (from the wrappers' counts).  Needs a CUDA
+card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ def main(argv=None) -> int:
         print("profile_slice: needs a CUDA card", file=sys.stderr)
         return 2
     import lightgbm_tpu_torch as lt
-
+    from lightgbm_tpu_torch.ops import launch_counts, reset_launch_counts
     X, y = _make_data(args.rows)
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
               "learning_rate": 0.1, "min_data_in_leaf": 100, "verbose": -1}
@@ -75,6 +78,7 @@ def main(argv=None) -> int:
         booster.update()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -89,7 +93,7 @@ def main(argv=None) -> int:
     for e in dev_events:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:20]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "rows": args.rows, "trees": args.trees,
@@ -99,6 +103,8 @@ def main(argv=None) -> int:
         "idle_share": 1.0 - busy_s / wall,
         "device_events": len(dev_events),
         "kernel_ms_per_tree": {k[:80]: v / 1e3 / args.trees for k, v in top},
+        "launches_per_tree": {name: n / args.trees
+                              for name, n in launch_counts().items()},
     }, indent=1))
     return 0
 

@@ -6,8 +6,11 @@ version; the JAX side runs its Pallas kernel in interpret mode, as
 tests/test_pallas_histogram.py does.  The count channel is exact; g and h
 sums agree to f32 rounding (rtol/atol 1e-5: the Pallas kernel sums each
 512-row chunk as a one-hot matmul, the port row by row in 2048-row
-blocks).  The CUDA kernel itself runs only on the card (chip_smoke.py and
-the ``cuda``-marked test below).
+blocks).  The record-window histogram (the plain version of kernel 1') is
+held against the JAX package's raw-layout kernel on the unpacked window,
+and must equal the port's own single-leaf histogram on the same rows
+bitwise.  The CUDA kernels themselves run only on the card (chip_smoke.py
+and the ``cuda``-marked tests below).
 """
 
 import numpy as np
@@ -16,11 +19,15 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import lightgbm_tpu.ops.record as JR
 from lightgbm_tpu.ops.histogram import histogram_feature_major as jax_hist_fm
 from lightgbm_tpu.ops.pallas_histogram import (
-    histogram_single_leaf as jax_single_leaf)
+    histogram_single_leaf as jax_single_leaf,
+    histogram_single_leaf_raw as jax_single_leaf_raw)
 from lightgbm_tpu_torch.ops import cuda_histogram
-from lightgbm_tpu_torch.ops.cuda_histogram import histogram_single_leaf
+from lightgbm_tpu_torch.ops import record as R
+from lightgbm_tpu_torch.ops.cuda_histogram import (histogram_record_window,
+                                                   histogram_single_leaf)
 from lightgbm_tpu_torch.ops.histogram import (
     CHUNK_ROWS, histogram_feature_major)
 
@@ -91,6 +98,33 @@ def test_plain_version_matches_float64():
     np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
 
 
+def _record_window(F, cap, B, dt, begin=211, seed=17):
+    """A record of cap + 300 rows and its window [begin, begin+cap)."""
+    arrs = _inputs(F, cap + 300, B, dt, seed=seed)
+    return arrs, R.build_record(*(torch.from_numpy(a) for a in arrs)), begin
+
+
+@pytest.mark.parametrize("F,cap,B,dt", SHAPES)
+def test_record_window_matches_jax_raw(F, cap, B, dt):
+    (bins, g, h, m), rec, begin = _record_window(F, cap, B, dt)
+    k = R.bins_per_word(torch.from_numpy(bins).dtype)
+    ours = histogram_record_window(rec, begin, cap, F, k, B).numpy()
+    jrec = JR.build_record(*(jnp.asarray(a) for a in (bins, g, h, m)),
+                           cap + 300)
+    win = jrec[:, begin:begin + cap]
+    ref = np.asarray(jax_single_leaf_raw(
+        *JR.unpack_window(win, F, k, dt), num_bins=B,
+        interpret=True))[:F, :3, :B].transpose(0, 2, 1)
+    assert ours.shape == (F, B, 3) and ours.dtype == np.float32
+    np.testing.assert_array_equal(ours[..., 2], ref[..., 2])
+    np.testing.assert_allclose(ours[..., :2], ref[..., :2], rtol=1e-5,
+                               atol=1e-5)
+    # the port's single-leaf histogram on the same rows, bitwise
+    sl = slice(begin, begin + cap)
+    np.testing.assert_array_equal(ours, _port(bins[:, sl], g[sl], h[sl],
+                                              m[sl], B))
+
+
 def test_cuda_entry_has_no_cpu_fallback():
     """The kernel entry point never quietly runs the plain version."""
     bins, g, h, m = _inputs(2, 64, 8, np.uint8)
@@ -101,6 +135,11 @@ def test_cuda_entry_has_no_cpu_fallback():
         cuda_histogram.histogram_single_leaf_cuda(
             *(torch.from_numpy(a) for a in (bins, g, h, m)), 8)
     assert cuda_histogram.LAUNCHES == before
+    rec = R.build_record(*(torch.from_numpy(a) for a in (bins, g, h, m)))
+    before = cuda_histogram.RECORD_LAUNCHES
+    with pytest.raises((RuntimeError, ValueError)):
+        cuda_histogram.histogram_record_window_cuda(rec, 0, 64, 2, 4, 8)
+    assert cuda_histogram.RECORD_LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -114,3 +153,16 @@ def test_kernel_matches_plain_on_card():
         b = histogram_single_leaf(*dev, B)
         torch.testing.assert_close(a, b, rtol=0, atol=0)
         np.testing.assert_array_equal(a.cpu().numpy(), _port(bins, g, h, m, B))
+
+
+@pytest.mark.cuda
+def test_record_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
+    for F, cap, B, dt in SHAPES:
+        (bins, *_), rec, begin = _record_window(F, cap, B, dt)
+        k = R.bins_per_word(torch.from_numpy(bins).dtype)
+        a = histogram_record_window(rec.cuda(), begin, cap, F, k, B)
+        np.testing.assert_array_equal(
+            a.cpu().numpy(),
+            histogram_record_window(rec, begin, cap, F, k, B).numpy())

@@ -1,0 +1,194 @@
+"""The port's packed record and its partition (lightgbm_tpu_torch.ops.record)
+against the JAX package's (lightgbm_tpu.ops.record).
+
+The record helpers must give the JAX record's bytes: rows ``[:Wb+5]``
+over the ``n`` real columns (the JAX record pads W to a multiple of 8 and
+carries an ``n_pad`` tail; the port has neither).  The partition runs on
+the CPU through its plain versions (``compact_tiles`` + ``place_runs``,
+the plain versions of kernels 6 and 7) and must leave the record bitwise
+as the JAX ``partition_window`` leaves it, run un-jitted in interpret mode
+as tests/test_partition_routing.py runs it.  The kernels themselves run
+only on the card (chip_smoke.py holds them against these plain versions).
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+import lightgbm_tpu.ops.record as JR
+from lightgbm_tpu.learners.serial import _go_i32
+from lightgbm_tpu_torch.ops import cuda_record
+from lightgbm_tpu_torch.ops import record as R
+
+
+def _data(n, F, B, dt, seed, bag_frac=0.7):
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, B, (F, n)).astype(dt)
+    g = rng.randn(n).astype(np.float32)
+    h = (np.abs(rng.randn(n)) + 0.1).astype(np.float32)
+    m = (np.ones(n, np.float32) if bag_frac is None
+         else (rng.rand(n) < bag_frac).astype(np.float32))
+    return bins, g, h, m
+
+
+def _jax_rec(arrs, n_pad):
+    return JR.build_record(*(jnp.asarray(a) for a in arrs), n_pad)
+
+
+def _port_rec(arrs):
+    return R.build_record(*(torch.from_numpy(a) for a in arrs))
+
+
+def _k(dt):
+    return 4 if np.dtype(dt).itemsize == 1 else 2
+
+
+@pytest.mark.parametrize("F,B,dt", [(6, 16, np.uint8), (7, 255, np.uint8),
+                                    (5, 300, np.uint16)])
+def test_build_record_matches_jax(F, B, dt):
+    n = 1000
+    arrs = _data(n, F, B, dt, seed=F)
+    rec = _port_rec(arrs)
+    k = _k(dt)
+    W = JR.num_words(F, k) + 5
+    assert rec.shape == (W, n) and rec.dtype == torch.int32
+    assert W == R.rec_height(F, k)
+    ref = np.asarray(_jax_rec(arrs, n + 100))
+    np.testing.assert_array_equal(rec.numpy(), ref[:W, :n])
+    # extract_feature and unpack_window, bitwise
+    for f in range(F):
+        got = R.extract_feature(rec, f, 37, 500, k).numpy()
+        want = np.asarray(JR.extract_feature(jnp.asarray(ref), jnp.int32(f),
+                                             jnp.int32(37), 500, k))
+        np.testing.assert_array_equal(got, want)
+    win = rec[:, 100:700]
+    got = R.unpack_window(win, F, k, torch.from_numpy(arrs[0]).dtype)
+    want = JR.unpack_window(jnp.asarray(ref[:, 100:700]), F, k, dt)
+    for a, b in zip(got, want):
+        assert a.numpy().dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(got[0].numpy(), arrs[0][:, 100:700])
+
+
+def _jax_partition(rec, F, k, f, thr, is_cat, begin, pcnt, ll, rl):
+    cap = JR.round_up(pcnt, JR.TILE)
+    fv = JR.extract_feature(rec, jnp.int32(f), jnp.int32(begin), cap, k)
+    go = _go_i32(fv, jnp.int32(thr), jnp.bool_(is_cat))
+    out, nleft = JR.partition_window.__wrapped__(
+        rec, go, jnp.int32(begin), jnp.int32(pcnt), jnp.bool_(True), cap,
+        left_leaf=jnp.int32(ll), right_leaf=jnp.int32(rl),
+        leaf_row=JR.num_words(F, k) + 4, interpret=True)
+    return out, int(nleft)
+
+
+# (name, n, F, B, dtype, bag_frac, splits): each split is (f, thr, is_cat,
+# begin, pcnt, left_leaf, right_leaf), applied in order to one record
+CASES = [
+    ("ragged_multi_tile", 3 * 512 - 57, 6, 16, np.uint8, 0.7,
+     [(2, 7, False, 0, 3 * 512 - 57, 0, 1)]),
+    ("interior_unaligned", 3000, 7, 23, np.uint8, 0.6,
+     [(4, 11, False, 517, 1300, 2, 5)]),
+    ("all_left", 1200, 6, 16, np.uint8, 0.5,
+     [(1, 15, False, 0, 1200, 0, 1)]),
+    ("all_right", 1200, 6, 16, np.uint8, 0.5,
+     [(3, 16, True, 0, 1200, 0, 1)]),
+    ("categorical_no_bagging", 2100, 6, 16, np.uint8, None,
+     [(5, 3, True, 0, 2100, 0, 1)]),
+    ("u16_two_splits", 1800, 5, 300, np.uint16, 0.8,
+     [(4, 150, False, 0, 1800, 0, 1), (0, 99, False, 0, None, 0, 2)]),
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_partition_window_matches_jax(case):
+    _, n, F, B, dt, bag, splits = case
+    arrs = _data(n, F, B, dt, seed=n, bag_frac=bag)
+    k = _k(dt)
+    W = R.rec_height(F, k)
+    rec = _port_rec(arrs)
+    jrec = _jax_rec(arrs, JR.round_up(n, JR.TILE) + JR.round_up(n, JR.TILE))
+    nleft_prev = None
+    for f, thr, is_cat, begin, pcnt, ll, rl in splits:
+        if pcnt is None:  # the previous split's left child
+            pcnt = nleft_prev
+        nl = R.partition_window(rec, f, thr, is_cat, begin, pcnt, ll, rl, k)
+        jrec, jnl = _jax_partition(jrec, F, k, f, thr, is_cat, begin, pcnt,
+                                   ll, rl)
+        assert int(nl) == jnl
+        np.testing.assert_array_equal(rec.numpy(),
+                                      np.asarray(jrec)[:W, :n])
+        nleft_prev = jnl
+    if case[0] == "all_left":
+        assert nleft_prev == n
+    if case[0] == "all_right":
+        assert nleft_prev == 0
+    # the record is still a permutation of the rows
+    assert sorted(rec[R.row_id_row(W)].tolist()) == list(range(n))
+
+
+@pytest.mark.parametrize("cnt", [1, 511, 512, 1300])
+def test_compact_tiles_matches_numpy(cnt):
+    rng = np.random.RandomState(cnt)
+    W = 9
+    win = rng.randint(-2**31, 2**31 - 1, (W, cnt), dtype=np.int64).astype(
+        np.int32)
+    go = rng.rand(cnt) < 0.4
+    comp, cl, cr = R.compact_tiles(torch.from_numpy(win), torch.from_numpy(go))
+    T = R.TILE
+    nt = -(-cnt // T)
+    assert comp.shape == (nt, W, 2 * T)
+    for t in range(nt):
+        cols = np.arange(t * T, min(cnt, (t + 1) * T))
+        lefts, rights = cols[go[cols]], cols[~go[cols]]
+        assert int(cl[t]) == len(lefts) and int(cr[t]) == len(rights)
+        np.testing.assert_array_equal(comp[t, :, :len(lefts)].numpy(),
+                                      win[:, lefts])
+        np.testing.assert_array_equal(
+            comp[t, :, T:T + len(rights)].numpy(), win[:, rights])
+
+
+def test_run_offsets_are_exclusive_prefixes():
+    counts = torch.tensor([[3, 0, 5, 2], [1, 4, 0, 7]], dtype=torch.int32)
+    offs, nleft = R._run_offsets(counts)
+    np.testing.assert_array_equal(offs.numpy(), [[0, 3, 3, 8], [0, 1, 5, 5]])
+    assert nleft.dim() == 0 and int(nleft) == 10
+    offs, nleft = R._run_offsets(torch.zeros((2, 0), dtype=torch.int32))
+    assert offs.shape == (2, 0) and int(nleft) == 0
+
+
+def test_cuda_entries_have_no_cpu_fallback():
+    """The kernel entries never quietly run the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the entries would launch the kernels")
+    rec = _port_rec(_data(700, 6, 16, np.uint8, seed=1))
+    before = (cuda_record.COMPACT_LAUNCHES, cuda_record.PLACE_LAUNCHES)
+    with pytest.raises((RuntimeError, ValueError)):
+        cuda_record.compact_cuda(rec, 0, 5, False, 0, 700, 4)
+    with pytest.raises((RuntimeError, ValueError)):
+        cuda_record.place_cuda(rec, torch.zeros((2, 6, 2 * R.TILE),
+                                                dtype=torch.int32),
+                               torch.zeros((2, 2), dtype=torch.int32), 0,
+                               700, 0, 1)
+    assert (cuda_record.COMPACT_LAUNCHES, cuda_record.PLACE_LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
+    for _, n, F, B, dt, bag, splits in CASES:
+        arrs = _data(n, F, B, dt, seed=n, bag_frac=bag)
+        k = _k(dt)
+        rec, dev = _port_rec(arrs), _port_rec(arrs).cuda()
+        nleft_prev = None
+        for f, thr, is_cat, begin, pcnt, ll, rl in splits:
+            pcnt = nleft_prev if pcnt is None else pcnt
+            a = R.partition_window(rec, f, thr, is_cat, begin, pcnt, ll, rl,
+                                   k)
+            b = R.partition_window(dev, f, thr, is_cat, begin, pcnt, ll, rl,
+                                   k)
+            assert int(a) == int(b)
+            assert torch.equal(rec, dev.cpu())
+            nleft_prev = int(a)

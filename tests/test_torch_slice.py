@@ -11,6 +11,13 @@ of the parent), two large nearly equal numbers, so the f32 summation
 order of the histograms shows in its 5th digit — the JAX package's own
 two histogram routes (matmul vs segment) differ by 2.5e-5 on the first
 case.
+
+The record route (``grow_tree(..., hist_fn_raw=...)``) is held against the
+JAX package's record route (its raw histogram and fused search-update
+kernels in interpret mode, the mega kernel switched off) on
+tests/test_opt_layout.py's four cases, whose integer-valued gradients make
+every histogram sum exact in any order; and against the port's own order
+route, which it must match bitwise.
 """
 
 import numpy as np
@@ -21,16 +28,20 @@ import torch
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu.engine as jax_engine
+import lightgbm_tpu.learners.serial as jax_serial
 from lightgbm_tpu.config import Config as JaxConfig
 from lightgbm_tpu.learners.serial import TreeLearnerParams as JaxParams
 from lightgbm_tpu.learners.serial import grow_tree as jax_grow_tree
 from lightgbm_tpu.metrics import AUCMetric as JaxAUC
 from lightgbm_tpu.io.metadata import Metadata as JaxMetadata
+from lightgbm_tpu.ops.pallas_histogram import histogram_single_leaf_raw
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.learners.serial import TreeLearnerParams, grow_tree
 from lightgbm_tpu_torch.metrics import auc
+from lightgbm_tpu_torch.models.gbdt import GBDT
+from lightgbm_tpu_torch.ops.cuda_histogram import histogram_record_window
 
 STRUCT = ("split_feature", "threshold_bin", "decision_type", "left_child",
           "right_child", "leaf_count", "leaf_parent", "leaf_depth")
@@ -184,3 +195,121 @@ def test_metrics_match_jax(name):
                                  JaxMetadata(label=y, weights=weights))[0]
         ours = getattr(metrics, name)(s, y, weights=weights)
         assert ours == pytest.approx(ref.eval(s), rel=1e-12, abs=1e-15)
+
+
+# ------------------------------------------------------------ record route
+TREE_FIELDS = STRUCT + ("split_gain", "internal_value", "internal_count",
+                        "leaf_value")
+
+
+def _opt_case(name):
+    """tests/test_opt_layout.py's cases: (bins [F, n], grad, hess, bag,
+    fmask, nbpf, iscat, num_bins, min_data)."""
+    if name == "u16_feature_mask":
+        rng = np.random.RandomState(5)
+        n, F, B = 3000, 5, 300
+        bins = rng.randint(0, B, (n, F)).T.astype(np.uint16)
+        grad = rng.randint(-8, 9, n).astype(np.float32)
+        hess = rng.randint(1, 5, n).astype(np.float32)
+        fmask = np.array([True, False, True, True, False])
+        return (bins, grad, hess, np.ones(n, np.float32), fmask,
+                np.full(F, B, np.int32), np.zeros(F, bool), B, 3)
+    seed = {"seed0": 0, "seed3": 3, "bagging_categorical": 1}[name]
+    rng = np.random.RandomState(seed)
+    n, F, B = 4000, 7, 23
+    bins = rng.randint(0, B, (n, F)).T.astype(np.uint8)
+    grad = rng.randint(-8, 9, n).astype(np.float32)
+    hess = rng.randint(1, 5, n).astype(np.float32)
+    bag, iscat, min_data = np.ones(n, np.float32), np.zeros(F, bool), 1
+    if name == "bagging_categorical":
+        bag = (np.random.RandomState(7).rand(n) < 0.7).astype(np.float32)
+        iscat[2] = True
+        min_data = 5
+    return (bins, grad, hess, bag, np.ones(F, bool), np.full(F, B, np.int32),
+            iscat, B, min_data)
+
+
+@pytest.mark.parametrize("name", ["seed0", "seed3", "bagging_categorical",
+                                  "u16_feature_mask"])
+def test_record_route_matches_jax_record_route(name, monkeypatch):
+    bins, grad, hess, bag, fmask, nbpf, iscat, B, min_data = _opt_case(name)
+    L = 16
+    # the JAX record route: raw histogram + partition_window +
+    # search2_update_pallas (serial.py:817-829/874-889/944-965), not the
+    # mega kernel; read in grow_tree's Python, so no stale trace
+    monkeypatch.setattr(jax_serial, "_FUSE_HIST_ENV", False)
+
+    def raw(b, g, h, m):
+        return histogram_single_leaf_raw(b, g, h, m, num_bins=B,
+                                         interpret=True)
+
+    f32 = jnp.float32
+    tj, lid_j = jax_grow_tree(
+        *(jnp.asarray(a) for a in (bins, grad, hess, bag, fmask, nbpf,
+                                   iscat)),
+        JaxParams(f32(min_data), f32(0), f32(0), f32(0), f32(0),
+                  jnp.int32(-1)),
+        num_bins=B, max_leaves=L, hist_fn_raw=raw)
+    tt, lid_t = grow_tree(
+        *(torch.from_numpy(a) for a in (bins, grad, hess, bag, fmask, nbpf,
+                                        iscat)),
+        TreeLearnerParams(float(min_data), 0.0, 0.0, 0.0, 0.0, -1),
+        num_bins=B, max_leaves=L, hist_fn_raw=histogram_record_window)
+    assert tt.num_leaves == int(tj.num_leaves) > 4
+    for k in STRUCT:
+        np.testing.assert_array_equal(getattr(tt, k).numpy(),
+                                      np.asarray(getattr(tj, k)), err_msg=k)
+    np.testing.assert_array_equal(lid_t.numpy(), np.asarray(lid_j))
+    for k in ("leaf_value", "internal_value", "split_gain"):
+        np.testing.assert_allclose(getattr(tt, k).numpy(),
+                                   np.asarray(getattr(tj, k)), rtol=2e-5,
+                                   atol=2e-5, err_msg=k)
+    used = tt.split_feature.numpy()[:tt.num_leaves - 1]
+    assert not np.isin(used, np.flatnonzero(~fmask)).any()
+
+
+def _train_routes(monkeypatch, record: bool):
+    """The wide case through ``train`` on the CPU, on the record route
+    (the card's default, forced here) or the order route; returns the
+    booster and every tree's leaf_id."""
+    X, y, extra, max_bin = _case_wide()
+    leaf_ids = []
+    grow = GBDT.grow
+
+    def spy(self, *a):
+        out = grow(self, *a)
+        leaf_ids.append(out[1].clone())
+        return out
+
+    params = {"objective": "binary", "min_data_in_leaf": 20,
+              "verbose": -1, **extra}
+    with monkeypatch.context() as mp:
+        mp.setattr(GBDT, "grow", spy)
+        mp.setattr(GBDT, "_leafwise_hist_fn_raw",
+                   lambda self: histogram_record_window if record else None)
+        bst = lt.train(params, lt.Dataset(X, label=y, max_bin=max_bin,
+                                          device="cpu"),
+                       num_boost_round=3, device="cpu")
+    return bst, leaf_ids
+
+
+def test_record_route_bitwise_equals_order_route(monkeypatch):
+    b_rec, lid_rec = _train_routes(monkeypatch, True)
+    b_ord, lid_ord = _train_routes(monkeypatch, False)
+    trees_r, trees_o = b_rec._gbdt.models, b_ord._gbdt.models
+    assert len(trees_r) == len(trees_o) == 3
+    for a, b in zip(trees_r, trees_o):
+        assert a.num_leaves == b.num_leaves > 4
+        for k in TREE_FIELDS:
+            assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert len(lid_rec) == len(lid_ord) == 3
+    for a, b in zip(lid_rec, lid_ord):
+        assert torch.equal(a, b)
+    assert torch.equal(b_rec._gbdt._scores, b_ord._gbdt._scores)
+
+
+def test_record_route_is_off_on_the_cpu():
+    X, y = _case_small()[:2]
+    bst = lt.train({"objective": "binary", "num_leaves": 7, "verbose": -1},
+                   lt.Dataset(X, label=y, device="cpu"), 1, device="cpu")
+    assert bst._gbdt._leafwise_hist_fn_raw() is None
