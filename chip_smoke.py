@@ -24,18 +24,27 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    versions on the 1M-row root window, a 60k interior window at an
    unaligned begin, all-left, all-right and a ragged last tile: the whole
    record after the split bitwise, rows outside the window untouched;
-7. trains the bench model (bench.py's config: binary, 1M x 28 HIGGS-like
+7. holds the mega route's split step (K8) against its plain version,
+   bitwise (comp's valid lanes, counts, the buffer rows, the search rows,
+   nleft), on the 1M-row root window, a 60k interior window at an
+   unaligned begin, all-left, all-right, a ragged last tile, a one-tile
+   window, a categorical split and u16 x 300 bins; runs K7 on K8's output
+   and holds the record bitwise against the plain placement, rows outside
+   the window untouched; times K8 at the root and at the one-tile window;
+8. trains the bench model (bench.py's config: binary, 1M x 28 HIGGS-like
    rows from seed 7 plus 200k valid rows, 255 bins, 255 leaves) through
-   ``lightgbm_tpu_torch``'s entry points, once on the record route (the
-   default on the card) and once on the order route
-   (``LGBM_TPU_OPT_HISTS=0``): one warm tree, then 10 timed trees each;
-   checks every kernel of the route launched the expected number of times
-   and no other, and that train/valid AUC land in the band the JAX package
-   recorded for the same data and config;
-8. grows 2 trees at 100k rows on the card on both routes and on the CPU
-   (plain versions): the two card routes must be bitwise equal in every
-   tree field and in the train scores, and both structurally identical to
-   the CPU trees.
+   ``lightgbm_tpu_torch``'s entry points on the three routes in turn: the
+   mega route (the default on the card), the record route
+   (``LGBM_TPU_FUSE_HIST=0``) and the order route (``LGBM_TPU_OPT_HISTS=0``):
+   one warm tree, then 10 timed trees each; checks every kernel of the
+   route launched the expected number of times and no other, the host
+   syncs per tree, and that train/valid AUC land in the band the JAX
+   package recorded for the same data and config;
+9. grows 2 trees at 100k rows on the card on all three routes and on the
+   CPU (plain versions) on the order and mega routes: the record and order
+   routes must be bitwise equal on the card in every tree field and in the
+   train scores and structurally identical to the CPU order route, and the
+   card's mega route structurally identical to the CPU's.
 
 Every phase must pass or the script exits non-zero without a result.  The
 line before the last is the kernels' JSON record, the last line the
@@ -489,19 +498,145 @@ def phase_partition(torch):
 
 
 # --------------------------------------------------------------- phase 7
+def phase_split_step(torch):
+    from lightgbm_tpu_torch.ops import cuda_histogram, cuda_record
+    from lightgbm_tpu_torch.ops import cuda_split_step
+    from lightgbm_tpu_torch.ops import record as R
+    from lightgbm_tpu_torch.ops.cuda_search import pack_meta
+
+    rng = np.random.RandomState(5)
+    F, n, B, T = N_FEAT, ROWS, NUM_BINS, R.TILE
+    big = _random_record(torch, rng, F, n, B, np.uint8)[-1]
+    u16 = _random_record(torch, rng, F, 100_000, 300, np.uint16)[-1]
+    # (name, record, bins, begin, pcnt, f, thr, is_cat)
+    cases = [("root", big, B, 0, n, 13, 127, False),
+             ("interior", big, B, 333_333, 60_000, 6, 90, False),
+             ("all-left", big, B, 1000, 200_000, 20, B - 1, False),
+             ("all-right", big, B, 1000, 200_000, 20, B, True),
+             ("ragged", big, B, 12_345, 5 * T + 77, 27, 40, False),
+             ("one-tile", big, B, 5_003, 400, 2, 100, False),
+             ("categorical", big, B, 777, 100_000, 4, 17, True),
+             ("uint16", u16, 300, 0, 100_000, 11, 150, False)]
+    L, parent, new = 4, 1, 3
+    out, times = None, {}
+    for name, rec, nb, begin, pcnt, f, thr, is_cat in cases:
+        k = R.bins_per_word(torch.uint8 if nb <= 256 else torch.uint16)
+        W = rec.shape[0]
+        hists = torch.from_numpy(rng.randn(L, F, nb, 3).astype(np.float32)
+                                 ).cuda()
+        hists[parent] = cuda_histogram.histogram_record_window_cuda(
+            rec, begin, pcnt, F, k, nb)  # the parent's own histogram
+        iscat = np.zeros(F, bool)
+        iscat[f] = is_cat
+        meta = pack_meta(torch.ones(F, dtype=torch.bool),
+                         torch.full((F,), nb), torch.from_numpy(iscat),
+                         "cuda")
+        go = R.go_flags(rec, f, thr, is_cat, begin, pcnt, k).float()
+        wb = R.num_words(F, k)
+        g, h, m = (rec[wb + i, begin:begin + pcnt].view(torch.float32)
+                   for i in range(3))
+        scal = [1.0]
+        for side in (go, 1.0 - go):
+            scal += [float((g * m * side).sum()), float((h * m * side).sum()),
+                     float((m * side).sum())]
+        scal += [float(MIN_DATA), 1e-3, 0.0, 0.0, 0.0]
+        args = (f, thr, is_cat, begin, pcnt, parent, new, scal)
+
+        def kernel(hk):
+            return cuda_split_step.split_step_cuda(rec, hk, *args, meta, k,
+                                                   nb)
+
+        hk, hk2 = hists.clone(), hists.clone()
+        comp, counts, rows = kernel(hk)
+        comp2, counts2, rows2 = kernel(hk2)
+        torch.cuda.synchronize()
+        check(torch.equal(hk, hk2) and torch.equal(rows, rows2)
+              and torch.equal(counts, counts2),
+              f"K8 {name}: launches not bitwise equal")
+        rec_c = rec.cpu()
+        hp = hists.cpu()
+        comp_p, counts_p, rows_p = R.split_step_plain(
+            rec_c, hp, *args, meta.cpu(), k, nb)
+        check(torch.equal(counts.cpu(), counts_p),
+              f"K8 {name}: tile counts differ from the plain version's")
+        lane = torch.arange(T)[None]
+        comp_c = comp.cpu()
+        for half, cnt in ((slice(0, T), counts_p[0]),
+                          (slice(T, 2 * T), counts_p[1])):
+            valid = lane < cnt[:, None]
+            check(torch.equal(comp_c[:, :, half].permute(1, 0, 2)[:, valid],
+                              comp_p[:, :, half].permute(1, 0, 2)[:, valid]),
+                  f"K8 {name}: run lanes differ")
+        err = float((hk.cpu() - hp).abs().max())
+        check(torch.equal(hk.cpu(), hp),
+              f"K8 {name}: buffer rows differ (max abs {err})")
+        rows_c = rows.cpu()
+        check(torch.equal(rows_c, rows_p),
+              f"K8 {name}: search rows differ {rows_c} vs {rows_p}")
+        nleft = int(rows_c[0, 11])
+        check(nleft == int(counts_p[0].sum()), f"K8 {name}: nleft {nleft}")
+        expect = {"all-left": pcnt, "all-right": 0}.get(name)
+        check(expect is None or nleft == expect, f"K8 {name}: nleft {nleft}")
+        # K7 on K8's output against the plain placement
+        rk, rp = rec.clone(), rec_c.clone()
+        cuda_record.place_cuda(rk, comp, counts, begin, pcnt, parent, new)
+        R.place_window(rp, comp_p, counts_p, begin, pcnt, parent, new)
+        rk_c = rk.cpu()
+        check(torch.equal(rk_c, rp), f"K7 after K8 {name}: record differs "
+              "from the plain version's")
+        check(torch.equal(rk_c[:, :begin], rec_c[:, :begin])
+              and torch.equal(rk_c[:, begin + pcnt:], rec_c[:, begin + pcnt:]),
+              f"K7 after K8 {name}: rows outside the window moved")
+        grid = cuda_split_step.grid_blocks(pcnt, F)
+        say(f"[split-step {name}] begin={begin} pcnt={pcnt} f={f} thr={thr} "
+            f"cat={is_cat} B={nb} nleft={nleft} grid={grid}: comp lanes, "
+            "counts, buffer rows, search rows bitwise == plain; two launches "
+            "equal; K7 record bitwise == plain, outside untouched")
+        if name in ("root", "one-tile"):
+            hs = hists.clone()
+            ms = time_ms(torch, lambda: kernel(hs))
+            nbytes = 2 * (W - 1) * 4 * pcnt + 3 * F * nb * 12
+            bound = max(nbytes / HBM_BYTES_PER_S,
+                        3 * F * pcnt / F32_FLOPS) * 1e3
+            times[name] = (ms, bound)
+            if name == "root":
+                hpc = hists.clone()
+                plain_ms = time_ms(torch, lambda: R.split_step_plain(
+                    rec, hpc, *args, meta, k, nb))
+                out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound, library_ms=None)
+        del hists, hk, hk2, comp, comp2, comp_c, comp_p, rk, rp, rk_c, rec_c
+    (ms, bound), (ms1, bound1) = times["root"], times["one-tile"]
+    say(f"[split-step times] root ms={ms:.4f} bound_ms={bound:.5f} "
+        f"share={bound / ms:.4f} plain_ms={out['plain_ms']:.4f}; one-tile "
+        f"(400 columns) ms={ms1:.4f} bound_ms={bound1:.6f}")
+    del big, u16
+    return out
+
+
+# --------------------------------------------------------------- phase 8
+ROUTE_ENV = {"mega": {"LGBM_TPU_OPT_HISTS": "1", "LGBM_TPU_FUSE_HIST": "1"},
+             "record": {"LGBM_TPU_OPT_HISTS": "1",
+                        "LGBM_TPU_FUSE_HIST": "0"},
+             "order": {"LGBM_TPU_OPT_HISTS": "0", "LGBM_TPU_FUSE_HIST": "1"}}
+
+
 @contextlib.contextmanager
-def opt_hists(value: str):
-    """``LGBM_TPU_OPT_HISTS`` set to ``value`` inside, restored after: "0"
-    selects the order route, "1" the record route (on the card)."""
-    saved = os.environ.get("LGBM_TPU_OPT_HISTS")
-    os.environ["LGBM_TPU_OPT_HISTS"] = value
+def route_env(route: str):
+    """The JAX package's two knobs set for ``route`` inside, restored
+    after: on the card "mega" is the default, ``LGBM_TPU_FUSE_HIST=0``
+    selects the record route and ``LGBM_TPU_OPT_HISTS=0`` the order
+    route."""
+    saved = {k: os.environ.get(k) for k in ROUTE_ENV[route]}
+    os.environ.update(ROUTE_ENV[route])
     try:
         yield
     finally:
-        if saved is None:
-            os.environ.pop("LGBM_TPU_OPT_HISTS", None)
-        else:
-            os.environ["LGBM_TPU_OPT_HISTS"] = saved
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def reset_counts():
@@ -532,7 +667,7 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
     from lightgbm_tpu_torch.learners import serial
     from lightgbm_tpu_torch.ops import launch_counts
 
-    with opt_hists("0" if route == "order" else "1"):
+    with route_env(route):
         warm = lt.train(params, train_set, num_boost_round=1)
         torch.cuda.synchronize()
         del warm
@@ -551,12 +686,15 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
     trees = booster._gbdt.models
     leaves = [t.num_leaves for t in trees]
     splits = sum(nl - 1 for nl in leaves)
-    if route == "record":
-        expect = {"K1": 0, "K1'": TREES + splits, "K3": TREES, "K4": splits,
-                  "K6": splits, "K7": splits}
-    else:
-        expect = {"K1": TREES + splits, "K1'": 0, "K3": TREES + splits,
-                  "K4": 0, "K6": 0, "K7": 0}
+    expect = {
+        "mega": {"K1": 0, "K1'": TREES, "K3": TREES, "K4": 0, "K6": 0,
+                 "K7": splits, "K8": splits},
+        "record": {"K1": 0, "K1'": TREES + splits, "K3": TREES,
+                   "K4": splits, "K6": splits, "K7": splits, "K8": 0},
+        "order": {"K1": TREES + splits, "K1'": 0, "K3": TREES + splits,
+                  "K4": 0, "K6": 0, "K7": 0, "K8": 0}}[route]
+    # two at the root; one per split on the mega route, two on the others
+    expect_syncs = 2 * TREES + (1 if route == "mega" else 2) * splits
     train_auc = booster.eval_train()[0][2]
     booster.add_valid(valid_set, "valid")
     valid_auc = booster.eval_valid()[0][2]
@@ -570,6 +708,8 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
     check(all(counts[name] > 0 for name, want in expect.items() if want),
           f"main {route}: a kernel of the route never launched")
     check(counts == expect, f"main {route}: launches {counts} != {expect}")
+    check(syncs == expect_syncs,
+          f"main {route}: {syncs} host syncs, expected {expect_syncs}")
     check(abs(train_auc - AUC_TRAIN) <= AUC_TOL,
           f"main {route}: train AUC {train_auc} outside "
           f"{AUC_TRAIN}+-{AUC_TOL}")
@@ -579,46 +719,69 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
     check(pv.shape == (1000,) and bool(np.isfinite(pv).all())
           and bool(((pv > 0) & (pv < 1)).all()), f"main {route}: predictions")
     return dict(counts=counts, s_per_tree=elapsed / TREES,
-                auc=(train_auc, valid_auc))
+                auc=(train_auc, valid_auc), syncs_per_tree=syncs / TREES,
+                peak=peak)
 
 
-# --------------------------------------------------------------- phase 8
+# --------------------------------------------------------------- phase 9
 def phase_trees(torch, lt):
+    from lightgbm_tpu_torch.models.gbdt import GBDT
     from lightgbm_tpu_torch.ops import launch_counts
+    from lightgbm_tpu_torch.ops.cuda_histogram import histogram_record_window
 
     X, y = make_data(100_000, seed=11)
     params = {"objective": "binary", "num_leaves": NUM_LEAVES,
               "max_bin": NUM_BINS, "learning_rate": LEARNING_RATE,
               "min_data_in_leaf": MIN_DATA, "verbose": -1}
     runs = {}
-    for name, dev, opt in (("record", "cuda", "1"), ("order", "cuda", "0"),
-                           ("cpu", "cpu", "1")):
-        with opt_hists(opt):
-            reset_counts()
-            ds = lt.Dataset(X, label=y, max_bin=NUM_BINS, device=dev)
-            b = lt.train(params, ds, num_boost_round=2, device=dev)
-            counts = launch_counts()
+    # (run, device, route); "cpu-mega" forces the mega route on the CPU,
+    # where train takes the order route, to grow it with the plain versions
+    for name, dev, route in (("mega", "cuda", "mega"),
+                             ("record", "cuda", "record"),
+                             ("order", "cuda", "order"),
+                             ("cpu", "cpu", "mega"),
+                             ("cpu-mega", "cpu", "mega")):
+        saved = GBDT._leafwise_hist_fn_raw
+        if name == "cpu-mega":
+            GBDT._leafwise_hist_fn_raw = lambda self: histogram_record_window
+        try:
+            with route_env(route):
+                reset_counts()
+                ds = lt.Dataset(X, label=y, max_bin=NUM_BINS, device=dev)
+                b = lt.train(params, ds, num_boost_round=2, device=dev)
+                counts = launch_counts()
+        finally:
+            GBDT._leafwise_hist_fn_raw = saved
         runs[name] = (b._gbdt.models, b._gbdt._scores.cpu(), counts)
-    check(runs["record"][2]["K6"] > 0 and runs["record"][2]["K1"] == 0
-          and runs["order"][2]["K1"] > 0 and runs["order"][2]["K6"] == 0
-          and not any(runs["cpu"][2].values()),
-          f"trees: routes not taken as asked {[r[2] for r in runs.values()]}")
+    n = {r: runs[r][2] for r in runs}
+    check(n["mega"]["K8"] > 0 and n["mega"]["K6"] == 0
+          and n["record"]["K6"] > 0 and n["record"]["K8"] == 0
+          and n["order"]["K1"] > 0 and n["order"]["K6"] == 0
+          and not any(n["cpu"].values()) and not any(n["cpu-mega"].values()),
+          f"trees: routes not taken as asked {n}")
     bitwise = torch.equal(runs["record"][1], runs["order"][1])
-    struct_cpu = True
-    for a, b, c in zip(*(runs[r][0] for r in ("record", "order", "cpu"))):
+    struct_cpu = struct_mega = True
+    for a, b, c, d, e in zip(*(runs[r][0] for r in (
+            "record", "order", "cpu", "mega", "cpu-mega"))):
         bitwise &= a.num_leaves == b.num_leaves
         struct_cpu &= a.num_leaves == c.num_leaves
+        struct_mega &= d.num_leaves == e.num_leaves
         for k in TREE_FIELDS:
             bitwise &= bool(torch.equal(getattr(a, k), getattr(b, k)))
         for k in STRUCT:
             struct_cpu &= bool(torch.equal(getattr(a, k).cpu(),
                                            getattr(c, k)))
-    leaves = [t.num_leaves for t in runs["record"][0]]
+            struct_mega &= bool(torch.equal(getattr(d, k).cpu(),
+                                            getattr(e, k)))
+    leaves = {r: [t.num_leaves for t in runs[r][0]] for r in ("mega",
+                                                              "record")}
     say(f"[trees] 2 trees at 100k rows, leaves={leaves}: record route == "
         f"order route on the card (every tree field, train scores): "
-        f"{bitwise}; card == CPU plain (structure): {struct_cpu}")
+        f"{bitwise}; card == CPU plain (structure): order {struct_cpu}, "
+        f"mega {struct_mega}")
     check(bitwise, "record-route and order-route trees differ on the card")
     check(struct_cpu, "kernel-grown and plain-grown trees differ")
+    check(struct_mega, "kernel-grown and plain-grown mega-route trees differ")
 
 
 def main() -> int:
@@ -647,11 +810,16 @@ def main() -> int:
     hist_rec = phase_record_histogram(torch)
     update = phase_search_update(torch)
     compact, place = phase_partition(torch)
+    step = phase_split_step(torch)
     data = make_bench_data(lt)
-    main_rec = phase_main_path(torch, lt, "record", *data)
-    main_ord = phase_main_path(torch, lt, "order", *data)
-    say(f"[main record] s/tree={main_rec['s_per_tree']:.4f}")
-    say(f"[main order]  s/tree={main_ord['s_per_tree']:.4f}")
+    routes = {r: phase_main_path(torch, lt, r, *data)
+              for r in ("mega", "record", "order")}
+    for r, m in routes.items():
+        say(f"[main {r}] s/tree={m['s_per_tree']:.4f} "
+            f"auc={m['auc'][0]:.6f}/{m['auc'][1]:.6f} "
+            f"host_syncs_per_tree={m['syncs_per_tree']:.1f} "
+            f"peak_mem_bytes={m['peak']}")
+    main_rec, main_ord = routes["record"], routes["order"]
     check(main_rec["auc"] == main_ord["auc"],
           f"the two routes' AUCs differ: {main_rec['auc']} vs "
           f"{main_ord['auc']}")
@@ -661,6 +829,7 @@ def main() -> int:
         f"on {card}")
     src = "lightgbm_tpu_torch/csrc/"
     rec_n, ord_n = main_rec["counts"], main_ord["counts"]
+    mega_n = routes["mega"]["counts"]
     kernels = [
         dict(name="histogram_single_leaf", route="cuda",
              source=src + "histogram.cu",
@@ -683,6 +852,9 @@ def main() -> int:
         dict(name="record_place", route="cuda", source=src + "record.cu",
              replaces="lightgbm_tpu/ops/record.py:977", path="record",
              launches=rec_n["K7"], bound_by="bytes", **place),
+        dict(name="split_step", route="cuda", source=src + "split_step.cu",
+             replaces="lightgbm_tpu/ops/record.py:1112", path="mega",
+             launches=mega_n["K8"], bound_by="bytes", **step),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

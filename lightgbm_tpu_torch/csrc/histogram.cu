@@ -22,21 +22,18 @@
 // compute bound.
 //
 // Design (a simple, deterministic first version; it is not near the bound):
-//  * pass 1: grid (row chunks, F).  A block stages its chunk's bins and the
-//    masked stats (g*m, h*m, m) in shared memory, so each byte of input is
-//    read from device memory once per feature.  Each thread owns bins
-//    tid, tid+blockDim, ... and walks the staged rows in row order,
-//    adding the rows whose bin is its own.  Reads of one staged row are
-//    broadcasts (every lane reads the same address), so there are no bank
-//    conflicts.  The per-chunk partial histogram is written to scratch.
+//  * pass 1: grid (row chunks, F); each block builds one (chunk, feature)
+//    partial with hist_chunk (hist_chunk.cuh, shared with K8), which
+//    stages the chunk's rows in shared memory and has each thread walk
+//    them in row order for its own bins.  The partial goes to scratch.
 //  * pass 2: one thread per (feature, bin, stat) sums the chunk partials in
-//    chunk order.
+//    chunk order (reduce_chunks).
 //  The two kernels differ only in the row reader (a template argument):
 //  K1 reads a feature-major bin matrix and three float rows, K1' unpacks
 //  the bin from its record word and takes the float bit patterns straight
-//  from the window (no [F, cap] unpack in device memory).  The summation
-//  order is the same, so K1' on a window equals K1 on the unpacked rows,
-//  bitwise.
+//  from the window (RecordRows; no [F, cap] unpack in device memory).  The
+//  summation order is the same, so K1' on a window equals K1 on the
+//  unpacked rows, bitwise.
 //  No atomics: the summation order is fixed, so two launches on the same
 //  inputs give bitwise-equal output.  The cost is O(cap * B) compares per
 //  feature in pass 1 (each thread scans every row), which is what a later
@@ -49,9 +46,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hist_chunk.cuh"
+
 namespace {
 
-constexpr int kChunk = 2048;   // rows staged per block
+using namespace lgbm;
+
 constexpr int kThreads = 256;  // threads per block in pass 1
 
 // The rows of kernel 1: feature-major bins [F, cap] and three float rows.
@@ -70,66 +70,12 @@ struct MatrixRows {
   __device__ float m(int64_t r) const { return mask[r]; }
 };
 
-// The rows of kernel 1': columns [begin, begin+cap) of the [W, ld] int32
-// record, k bins per word, grad/hess/mask bit patterns in rows Wb, Wb+1, Wb+2.
-struct RecordRows {
-  const int* rec;
-  int64_t ld;
-  int64_t begin;
-  int k;
-  int shift;
-  unsigned bmask;
-  int wb;
-  __device__ int bin(int f, int64_t r) const {
-    const unsigned w = (unsigned)rec[(int64_t)(f / k) * ld + begin + r];
-    return (int)((w >> ((f % k) * shift)) & bmask);
-  }
-  __device__ float word(int row, int64_t r) const {
-    return __int_as_float(rec[(int64_t)row * ld + begin + r]);
-  }
-  __device__ float g(int64_t r) const { return word(wb, r); }
-  __device__ float h(int64_t r) const { return word(wb + 1, r); }
-  __device__ float m(int64_t r) const { return word(wb + 2, r); }
-};
-
 template <typename Rows, typename StageT>
 __global__ void hist_partial_kernel(Rows rows, int64_t cap, int num_bins,
                                     float* __restrict__ partial) {
   // partial: [nchunks, F, B, 3]
-  __shared__ StageT s_bin[kChunk];
-  __shared__ float s_g[kChunk];
-  __shared__ float s_h[kChunk];
-  __shared__ float s_m[kChunk];
-
-  const int chunk = blockIdx.x;
-  const int f = blockIdx.y;
-  const int F = gridDim.y;
-  const int64_t row0 = (int64_t)chunk * kChunk;
-  const int nrows = (cap - row0 < kChunk) ? (int)(cap - row0) : kChunk;
-
-  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
-    const float m = rows.m(row0 + r);
-    s_bin[r] = (StageT)rows.bin(f, row0 + r);
-    s_g[r] = rows.g(row0 + r) * m;
-    s_h[r] = rows.h(row0 + r) * m;
-    s_m[r] = m;
-  }
-  __syncthreads();
-
-  float* out = partial + (((int64_t)chunk * F + f) * num_bins) * 3;
-  for (int b = threadIdx.x; b < num_bins; b += blockDim.x) {
-    float g = 0.f, h = 0.f, c = 0.f;
-    for (int r = 0; r < nrows; ++r) {
-      if ((int)s_bin[r] == b) {
-        g += s_g[r];
-        h += s_h[r];
-        c += s_m[r];
-      }
-    }
-    out[b * 3 + 0] = g;
-    out[b * 3 + 1] = h;
-    out[b * 3 + 2] = c;
-  }
+  hist_chunk<StageT>(rows, cap, blockIdx.x, blockIdx.y, gridDim.y, num_bins,
+                     partial);
 }
 
 __global__ void hist_reduce_kernel(const float* __restrict__ partial,
@@ -137,9 +83,7 @@ __global__ void hist_reduce_kernel(const float* __restrict__ partial,
                                    float* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= per_chunk) return;
-  float s = 0.f;
-  for (int c = 0; c < nchunks; ++c) s += partial[(int64_t)c * per_chunk + i];
-  out[i] = s;
+  out[i] = reduce_chunks(partial, nchunks, per_chunk, i);
 }
 
 template <typename StageT, typename Rows>

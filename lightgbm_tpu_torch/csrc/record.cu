@@ -12,12 +12,11 @@
 // _compact_kernel_prefix / _compact_kernel (pallas_calls at :1205 / :1217,
 // reached through partition_window :1153), with the go flags computed in the
 // kernel from the split feature's packed word as _tile_go (:214) does.  One
-// block per tile of kTile columns, one thread per column: the thread reads its
-// column's split word, decides go, and a block-wide exclusive scan (warp
-// ballots + popcounts, then the 16 warp totals) gives its stable position
-// among the tile's lefts or rights.  It copies its column's R words to lane
-// `pos` (left) or kTile + `pos` (right) of comp[t] ([R, 2*kTile]) and thread
-// 0 writes the tile's counts.  Lanes past a run's count are not written.
+// block per tile of kTile columns runs compact_tile (compact_tile.cuh,
+// shared with K8): one thread per column decides go, a block-wide scan
+// gives its stable position among the tile's lefts or rights, and it copies
+// its column's R words to comp[t] ([R, 2*kTile]); thread 0 writes the
+// tile's counts.  Lanes past a run's count are not written.
 //
 // K7 `place` replaces the TPU kernel lightgbm_tpu/ops/record.py _place_kernel
 // (pallas_call at :977, reached through place_runs :914; the TPU record route
@@ -47,59 +46,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "compact_tile.cuh"
+
 namespace {
 
-constexpr int kTile = 512;  // columns per tile = threads per block
-constexpr int kWarps = kTile / 32;
+using namespace lgbm;
 
 __global__ void __launch_bounds__(kTile)
     compact_kernel(const int* __restrict__ rec, int64_t ld, int W,
-                   int64_t begin, int64_t pcnt, int fword, int fshift,
-                   unsigned fmask, int thr, int is_cat,
+                   int64_t begin, int64_t pcnt, SplitRule rule,
                    int* __restrict__ comp,     // [nt, W-1, 2*kTile]
                    int* __restrict__ counts) {  // [2, nt]: cl, cr
-  __shared__ int s_warp[2][kWarps];
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int64_t j = (int64_t)t * kTile + tid;  // column within the window
-  const bool valid = j < pcnt;
-  bool go = false;
-  if (valid) {
-    const unsigned w = (unsigned)rec[(int64_t)fword * ld + begin + j];
-    const int fv = (int)((w >> fshift) & fmask);
-    go = is_cat ? (fv == thr) : (fv <= thr);
-  }
-  const bool right = valid && !go;
-  const unsigned bl = __ballot_sync(0xffffffffu, go);
-  const unsigned br = __ballot_sync(0xffffffffu, right);
-  const int lane = tid & 31, warp = tid >> 5;
-  if (lane == 0) {
-    s_warp[0][warp] = __popc(bl);
-    s_warp[1][warp] = __popc(br);
-  }
-  __syncthreads();
-  int lbase = 0, rbase = 0, ltot = 0, rtot = 0;
-  for (int i = 0; i < kWarps; ++i) {
-    if (i < warp) {
-      lbase += s_warp[0][i];
-      rbase += s_warp[1][i];
-    }
-    ltot += s_warp[0][i];
-    rtot += s_warp[1][i];
-  }
-  if (tid == 0) {
-    counts[t] = ltot;
-    counts[gridDim.x + t] = rtot;
-  }
-  if (!valid) return;
-  const unsigned below = (1u << lane) - 1u;
-  const int dest = go ? lbase + __popc(bl & below)
-                      : kTile + rbase + __popc(br & below);
-  const int R = W - 1;  // every row but the leaf id
-  int* out = comp + (int64_t)t * R * 2 * kTile + dest;
-  const int* src = rec + begin + j;
-  for (int w = 0; w < R; ++w)
-    out[(int64_t)w * 2 * kTile] = src[(int64_t)w * ld];
+  compact_tile(rec, ld, W, begin, pcnt, rule, blockIdx.x, gridDim.x, comp,
+               counts);
 }
 
 __global__ void __launch_bounds__(kTile)
@@ -145,8 +104,8 @@ int lgbm_record_compact(const int* rec, int64_t ld, int W, int64_t begin,
   if (nt > 0)
     compact_kernel<<<(unsigned)nt, kTile, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-        rec, ld, W, begin, pcnt, fword, fshift, fmask, thr, is_cat, comp,
-        counts);
+        rec, ld, W, begin, pcnt, SplitRule{fword, fshift, fmask, thr, is_cat},
+        comp, counts);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,14 @@
 """GBDT boosting driver.
 
 Counterpart of lightgbm_tpu/models/gbdt.py for the slice: single-device
-leaf-wise growth, on the record route on the card and the order-based
-route on the CPU (``_leafwise_hist_fn_raw``).  Each iteration computes the
-objective's gradients, re-draws the bagging mask and the feature sample
-(numpy RandomState, draw for draw the JAX package's), grows one tree per
-class, applies shrinkage, updates train scores through the final row ->
-leaf map and valid scores through a binned walk.  Model text save/load is
-the reference format, byte-compatible with the JAX package's.
+leaf-wise growth, on the mega or record route on the card and the
+order-based route on the CPU (``_leafwise_hist_fn_raw``, ``_fuse_hist``).
+Each iteration computes the objective's gradients, re-draws the bagging
+mask and the feature sample (numpy RandomState, draw for draw the JAX
+package's), grows one tree per class, applies shrinkage, updates train
+scores through the final row -> leaf map and valid scores through a
+binned walk.  Model text save/load is the reference format,
+byte-compatible with the JAX package's.
 
 Not ported in this slice (ROADMAP queue A), and refused with
 NotImplementedError rather than ignored: depthwise/hybrid growth,
@@ -36,6 +37,19 @@ from .tree import (Tree, empty_tree, finalize_thresholds_device,
 # leaf_count/internal_count ride the float32 histogram count channel,
 # integer-exact only up to 2**24 rows (lightgbm_tpu/learners/serial.py:78)
 F32_COUNT_EXACT_ROWS = 1 << 24
+
+
+def fuse_hist_fits(F: int, num_bins: int) -> bool:
+    """The JAX package's gate on its mega route under its default
+    ``prefix`` routing (serial.py:520-536): round_up(F, 8) *
+    round_up(num_bins, 128) * 16 bytes <= 4 MiB.  The figure is the TPU
+    kernel's VMEM budget for its histogram block and means nothing on the
+    card; it is kept only so that both packages take the same route, and
+    so grow comparable trees, at every shape."""
+    def up(x, m):
+        return -(-x // m) * m
+
+    return up(F, 8) * up(num_bins, 128) * 16 <= 1 << 22
 
 
 def check_supported(config: Config) -> None:
@@ -183,25 +197,32 @@ class GBDT:
     # ------------------------------------------------------------------ train
     def _leafwise_hist_fn_raw(self):
         """The record-window histogram that selects ``grow_tree``'s record
-        route (gbdt.py:413-432): on a CUDA device with float32 histograms,
-        unless ``LGBM_TPU_OPT_HISTS=0`` (the JAX package's knob, read per
-        call as it reads it).  Otherwise None, the order route — always on
-        the CPU, as the JAX package's is None off the TPU.  At the bench
-        shape the JAX package takes the fused mega route (kernel 8) here;
-        until that kernel is ported the port takes the record route."""
+        or mega route (gbdt.py:413-432): on a CUDA device with float32
+        histograms, unless ``LGBM_TPU_OPT_HISTS=0`` (the JAX package's knob,
+        read per call as it reads it).  Otherwise None, the order route —
+        always on the CPU, as the JAX package's is None off the TPU."""
         if (self.device.type == "cuda"
                 and self.config.hist_dtype == "float32"
                 and os.environ.get("LGBM_TPU_OPT_HISTS", "1") != "0"):
             return histogram_record_window
         return None
 
+    def _fuse_hist(self) -> bool:
+        """Whether a record-window route is the mega route (kernel 8), as
+        serial.py:536 decides it: unless ``LGBM_TPU_FUSE_HIST=0`` (the JAX
+        package's knob, read per call here), and where ``fuse_hist_fits``."""
+        return (os.environ.get("LGBM_TPU_FUSE_HIST", "1") != "0"
+                and fuse_hist_fits(self._bins_T.shape[0], self._num_bins))
+
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              feature_mask: torch.Tensor):
         """One tree on the current bagging mask: (tree, leaf_id)."""
+        raw = self._leafwise_hist_fn_raw()
         return grow_tree(self._bins_T, grad, hess, self._bag_mask,
                          feature_mask, self._nbpf, self._is_cat,
                          self._params, self._num_bins, self.max_leaves,
-                         hist_fn_raw=self._leafwise_hist_fn_raw())
+                         hist_fn_raw=raw,
+                         fuse_hist=raw is not None and self._fuse_hist())
 
     def train_one_iter(self) -> bool:
         """One boosting iteration (gbdt.cpp:217-252).  Returns True when

@@ -1,5 +1,6 @@
 """The port's ops: the CUDA kernels, their wrappers and their plain PyTorch
-versions (histogram, split search, the packed record's partition)."""
+versions (histogram, split search, the packed record's partition, the mega
+route's split step)."""
 
 import importlib
 from typing import Dict
@@ -12,6 +13,7 @@ KERNEL_COUNTERS = {
     "K4": ("cuda_search", "UPDATE_LAUNCHES"),
     "K6": ("cuda_record", "COMPACT_LAUNCHES"),
     "K7": ("cuda_record", "PLACE_LAUNCHES"),
+    "K8": ("cuda_split_step", "LAUNCHES"),
 }
 
 

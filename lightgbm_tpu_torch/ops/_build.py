@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface, ``build/kernels/lib<name>.so`` at the repository root
-(``build/`` is git-ignored), and loaded with ``ctypes``.  Libraries are
-built at first use and rebuilt when their source is newer; ``build_all``
-starts one ``nvcc`` per source, all at once.  A failed build raises — the
-port has no fallback to the plain PyTorch versions on a CUDA tensor.
+(``build/`` is git-ignored), and loaded with ``ctypes``.  The sources share
+device code through the headers ``csrc/*.cuh``.  Libraries are built at
+first use and rebuilt when their source or any header is newer;
+``build_all`` starts one ``nvcc`` per source, all at once.  A failed build
+raises — the port has no fallback to the plain PyTorch versions on a CUDA
+tensor.
 
 Only sources in the repository are built.  Each library's ``nvcc -Xptxas
 -v`` report (registers, shared memory, spills per kernel) is kept beside
@@ -15,6 +17,7 @@ it as ``lib<name>.ptxas.txt``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -25,7 +28,7 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("histogram", "search", "record")
+SOURCES = ("histogram", "search", "record", "split_step")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no contracted multiply-adds: the kernels' f32 arithmetic must be the
@@ -56,9 +59,14 @@ def ptxas_report(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    shared header (a header edit rebuilds every source)."""
     so = lib_path(name)
-    src = os.path.join(CSRC, f"{name}.cu")
-    return not os.path.exists(so) or os.path.getmtime(src) > os.path.getmtime(so)
+    if not os.path.exists(so):
+        return True
+    deps = [os.path.join(CSRC, f"{name}.cu")] + glob.glob(
+        os.path.join(CSRC, "*.cuh"))
+    return max(os.path.getmtime(d) for d in deps) > os.path.getmtime(so)
 
 
 def _start(name: str) -> subprocess.Popen:

@@ -1,13 +1,14 @@
 """The record partition's CUDA kernels: K6 (compact) and K7 (place).
 
 Counterparts of lightgbm_tpu/ops/record.py ``partition_window``'s
-compaction kernel and ``place_runs``.  ``partition_window_cuda`` is what
-``ops/record.partition_window`` runs on a CUDA record: K6 compacts the
+compaction kernel and ``place_runs``.  On a CUDA record
+``ops/record.partition_window`` runs them in turn: K6 compacts the
 window's tiles into ``comp`` (every row but the leaf id) and writes the
 per-tile counts, one torch cumsum turns the counts into run offsets and
 the left total (the JAX package computes them in XLA outside its kernels
 too), and K7 copies the runs back into the record at their offsets and
-stamps the child ids.  Each wrapper adds one
+stamps the child ids.  K7 also places K8's output on the mega route
+(``ops/record.place_window``).  Each wrapper adds one
 to its launch count when it launches its kernel (csrc/record.cu says what
 they replace, their bound and their design).  The plain versions are in
 ops/record.py.
@@ -123,11 +124,3 @@ def place_cuda(rec: torch.Tensor, comp: torch.Tensor, counts: torch.Tensor,
     if nt:
         PLACE_LAUNCHES += 1
     return nleft
-
-
-def partition_window_cuda(rec, f, thr, is_cat, begin, pcnt, left_leaf,
-                          right_leaf, k) -> torch.Tensor:
-    """K6 then K7; returns nleft as a 0-d tensor on the card (nothing is
-    read on the host here)."""
-    comp, counts = compact_cuda(rec, f, thr, is_cat, begin, pcnt, k)
-    return place_cuda(rec, comp, counts, begin, pcnt, left_leaf, right_leaf)

@@ -6,7 +6,8 @@ It is the CPU path of ``ops/cuda_histogram.histogram_single_leaf`` and
 the oracle the CUDA kernel is held against on the card; nothing on the
 training path calls it for a CUDA tensor.  ``histogram_record_window`` is
 the same sums over a window of the packed record (ops/record.py), the
-plain version of kernel 1'.
+plain version of kernel 1'; with a go mask it is the left child's
+histogram of kernel 8 (ops/record.py ``split_step_plain``).
 
 The sums follow the kernel's order: rows in blocks of ``CHUNK_ROWS``,
 each block summed in row order (``index_add_`` is sequential on the
@@ -16,6 +17,8 @@ kernel see the same histograms.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -45,10 +48,16 @@ def histogram_feature_major(bins_T: torch.Tensor, grad: torch.Tensor,
 
 
 def histogram_record_window(rec: torch.Tensor, begin: int, cnt: int, F: int,
-                            k: int, num_bins: int) -> torch.Tensor:
+                            k: int, num_bins: int,
+                            go: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Columns ``[begin, begin+cnt)`` of the ``[W, n]`` record (``k`` bins
     per word) -> [F, num_bins, 3] float32: ``unpack_window`` then
-    ``histogram_feature_major``, in the same summation order."""
+    ``histogram_feature_major``, in the same summation order.  With ``go``
+    ([cnt] bool) each column's mask is multiplied by its go flag, so only
+    the left-going columns count (the JAX package's ``mw = mrow * govf``,
+    record.py:485)."""
     bins, g, h, m = unpack_window(rec[:, begin:begin + cnt], F, k,
                                   torch.uint8 if k == 4 else torch.uint16)
+    if go is not None:
+        m = m * go.to(m.dtype)
     return histogram_feature_major(bins, g, h, m, num_bins)

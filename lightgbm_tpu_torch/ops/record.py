@@ -1,4 +1,4 @@
-"""Leaf-sorted packed training record: the record route's partition.
+"""Leaf-sorted packed training record: the record and mega routes' steps.
 
 Counterpart of lightgbm_tpu/ops/record.py.  The record route keeps the
 training rows physically in leaf order instead of permuting row ids: every
@@ -41,6 +41,14 @@ On CPU tensors ``partition_window`` runs the plain versions below; on CUDA
 tensors it launches the two kernels (ops/cuda_record.py, csrc/record.cu).
 The plain versions write the same bytes the kernels write, so a record
 partitioned either way is bitwise the same.
+
+The mega route's step (``split_step``) is the JAX package's
+``split_step_window(..., return_comp=True)`` (record.py:994): the go
+flags, the compacted tiles and their counts (K6's output), the left
+child's histogram over the whole parent window, the subtraction, both
+buffer rows and both searches in one call (kernel 8 on the card,
+ops/cuda_split_step.py, csrc/split_step.cu); ``place_window`` (K7) then
+places the tiles.  ``split_step_plain`` composes the plain versions.
 """
 
 from __future__ import annotations
@@ -204,6 +212,25 @@ def place_runs(rec: torch.Tensor, comp: torch.Tensor, cl: torch.Tensor,
     rec[lrow, begin + nleft:begin + pcnt] = right_leaf
 
 
+def place_window(rec: torch.Tensor, comp: torch.Tensor, counts: torch.Tensor,
+                 begin: int, pcnt: int, left_leaf: int,
+                 right_leaf: int) -> torch.Tensor:
+    """The runs of ``comp`` with their per-tile ``counts`` [2, nt] (K6's or
+    K8's output for window ``[begin, begin+pcnt)``) placed back into that
+    window of ``rec`` in place, the child ids stamped.  Returns nleft as a
+    0-d tensor on the record's device.  A CPU record takes ``place_runs``,
+    a CUDA record kernel 7."""
+    if rec.device.type != "cpu":
+        from . import cuda_record  # it imports this module
+
+        return cuda_record.place_cuda(rec, comp, counts, begin, pcnt,
+                                      left_leaf, right_leaf)
+    nleft = _run_offsets(counts)[1]
+    place_runs(rec, comp, counts[0], counts[1], begin, pcnt, int(nleft),
+               left_leaf, right_leaf)
+    return nleft
+
+
 def partition_window(rec: torch.Tensor, f: int, thr: int, is_cat: bool,
                      begin: int, pcnt: int, left_leaf: int, right_leaf: int,
                      k: int) -> torch.Tensor:
@@ -217,12 +244,67 @@ def partition_window(rec: torch.Tensor, f: int, thr: int, is_cat: bool,
     if rec.device.type != "cpu":
         from . import cuda_record  # it imports this module
 
-        return cuda_record.partition_window_cuda(
-            rec, f, thr, is_cat, begin, pcnt, left_leaf, right_leaf, k)
+        comp, counts = cuda_record.compact_cuda(rec, f, thr, is_cat, begin,
+                                                pcnt, k)
+    else:
+        go = go_flags(rec, f, thr, is_cat, begin, pcnt, k)
+        comp, cl, cr = compact_tiles(
+            rec[:leaf_row(rec.shape[0]), begin:begin + pcnt], go)
+        counts = torch.stack([cl, cr])
+    return place_window(rec, comp, counts, begin, pcnt, left_leaf,
+                        right_leaf)
+
+
+def split_step_plain(rec: torch.Tensor, hists: torch.Tensor, f: int,
+                     thr: int, is_cat: bool, begin: int, pcnt: int,
+                     parent: int, new_leaf: int, scal, meta: torch.Tensor,
+                     k: int, num_bins: int):
+    """Plain version of kernel 8: ``go_flags``; ``compact_tiles`` (K6's
+    comp and counts); the left child's histogram, the record-window
+    histogram of ``[begin, begin+pcnt)`` with the mask times go, summed in
+    the kernel's 2048-column chunks from ``begin``; then ``search2_update``
+    with the left child as the given one (``hists[parent]`` <- left,
+    ``hists[new_leaf]`` <- parent - left, both searched).  Returns (comp,
+    counts [2, nt], rows [2, 16]) with the left count in ``rows[0, 11]``
+    (exact in float32 under the 2**24-row envelope).  The record is only
+    read.
+
+    Not carried over from the JAX ``split_step_window``: its [P, Fp, 4, Bp]
+    histogram layout and the bin-0 totals it writes into padded features
+    (record.py:505-516), the aliased record pass-through of ``direct_read``
+    (:740-768, :1091-1097), and ``do_split`` (every call is a real
+    split)."""
+    from .histogram import histogram_record_window  # it imports this module
+    from .split import search2_update
+
+    F = hists.shape[1]
+    if hists.shape[2] != num_bins:
+        raise ValueError(f"hists has {hists.shape[2]} bins, not {num_bins}")
     go = go_flags(rec, f, thr, is_cat, begin, pcnt, k)
     comp, cl, cr = compact_tiles(
         rec[:leaf_row(rec.shape[0]), begin:begin + pcnt], go)
-    nleft = cl.sum()
-    place_runs(rec, comp, cl, cr, begin, pcnt, int(nleft), left_leaf,
-               right_leaf)
-    return nleft
+    h_left = histogram_record_window(rec, begin, pcnt, F, k, num_bins, go=go)
+    rows = search2_update(hists, h_left, parent, new_leaf, True, scal, meta)
+    rows[0, 11] = cl.sum()
+    return comp, torch.stack([cl, cr]), rows
+
+
+def split_step(rec: torch.Tensor, hists: torch.Tensor, f: int, thr: int,
+               is_cat: bool, begin: int, pcnt: int, parent: int,
+               new_leaf: int, scal, meta: torch.Tensor, k: int,
+               num_bins: int):
+    """One split step of the mega route over the parent's window ``[begin,
+    begin+pcnt)``, split on feature ``f`` at bin ``thr``; ``hists`` [L, F,
+    num_bins, 3] rows ``parent`` (the parent, then the left child) and
+    ``new_leaf`` (the right child) are updated in place; ``scal`` and
+    ``meta`` as for ``search2_rows``.  Returns (comp, counts, rows) as
+    ``split_step_plain`` does; ``place_window`` then partitions the record.
+    A CPU record takes the plain version, a CUDA record kernel 8."""
+    if rec.device.type != "cpu":
+        from . import cuda_split_step  # it imports this module
+
+        return cuda_split_step.split_step_cuda(
+            rec, hists, f, thr, is_cat, begin, pcnt, parent, new_leaf, scal,
+            meta, k, num_bins)
+    return split_step_plain(rec, hists, f, thr, is_cat, begin, pcnt, parent,
+                            new_leaf, scal, meta, k, num_bins)

@@ -6,8 +6,10 @@ Trains the bench model (bench.py's config: binary, HIGGS-like rows from
 seed 7, 28 features, 255 bins, 255 leaves) through the port's entry
 points, warms one tree, then grows ``--trees`` trees under
 ``torch.profiler`` with CPU and CUDA activities (after the same number
-timed without it).  It traces whatever route ``train`` takes: the record
-route by default, the order route under ``LGBM_TPU_OPT_HISTS=0``.
+timed without it).  It traces whatever route ``train`` takes: the mega
+route by default (K8 ``split_step_kernel`` + K7 per split), the record
+route under ``LGBM_TPU_FUSE_HIST=0``, the order route under
+``LGBM_TPU_OPT_HISTS=0``.
 Prints one JSON object: host wall per tree with and without the profiler,
 device busy time per tree (the union of kernel and copy intervals on the
 card), the idle share (1 - busy / wall), the device time per kernel name

@@ -11,6 +11,8 @@ as tests/test_partition_routing.py runs it.  The kernels themselves run
 only on the card (chip_smoke.py holds them against these plain versions).
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -19,8 +21,9 @@ import torch
 
 import lightgbm_tpu.ops.record as JR
 from lightgbm_tpu.learners.serial import _go_i32
-from lightgbm_tpu_torch.ops import cuda_record
+from lightgbm_tpu_torch.ops import _build, cuda_record, cuda_split_step
 from lightgbm_tpu_torch.ops import record as R
+from lightgbm_tpu_torch.ops.cuda_search import pack_meta
 
 
 def _data(n, F, B, dt, seed, bag_frac=0.7):
@@ -163,7 +166,8 @@ def test_cuda_entries_have_no_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a card is present; the entries would launch the kernels")
     rec = _port_rec(_data(700, 6, 16, np.uint8, seed=1))
-    before = (cuda_record.COMPACT_LAUNCHES, cuda_record.PLACE_LAUNCHES)
+    before = (cuda_record.COMPACT_LAUNCHES, cuda_record.PLACE_LAUNCHES,
+              cuda_split_step.LAUNCHES)
     with pytest.raises((RuntimeError, ValueError)):
         cuda_record.compact_cuda(rec, 0, 5, False, 0, 700, 4)
     with pytest.raises((RuntimeError, ValueError)):
@@ -171,7 +175,39 @@ def test_cuda_entries_have_no_cpu_fallback():
                                                 dtype=torch.int32),
                                torch.zeros((2, 2), dtype=torch.int32), 0,
                                700, 0, 1)
-    assert (cuda_record.COMPACT_LAUNCHES, cuda_record.PLACE_LAUNCHES) == before
+    meta = pack_meta(torch.ones(6, dtype=torch.bool), torch.full((6,), 16),
+                     torch.zeros(6, dtype=torch.bool), "cpu")
+    with pytest.raises((RuntimeError, ValueError)):
+        cuda_split_step.split_step_cuda(
+            rec, torch.zeros((3, 6, 16, 3)), 0, 5, False, 0, 700, 0, 1,
+            [1.0] + [0.0] * 11, meta, 4, 16)
+    assert (cuda_record.COMPACT_LAUNCHES, cuda_record.PLACE_LAUNCHES,
+            cuda_split_step.LAUNCHES) == before
+
+
+def test_build_treats_a_newer_header_as_stale(tmp_path, monkeypatch):
+    """A library is rebuilt when its source or any shared csrc/*.cuh header
+    is newer than it, so an edited header never leaves a stale kernel
+    loaded."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(build))
+    src, hdr = csrc / "k.cu", csrc / "shared.cuh"
+    so = build / "libk.so"
+    for path, t in ((src, 100), (hdr, 100), (so, 200)):
+        path.write_text("")
+        os.utime(path, (t, t))
+    assert not _build._stale("k")
+    os.utime(hdr, (300, 300))
+    assert _build._stale("k")
+    os.utime(so, (400, 400))
+    assert not _build._stale("k")
+    os.utime(src, (500, 500))
+    assert _build._stale("k")
+    so.unlink()
+    assert _build._stale("k")
 
 
 @pytest.mark.cuda

@@ -17,7 +17,9 @@ JAX package's record route (its raw histogram and fused search-update
 kernels in interpret mode, the mega kernel switched off) on
 tests/test_opt_layout.py's four cases, whose integer-valued gradients make
 every histogram sum exact in any order; and against the port's own order
-route, which it must match bitwise.
+route, which it must match bitwise.  The mega route (``grow_tree(...,
+hist_fn_raw=..., fuse_hist=True)``) is held against the JAX package's mega
+route (``split_step_window`` in interpret mode) on the same four cases.
 """
 
 import numpy as np
@@ -38,9 +40,11 @@ from lightgbm_tpu.ops.pallas_histogram import histogram_single_leaf_raw
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.config import Config
+import lightgbm_tpu_torch.learners.serial as port_serial
+import lightgbm_tpu_torch.models.gbdt as port_gbdt
 from lightgbm_tpu_torch.learners.serial import TreeLearnerParams, grow_tree
 from lightgbm_tpu_torch.metrics import auc
-from lightgbm_tpu_torch.models.gbdt import GBDT
+from lightgbm_tpu_torch.models.gbdt import GBDT, fuse_hist_fits
 from lightgbm_tpu_torch.ops.cuda_histogram import histogram_record_window
 
 STRUCT = ("split_feature", "threshold_bin", "decision_type", "left_child",
@@ -268,9 +272,9 @@ def test_record_route_matches_jax_record_route(name, monkeypatch):
     assert not np.isin(used, np.flatnonzero(~fmask)).any()
 
 
-def _train_routes(monkeypatch, record: bool):
-    """The wide case through ``train`` on the CPU, on the record route
-    (the card's default, forced here) or the order route; returns the
+def _train_routes(monkeypatch, route: str):
+    """The wide case through ``train`` on the CPU, on the mega or record
+    route (the card's, forced here) or the order route; returns the
     booster and every tree's leaf_id."""
     X, y, extra, max_bin = _case_wide()
     leaf_ids = []
@@ -283,10 +287,11 @@ def _train_routes(monkeypatch, record: bool):
 
     params = {"objective": "binary", "min_data_in_leaf": 20,
               "verbose": -1, **extra}
+    raw = None if route == "order" else histogram_record_window
     with monkeypatch.context() as mp:
         mp.setattr(GBDT, "grow", spy)
-        mp.setattr(GBDT, "_leafwise_hist_fn_raw",
-                   lambda self: histogram_record_window if record else None)
+        mp.setattr(GBDT, "_leafwise_hist_fn_raw", lambda self: raw)
+        mp.setenv("LGBM_TPU_FUSE_HIST", "0" if route == "record" else "1")
         bst = lt.train(params, lt.Dataset(X, label=y, max_bin=max_bin,
                                           device="cpu"),
                        num_boost_round=3, device="cpu")
@@ -294,8 +299,8 @@ def _train_routes(monkeypatch, record: bool):
 
 
 def test_record_route_bitwise_equals_order_route(monkeypatch):
-    b_rec, lid_rec = _train_routes(monkeypatch, True)
-    b_ord, lid_ord = _train_routes(monkeypatch, False)
+    b_rec, lid_rec = _train_routes(monkeypatch, "record")
+    b_ord, lid_ord = _train_routes(monkeypatch, "order")
     trees_r, trees_o = b_rec._gbdt.models, b_ord._gbdt.models
     assert len(trees_r) == len(trees_o) == 3
     for a, b in zip(trees_r, trees_o):
@@ -313,3 +318,113 @@ def test_record_route_is_off_on_the_cpu():
     bst = lt.train({"objective": "binary", "num_leaves": 7, "verbose": -1},
                    lt.Dataset(X, label=y, device="cpu"), 1, device="cpu")
     assert bst._gbdt._leafwise_hist_fn_raw() is None
+
+
+# -------------------------------------------------------------- mega route
+@pytest.mark.parametrize("name", ["seed0", "seed3", "bagging_categorical",
+                                  "u16_feature_mask"])
+def test_mega_route_matches_jax_mega_route(name, monkeypatch):
+    import lightgbm_tpu.ops.record as jax_record
+
+    bins, grad, hess, bag, fmask, nbpf, iscat, B, min_data = _opt_case(name)
+    L = 16
+    # the JAX mega route (serial.py:774-816): split_step_window + the
+    # placement, both in interpret mode.  The spy fails the test if the
+    # JAX side took another route; grow_tree imports the kernel from the
+    # module when it traces, and the fresh ``raw`` closure forces a trace.
+    monkeypatch.setattr(jax_serial, "_FUSE_HIST_ENV", True)
+    calls = []
+    step = jax_record.split_step_window
+
+    def spy(*a, **kw):
+        calls.append(kw["cap"])
+        return step(*a, **kw)
+
+    monkeypatch.setattr(jax_record, "split_step_window", spy)
+
+    def raw(b, g, h, m):
+        return histogram_single_leaf_raw(b, g, h, m, num_bins=B,
+                                         interpret=True)
+
+    f32 = jnp.float32
+    tj, lid_j = jax_grow_tree(
+        *(jnp.asarray(a) for a in (bins, grad, hess, bag, fmask, nbpf,
+                                   iscat)),
+        JaxParams(f32(min_data), f32(0), f32(0), f32(0), f32(0),
+                  jnp.int32(-1)),
+        num_bins=B, max_leaves=L, hist_fn_raw=raw)
+    assert calls, "the JAX side did not take its mega route"
+    tt, lid_t = grow_tree(
+        *(torch.from_numpy(a) for a in (bins, grad, hess, bag, fmask, nbpf,
+                                        iscat)),
+        TreeLearnerParams(float(min_data), 0.0, 0.0, 0.0, 0.0, -1),
+        num_bins=B, max_leaves=L, hist_fn_raw=histogram_record_window,
+        fuse_hist=True)
+    assert tt.num_leaves == int(tj.num_leaves) > 4
+    for k in STRUCT:
+        np.testing.assert_array_equal(getattr(tt, k).numpy(),
+                                      np.asarray(getattr(tj, k)), err_msg=k)
+    np.testing.assert_array_equal(lid_t.numpy(), np.asarray(lid_j))
+    for k in ("leaf_value", "internal_value", "split_gain"):
+        np.testing.assert_allclose(getattr(tt, k).numpy(),
+                                   np.asarray(getattr(tj, k)), rtol=2e-5,
+                                   atol=2e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("F,B", [(28, 255), (1100, 256), (248, 256),
+                                 (256, 256), (7, 23), (5, 300), (64, 1000)])
+def test_fuse_hist_gate_is_the_jax_gate(F, B):
+    """The port's gate is serial.py:520-536's under prefix routing: the
+    bench shape takes the mega route, F=1100 x 256 bins the record
+    route."""
+    from lightgbm_tpu.ops.pallas_histogram import FGROUP
+    from lightgbm_tpu.ops.record import ROUTING
+
+    assert ROUTING == "prefix"  # the JAX default, whose gate is 4 MiB
+    jax_gate = (jax_serial._round_up(F, FGROUP)
+                * jax_serial._round_up(B, 128) * 16 <= (1 << 22))
+    assert fuse_hist_fits(F, B) == jax_gate
+    assert fuse_hist_fits(28, 255) and not fuse_hist_fits(1100, 256)
+
+
+def test_route_knobs(monkeypatch):
+    """``train`` hands grow_tree the route the knobs select: the order
+    route on the CPU; with a record-window histogram (the card's) the mega
+    route by default and the record route under LGBM_TPU_FUSE_HIST=0,
+    read per call."""
+    X, y = _case_small()[:2]
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append((kw["hist_fn_raw"], kw["fuse_hist"]))
+        return grow_tree(*a, **kw)
+
+    monkeypatch.setattr(port_gbdt, "grow_tree", spy)
+    monkeypatch.delenv("LGBM_TPU_FUSE_HIST", raising=False)
+    bst = lt.train({"objective": "binary", "num_leaves": 7, "verbose": -1},
+                   lt.Dataset(X, label=y, device="cpu"), 1, device="cpu")
+    assert seen == [(None, False)]
+    gb = bst._gbdt
+    monkeypatch.setattr(GBDT, "_leafwise_hist_fn_raw",
+                        lambda self: histogram_record_window)
+    for env, fuse in ((None, True), ("0", False), ("1", True)):
+        if env is None:
+            monkeypatch.delenv("LGBM_TPU_FUSE_HIST", raising=False)
+        else:
+            monkeypatch.setenv("LGBM_TPU_FUSE_HIST", env)
+        gb.train_one_iter()
+        assert seen[-1] == (histogram_record_window, fuse)
+
+
+def test_mega_route_host_syncs(monkeypatch):
+    """Through ``train`` on the CPU with the mega route forced: one host
+    sync per split and two per tree at the root, against two per split on
+    the record route."""
+    syncs = {}
+    for route in ("mega", "record"):
+        port_serial.HOST_SYNCS = 0
+        bst, _ = _train_routes(monkeypatch, route)
+        splits = sum(t.num_leaves - 1 for t in bst._gbdt.models)
+        syncs[route] = (port_serial.HOST_SYNCS, splits)
+    assert syncs["mega"][0] == 2 * 3 + syncs["mega"][1]
+    assert syncs["record"][0] == 2 * 3 + 2 * syncs["record"][1]

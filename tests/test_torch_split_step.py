@@ -1,0 +1,211 @@
+"""The mega route's split step (lightgbm_tpu_torch.ops.record.split_step, the
+plain version of kernel 8) against the JAX package's ``split_step_window(...,
+return_comp=True)`` in interpret mode, and the placement of its output
+(``place_window``) against the JAX ``place_runs(..., counts=(cl, cr))``.
+
+The JAX inputs are built as lightgbm_tpu/analysis/hlo_audit.py builds them
+(``build_record`` with an ``n_pad`` tail, ``_pack_scal``, ``_pack_meta``)
+and its [P, Fp, 4, Bp] histogram rows are read back as the port's [P, F,
+B, 3] through ``h[:, :F, :3, :B].transpose(0, 1, 3, 2)``.  The tile
+counts, comp's valid lanes (rows ``[:W-1]``, the port's comp holding every
+row but the leaf id) and nleft must agree bitwise, and so must the record
+after the placement (rows ``[:Wb+5]`` over the real columns).  With
+integer-valued gradients every histogram sum is exact in any order, so the
+buffer rows and the search rows (slots 0-10) agree bitwise too.  With
+float gradients the two sum the left child in different orders (the port
+in 2048-column chunks, the JAX kernel per 512-column tile on the MXU):
+the left child's histogram within rtol 1e-5 / atol 1e-6; the right child
+is parent - left, so it carries the left child's rounding against the
+parent's magnitude, within 1e-5 * (the parent's sums of |g|, |h|, m) +
+1e-6 (a bin that all goes left is 0 on one side and a few ulps of the
+parent on the other); gains
+within rtol 1e-4, the gap PR 1 measured between the JAX package's own two
+histogram routes (tests/test_torch_slice.py); the six child sums and the
+two outputs are differences of those sums and are held to rtol 1e-4 /
+atol 1e-5.  A child
+with no valid split is compared on (gain, feature, threshold) only: the
+JAX kernel then leaves its stats zero, the port takes them at (feature 0,
+bin B-1) as its plain search does.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+import lightgbm_tpu.ops.record as JR
+from lightgbm_tpu.ops.pallas_search import _pack_meta, _pack_scal
+from lightgbm_tpu_torch.ops import record as R
+from lightgbm_tpu_torch.ops.cuda_search import pack_meta
+from lightgbm_tpu_torch.ops.histogram import histogram_record_window
+
+T = R.TILE
+P, PARENT, NEW = 4, 1, 3
+CONSTS = [3.0, 1e-3, 0.0, 0.5, 0.0]  # min_data, min_hess, l1, l2, min_gain
+
+# (name, n, F, B, dtype, bag_frac, begin, pcnt, f, thr, is_cat)
+CASES = [
+    ("root", 3000, 7, 23, np.uint8, None, 0, 3000, 2, 11, False),
+    ("interior_unaligned", 4000, 7, 23, np.uint8, None, 517, 1300, 4, 9,
+     False),
+    ("all_left", 1200, 6, 16, np.uint8, None, 0, 1200, 1, 15, False),
+    ("all_right", 1200, 6, 16, np.uint8, None, 100, 900, 3, 16, True),
+    ("ragged_tile", 3 * T - 57, 6, 16, np.uint8, None, 0, 3 * T - 57, 2, 7,
+     False),
+    ("u16_300_bins", 1800, 5, 300, np.uint16, None, 0, 1800, 4, 150, False),
+    ("categorical", 2100, 6, 16, np.uint8, None, 0, 2100, 5, 3, True),
+    ("bagging", 2500, 7, 23, np.uint8, 0.7, 0, 2500, 3, 10, False),
+]
+
+
+def _data(case, integer):
+    _, n, F, B, dt, bag, *_ = case
+    rng = np.random.RandomState(n + F)
+    bins = rng.randint(0, B, (F, n)).astype(dt)
+    if integer:
+        g = rng.randint(-8, 9, n).astype(np.float32)
+        h = rng.randint(1, 5, n).astype(np.float32)
+    else:
+        g = rng.randn(n).astype(np.float32)
+        h = (np.abs(rng.randn(n)) + 0.1).astype(np.float32)
+    m = (np.ones(n, np.float32) if bag is None
+         else (rng.rand(n) < bag).astype(np.float32))
+    return bins, g, h, m
+
+
+def _inputs(case, integer):
+    """The port's record, buffer, scal and meta, and the split's go flags."""
+    _, n, F, B, dt, _, begin, pcnt, f, thr, is_cat = case
+    arrs = _data(case, integer)
+    k = R.bins_per_word(torch.from_numpy(arrs[0]).dtype)
+    rec = R.build_record(*(torch.from_numpy(a) for a in arrs))
+    hists = torch.zeros((P, F, B, 3), dtype=torch.float32)
+    hists[PARENT] = histogram_record_window(rec, begin, pcnt, F, k, B)
+    go = R.go_flags(rec, f, thr, is_cat, begin, pcnt, k).numpy()
+    g, h, m = (a[begin:begin + pcnt] for a in arrs[1:])
+    scal = [1.0]
+    for side in (go, ~go):
+        mw = m * side
+        scal += [float(np.sum(g * mw, dtype=np.float32)),
+                 float(np.sum(h * mw, dtype=np.float32)),
+                 float(np.sum(mw, dtype=np.float32))]
+    scal += CONSTS
+    iscat = np.zeros(F, bool)
+    iscat[f] = is_cat
+    fmask = np.ones(F, bool)
+    fmask[(f + 1) % F] = False  # one feature out of the sample
+    return arrs, k, rec, hists, scal, fmask, iscat, go
+
+
+def _jax_step(case, arrs, k, hists, scal, fmask, iscat):
+    _, n, F, B, dt, _, begin, pcnt, f, thr, is_cat = case
+    cap = JR.round_up(pcnt, T)
+    jrec = JR.build_record(*(jnp.asarray(a) for a in arrs),
+                           JR.round_up(n, T) + cap)
+    Fp, Bp = JR.round_up(F, 8), JR.round_up(B, 128)
+    jh = np.zeros((P, Fp, 4, Bp), np.float32)
+    jh[:, :F, :3, :B] = hists.numpy().transpose(0, 1, 3, 2)
+    f32 = jnp.float32
+    scal_f = _pack_scal(*(f32(v) for v in scal))
+    meta = _pack_meta(jnp.asarray(fmask), jnp.full(F, B, jnp.int32),
+                      jnp.asarray(iscat), Fp)
+    out = JR.split_step_window(
+        jnp.asarray(jh), jrec, jnp.int32(begin), jnp.int32(pcnt),
+        jnp.bool_(True), jnp.int32(f), jnp.int32(thr), jnp.bool_(is_cat),
+        jnp.int32(PARENT), jnp.int32(NEW), scal_f, meta, F=F, cap=cap, k=k,
+        return_comp=True, interpret=True)
+    hists_new, comp, nleft, res, cl, cr, rec_pass = out
+    hj = np.asarray(hists_new)[:, :F, :3, :B].transpose(0, 1, 3, 2)
+    return (hj, np.asarray(comp), int(nleft), np.asarray(res), np.asarray(cl),
+            np.asarray(cr), rec_pass, cap)
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_split_step_matches_jax(case, integer):
+    name, n, F, B, dt, _, begin, pcnt, f, thr, is_cat = case
+    arrs, k, rec, hists, scal, fmask, iscat, go = _inputs(case, integer)
+    meta = pack_meta(torch.from_numpy(fmask), torch.full((F,), B),
+                     torch.from_numpy(iscat), "cpu")
+    before = rec.clone()
+    jax_in = hists.clone()
+    comp, counts, rows = R.split_step(rec, hists, f, thr, is_cat, begin,
+                                      pcnt, PARENT, NEW, scal, meta, k, B)
+    hj, cj, nl_j, res_j, cl, cr, rec_pass, cap = _jax_step(
+        case, arrs, k, jax_in, scal, fmask, iscat)
+    assert torch.equal(rec, before)  # the step only reads the record
+
+    # compaction: counts, nleft and comp's valid lanes, bitwise
+    W = rec.shape[0]
+    np.testing.assert_array_equal(counts.numpy(), np.stack([cl, cr]))
+    assert int(rows[0, 11]) == nl_j == int(go.sum())
+    if name == "all_left":
+        assert nl_j == pcnt
+    if name == "all_right":
+        assert nl_j == 0
+    for t in range(counts.shape[1]):
+        for lo, c in ((0, cl[t]), (T, cr[t])):
+            np.testing.assert_array_equal(comp[t, :, lo:lo + c].numpy(),
+                                          cj[t, :W - 1, lo:lo + c])
+
+    # buffer rows: left in the parent's row, right in the new leaf's
+    rows_np, out = rows.numpy(), hists.numpy()
+    assert not out[[0, 2]].any()
+    if integer:
+        np.testing.assert_array_equal(out, hj)
+    else:
+        np.testing.assert_allclose(out[PARENT], hj[PARENT], rtol=1e-5,
+                                   atol=1e-6)
+        bins, g, h, m = arrs
+        absrec = R.build_record(*(torch.from_numpy(a) for a in (
+            bins, np.abs(g), np.abs(h), m)))
+        mag = histogram_record_window(absrec, begin, pcnt, F, k, B).numpy()
+        assert (np.abs(out[NEW] - hj[NEW]) <= 1e-5 * mag + 1e-6).all()
+
+    # search rows
+    np.testing.assert_array_equal(rows_np[:, 1:3], res_j[:, 1:3])
+    for c in range(2):
+        if res_j[c, 1] < 0:
+            assert rows_np[c, 0] == res_j[c, 0] == -np.inf
+            continue
+        if integer:
+            np.testing.assert_array_equal(rows_np[c, :11], res_j[c, :11])
+        else:
+            np.testing.assert_allclose(rows_np[c, 0], res_j[c, 0], rtol=1e-4)
+            np.testing.assert_allclose(rows_np[c, 3:11], res_j[c, 3:11],
+                                       rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(rows_np[1, 11:], 0)
+    np.testing.assert_array_equal(rows_np[0, 12:], 0)
+
+    # the placement of the step's output
+    nleft = R.place_window(rec, comp, counts, begin, pcnt, PARENT, NEW)
+    assert int(nleft) == nl_j
+    jrec = JR.place_runs(
+        rec_pass, jnp.asarray(cj), None, jnp.int32(begin), jnp.int32(pcnt),
+        jnp.int32(nl_j), jnp.bool_(True), jnp.int32(PARENT), jnp.int32(NEW),
+        cap=cap, leaf_row=JR.num_words(F, k) + 4, interpret=True,
+        counts=(jnp.asarray(cl), jnp.asarray(cr)))
+    np.testing.assert_array_equal(rec.numpy(), np.asarray(jrec)[:W, :n])
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
+    for case in CASES:
+        name, n, F, B, dt, _, begin, pcnt, f, thr, is_cat = case
+        arrs, k, rec, hists, scal, fmask, iscat, _ = _inputs(case, False)
+        meta = pack_meta(torch.from_numpy(fmask), torch.full((F,), B),
+                         torch.from_numpy(iscat), "cpu")
+        hd = hists.cuda()
+        args = (f, thr, is_cat, begin, pcnt, PARENT, NEW, scal)
+        comp, counts, rows = R.split_step(rec, hists, *args, meta, k, B)
+        ck, nk, rk = R.split_step(rec.cuda(), hd, *args, meta.cuda(), k, B)
+        assert torch.equal(nk.cpu(), counts), name
+        assert torch.equal(hd.cpu(), hists), name
+        assert torch.equal(rk.cpu(), rows), name
+        rec_d = rec.cuda()
+        R.place_window(rec, comp, counts, begin, pcnt, PARENT, NEW)
+        R.place_window(rec_d, ck, nk, begin, pcnt, PARENT, NEW)
+        assert torch.equal(rec_d.cpu(), rec), name
