@@ -40,11 +40,26 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    route launched the expected number of times and no other, the host
    syncs per tree, and that train/valid AUC land in the band the JAX
    package recorded for the same data and config;
+   then trains it with ``tree_growth=depthwise`` (the level histogram K1''
+   once per level), depthwise under ``LGBM_TPU_HIST_KERNEL=bsub`` (K2 in
+   its place; trees bitwise the v1 run's) and ``tree_growth=hybrid``
+   (K1'' per phase-1 level and for the resume, then K1 + K3 per split):
+   the same checks, each growth's AUC against the JAX package's for the
+   same growth;
 9. grows 2 trees at 100k rows on the card on all three routes and on the
    CPU (plain versions) on the order and mega routes: the record and order
    routes must be bitwise equal on the card in every tree field and in the
    train scores and structurally identical to the CPU order route, and the
-   card's mega route structurally identical to the CPU's.
+   card's mega route structurally identical to the CPU's; depthwise and
+   hybrid trees on the card structurally identical to the CPU's; under
+   ``bsub``, depthwise and leaf-wise (the order route, K2 + K3) trees
+   bitwise equal to the v1 runs';
+10. (run between 7 and 8, on the bench data) holds the level histogram K1''
+   against its plain version bitwise at the bench shape with the leaf ids
+   of a real depthwise level (255 leaves, most of them empty), with one
+   leaf and with u16 x 300 bins; two launches bitwise equal; K2 bitwise
+   equal to K1'', and K2 with one leaf to K1; times K1'', K2, the plain
+   version and one ``index_add_`` on leaf-bin keys.
 
 Every phase must pass or the script exits non-zero without a result.  The
 line before the last is the kernels' JSON record, the last line the
@@ -70,8 +85,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_FEAT, NUM_BINS, NUM_LEAVES = 28, 255, 255
 LEARNING_RATE, MIN_DATA = 0.1, 100
 ROWS, VALID_ROWS, TREES = 1_000_000, 200_000, 10
-# train/valid AUC of the JAX package on the same data and config (BENCH_r05)
+# train/valid AUC of the JAX package on the same data and config: leaf-wise
+# from BENCH_r05; depthwise and hybrid from the JAX package on the CPU,
+#   JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth depthwise
+#   JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth hybrid
 AUC_TRAIN, AUC_VALID, AUC_TOL = 0.8571, 0.8477, 0.005
+AUC_REF = {"leafwise": (AUC_TRAIN, AUC_VALID),
+           "depthwise": (0.842062, 0.833879),
+           "hybrid": (0.852152, 0.843580)}
+K1PP = "K1″"  # the level histogram's launch counter (ops.KERNEL_COUNTERS)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 STRUCT = ("split_feature", "threshold_bin", "decision_type", "left_child",
@@ -615,18 +637,26 @@ def phase_split_step(torch):
 
 
 # --------------------------------------------------------------- phase 8
-ROUTE_ENV = {"mega": {"LGBM_TPU_OPT_HISTS": "1", "LGBM_TPU_FUSE_HIST": "1"},
-             "record": {"LGBM_TPU_OPT_HISTS": "1",
-                        "LGBM_TPU_FUSE_HIST": "0"},
-             "order": {"LGBM_TPU_OPT_HISTS": "0", "LGBM_TPU_FUSE_HIST": "1"}}
+_V1 = {"LGBM_TPU_OPT_HISTS": "1", "LGBM_TPU_FUSE_HIST": "1",
+       "LGBM_TPU_HIST_KERNEL": "v1"}
+ROUTE_ENV = {"mega": _V1,
+             "record": dict(_V1, LGBM_TPU_FUSE_HIST="0"),
+             "order": dict(_V1, LGBM_TPU_OPT_HISTS="0"),
+             "leafwise-bsub": dict(_V1, LGBM_TPU_HIST_KERNEL="bsub"),
+             "depthwise": _V1,
+             "depthwise-bsub": dict(_V1, LGBM_TPU_HIST_KERNEL="bsub"),
+             "hybrid": _V1}
+GROWTH = {"depthwise": "depthwise", "depthwise-bsub": "depthwise",
+          "hybrid": "hybrid"}  # every other run grows leaf-wise
 
 
 @contextlib.contextmanager
 def route_env(route: str):
-    """The JAX package's two knobs set for ``route`` inside, restored
-    after: on the card "mega" is the default, ``LGBM_TPU_FUSE_HIST=0``
-    selects the record route and ``LGBM_TPU_OPT_HISTS=0`` the order
-    route."""
+    """The JAX package's knobs set for ``route`` inside, restored after:
+    on the card "mega" is the default, ``LGBM_TPU_FUSE_HIST=0`` selects
+    the record route, ``LGBM_TPU_OPT_HISTS=0`` the order route and
+    ``LGBM_TPU_HIST_KERNEL=bsub`` kernel 2 for the histograms (and the
+    order route for leaf-wise growth)."""
     saved = {k: os.environ.get(k) for k in ROUTE_ENV[route]}
     os.environ.update(ROUTE_ENV[route])
     try:
@@ -640,12 +670,14 @@ def route_env(route: str):
 
 
 def reset_counts():
-    """Every kernel's launch count and the host-sync count to 0."""
-    from lightgbm_tpu_torch.learners import serial
+    """Every kernel's launch count, the host-sync count and the depthwise
+    level counts to 0."""
+    from lightgbm_tpu_torch.learners import depthwise, serial
     from lightgbm_tpu_torch.ops import reset_launch_counts
 
     reset_launch_counts()
     serial.HOST_SYNCS = 0
+    depthwise.LEVELS = depthwise.LEVEL_SPLITS = 0
 
 
 def make_bench_data(lt):
@@ -661,12 +693,43 @@ def make_bench_data(lt):
     return params, train_set, valid_set, Xv
 
 
+def _expected(route, trees, levels, level_splits):
+    """Each kernel's launches and the host syncs a run must show: the
+    leaf-wise routes' from the trees; depthwise one level histogram and
+    one sync per level; hybrid's phase 1 the same, then one level pass
+    and one sync for the resume and, per best-first split, K1 + K3 and
+    two syncs."""
+    splits = sum(t.num_leaves - 1 for t in trees)
+    n = len(trees)
+    counts = dict.fromkeys(("K1", "K1'", "K3", "K4", "K6", "K7", "K8",
+                            K1PP, "K2"), 0)
+    growth = GROWTH.get(route, "leafwise")
+    if growth == "depthwise":
+        counts["K2" if route.endswith("bsub") else K1PP] = levels
+        return counts, levels
+    if growth == "hybrid":
+        tail = splits - level_splits
+        counts.update({K1PP: levels + n, "K1": tail, "K3": tail})
+        return counts, levels + n + 2 * tail
+    counts.update({
+        "mega": {"K1'": n, "K3": n, "K7": splits, "K8": splits},
+        "record": {"K1'": n + splits, "K3": n, "K4": splits, "K6": splits,
+                   "K7": splits},
+        "order": {"K1": n + splits, "K3": n + splits},
+        "leafwise-bsub": {"K2": n + splits, "K3": n + splits}}[route])
+    # two at the root; one per split on the mega route, two on the others
+    return counts, 2 * n + (1 if route == "mega" else 2) * splits
+
+
 def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
-    """The bench model on one route: 1 warm tree, then TREES timed trees
-    with every kernel count set to 0 just before and read just after."""
-    from lightgbm_tpu_torch.learners import serial
+    """The bench model on one route or growth mode: 1 warm tree, then
+    TREES timed trees with every kernel count set to 0 just before and read
+    just after."""
+    from lightgbm_tpu_torch.learners import depthwise, serial
     from lightgbm_tpu_torch.ops import launch_counts
 
+    growth = GROWTH.get(route, "leafwise")
+    params = dict(params, tree_growth=growth)
     with route_env(route):
         warm = lt.train(params, train_set, num_boost_round=1)
         torch.cuda.synchronize()
@@ -682,45 +745,51 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
         elapsed = time.perf_counter() - t0
         counts = launch_counts()
         syncs = serial.HOST_SYNCS
+        levels, level_splits = depthwise.LEVELS, depthwise.LEVEL_SPLITS
         peak = torch.cuda.max_memory_allocated()
     trees = booster._gbdt.models
     leaves = [t.num_leaves for t in trees]
-    splits = sum(nl - 1 for nl in leaves)
-    expect = {
-        "mega": {"K1": 0, "K1'": TREES, "K3": TREES, "K4": 0, "K6": 0,
-                 "K7": splits, "K8": splits},
-        "record": {"K1": 0, "K1'": TREES + splits, "K3": TREES,
-                   "K4": splits, "K6": splits, "K7": splits, "K8": 0},
-        "order": {"K1": TREES + splits, "K1'": 0, "K3": TREES + splits,
-                  "K4": 0, "K6": 0, "K7": 0, "K8": 0}}[route]
-    # two at the root; one per split on the mega route, two on the others
-    expect_syncs = 2 * TREES + (1 if route == "mega" else 2) * splits
+    expect, expect_syncs = _expected(route, trees, levels, level_splits)
     train_auc = booster.eval_train()[0][2]
     booster.add_valid(valid_set, "valid")
     valid_auc = booster.eval_valid()[0][2]
     pv = booster.predict(Xv[:1000])
     say(f"[main {route}] {TREES} trees {elapsed:.3f}s "
-        f"s/tree={elapsed / TREES:.4f} leaves={leaves} "
+        f"s/tree={elapsed / TREES:.4f} leaves={leaves} levels={levels} "
+        f"level_splits={level_splits} "
         f"train_auc={train_auc:.6f} valid_auc={valid_auc:.6f} "
         f"launches={json.dumps(counts)} expected={json.dumps(expect)} "
         f"host_syncs_per_tree={syncs / TREES:.1f} peak_mem_bytes={peak}")
     check(len(trees) == TREES, f"main {route}: tree count")
+    if growth == "depthwise":
+        # a level that splits nothing still reads its rows, then stops
+        depth_levels = sum(int(t.leaf_depth[:t.num_leaves].max())
+                           + (t.num_leaves < NUM_LEAVES) for t in trees)
+        check(levels == depth_levels and level_splits == sum(
+            nl - 1 for nl in leaves),
+            f"main {route}: {levels} levels / {level_splits} splits do not "
+            "match the trees")
+    if growth == "hybrid":
+        check(TREES <= levels and level_splits <= TREES * NUM_LEAVES // 2,
+              f"main {route}: phase 1 ran {levels} levels, "
+              f"{level_splits} splits")
     check(all(counts[name] > 0 for name, want in expect.items() if want),
           f"main {route}: a kernel of the route never launched")
     check(counts == expect, f"main {route}: launches {counts} != {expect}")
     check(syncs == expect_syncs,
           f"main {route}: {syncs} host syncs, expected {expect_syncs}")
-    check(abs(train_auc - AUC_TRAIN) <= AUC_TOL,
+    ref_train, ref_valid = AUC_REF[growth]
+    check(abs(train_auc - ref_train) <= AUC_TOL,
           f"main {route}: train AUC {train_auc} outside "
-          f"{AUC_TRAIN}+-{AUC_TOL}")
-    check(abs(valid_auc - AUC_VALID) <= AUC_TOL,
+          f"{ref_train}+-{AUC_TOL}")
+    check(abs(valid_auc - ref_valid) <= AUC_TOL,
           f"main {route}: valid AUC {valid_auc} outside "
-          f"{AUC_VALID}+-{AUC_TOL}")
+          f"{ref_valid}+-{AUC_TOL}")
     check(pv.shape == (1000,) and bool(np.isfinite(pv).all())
           and bool(((pv > 0) & (pv < 1)).all()), f"main {route}: predictions")
     return dict(counts=counts, s_per_tree=elapsed / TREES,
                 auc=(train_auc, valid_auc), syncs_per_tree=syncs / TREES,
-                peak=peak)
+                peak=peak, leaves=leaves)
 
 
 # --------------------------------------------------------------- phase 9
@@ -740,7 +809,13 @@ def phase_trees(torch, lt):
                              ("record", "cuda", "record"),
                              ("order", "cuda", "order"),
                              ("cpu", "cpu", "mega"),
-                             ("cpu-mega", "cpu", "mega")):
+                             ("cpu-mega", "cpu", "mega"),
+                             ("order-bsub", "cuda", "leafwise-bsub"),
+                             ("depthwise", "cuda", "depthwise"),
+                             ("depthwise-bsub", "cuda", "depthwise-bsub"),
+                             ("cpu-depthwise", "cpu", "depthwise"),
+                             ("hybrid", "cuda", "hybrid"),
+                             ("cpu-hybrid", "cpu", "hybrid")):
         saved = GBDT._leafwise_hist_fn_raw
         if name == "cpu-mega":
             GBDT._leafwise_hist_fn_raw = lambda self: histogram_record_window
@@ -748,40 +823,157 @@ def phase_trees(torch, lt):
             with route_env(route):
                 reset_counts()
                 ds = lt.Dataset(X, label=y, max_bin=NUM_BINS, device=dev)
-                b = lt.train(params, ds, num_boost_round=2, device=dev)
+                b = lt.train(dict(params, tree_growth=GROWTH.get(
+                    route, "leafwise")), ds, num_boost_round=2, device=dev)
                 counts = launch_counts()
         finally:
             GBDT._leafwise_hist_fn_raw = saved
         runs[name] = (b._gbdt.models, b._gbdt._scores.cpu(), counts)
     n = {r: runs[r][2] for r in runs}
-    check(n["mega"]["K8"] > 0 and n["mega"]["K6"] == 0
-          and n["record"]["K6"] > 0 and n["record"]["K8"] == 0
-          and n["order"]["K1"] > 0 and n["order"]["K6"] == 0
-          and not any(n["cpu"].values()) and not any(n["cpu-mega"].values()),
-          f"trees: routes not taken as asked {n}")
-    bitwise = torch.equal(runs["record"][1], runs["order"][1])
-    struct_cpu = struct_mega = True
-    for a, b, c, d, e in zip(*(runs[r][0] for r in (
-            "record", "order", "cpu", "mega", "cpu-mega"))):
-        bitwise &= a.num_leaves == b.num_leaves
-        struct_cpu &= a.num_leaves == c.num_leaves
-        struct_mega &= d.num_leaves == e.num_leaves
-        for k in TREE_FIELDS:
-            bitwise &= bool(torch.equal(getattr(a, k), getattr(b, k)))
-        for k in STRUCT:
-            struct_cpu &= bool(torch.equal(getattr(a, k).cpu(),
-                                           getattr(c, k)))
-            struct_mega &= bool(torch.equal(getattr(d, k).cpu(),
-                                            getattr(e, k)))
-    leaves = {r: [t.num_leaves for t in runs[r][0]] for r in ("mega",
-                                                              "record")}
+    only = {"mega": {"K1'", "K3", "K7", "K8"}, "record": {"K1'", "K3", "K4",
+                                                          "K6", "K7"},
+            "order": {"K1", "K3"}, "order-bsub": {"K2", "K3"},
+            "depthwise": {K1PP}, "depthwise-bsub": {"K2"},
+            "hybrid": {K1PP, "K1", "K3"}}
+    check(all({k for k, v in n[r].items() if v} == only.get(r, set())
+              for r in runs), f"trees: routes not taken as asked {n}")
+
+    def same(r1, r2, fields, scores):
+        ok = not scores or torch.equal(runs[r1][1], runs[r2][1])
+        for a, b in zip(runs[r1][0], runs[r2][0]):
+            ok &= a.num_leaves == b.num_leaves
+            for k in fields:
+                ok &= bool(torch.equal(getattr(a, k).cpu(), getattr(b, k)
+                                       .cpu()))
+        return ok
+
+    bitwise = same("record", "order", TREE_FIELDS, True)
+    struct_cpu = same("order", "cpu", STRUCT, False)
+    struct_mega = same("mega", "cpu-mega", STRUCT, False)
+    struct_dw = same("depthwise", "cpu-depthwise", STRUCT, False)
+    struct_hy = same("hybrid", "cpu-hybrid", STRUCT, False)
+    bsub_dw = same("depthwise-bsub", "depthwise", TREE_FIELDS, True)
+    bsub_ord = same("order-bsub", "order", TREE_FIELDS, True)
+    leaves = {r: [t.num_leaves for t in runs[r][0]]
+              for r in ("mega", "record", "depthwise", "hybrid")}
     say(f"[trees] 2 trees at 100k rows, leaves={leaves}: record route == "
         f"order route on the card (every tree field, train scores): "
         f"{bitwise}; card == CPU plain (structure): order {struct_cpu}, "
-        f"mega {struct_mega}")
+        f"mega {struct_mega}, depthwise {struct_dw}, hybrid {struct_hy}; "
+        f"bsub == v1 (every tree field, train scores): depthwise "
+        f"{bsub_dw}, order route {bsub_ord}")
     check(bitwise, "record-route and order-route trees differ on the card")
     check(struct_cpu, "kernel-grown and plain-grown trees differ")
     check(struct_mega, "kernel-grown and plain-grown mega-route trees differ")
+    check(struct_dw and struct_hy,
+          "kernel-grown and plain-grown depthwise/hybrid trees differ")
+    check(bsub_dw and bsub_ord, "bsub-grown and v1-grown trees differ")
+
+
+# -------------------------------------------------------------- phase 10
+def phase_level_histogram(torch, train_set):
+    """K1'' and K2 against their plain version and each other, at the
+    bench shape with a real level's leaf ids, with one leaf and with u16 x
+    300 bins; times them at the first case."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.learners.depthwise import grow_tree_depthwise
+    from lightgbm_tpu_torch.learners.serial import TreeLearnerParams
+    from lightgbm_tpu_torch.ops import cuda_histogram as ch
+    from lightgbm_tpu_torch.ops.histogram import (
+        histogram_by_leaf, histogram_by_leaf_sorted_plain)
+
+    inner = train_set.construct()
+    bins = inner.bins_T("cuda")
+    F, n = bins.shape
+    B = max(int(inner.max_num_bin), 2)
+    # the leaf ids after 6 depthwise levels of the first tree (gradients
+    # at score 0), for the 255-leaf level histogram: most leaves empty
+    y = torch.from_numpy(np.asarray(train_set.label, np.float32)).cuda()
+    g0 = 0.5 - y
+    h0 = torch.full_like(g0, 0.25)
+    prm = TreeLearnerParams.from_config(Config(min_data_in_leaf=MIN_DATA,
+                                               max_depth=6))
+    tree6, lid6 = grow_tree_depthwise(
+        bins, g0, h0, torch.ones_like(g0),
+        torch.ones(F, dtype=torch.bool, device="cuda"),
+        torch.as_tensor(inner.num_bins_per_feature).cuda(),
+        torch.zeros(F, dtype=torch.bool, device="cuda"), prm, B, NUM_LEAVES)
+    rng = np.random.RandomState(6)
+
+    def stats(m):
+        return (torch.from_numpy(rng.randn(m).astype(np.float32)).cuda(),
+                torch.from_numpy(np.abs(rng.randn(m)).astype(np.float32))
+                .cuda(),
+                torch.from_numpy((rng.rand(m) < 0.8).astype(np.float32))
+                .cuda())
+
+    u16 = torch.from_numpy(rng.randint(0, 300, (F, 100_000)).astype(
+        np.uint16)).cuda()
+    cases = [("level-6", bins, lid6, B, NUM_LEAVES),
+             ("one-leaf", bins, torch.zeros_like(lid6), B, 1),
+             ("uint16", u16, torch.from_numpy(rng.randint(
+                 0, 64, 100_000).astype(np.int32)).cuda(), 300, 64)]
+    record = None
+    for name, b, lid, nb, L in cases:
+        g, h, m = stats(b.shape[1])
+        a = ch.histogram_by_leaf_sorted_cuda(b, lid, g, h, m, nb, L, "v1")
+        a2 = ch.histogram_by_leaf_sorted_cuda(b, lid, g, h, m, nb, L, "v1")
+        k2 = ch.histogram_by_leaf_sorted_cuda(b, lid, g, h, m, nb, L, "bsub")
+        torch.cuda.synchronize()
+        check(torch.equal(a, a2), f"K1'' {name}: launches not bitwise equal")
+        check(torch.equal(k2, a), f"K2 {name}: differs from K1''")
+        cpu = histogram_by_leaf_sorted_plain(b.cpu(), lid.cpu(), g.cpu(),
+                                             h.cpu(), m.cpu(), nb, L)
+        err = float((a.cpu() - cpu).abs().max())
+        check(err == 0.0 and torch.equal(a.cpu(), cpu),
+              f"K1'' {name}: differs from its plain version (max {err})")
+        ref = histogram_by_leaf(b, lid, g.double(), h.double(), m.double(),
+                                nb, L)
+        err64 = float((a.double() - ref)[..., :2].abs().max())
+        check(torch.equal(a[..., 2].double(), ref[..., 2]),
+              f"K1'' {name}: counts differ from the float64 sums")
+        live = int((a[:, 0, :, 2].sum(1) > 0).sum())
+        if L == 1:
+            k1 = ch.histogram_single_leaf_cuda(b, g, h, m, nb)
+            k2s = ch.histogram_single_leaf_bsub_cuda(b, g, h, m, nb)
+            torch.cuda.synchronize()
+            check(torch.equal(k2s, k1) and torch.equal(a[0], k1),
+                  f"K2/K1'' {name}: one leaf differs from K1")
+        say(f"[level-hist {name}] F={F} n={b.shape[1]} B={nb} L={L} "
+            f"non-empty leaves={live} bitwise: launches, K2 == K1'', "
+            f"== plain{', == K1 (one leaf, K1/K2)' if L == 1 else ''} "
+            f"max_abs_err_vs_f64={err64:.3g}")
+        if name == "level-6":
+            keys = ((lid.to(torch.int64)[None, :] * F
+                     + torch.arange(F, device="cuda")[:, None]) * nb
+                    + b.to(torch.int64)).reshape(-1)
+            src = torch.stack([g * m, h * m, m], -1).repeat(F, 1)
+
+            def library():
+                return torch.zeros(L * F * nb, 3, device="cuda").index_add_(
+                    0, keys, src)
+
+            times = {v: time_ms(
+                torch, lambda v=v: ch.histogram_by_leaf_sorted_cuda(
+                    b, lid, g, h, m, nb, L, v)) for v in ("v1", "bsub")}
+            plain_ms = time_ms(torch, lambda: histogram_by_leaf_sorted_plain(
+                b, lid, g, h, m, nb, L), reps=5, warm=1)
+            lib_ms = time_ms(torch, library)
+            nbytes = F * n * b.element_size() + 16 * n + L * F * nb * 12
+            bound = max(nbytes / HBM_BYTES_PER_S,
+                        3 * F * n / F32_FLOPS) * 1e3
+            say(f"[level-hist times] {name}: K1'' ms={times['v1']:.4f} "
+                f"K2 ms={times['bsub']:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib_ms:.4f} bound_ms={bound:.5f} "
+                f"({nbytes} bytes) share K1''={bound / times['v1']:.4f} "
+                f"K2={bound / times['bsub']:.4f}")
+            record = {v: dict(max_abs_err=err, ms=times[v], plain_ms=plain_ms,
+                              bound_ms=bound, library_ms=lib_ms)
+                      for v in ("v1", "bsub")}
+            del keys, src
+        del a, a2, k2, cpu, ref
+    del u16, lid6, tree6
+    return record["v1"], record["bsub"]
 
 
 def main() -> int:
@@ -812,8 +1004,10 @@ def main() -> int:
     compact, place = phase_partition(torch)
     step = phase_split_step(torch)
     data = make_bench_data(lt)
+    level, level_bsub = phase_level_histogram(torch, data[1])
     routes = {r: phase_main_path(torch, lt, r, *data)
-              for r in ("mega", "record", "order")}
+              for r in ("mega", "record", "order", "depthwise",
+                        "depthwise-bsub", "hybrid")}
     for r, m in routes.items():
         say(f"[main {r}] s/tree={m['s_per_tree']:.4f} "
             f"auc={m['auc'][0]:.6f}/{m['auc'][1]:.6f} "
@@ -823,6 +1017,11 @@ def main() -> int:
     check(main_rec["auc"] == main_ord["auc"],
           f"the two routes' AUCs differ: {main_rec['auc']} vs "
           f"{main_ord['auc']}")
+    main_dw, main_bsub = routes["depthwise"], routes["depthwise-bsub"]
+    check(main_dw["auc"] == main_bsub["auc"]
+          and main_dw["leaves"] == main_bsub["leaves"],
+          f"depthwise under bsub and v1 differ: {main_bsub['auc']} vs "
+          f"{main_dw['auc']}")
     del data
     phase_trees(torch, lt)
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s "
@@ -855,6 +1054,16 @@ def main() -> int:
         dict(name="split_step", route="cuda", source=src + "split_step.cu",
              replaces="lightgbm_tpu/ops/record.py:1112", path="mega",
              launches=mega_n["K8"], bound_by="bytes", **step),
+        dict(name="histogram_by_leaf_sorted", route="cuda",
+             source=src + "level_histogram.cu",
+             replaces="lightgbm_tpu/ops/pallas_histogram.py:193",
+             path="depthwise", launches=main_dw["counts"][K1PP],
+             bound_by="bytes", **level),
+        dict(name="histogram_by_leaf_sorted_bsub", route="cuda",
+             source=src + "level_histogram.cu",
+             replaces="lightgbm_tpu/ops/pallas_histogram.py:220",
+             path="depthwise-bsub", launches=main_bsub["counts"]["K2"],
+             bound_by="bytes", **level_bsub),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,19 @@
 // The histogram's chunk loop and its record reader: the code K1/K1'
-// (histogram.cu) and K8 (split_step.cu) share, so their sums cannot drift
-// apart.
+// (histogram.cu), K8 (split_step.cu) and K1'' (level_histogram.cu) share,
+// so their sums cannot drift apart.
 //
-// hist_chunk builds one (chunk, feature) partial, hist[B, 3] = (sum g*m,
-// sum h*m, sum m) over rows [chunk*kChunk, chunk*kChunk + kChunk) of `cap`
-// rows: the block stages the chunk's bins and masked stats in shared
-// memory (each input read from device memory once per feature), then each
-// thread owns bins tid, tid+blockDim, ... and walks the staged rows in row
-// order, adding the rows whose bin is its own.  Reads of a staged row are
-// broadcasts, so there are no bank conflicts.  reduce_chunks sums one cell
-// of the partials in chunk order.  The order of every sum depends only on
-// the rows, never on the grid or the block size: the plain version
-// (ops/histogram.py) sums in the same order, bitwise.
+// hist_rows builds one partial, hist[B, 3] = (sum g*m, sum h*m, sum m) over
+// the `nrows` (<= kChunk) rows row0, row0+1, ... of a reader: the block
+// stages the rows' bins and masked stats in shared memory (each input read
+// from device memory once per feature), then each thread owns bins tid,
+// tid+blockDim, ... and walks the staged rows in row order, adding the rows
+// whose bin is its own.  Reads of a staged row are broadcasts, so there are
+// no bank conflicts.  hist_chunk is hist_rows over rows [chunk*kChunk,
+// chunk*kChunk + kChunk) of `cap` rows, written to the (chunk, feature)
+// partial.  reduce_chunks sums one cell of the partials in chunk order.
+// The order of every sum depends only on the rows, never on the grid or
+// the block size: the plain versions (ops/histogram.py) sum in the same
+// order, bitwise.
 
 #pragma once
 
@@ -44,19 +46,15 @@ struct RecordRows {
   __device__ float m(int64_t r) const { return word(wb + 2, r); }
 };
 
-// partial: [nchunks, F, num_bins, 3]; every thread of the block must call
-// it.
+// out: one [num_bins, 3] partial; every thread of the block must call it.
 template <typename StageT, typename Rows>
-__device__ inline void hist_chunk(const Rows& rows, int64_t cap, int chunk,
-                                  int f, int F, int num_bins,
-                                  float* __restrict__ partial) {
+__device__ inline void hist_rows(const Rows& rows, int64_t row0, int nrows,
+                                 int f, int num_bins,
+                                 float* __restrict__ out) {
   __shared__ StageT s_bin[kChunk];
   __shared__ float s_g[kChunk];
   __shared__ float s_h[kChunk];
   __shared__ float s_m[kChunk];
-
-  const int64_t row0 = (int64_t)chunk * kChunk;
-  const int nrows = (cap - row0 < kChunk) ? (int)(cap - row0) : kChunk;
 
   for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
     const float m = rows.m(row0 + r);
@@ -67,7 +65,6 @@ __device__ inline void hist_chunk(const Rows& rows, int64_t cap, int chunk,
   }
   __syncthreads();
 
-  float* out = partial + (((int64_t)chunk * F + f) * num_bins) * 3;
   for (int b = threadIdx.x; b < num_bins; b += blockDim.x) {
     float g = 0.f, h = 0.f, c = 0.f;
     for (int r = 0; r < nrows; ++r) {
@@ -82,6 +79,18 @@ __device__ inline void hist_chunk(const Rows& rows, int64_t cap, int chunk,
     out[b * 3 + 2] = c;
   }
   __syncthreads();  // the staged rows are read before a next chunk
+}
+
+// partial: [nchunks, F, num_bins, 3]; every thread of the block must call
+// it.
+template <typename StageT, typename Rows>
+__device__ inline void hist_chunk(const Rows& rows, int64_t cap, int chunk,
+                                  int f, int F, int num_bins,
+                                  float* __restrict__ partial) {
+  const int64_t row0 = (int64_t)chunk * kChunk;
+  const int nrows = (cap - row0 < kChunk) ? (int)(cap - row0) : kChunk;
+  hist_rows<StageT>(rows, row0, nrows, f, num_bins,
+                    partial + (((int64_t)chunk * F + f) * num_bins) * 3);
 }
 
 // Cell i of the histogram: the sum of its nchunks partials in chunk order.

@@ -41,6 +41,11 @@ the best-first growth of SerialTreeLearner
   the two-child search (its two inputs are the root histogram).
 * Leaf numbering matches the reference: the left child keeps the
   parent's index, the right child takes ``step + 1`` (tree.cpp:78-89).
+* Resume (``init_tree``, hybrid growth's second phase, serial.py:605-687):
+  the order route starts from a partial tree of K0 leaves; one level
+  histogram pass fills the live leaves' histograms, one search of all of
+  them fills the best-split table, one host read brings its rows and the
+  leaves' row counts, and the loop numbers nodes from K0 - 1 on.
 
 PyTorch runs eagerly with dynamic shapes, so the JAX version's static
 capacity tiers and masked no-op steps are not ported: each split slices
@@ -59,17 +64,19 @@ leaves that is 510 host syncs per tree against 256.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.tree import Tree
-from ..ops.cuda_histogram import histogram_single_leaf
+from ..ops.cuda_histogram import histogram_single_leaf, make_level_hist_fn
 from ..ops.cuda_search import pack_meta, search2_rows, search2_update
+from ..ops.histogram import leaf_totals, take_bins
 from ..ops.record import (bins_per_word, build_record, leaf_row,
                           partition_window, place_window, row_id_row,
                           split_step)
+from ..ops.split import find_best_split_leaves
 
 # host syncs since the last reset (chip_smoke.py reads and resets it)
 HOST_SYNCS = 0
@@ -117,6 +124,38 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def host_tree(num_leaves: int, tree_i: np.ndarray, tree_f: np.ndarray,
+              leaf_value, leaf_count, leaf_parent, leaf_depth,
+              device) -> Tree:
+    """A Tree on ``device`` from the host tables: ``tree_i`` [5, >= L-1]
+    (feature, threshold, decision type, left, right child), ``tree_f`` [3,
+    >= L-1] (gain, internal value, internal count) and the four [L] leaf
+    rows.  Real thresholds and features are filled at finalize."""
+    li = len(leaf_value) - 1
+
+    def t(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dt).to(device)
+
+    return Tree(
+        num_leaves=num_leaves,
+        split_feature=t(tree_i[0, :li], torch.int32),
+        split_feature_real=torch.full((li,), -1, dtype=torch.int32,
+                                      device=device),
+        threshold_bin=t(tree_i[1, :li], torch.int32),
+        threshold_real=torch.zeros(li, dtype=torch.float32, device=device),
+        decision_type=t(tree_i[2, :li], torch.int32),
+        left_child=t(tree_i[3, :li], torch.int32),
+        right_child=t(tree_i[4, :li], torch.int32),
+        split_gain=t(tree_f[0, :li], torch.float32),
+        internal_value=t(tree_f[1, :li], torch.float32),
+        internal_count=t(tree_f[2, :li], torch.float32),
+        leaf_value=t(leaf_value, torch.float32),
+        leaf_count=t(leaf_count, torch.float32),
+        leaf_parent=t(leaf_parent, torch.int32),
+        leaf_depth=t(leaf_depth, torch.int32),
+    )
+
+
 def _root_sums(gm: torch.Tensor, hm: torch.Tensor,
                m: torch.Tensor) -> np.ndarray:
     """Root (Σ g·m, Σ h·m, Σ m), each summed in row order in float32 —
@@ -139,7 +178,7 @@ def _partition(order: torch.Tensor, frow: torch.Tensor, thr: int,
     version's: lefts at (lefts before them), rights at nleft + (rights
     before)."""
     rows = order[begin:begin + pcnt]
-    vals = frow.index_select(0, rows).to(torch.int32)
+    vals = take_bins(frow, 0, rows).to(torch.int32)
     go = (vals == thr) if is_cat else (vals <= thr)
     lcnt = torch.cumsum(go.to(torch.int64), 0)  # lefts up to and incl. j
     nleft_t = lcnt[-1]
@@ -151,11 +190,76 @@ def _partition(order: torch.Tensor, frow: torch.Tensor, thr: int,
     return nleft_t
 
 
+def _empty_best(L: int) -> np.ndarray:
+    """The [16, L] best-split table before any search: gain -inf, feature
+    -1, parent -1 (empty_tree's leaf_parent), everything else 0."""
+    best = np.zeros((_BROWS, L), np.float32)
+    best[_BG] = -np.inf
+    best[_BF] = -1.0
+    best[_BLPAR] = -1.0
+    return best
+
+
+def _resume(bins_T, grad, hess, bag_mask, feature_mask, num_bins_per_feature,
+            is_categorical, params, num_bins, L, init_tree, init_leaf_id,
+            init_hist_fn, consts):
+    """The state of a resumed tree (serial.py:605-687): the leaf-sorted
+    permutation (a stable sort of the leaf ids) and per-leaf ranges, every
+    live leaf's histogram from one ``init_hist_fn`` pass, the best-split
+    table (rows 0-10 from one search of the live leaves on totals from
+    feature 0's bins, rows 11-14 the initial tree's leaf value, count,
+    parent and depth) and the node table.  One host read brings the search
+    rows and the leaves' row counts."""
+    dev = bins_T.device
+    F, n = bins_T.shape
+    K0 = int(init_tree.num_leaves)
+    lid = init_leaf_id.to(torch.int32)
+    sorted_lid, order = torch.sort(lid, stable=True)
+    row_start = torch.searchsorted(
+        sorted_lid, torch.arange(K0 + 1, dtype=torch.int32, device=dev))
+    if init_hist_fn is None:
+        init_hist_fn = make_level_hist_fn(num_bins)
+    fused = init_hist_fn(bins_T, lid, grad, hess, bag_mask, K0)
+    tot = leaf_totals(fused)
+    depth0 = init_tree.leaf_depth.cpu().numpy()
+    can0 = torch.from_numpy(np.array([params.can_split(int(d))
+                                      for d in depth0[:K0]])).to(dev)
+    res = find_best_split_leaves(
+        fused, tot[:, 0], tot[:, 1], tot[:, 2], feature_mask,
+        num_bins_per_feature, is_categorical, *consts, can0)
+    got = _host(torch.stack([a.to(torch.float64) for a in res]
+                            + [(row_start[1:] - row_start[:-1]).double()]))
+
+    best = _empty_best(L)
+    best[:11, :K0] = got[:11]
+    for row, field in ((_BLV, "leaf_value"), (_BLCNT, "leaf_count"),
+                       (_BLPAR, "leaf_parent"), (_BLDEP, "leaf_depth")):
+        best[row] = getattr(init_tree, field).cpu().numpy()
+    count = np.zeros(L, np.int64)
+    count[:K0] = got[11]
+    begin = np.concatenate([[0], np.cumsum(count)[:-1]])
+    hists = torch.zeros((L, F, num_bins, 3), dtype=fused.dtype, device=dev)
+    hists[:K0] = fused
+    li = L - 1
+    tree_i = np.zeros((5, L), np.int32)
+    tree_f = np.zeros((3, L), np.float32)
+    for i, field in enumerate(("split_feature", "threshold_bin",
+                               "decision_type", "left_child",
+                               "right_child")):
+        tree_i[i, :li] = getattr(init_tree, field).cpu().numpy()
+    for i, field in enumerate(("split_gain", "internal_value",
+                               "internal_count")):
+        tree_f[i, :li] = getattr(init_tree, field).cpu().numpy()
+    return order, hists, best, begin, count, tree_i, tree_f, K0
+
+
 def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               bag_mask: torch.Tensor, feature_mask, num_bins_per_feature,
               is_categorical, params: TreeLearnerParams, num_bins: int,
-              max_leaves: int, hist_fn_raw=None,
-              fuse_hist: bool = False) -> Tuple[Tree, torch.Tensor]:
+              max_leaves: int, hist_fn_raw=None, fuse_hist: bool = False,
+              hist_fn=None, init_tree: Optional[Tree] = None,
+              init_leaf_id: Optional[torch.Tensor] = None,
+              init_hist_fn=None) -> Tuple[Tree, torch.Tensor]:
     """Grow one tree; returns (tree, leaf_id per row).
 
     ``bins_T`` [F, n] uint8/uint16; ``grad``/``hess``/``bag_mask`` [n]
@@ -164,11 +268,23 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     window histogram (ops/cuda_histogram.histogram_record_window), selects
     the record route, as it selects the JAX package's (serial.py:391-400),
     and with ``fuse_hist`` the mega route (serial.py:536); without it the
-    order route runs."""
-    def hist_fn(b, g, h, m):
-        return histogram_single_leaf(b, g, h, m, num_bins)
+    order route runs, its histograms through ``hist_fn(bins, g, h, m) ->
+    [F, B, 3]`` (default: ``histogram_single_leaf``).
+
+    ``init_tree`` (a Tree whose tensors lie on the CPU) and
+    ``init_leaf_id`` [n] resume best-first growth from a partial tree, as
+    hybrid growth does (serial.py:605-687), on the order route only: the
+    JAX package turns its raw and record routes off under ``init_tree``
+    (serial.py:395, :426).  One fused pass of ``init_hist_fn`` (the level
+    histogram, default ``histogram_by_leaf_sorted``) fills every live
+    leaf's histogram."""
+    if hist_fn is None:
+        def hist_fn(b, g, h, m):
+            return histogram_single_leaf(b, g, h, m, num_bins)
 
     rec_route = hist_fn_raw is not None
+    if init_tree is not None and rec_route:
+        raise ValueError("a resumed tree grows on the order route only")
     mega = rec_route and fuse_hist
     dev = bins_T.device
     F, n = bins_T.shape
@@ -178,36 +294,41 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     consts = [params.min_data_in_leaf, params.min_sum_hessian_in_leaf,
               params.lambda_l1, params.lambda_l2, params.min_gain_to_split]
 
-    # ---- root (LeafSplits::Init, leaf_splits.hpp:51-92)
-    if rec_route:
-        k = bins_per_word(bins_T.dtype)
-        rec = build_record(bins_T, grad, hess, bag_mask)
-        hist0 = hist_fn_raw(rec, 0, n, F, k, num_bins)
+    if init_tree is not None:
+        (order, hists, best, begin, count, tree_i, tree_f,
+         nleaves) = _resume(bins_T, grad, hess, bag_mask, feature_mask,
+                            num_bins_per_feature, is_categorical, params,
+                            num_bins, L, init_tree, init_leaf_id,
+                            init_hist_fn, consts)
     else:
-        order = torch.arange(n, dtype=torch.int64, device=dev)
-        hist0 = hist_fn(bins_T, grad, hess, bag_mask)
-    sg0, sh0, c0 = (float(v) for v in _root_sums(
-        grad * bag_mask, hess * bag_mask, bag_mask))
-    rows = search2_rows(hist0, hist0, [float(params.can_split(0)),
-                                       sg0, sh0, c0, sg0, sh0, c0] + consts,
-                        meta)
-    best = np.zeros((_BROWS, L), np.float32)
-    best[_BG] = -np.inf
-    best[_BF] = -1.0
-    best[_BLPAR] = -1.0
-    best[:11, 0] = _host(rows)[0, :11]
+        # ---- root (LeafSplits::Init, leaf_splits.hpp:51-92)
+        if rec_route:
+            k = bins_per_word(bins_T.dtype)
+            rec = build_record(bins_T, grad, hess, bag_mask)
+            hist0 = hist_fn_raw(rec, 0, n, F, k, num_bins)
+        else:
+            order = torch.arange(n, dtype=torch.int64, device=dev)
+            hist0 = hist_fn(bins_T, grad, hess, bag_mask)
+        sg0, sh0, c0 = (float(v) for v in _root_sums(
+            grad * bag_mask, hess * bag_mask, bag_mask))
+        rows = search2_rows(hist0, hist0, [float(params.can_split(0)),
+                                           sg0, sh0, c0, sg0, sh0, c0]
+                            + consts, meta)
+        best = _empty_best(L)
+        best[:11, 0] = _host(rows)[0, :11]
 
-    hists = torch.zeros((L, F, num_bins, 3), dtype=hist0.dtype, device=dev)
-    hists[0] = hist0
-    begin = np.zeros(L, np.int64)
-    count = np.zeros(L, np.int64)
-    count[0] = n
-    tree_i = np.zeros((5, L), np.int32)  # feat, thr, dtype, lch, rch
-    tree_i[0] = -1
-    tree_f = np.zeros((3, L), np.float32)  # gain, int_value, int_count
-    nleaves = 1
+        hists = torch.zeros((L, F, num_bins, 3), dtype=hist0.dtype,
+                            device=dev)
+        hists[0] = hist0
+        begin = np.zeros(L, np.int64)
+        count = np.zeros(L, np.int64)
+        count[0] = n
+        tree_i = np.zeros((5, L), np.int32)  # feat, thr, dtype, lch, rch
+        tree_i[0] = -1
+        tree_f = np.zeros((3, L), np.float32)  # gain, int_value, int_count
+        nleaves = 1
 
-    for step in range(L - 1):
+    for step in range(nleaves - 1, L - 1):
         best_leaf = int(np.argmax(best[_BG]))
         if not best[_BG, best_leaf] > 0.0:
             break
@@ -255,7 +376,7 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                                       small_is_left, scal, meta)
             else:
                 rs = order[begin_s:begin_s + cnt_s]
-                h_small = hist_fn(bins_T.index_select(1, rs),
+                h_small = hist_fn(take_bins(bins_T, 1, rs),
                                   grad.index_select(0, rs),
                                   hess.index_select(0, rs),
                                   bag_mask.index_select(0, rs))
@@ -289,29 +410,8 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         tree_f[:, node] = [bcol[_BG], bcol[_BLV], np.float32(lc + rc)]
         nleaves += 1
 
-    li = L - 1
-
-    def t(a, dt):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dt).to(dev)
-
-    tree = Tree(
-        num_leaves=nleaves,
-        split_feature=t(tree_i[0, :li], torch.int32),
-        split_feature_real=torch.full((li,), -1, dtype=torch.int32,
-                                      device=dev),
-        threshold_bin=t(tree_i[1, :li], torch.int32),
-        threshold_real=torch.zeros(li, dtype=torch.float32, device=dev),
-        decision_type=t(tree_i[2, :li], torch.int32),
-        left_child=t(tree_i[3, :li], torch.int32),
-        right_child=t(tree_i[4, :li], torch.int32),
-        split_gain=t(tree_f[0, :li], torch.float32),
-        internal_value=t(tree_f[1, :li], torch.float32),
-        internal_count=t(tree_f[2, :li], torch.float32),
-        leaf_value=t(best[_BLV], torch.float32),
-        leaf_count=t(best[_BLCNT], torch.float32),
-        leaf_parent=t(best[_BLPAR], torch.int32),
-        leaf_depth=t(best[_BLDEP], torch.int32),
-    )
+    tree = host_tree(nleaves, tree_i, tree_f, best[_BLV], best[_BLCNT],
+                     best[_BLPAR], best[_BLDEP], dev)
 
     leaf_id = torch.empty(n, dtype=torch.int32, device=dev)
     if rec_route:

@@ -1,8 +1,10 @@
 """GBDT boosting driver.
 
 Counterpart of lightgbm_tpu/models/gbdt.py for the slice: single-device
-leaf-wise growth, on the mega or record route on the card and the
-order-based route on the CPU (``_leafwise_hist_fn_raw``, ``_fuse_hist``).
+growth, leaf-wise (on the mega or record route on the card and the
+order-based route on the CPU: ``_leafwise_hist_fn_raw``, ``_fuse_hist``),
+depthwise or hybrid (``tree_growth``; the level histogram of
+``_level_hist_fn``, kernel 1'' or 2 on the card).
 Each iteration computes the objective's gradients, re-draws the bagging
 mask and the feature sample (numpy RandomState, draw for draw the JAX
 package's), grows one tree per class, applies shrinkage, updates train
@@ -11,26 +13,33 @@ binned walk.  Model text save/load is the reference format,
 byte-compatible with the JAX package's.
 
 Not ported in this slice (ROADMAP queue A), and refused with
-NotImplementedError rather than ignored: depthwise/hybrid growth,
-parallel learners, objectives other than binary, hist_dtype=float64,
-histogram_pool_size > 0.  Forest batching, the lagged stop check,
-guards, checkpoints and telemetry are not carried.
+NotImplementedError rather than ignored: parallel learners, objectives
+other than binary, hist_dtype=float64, histogram_pool_size > 0 with
+leaf-wise growth (depthwise and hybrid growth ignore it with the JAX
+package's warning).  Forest batching, the lagged stop check, guards,
+checkpoints and telemetry are not carried.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..backend import resolve_device
 from ..config import Config
 from ..io.dataset import BinnedDataset
+from ..learners.depthwise import grow_tree_depthwise
+from ..learners.hybrid import grow_tree_hybrid
 from ..learners.serial import TreeLearnerParams, grow_tree
+from ..log import Log
 from ..metrics import Metric, create_metrics
 from ..objectives import ObjectiveFunction
-from ..ops.cuda_histogram import histogram_record_window
+from ..ops.cuda_histogram import (hist_variant, histogram_record_window,
+                                  histogram_single_leaf, make_level_hist_fn)
 from .tree import (Tree, empty_tree, finalize_thresholds_device,
                    pack_threshold_bounds, predict_binned, predict_raw)
 
@@ -60,8 +69,8 @@ def check_supported(config: Config) -> None:
             f"{what} is not ported to lightgbm_tpu_torch yet (ROADMAP "
             f"queue {item})")
 
-    if config.tree_growth != "leafwise":
-        no(f"tree_growth={config.tree_growth}", "A: depthwise/hybrid")
+    if config.tree_growth not in ("leafwise", "depthwise", "hybrid"):
+        no(f"tree_growth={config.tree_growth}", "A: other growth modes")
     if config.tree_learner != "serial":
         no(f"tree_learner={config.tree_learner}", "A: parallel")
     if config.objective != "binary" or int(config.num_class) > 1:
@@ -70,7 +79,8 @@ def check_supported(config: Config) -> None:
         no(f"boosting_type={config.boosting_type}", "A: other objectives")
     if config.hist_dtype != "float32":
         no("hist_dtype=float64", "A: float64 histograms")
-    if float(config.histogram_pool_size) > 0:
+    if (float(config.histogram_pool_size) > 0
+            and config.tree_growth == "leafwise"):
         no("histogram_pool_size>0", "A: histogram pool")
 
 
@@ -89,9 +99,9 @@ class GBDT:
 
     def __init__(self, config: Config, train_set: Optional[BinnedDataset] = None,
                  objective: Optional[ObjectiveFunction] = None,
-                 device="cpu"):
+                 device=None):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.num_class = int(config.num_class)
         self.learning_rate = float(config.learning_rate)
         self.max_leaves = config.num_leaves_
@@ -117,6 +127,12 @@ class GBDT:
                             objective: Optional[ObjectiveFunction]) -> None:
         """GBDT::ResetTrainingData (gbdt.cpp:49-122)."""
         check_supported(self.config)
+        if float(self.config.histogram_pool_size) > 0:
+            # only depthwise/hybrid get here (gbdt.py:364-372)
+            Log.warning(
+                f"histogram_pool_size is ignored for tree_growth="
+                f"{self.config.tree_growth} (depthwise levels build "
+                "transient histograms; the hybrid resume runs unpooled)")
         n = train_set.num_data
         if n > F32_COUNT_EXACT_ROWS:
             raise ValueError(
@@ -198,11 +214,13 @@ class GBDT:
     def _leafwise_hist_fn_raw(self):
         """The record-window histogram that selects ``grow_tree``'s record
         or mega route (gbdt.py:413-432): on a CUDA device with float32
-        histograms, unless ``LGBM_TPU_OPT_HISTS=0`` (the JAX package's knob,
-        read per call as it reads it).  Otherwise None, the order route —
-        always on the CPU, as the JAX package's is None off the TPU."""
+        histograms and the ``v1`` histogram variant, unless
+        ``LGBM_TPU_OPT_HISTS=0`` (the JAX package's knobs, read per call).
+        Otherwise None, the order route — always on the CPU, as the JAX
+        package's is None off the TPU, and under ``bsub``."""
         if (self.device.type == "cuda"
                 and self.config.hist_dtype == "float32"
+                and hist_variant() == "v1"
                 and os.environ.get("LGBM_TPU_OPT_HISTS", "1") != "0"):
             return histogram_record_window
         return None
@@ -214,14 +232,33 @@ class GBDT:
         return (os.environ.get("LGBM_TPU_FUSE_HIST", "1") != "0"
                 and fuse_hist_fits(self._bins_T.shape[0], self._num_bins))
 
+    def _leafwise_hist_fn(self):
+        """The single-row-set histogram of leaf-wise growth (kernel 1, or
+        kernel 2 under ``bsub``, on the card)."""
+        return functools.partial(histogram_single_leaf,
+                                 num_bins=self._num_bins)
+
+    def _level_hist_fn(self):
+        """The level histogram of depthwise growth (gbdt.py:434-457):
+        kernel 1'', or kernel 2 under ``bsub``, on the card; signature
+        ``(bins_T, leaf_id, grad, hess, mask, num_leaves)``."""
+        return make_level_hist_fn(self._num_bins)
+
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              feature_mask: torch.Tensor):
-        """One tree on the current bagging mask: (tree, leaf_id)."""
+        """One tree on the current bagging mask: (tree, leaf_id), grown as
+        ``tree_growth`` says (gbdt.py:274-301)."""
+        args = (self._bins_T, grad, hess, self._bag_mask, feature_mask,
+                self._nbpf, self._is_cat, self._params, self._num_bins,
+                self.max_leaves)
+        growth = self.config.tree_growth
+        if growth == "depthwise":
+            return grow_tree_depthwise(*args, hist_fn=self._level_hist_fn())
+        if growth == "hybrid":
+            return grow_tree_hybrid(*args, hist_fn=self._leafwise_hist_fn(),
+                                    level_hist_fn=self._level_hist_fn())
         raw = self._leafwise_hist_fn_raw()
-        return grow_tree(self._bins_T, grad, hess, self._bag_mask,
-                         feature_mask, self._nbpf, self._is_cat,
-                         self._params, self._num_bins, self.max_leaves,
-                         hist_fn_raw=raw,
+        return grow_tree(*args, hist_fn_raw=raw,
                          fuse_hist=raw is not None and self._fuse_hist())
 
     def train_one_iter(self) -> bool:

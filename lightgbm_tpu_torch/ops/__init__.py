@@ -1,6 +1,6 @@
 """The port's ops: the CUDA kernels, their wrappers and their plain PyTorch
 versions (histogram, split search, the packed record's partition, the mega
-route's split step)."""
+route's split step, the level histogram of depthwise growth)."""
 
 import importlib
 from typing import Dict
@@ -14,6 +14,8 @@ KERNEL_COUNTERS = {
     "K6": ("cuda_record", "COMPACT_LAUNCHES"),
     "K7": ("cuda_record", "PLACE_LAUNCHES"),
     "K8": ("cuda_split_step", "LAUNCHES"),
+    "K1″": ("cuda_histogram", "LEVEL_LAUNCHES"),
+    "K2": ("cuda_histogram", "BSUB_LAUNCHES"),
 }
 
 

@@ -28,7 +28,7 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("histogram", "search", "record", "split_step")
+SOURCES = ("histogram", "search", "record", "split_step", "level_histogram")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no contracted multiply-adds: the kernels' f32 arithmetic must be the

@@ -1,20 +1,25 @@
 """Where the time of one tree goes on the card, at the bench shape.
 
     python -m lightgbm_tpu_torch.profile_slice [--rows N] [--trees T]
+        [--growth leafwise|depthwise|hybrid]
 
 Trains the bench model (bench.py's config: binary, HIGGS-like rows from
 seed 7, 28 features, 255 bins, 255 leaves) through the port's entry
 points, warms one tree, then grows ``--trees`` trees under
 ``torch.profiler`` with CPU and CUDA activities (after the same number
-timed without it).  It traces whatever route ``train`` takes: the mega
+timed without it).  ``--growth`` sets ``tree_growth`` (leaf-wise by
+default).  Leaf-wise, it traces whatever route ``train`` takes: the mega
 route by default (K8 ``split_step_kernel`` + K7 per split), the record
 route under ``LGBM_TPU_FUSE_HIST=0``, the order route under
-``LGBM_TPU_OPT_HISTS=0``.
+``LGBM_TPU_OPT_HISTS=0``.  Depthwise runs the level histogram (K1'', or
+K2 under ``LGBM_TPU_HIST_KERNEL=bsub``) once per level; hybrid adds the
+resume's level pass and the order route's K1 + K3 per split.
 Prints one JSON object: host wall per tree with and without the profiler,
 device busy time per tree (the union of kernel and copy intervals on the
 card), the idle share (1 - busy / wall), the device time per kernel name
-summed over the profiled trees, largest first, and each ported kernel's
-launches per profiled tree (from the wrappers' counts).  Needs a CUDA
+summed over the profiled trees, largest first, each ported kernel's
+launches per profiled tree (from the wrappers' counts) and the host syncs
+per profiled tree.  Needs a CUDA
 card; exits non-zero without one.
 """
 
@@ -58,6 +63,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--trees", type=int, default=3)
+    ap.add_argument("--growth", default="leafwise",
+                    choices=("leafwise", "depthwise", "hybrid"))
     args = ap.parse_args(argv)
 
     import torch
@@ -67,10 +74,12 @@ def main(argv=None) -> int:
         print("profile_slice: needs a CUDA card", file=sys.stderr)
         return 2
     import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.learners import serial
     from lightgbm_tpu_torch.ops import launch_counts, reset_launch_counts
     X, y = _make_data(args.rows)
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
-              "learning_rate": 0.1, "min_data_in_leaf": 100, "verbose": -1}
+              "learning_rate": 0.1, "min_data_in_leaf": 100,
+              "tree_growth": args.growth, "verbose": -1}
     ds = lt.Dataset(X, label=y, max_bin=255, params=params)
     booster = lt.Booster(params=params, train_set=ds)
     booster.update()  # warm
@@ -81,6 +90,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     reset_launch_counts()
+    serial.HOST_SYNCS = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -91,22 +101,24 @@ def main(argv=None) -> int:
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = _busy_us(dev_events) * 1e-6
-    per_kernel = {}
+    per_kernel = {}  # by the name's first 80 characters
     for e in dev_events:
-        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (
+        per_kernel[e.name[:80]] = per_kernel.get(e.name[:80], 0.0) + (
             e.time_range.end - e.time_range.start)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:20]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "rows": args.rows, "trees": args.trees,
+        "rows": args.rows, "trees": args.trees, "growth": args.growth,
         "wall_s_per_tree_unprofiled": plain_wall / args.trees,
         "wall_s_per_tree_profiled": wall / args.trees,
         "device_busy_s_per_tree": busy_s / args.trees,
         "idle_share": 1.0 - busy_s / wall,
         "device_events": len(dev_events),
-        "kernel_ms_per_tree": {k[:80]: v / 1e3 / args.trees for k, v in top},
+        "kernel_ms_per_tree": {k: v / 1e3 / args.trees for k, v in top},
         "launches_per_tree": {name: n / args.trees
                               for name, n in launch_counts().items()},
+        "host_syncs_per_tree": serial.HOST_SYNCS / args.trees,
+        "leaves": [t.num_leaves for t in booster._gbdt.models[-args.trees:]],
     }, indent=1))
     return 0
 

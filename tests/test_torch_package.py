@@ -101,8 +101,6 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("extra", [
-    {"tree_growth": "depthwise"},
-    {"tree_growth": "hybrid"},
     {"objective": "regression"},
     {"objective": "multiclass", "num_class": 3},
     {"objective": "lambdarank"},
@@ -118,6 +116,26 @@ def test_out_of_slice_configs_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lt.train(params, lt.Dataset(X, label=y, device="cpu"), 1,
                  device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    {"tree_growth": "depthwise"},
+    {"tree_growth": "hybrid"},
+    {"tree_growth": "depthwise", "histogram_pool_size": 1.0},
+    {"tree_growth": "hybrid", "histogram_pool_size": 1.0},
+], ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()))
+def test_level_growth_trains_on_cpu(extra, capsys):
+    """Depthwise and hybrid growth are in the slice; with them the
+    histogram pool is ignored with the JAX package's warning
+    (gbdt.py:364-372), not refused."""
+    X, y = _data()
+    params = {"objective": "binary", "num_leaves": 7, "verbose": -1, **extra}
+    bst = lt.train(params, lt.Dataset(X, label=y, device="cpu"), 2,
+                   device="cpu")
+    assert bst.num_trees() == 2
+    assert bst._gbdt.models[0].num_leaves > 1
+    warned = "histogram_pool_size is ignored" in capsys.readouterr().err
+    assert warned == ("histogram_pool_size" in extra)
 
 
 def test_sparse_input_raises():
