@@ -59,7 +59,30 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    of a real depthwise level (255 leaves, most of them empty), with one
    leaf and with u16 x 300 bins; two launches bitwise equal; K2 bitwise
    equal to K1'', and K2 with one leaf to K1; times K1'', K2, the plain
-   version and one ``index_add_`` on leaf-bin keys.
+   version and one ``index_add_`` on leaf-bin keys;
+11. holds the pooled split step (K5) against its plain version, bitwise
+   (the whole pool and the search rows), at the bench shape on 25 random
+   cases with the parent resident in its slot and recomputed, for both
+   values of ``small_is_left``, and at F=2000 x 256 bins; holds the
+   search (K3) at F=2000 against its plain version, bitwise; times K5 at
+   both shapes and K3 at F=2000;
+12. writes windows back into a record with K9 through
+   ``ops/record.write_window`` at begin 0, 1, 37, 500 and 511 and at two
+   begins the call clamps, and holds each record bitwise against the
+   plain version (``copy_`` on the CPU) and against ``copy_`` into the
+   same slice on the card; times K9, its plain version and ``copy_`` on a
+   1M-column window of the bench record's 12 rows;
+13. (run with phase 8) the ``pooled`` main path: the bench model with
+   ``histogram_pool_size=4`` (48 slots of 85,680 B against 255 leaves),
+   checked for its exact launches (K1 = trees + splits + recomputes, K3 =
+   trees, K5 = splits), 2 + 2 * splits host syncs, recomputes > 0 and its
+   AUC against the JAX package's pooled AUC on the CPU; phase 9 adds the
+   pooled route on the card against the CPU's plain pooled step, and on
+   exact-sum data (grad in {+-1, +-0.5}, hess 1) pooled trees (both steps)
+   bitwise equal to unpooled ones in every tree field; then a wide run: n =
+   4096, F = 2000, max_bin 256, 255 leaves, ``histogram_pool_size=64`` (10
+   slots; an unpooled buffer would be 1.57 GB), 2 trees, with its peak
+   device memory.
 
 Every phase must pass or the script exits non-zero without a result.  The
 line before the last is the kernels' JSON record, the last line the
@@ -89,11 +112,17 @@ ROWS, VALID_ROWS, TREES = 1_000_000, 200_000, 10
 # from BENCH_r05; depthwise and hybrid from the JAX package on the CPU,
 #   JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth depthwise
 #   JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth hybrid
+# and pooled leaf-wise growth (histogram_pool_size=4, 48 slots) the same
+# way (37 s on the CPU),
+#   JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth leafwise \
+#       --histogram-pool-size 4
 AUC_TRAIN, AUC_VALID, AUC_TOL = 0.8571, 0.8477, 0.005
 AUC_REF = {"leafwise": (AUC_TRAIN, AUC_VALID),
            "depthwise": (0.842062, 0.833879),
-           "hybrid": (0.852152, 0.843580)}
+           "hybrid": (0.852152, 0.843580),
+           "pooled": (0.853401, 0.844557)}
 K1PP = "K1″"  # the level histogram's launch counter (ops.KERNEL_COUNTERS)
+POOL_MB = 4.0  # the pooled main path's histogram_pool_size: 48 slots
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 STRUCT = ("split_feature", "threshold_bin", "decision_type", "left_child",
@@ -643,11 +672,14 @@ ROUTE_ENV = {"mega": _V1,
              "record": dict(_V1, LGBM_TPU_FUSE_HIST="0"),
              "order": dict(_V1, LGBM_TPU_OPT_HISTS="0"),
              "leafwise-bsub": dict(_V1, LGBM_TPU_HIST_KERNEL="bsub"),
+             "pooled": _V1,
              "depthwise": _V1,
              "depthwise-bsub": dict(_V1, LGBM_TPU_HIST_KERNEL="bsub"),
              "hybrid": _V1}
 GROWTH = {"depthwise": "depthwise", "depthwise-bsub": "depthwise",
           "hybrid": "hybrid"}  # every other run grows leaf-wise
+# parameters a route adds to the bench config
+ROUTE_PARAMS = {"pooled": {"histogram_pool_size": POOL_MB}}
 
 
 @contextlib.contextmanager
@@ -670,13 +702,13 @@ def route_env(route: str):
 
 
 def reset_counts():
-    """Every kernel's launch count, the host-sync count and the depthwise
-    level counts to 0."""
+    """Every kernel's launch count, the host-sync count, the pool's
+    recompute count and the depthwise level counts to 0."""
     from lightgbm_tpu_torch.learners import depthwise, serial
     from lightgbm_tpu_torch.ops import reset_launch_counts
 
     reset_launch_counts()
-    serial.HOST_SYNCS = 0
+    serial.HOST_SYNCS = serial.POOL_RECOMPUTES = 0
     depthwise.LEVELS = depthwise.LEVEL_SPLITS = 0
 
 
@@ -693,16 +725,17 @@ def make_bench_data(lt):
     return params, train_set, valid_set, Xv
 
 
-def _expected(route, trees, levels, level_splits):
+def _expected(route, trees, levels, level_splits, recomputes):
     """Each kernel's launches and the host syncs a run must show: the
-    leaf-wise routes' from the trees; depthwise one level histogram and
-    one sync per level; hybrid's phase 1 the same, then one level pass
-    and one sync for the resume and, per best-first split, K1 + K3 and
-    two syncs."""
+    leaf-wise routes' from the trees (the pooled route's K1 also from the
+    parents it rebuilt); depthwise one level histogram and one sync per
+    level; hybrid's phase 1 the same, then one level pass and one sync for
+    the resume and, per best-first split, K1 + K3 and two syncs."""
+    from lightgbm_tpu_torch.ops import KERNEL_COUNTERS
+
     splits = sum(t.num_leaves - 1 for t in trees)
     n = len(trees)
-    counts = dict.fromkeys(("K1", "K1'", "K3", "K4", "K6", "K7", "K8",
-                            K1PP, "K2"), 0)
+    counts = dict.fromkeys(KERNEL_COUNTERS, 0)
     growth = GROWTH.get(route, "leafwise")
     if growth == "depthwise":
         counts["K2" if route.endswith("bsub") else K1PP] = levels
@@ -716,6 +749,7 @@ def _expected(route, trees, levels, level_splits):
         "record": {"K1'": n + splits, "K3": n, "K4": splits, "K6": splits,
                    "K7": splits},
         "order": {"K1": n + splits, "K3": n + splits},
+        "pooled": {"K1": n + splits + recomputes, "K3": n, "K5": splits},
         "leafwise-bsub": {"K2": n + splits, "K3": n + splits}}[route])
     # two at the root; one per split on the mega route, two on the others
     return counts, 2 * n + (1 if route == "mega" else 2) * splits
@@ -729,7 +763,7 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
     from lightgbm_tpu_torch.ops import launch_counts
 
     growth = GROWTH.get(route, "leafwise")
-    params = dict(params, tree_growth=growth)
+    params = dict(params, tree_growth=growth, **ROUTE_PARAMS.get(route, {}))
     with route_env(route):
         warm = lt.train(params, train_set, num_boost_round=1)
         torch.cuda.synchronize()
@@ -744,19 +778,22 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         counts = launch_counts()
-        syncs = serial.HOST_SYNCS
+        syncs, recomputes = serial.HOST_SYNCS, serial.POOL_RECOMPUTES
         levels, level_splits = depthwise.LEVELS, depthwise.LEVEL_SPLITS
         peak = torch.cuda.max_memory_allocated()
     trees = booster._gbdt.models
     leaves = [t.num_leaves for t in trees]
-    expect, expect_syncs = _expected(route, trees, levels, level_splits)
+    slots = booster._gbdt._hist_pool_slots()
+    expect, expect_syncs = _expected(route, trees, levels, level_splits,
+                                     recomputes)
     train_auc = booster.eval_train()[0][2]
     booster.add_valid(valid_set, "valid")
     valid_auc = booster.eval_valid()[0][2]
     pv = booster.predict(Xv[:1000])
     say(f"[main {route}] {TREES} trees {elapsed:.3f}s "
         f"s/tree={elapsed / TREES:.4f} leaves={leaves} levels={levels} "
-        f"level_splits={level_splits} "
+        f"level_splits={level_splits} pool_slots={slots} "
+        f"recomputes={recomputes} "
         f"train_auc={train_auc:.6f} valid_auc={valid_auc:.6f} "
         f"launches={json.dumps(counts)} expected={json.dumps(expect)} "
         f"host_syncs_per_tree={syncs / TREES:.1f} peak_mem_bytes={peak}")
@@ -773,12 +810,15 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
         check(TREES <= levels and level_splits <= TREES * NUM_LEAVES // 2,
               f"main {route}: phase 1 ran {levels} levels, "
               f"{level_splits} splits")
+    if route == "pooled":
+        check(slots == 48 and recomputes > 0,
+              f"main {route}: {slots} slots, {recomputes} parents rebuilt")
     check(all(counts[name] > 0 for name, want in expect.items() if want),
           f"main {route}: a kernel of the route never launched")
     check(counts == expect, f"main {route}: launches {counts} != {expect}")
     check(syncs == expect_syncs,
           f"main {route}: {syncs} host syncs, expected {expect_syncs}")
-    ref_train, ref_valid = AUC_REF[growth]
+    ref_train, ref_valid = AUC_REF[route if route in AUC_REF else growth]
     check(abs(train_auc - ref_train) <= AUC_TOL,
           f"main {route}: train AUC {train_auc} outside "
           f"{ref_train}+-{AUC_TOL}")
@@ -789,11 +829,52 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
           and bool(((pv > 0) & (pv < 1)).all()), f"main {route}: predictions")
     return dict(counts=counts, s_per_tree=elapsed / TREES,
                 auc=(train_auc, valid_auc), syncs_per_tree=syncs / TREES,
-                peak=peak, leaves=leaves)
+                peak=peak, leaves=leaves, recomputes=recomputes)
 
 
 # --------------------------------------------------------------- phase 9
+def pool_exact(torch):
+    """On exact-sum data (grad in {+-1, +-0.5}, hess 1: every histogram
+    sum exact, so a rebuilt parent equals the resident one), pooled trees
+    on the card, through K5 and through PyTorch subtraction + K3, bitwise
+    equal to the unpooled order route's in every tree field and leaf id."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.learners import serial
+    from lightgbm_tpu_torch.learners.serial import TreeLearnerParams, grow_tree
+    from lightgbm_tpu_torch.ops.cuda_histogram import histogram_record_window
+
+    rng = np.random.RandomState(13)
+    n, F, B = 100_000, N_FEAT, NUM_BINS
+    ones = torch.ones(n, device="cuda")
+    args = (torch.from_numpy(rng.randint(0, B, (F, n)).astype(np.uint8))
+            .cuda(),
+            torch.from_numpy(rng.choice([-1.0, -0.5, 0.5, 1.0], n)
+                             .astype(np.float32)).cuda(),
+            ones, ones, torch.ones(F, dtype=torch.bool, device="cuda"),
+            torch.full((F,), B, device="cuda"),
+            torch.zeros(F, dtype=torch.bool, device="cuda"),
+            TreeLearnerParams.from_config(Config(min_data_in_leaf=MIN_DATA,
+                                                 min_sum_hessian_in_leaf=1e-3)),
+            B, NUM_LEAVES)
+    t0, lid0 = grow_tree(*args)
+    ok = True
+    for pool in (48, 2):
+        for raw in (histogram_record_window, None):
+            reset_counts()
+            t1, lid1 = grow_tree(*args, hist_fn_raw=raw, hist_pool=pool)
+            ok &= t1.num_leaves == t0.num_leaves and torch.equal(lid1, lid0)
+            ok &= all(torch.equal(getattr(t1, k), getattr(t0, k))
+                      for k in TREE_FIELDS)
+            ok &= serial.POOL_RECOMPUTES > 0
+            say(f"[trees pooled exact-sum] pool={pool} step="
+                f"{'K5' if raw else 'subtraction+K3'} leaves={t1.num_leaves}"
+                f" recomputes={serial.POOL_RECOMPUTES} bitwise == unpooled "
+                f"(every tree field, leaf ids): {ok}")
+    check(ok, "pooled and unpooled trees differ on exact-sum data")
+
+
 def phase_trees(torch, lt):
+    from lightgbm_tpu_torch.learners import serial
     from lightgbm_tpu_torch.models.gbdt import GBDT
     from lightgbm_tpu_torch.ops import launch_counts
     from lightgbm_tpu_torch.ops.cuda_histogram import histogram_record_window
@@ -810,6 +891,8 @@ def phase_trees(torch, lt):
                              ("order", "cuda", "order"),
                              ("cpu", "cpu", "mega"),
                              ("cpu-mega", "cpu", "mega"),
+                             ("pooled", "cuda", "pooled"),
+                             ("cpu-pooled", "cpu", "pooled"),
                              ("order-bsub", "cuda", "leafwise-bsub"),
                              ("depthwise", "cuda", "depthwise"),
                              ("depthwise-bsub", "cuda", "depthwise-bsub"),
@@ -817,26 +900,34 @@ def phase_trees(torch, lt):
                              ("hybrid", "cuda", "hybrid"),
                              ("cpu-hybrid", "cpu", "hybrid")):
         saved = GBDT._leafwise_hist_fn_raw
-        if name == "cpu-mega":
+        if name in ("cpu-mega", "cpu-pooled"):
+            # the card's raw histogram: the mega route, or K5's pooled step
             GBDT._leafwise_hist_fn_raw = lambda self: histogram_record_window
         try:
             with route_env(route):
                 reset_counts()
                 ds = lt.Dataset(X, label=y, max_bin=NUM_BINS, device=dev)
                 b = lt.train(dict(params, tree_growth=GROWTH.get(
-                    route, "leafwise")), ds, num_boost_round=2, device=dev)
+                    route, "leafwise"), **ROUTE_PARAMS.get(route, {})), ds,
+                    num_boost_round=2, device=dev)
                 counts = launch_counts()
+                counts["recomputes"] = serial.POOL_RECOMPUTES
         finally:
             GBDT._leafwise_hist_fn_raw = saved
         runs[name] = (b._gbdt.models, b._gbdt._scores.cpu(), counts)
     n = {r: runs[r][2] for r in runs}
+    check(n["pooled"].pop("recomputes") > 0
+          and n["cpu-pooled"].pop("recomputes") > 0,
+          "trees: the pooled runs rebuilt no parent")
     only = {"mega": {"K1'", "K3", "K7", "K8"}, "record": {"K1'", "K3", "K4",
                                                           "K6", "K7"},
             "order": {"K1", "K3"}, "order-bsub": {"K2", "K3"},
+            "pooled": {"K1", "K3", "K5"},
             "depthwise": {K1PP}, "depthwise-bsub": {"K2"},
             "hybrid": {K1PP, "K1", "K3"}}
-    check(all({k for k, v in n[r].items() if v} == only.get(r, set())
-              for r in runs), f"trees: routes not taken as asked {n}")
+    check(all({k for k, v in n[r].items() if v and k != "recomputes"}
+              == only.get(r, set()) for r in runs),
+          f"trees: routes not taken as asked {n}")
 
     def same(r1, r2, fields, scores):
         ok = not scores or torch.equal(runs[r1][1], runs[r2][1])
@@ -850,21 +941,25 @@ def phase_trees(torch, lt):
     bitwise = same("record", "order", TREE_FIELDS, True)
     struct_cpu = same("order", "cpu", STRUCT, False)
     struct_mega = same("mega", "cpu-mega", STRUCT, False)
+    struct_pool = same("pooled", "cpu-pooled", STRUCT, False)
     struct_dw = same("depthwise", "cpu-depthwise", STRUCT, False)
     struct_hy = same("hybrid", "cpu-hybrid", STRUCT, False)
     bsub_dw = same("depthwise-bsub", "depthwise", TREE_FIELDS, True)
     bsub_ord = same("order-bsub", "order", TREE_FIELDS, True)
     leaves = {r: [t.num_leaves for t in runs[r][0]]
-              for r in ("mega", "record", "depthwise", "hybrid")}
+              for r in ("mega", "record", "pooled", "depthwise", "hybrid")}
     say(f"[trees] 2 trees at 100k rows, leaves={leaves}: record route == "
         f"order route on the card (every tree field, train scores): "
         f"{bitwise}; card == CPU plain (structure): order {struct_cpu}, "
-        f"mega {struct_mega}, depthwise {struct_dw}, hybrid {struct_hy}; "
+        f"mega {struct_mega}, pooled {struct_pool}, depthwise {struct_dw}, "
+        f"hybrid {struct_hy}; "
         f"bsub == v1 (every tree field, train scores): depthwise "
         f"{bsub_dw}, order route {bsub_ord}")
     check(bitwise, "record-route and order-route trees differ on the card")
     check(struct_cpu, "kernel-grown and plain-grown trees differ")
     check(struct_mega, "kernel-grown and plain-grown mega-route trees differ")
+    check(struct_pool, "kernel-grown and plain-grown pooled trees differ")
+    pool_exact(torch)
     check(struct_dw and struct_hy,
           "kernel-grown and plain-grown depthwise/hybrid trees differ")
     check(bsub_dw and bsub_ord, "bsub-grown and v1-grown trees differ")
@@ -976,6 +1071,207 @@ def phase_level_histogram(torch, train_set):
     return record["v1"], record["bsub"]
 
 
+# -------------------------------------------------------------- phase 11
+def phase_pool_search(torch):
+    """K5 against its plain version, bitwise, at the bench shape (resident
+    and recomputed parent, both values of small_is_left) and at F=2000 x
+    256 bins; K3 at F=2000 against its plain version, bitwise; times."""
+    from lightgbm_tpu_torch.ops import cuda_search
+    from lightgbm_tpu_torch.ops import split as plain
+
+    rng = np.random.RandomState(11)
+    F, B, P = N_FEAT, NUM_BINS, 6
+
+    def run(hl, hr, meta, scal, resident, sil):
+        """K5 and its plain version on the same pool; True if bitwise."""
+        pool = torch.from_numpy(rng.randn(P, *hl.shape).astype(np.float32)
+                                ).cuda()
+        pool[2] = hl + hr
+        # resident: the parent in slot 2, which the left child takes;
+        # recomputed: the parent as a separate row, the children in 4 and 2
+        parent, s1, s2 = (2, 2, 5) if resident else (hl + hr, 4, 2)
+        small = hl if sil else hr
+        pk, pp = pool.clone(), pool.clone()
+        k = cuda_search._search2_pool_cuda(pk, small, parent, s1, s2, sil,
+                                           scal, meta)
+        p = plain.search2_pool(pp, small, parent, s1, s2, sil, scal, meta)
+        return torch.equal(pk, pp) and torch.equal(k, p), k
+
+    cases = _search_cases(rng, F, B)
+    n = 0
+    for hs, fmask, nbpf, iscat, consts in cases[:24] + cases[-1:]:
+        hl, hr = (torch.from_numpy(a).cuda() for a in hs)
+        meta = cuda_search.pack_meta(torch.from_numpy(fmask),
+                                     torch.from_numpy(nbpf),
+                                     torch.from_numpy(iscat), "cuda")
+        scal = [1.0]
+        for hcur in hs:  # leaf totals: feature 2's sums
+            scal += [float(v) for v in hcur[2].sum(axis=0)]
+        scal += consts
+        for resident in (True, False):
+            for sil in (True, False):
+                same, k = run(hl, hr, meta, scal, resident, sil)
+                check(same, f"K5: pool or rows differ from the plain "
+                      f"version's (resident={resident}, small_is_left={sil})")
+                n += 1
+    kk = k.cpu().numpy()  # the crafted tie: small = tie, parent = 2 * tie
+    check(int(kk[0, 1]) == 2 and int(kk[0, 2]) == B // 2 - 1,
+          f"K5: tie resolved to {kk[0, 1:3]}")
+    pool = torch.from_numpy(rng.randn(P, F, B, 3).astype(np.float32)).cuda()
+    ms = time_ms(torch, lambda: cuda_search._search2_pool_cuda(
+        pool, hl, 2, 2, 5, True, scal, meta))
+    plain_ms = time_ms(torch, lambda: plain.search2_pool(
+        pool, hl, 2, 2, 5, True, scal, meta))
+    nbytes = 4 * F * B * 12 + F * 16 + 2 * 16 * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"[pool-search] cases={n} (25 x resident/recomputed x small left/"
+        f"right) pool and rows bitwise == plain ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound:.6f} ({nbytes} bytes) "
+        f"share={bound / ms:.5f}")
+    record = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                  library_ms=None)
+
+    # ---- F=2000 x 256 bins: K5 and K3
+    Fw, Bw = 2000, 256
+    hw = [np.stack([rng.randn(Fw, Bw), np.abs(rng.randn(Fw, Bw)) + 0.1,
+                    rng.randint(1, 50, (Fw, Bw))], -1).astype(np.float32)
+          for _ in range(2)]
+    hl, hr = (torch.from_numpy(a).cuda() for a in hw)
+    meta = cuda_search.pack_meta(torch.ones(Fw, dtype=torch.bool),
+                                 torch.full((Fw,), Bw),
+                                 torch.zeros(Fw, dtype=torch.bool), "cuda")
+    scal = [1.0] + [float(v) for a in hw for v in a[2].sum(axis=0)] + [
+        float(MIN_DATA), 1e-3, 0.0, 0.0, 0.0]
+    for resident in (True, False):
+        for sil in (True, False):
+            same, k = run(hl, hr, meta, scal, resident, sil)
+            check(same, f"K5 F={Fw}: pool or rows differ from the plain "
+                  f"version's (resident={resident}, small_is_left={sil})")
+    k3 = cuda_search._search2_rows_cuda(hl, hr, scal, meta)
+    check(torch.equal(k3, plain.search2_rows(hl, hr, scal, meta)),
+          f"K3 F={Fw}: rows differ from the plain version's")
+    check(int(k3[0, 1]) >= 0, f"K3 F={Fw}: no split found")
+    pool = torch.from_numpy(rng.randn(4, Fw, Bw, 3).astype(np.float32)).cuda()
+    ms5 = time_ms(torch, lambda: cuda_search._search2_pool_cuda(
+        pool, hl, 2, 2, 3, True, scal, meta), reps=5, warm=1)
+    ms3 = time_ms(torch, lambda: cuda_search._search2_rows_cuda(
+        hl, hr, scal, meta), reps=5, warm=1)
+    b5 = (4 * Fw * Bw * 12 + Fw * 16 + 128) / HBM_BYTES_PER_S * 1e3
+    b3 = (2 * Fw * Bw * 12 + Fw * 16 + 128) / HBM_BYTES_PER_S * 1e3
+    say(f"[pool-search F={Fw} B={Bw}] K5 (resident/recomputed x small "
+        f"left/right) and K3 bitwise == plain; K5 ms={ms5:.4f} "
+        f"bound_ms={b5:.5f} share={b5 / ms5:.5f}; K3 ms={ms3:.4f} "
+        f"bound_ms={b3:.5f} share={b3 / ms3:.5f}; max features "
+        f"K3/K4,K5 = {cuda_search._lib().lgbm_search2_max_features()}/"
+        f"{cuda_search._lib().lgbm_search2_max_features() // 2}")
+    del pool, hl, hr
+    return record
+
+
+# -------------------------------------------------------------- phase 12
+def phase_writeback(torch):
+    """K9 through ``write_window`` at begin 0, 1, 37, 500, 511 and two
+    clamped begins (counted), each record bitwise against the plain
+    version and against ``copy_`` on the card; times at a 1M-column
+    window of the bench record's 12 rows."""
+    from lightgbm_tpu_torch.ops import launch_counts
+    from lightgbm_tpu_torch.ops import record as R
+
+    rng = np.random.RandomState(12)
+    T = R.TILE
+    rec = torch.from_numpy(rng.randint(-2**30, 2**30, (16, 8 * T))
+                           .astype(np.int32))
+    out = torch.from_numpy(rng.randint(-2**30, 2**30, (16, 2 * T))
+                           .astype(np.int32))
+    n, cap = rec.shape[1], out.shape[1]
+    begins = (0, 1, 37, 500, T - 1, 7 * T, -5)
+    recs = [rec.cuda() for _ in begins]
+    out_c = out.cuda()
+    reset_counts()
+    for r, b in zip(recs, begins):
+        R.write_window(r, out_c, b)
+    torch.cuda.synchronize()
+    launches = launch_counts()["K9"]
+    check(launches == len(begins), f"K9: {launches} launches for "
+          f"{len(begins)} windows")
+    for r, b in zip(recs, begins):
+        placed = min(max(b + n if b < 0 else b, 0), n - cap)
+        lib = rec.cuda()
+        lib[:, placed:placed + cap].copy_(out_c)
+        cpu = R.write_window(rec.clone(), out, b)
+        check(torch.equal(r.cpu(), cpu) and torch.equal(r, lib),
+              f"K9 begin={b}: record differs from the plain version's or "
+              "copy_'s")
+    rec_big = torch.empty((12, ROWS + 2 * T), dtype=torch.int32,
+                          device="cuda").random_(-2**30, 2**30)
+    out_big = torch.empty((12, ROWS), dtype=torch.int32,
+                          device="cuda").random_(-2**30, 2**30)
+    ms = time_ms(torch, lambda: R.write_window(rec_big, out_big, 37))
+    # the plain version is this copy_, and it is the one library call
+    copy_ms = time_ms(torch, lambda: rec_big[:, 37:37 + ROWS].copy_(out_big))
+    bound = 2 * 12 * ROWS * 4 / HBM_BYTES_PER_S * 1e3
+    say(f"[writeback] begins={begins} launches={launches}: records bitwise "
+        f"== plain (CPU) and == copy_ (card); 1M-column window x 12 rows: "
+        f"ms={ms:.4f} copy_ms={copy_ms:.4f} bound_ms={bound:.5f} "
+        f"share={bound / ms:.4f}")
+    del rec_big, out_big, recs
+    return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=copy_ms,
+                bound_ms=bound, library_ms=copy_ms)
+
+
+# -------------------------------------------------------------- phase 13
+def phase_wide(torch, lt):
+    """tests/test_hist_pool.py's wide shape on the card: n=4096, F=2000,
+    max_bin 256, 255 leaves, histogram_pool_size=64 (10 slots), 2 trees
+    through the entry points, counted and with its peak device memory."""
+    from lightgbm_tpu_torch.learners import serial
+    from lightgbm_tpu_torch.ops import launch_counts
+
+    n, F = 4096, 2000
+    rng = np.random.RandomState(5)
+    X = rng.randn(n, F).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(np.float32)
+    params = {"objective": "binary", "num_leaves": NUM_LEAVES, "max_bin": 256,
+              "min_data_in_leaf": 5, "histogram_pool_size": 64.0,
+              "verbose": -1}
+    t0 = time.perf_counter()
+    with route_env("pooled"):
+        booster = lt.Booster(params=params, train_set=lt.Dataset(
+            X, label=y, max_bin=256, params=params))
+        setup = time.perf_counter() - t0
+        gb = booster._gbdt
+        slots, B = gb._hist_pool_slots(), gb._num_bins
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            booster.update()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts, recomputes = launch_counts(), serial.POOL_RECOMPUTES
+        peak = torch.cuda.max_memory_allocated()
+    trees = gb.models
+    splits = sum(t.num_leaves - 1 for t in trees)
+    want = dict.fromkeys(counts, 0)
+    want.update({"K1": 2 + splits + recomputes, "K3": 2, "K5": splits})
+    slot_bytes = F * B * 12
+    say(f"[wide] n={n} F={F} B={B} slots={slots} leaves="
+        f"{[t.num_leaves for t in trees]} recomputes={recomputes} "
+        f"launches={json.dumps(counts)} setup {setup:.1f}s, 2 trees "
+        f"{elapsed:.3f}s s/tree={elapsed / 2:.4f} peak_mem_bytes={peak} "
+        f"(pool {slots * slot_bytes} B; unpooled {NUM_LEAVES * slot_bytes} B)")
+    check(slots == 10, f"wide: {slots} slots, the JAX package's rule gives 10")
+    check(counts == want and recomputes > 0,
+          f"wide: launches {counts} != {want} or no parent rebuilt")
+    check(all(t.num_leaves > 50 for t in trees), "wide: trees too small")
+    check(bool(torch.isfinite(gb._scores).all()), "wide: scores not finite")
+    check(peak < NUM_LEAVES * slot_bytes, f"wide: peak {peak} B is not "
+          "under an unpooled buffer")
+    del booster, gb, X
+    return dict(s_per_tree=elapsed / 2, peak=peak, counts=counts)
+
+
 def main() -> int:
     try:
         import torch
@@ -1005,8 +1301,10 @@ def main() -> int:
     step = phase_split_step(torch)
     data = make_bench_data(lt)
     level, level_bsub = phase_level_histogram(torch, data[1])
+    pool_search = phase_pool_search(torch)
+    writeback = phase_writeback(torch)
     routes = {r: phase_main_path(torch, lt, r, *data)
-              for r in ("mega", "record", "order", "depthwise",
+              for r in ("mega", "record", "order", "pooled", "depthwise",
                         "depthwise-bsub", "hybrid")}
     for r, m in routes.items():
         say(f"[main {r}] s/tree={m['s_per_tree']:.4f} "
@@ -1024,11 +1322,13 @@ def main() -> int:
           f"{main_dw['auc']}")
     del data
     phase_trees(torch, lt)
+    phase_wide(torch, lt)
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s "
         f"on {card}")
     src = "lightgbm_tpu_torch/csrc/"
     rec_n, ord_n = main_rec["counts"], main_ord["counts"]
     mega_n = routes["mega"]["counts"]
+    pool_n = routes["pooled"]["counts"]
     kernels = [
         dict(name="histogram_single_leaf", route="cuda",
              source=src + "histogram.cu",
@@ -1064,6 +1364,13 @@ def main() -> int:
              replaces="lightgbm_tpu/ops/pallas_histogram.py:220",
              path="depthwise-bsub", launches=main_bsub["counts"]["K2"],
              bound_by="bytes", **level_bsub),
+        dict(name="search2_pool", route="cuda", source=src + "search.cu",
+             replaces="lightgbm_tpu/ops/pallas_search.py:455",
+             path="pooled", launches=pool_n["K5"], bound_by="bytes",
+             **pool_search),
+        dict(name="write_window", route="cuda", source=src + "record.cu",
+             replaces="lightgbm_tpu/ops/record.py:655", path="writeback",
+             bound_by="bytes", **writeback),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-// Kernels 6 and 7: the record route's partition of one leaf's window.
+// Kernels 6 and 7: the record route's partition of one leaf's window; and
+// kernel 9, the write-back of a window into the record.
 //
 // The record is [W, ld] int32, row-major (ops/record.py): Wb words of packed
 // bins, then grad, hess and mask bit patterns, the row id and the leaf id
@@ -39,9 +40,23 @@
 // column word by word (4-byte accesses, coalesced across the threads of a
 // tile).
 //
-// Both kernels run on the caller's stream and allocate nothing; the wrapper
+// K9 `write` replaces the TPU kernel lightgbm_tpu/ops/record.py
+// _write_window_kernel (:575; pallas_call at :655, reached through
+// write_window :618): rec[:, begin:begin+cap] = out_win in place.  The TPU
+// kernel walks the window in TILE-column blocks and rotates each block by
+// begin % TILE so that its aligned output blocks can alias the record
+// (record.py:575-660); on the card a column offset costs nothing, so K9
+// is a plain 2-D copy: one thread per (row, column), grid (column blocks,
+// W), threads of a block on neighbouring columns, so reads and writes are
+// coalesced.  The wrapper places begin first as the TPU interpret path's
+// dynamic_update_slice does (negative from the end, clamped to [0,
+// n-cap]).  No learner calls it (as in the JAX package;
+// tools/tpu_parity_check.py does).  Bound: memory, 2*W*cap*4 bytes (96 MB
+// for a 1M-column window at W=12, 0.0287 ms at 3.35 TB/s).
+//
+// The kernels run on the caller's stream and allocate nothing; the wrapper
 // (ops/cuda_record.py) allocates comp, the counts and the offsets.  Each C
-// entry returns cudaGetLastError().
+// entry returns cudaGetLastError().  The grid of K9 takes W <= 65535 rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,6 +101,16 @@ __global__ void __launch_bounds__(kTile)
   }
 }
 
+constexpr int kWriteThreads = 256;
+
+__global__ void __launch_bounds__(kWriteThreads)
+    write_kernel(const int* __restrict__ out_win, int64_t cap,
+                 int* __restrict__ rec, int64_t ld, int64_t begin) {
+  const int64_t c = (int64_t)blockIdx.x * kWriteThreads + threadIdx.x;
+  const int64_t w = blockIdx.y;
+  if (c < cap) rec[w * ld + begin + c] = out_win[w * cap + c];
+}
+
 }  // namespace
 
 extern "C" {
@@ -116,6 +141,18 @@ int lgbm_record_place(const int* comp, const int* counts, const int* offs,
     place_kernel<<<(unsigned)nt, kTile, 0,
                    static_cast<cudaStream_t>(stream)>>>(
         comp, counts, offs, rec, ld, W, begin, left_leaf, right_leaf);
+  return (int)cudaGetLastError();
+}
+
+// rec[:, begin:begin+cap] = out_win ([W, cap], row-major) for the [W, ld]
+// record; the caller has placed begin in [0, ld-cap].
+int lgbm_record_write(const int* out_win, int64_t cap, int W, int* rec,
+                      int64_t ld, int64_t begin, void* stream) {
+  const int64_t blocks = (cap + kWriteThreads - 1) / kWriteThreads;
+  if (blocks > 0 && W > 0)
+    write_kernel<<<dim3((unsigned)blocks, (unsigned)W), kWriteThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(out_win, cap, rec, ld,
+                                                        begin);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 // The two-child split search and the buffer update of a split step: the
-// code K3/K4 (search.cu) and K8 (split_step.cu) share, so the searches
+// code K3/K4/K5 (search.cu) and K8 (split_step.cu) share, so the searches
 // cannot drift apart.
 //
 // Semantics held exactly (pallas_search.py _child_search :85-172):
@@ -127,8 +127,8 @@ __device__ __forceinline__ float leaf_out(float g, float h, float l1,
 
 // One feature's scan of one child: the best (gain, bin) over its bins and
 // the six stats there, into sb[0..7] = (gain, bin, lg, lh, lc, rg, rh, rc).
-// `hist` is the child's [F, B, 3] row.  It is not __restrict__: K4 and K8
-// write the row earlier in the same launch.
+// `hist` is the child's [F, B, 3] row.  It is not __restrict__: K4, K5
+// and K8 write the row earlier in the same launch.
 __device__ inline void scan_feature(const float* hist, const int* meta,
                                     int f, int B, int c, const Scal& p,
                                     float* sb) {
@@ -225,16 +225,17 @@ __device__ inline void pick_winner(const float* hist, const float* s_best,
   for (int k = 0; k < 16; ++k) out[k] = row[k];
 }
 
-// Cell i of a split's buffer rows, in place: rows[0] holds the parent's
-// value; the left child goes to rows[0] and the right to rows[1], with
-// `small` the smaller child's value and the larger one parent - small
-// (elementwise f32).  The thread that calls it for cell i reads the parent
-// there and then writes both children, so no cell is read after another
-// thread has written it although the left child overwrites the parent.
-__device__ __forceinline__ void write_children(float* const rows[2],
+// Cell i of a split's buffer rows: the left child goes to rows[0] and the
+// right to rows[1], with `small` the smaller child's value and the larger
+// one parent[i] - small (elementwise f32).  `parent` may be rows[0] (the
+// left child overwrites the parent in place): the thread that calls it for
+// cell i reads the parent there and then writes both children, so no cell
+// is read after another thread has written it.
+__device__ __forceinline__ void write_children(const float* parent,
+                                               float* const rows[2],
                                                int64_t i, float small,
                                                int small_is_left) {
-  const float large = __fsub_rn(rows[0][i], small);
+  const float large = __fsub_rn(parent[i], small);
   rows[0][i] = small_is_left ? small : large;
   rows[1][i] = small_is_left ? large : small;
 }

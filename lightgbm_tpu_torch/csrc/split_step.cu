@@ -161,7 +161,8 @@ __global__ void __launch_bounds__(kThreads) split_step_kernel(StepArgs a) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < cells;
        i += stride)
-    write_children(rows, i, reduce_chunks(a.partial, nchunks, cells, i), 1);
+    write_children(rows[0], rows, i,
+                   reduce_chunks(a.partial, nchunks, cells, i), 1);
   grid_sync(a.bar);
 
   // ---- C: the left count and both searches, in block 0

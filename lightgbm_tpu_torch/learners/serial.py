@@ -1,10 +1,11 @@
-"""Serial leaf-wise tree learner: the order, record and mega routes.
+"""Serial leaf-wise tree learner: the order, record, mega and pooled routes.
 
 Counterpart of lightgbm_tpu/learners/serial.py ``grow_tree`` on its
 canonical route (``opt = rec = pooled = False``, ``init_tree=None``), on
 its record route (``hist_fn_raw`` given, the fused mega kernel off:
 serial.py:817-829, :874-889, :944-965) and on its mega route
-(``hist_fn_raw`` given and ``fuse_hist``: serial.py:774-816, :938-943):
+(``hist_fn_raw`` given and ``fuse_hist``: serial.py:774-816, :938-943),
+and on its two pooled routes (``0 < hist_pool < max_leaves``, below):
 the best-first growth of SerialTreeLearner
 (serial_tree_learner.cpp:116-150).
 
@@ -41,6 +42,19 @@ the best-first growth of SerialTreeLearner
   the two-child search (its two inputs are the root histogram).
 * Leaf numbering matches the reference: the left child keeps the
   parent's index, the right child takes ``step + 1`` (tree.cpp:78-89).
+* Pooled (``0 < hist_pool < max_leaves``, the HistogramPool of
+  feature_histogram.hpp:337-481; serial.py:590-606, :899-934,
+  :986-1033): the order route with only ``P = max(hist_pool, 2)``
+  histograms resident in a ``[P, F, B, 3]`` pool, slots handed out
+  least-recently-used.  A parent evicted since the split that made it is
+  rebuilt from its ``order`` range after this split's partition (left
+  rows, then right rows), as the JAX package rebuilds it.  The step is
+  kernel 5 (``search2_pool``: subtraction, slot writes and both searches)
+  where ``hist_fn_raw`` is given, the JAX package's raw-layout pooled
+  route (serial.py:444-456, which switches the record and mega routes
+  off under the pool, :404, :427); otherwise PyTorch subtraction, slot
+  writes and kernel 3, its canonical pooled route.  The residency tables
+  live on the host, so the pool adds no host sync.
 * Resume (``init_tree``, hybrid growth's second phase, serial.py:605-687):
   the order route starts from a partial tree of K0 leaves; one level
   histogram pass fills the live leaves' histograms, one search of all of
@@ -54,9 +68,10 @@ gain (the JAX loop runs its remaining steps as no-ops; the tree is the
 same).  Per-leaf bookkeeping (the best-split table, ranges, node table)
 lives on the host; the per-row work and the kernels run on the device.
 Host syncs: two at the root on every route (its row-order totals, its
-search row).  Then, on the order and record routes, two per split: the
-partition's left count (needed to slice the smaller child) and the two
-children's search rows (needed to pick the next leaf); on the mega route
+search row).  Then, on the order (pooled or not) and record routes, two
+per split: the partition's left count (needed to slice the smaller child)
+and the two children's search rows (needed to pick the next leaf); on the
+mega route
 one per split, the search rows with the left count in them.  At 255
 leaves that is 510 host syncs per tree against 256.
 """
@@ -71,7 +86,8 @@ import torch
 
 from ..models.tree import Tree
 from ..ops.cuda_histogram import histogram_single_leaf, make_level_hist_fn
-from ..ops.cuda_search import pack_meta, search2_rows, search2_update
+from ..ops.cuda_search import (pack_meta, search2_pool, search2_rows,
+                               search2_update)
 from ..ops.histogram import leaf_totals, take_bins
 from ..ops.record import (bins_per_word, build_record, leaf_row,
                           partition_window, place_window, row_id_row,
@@ -80,6 +96,8 @@ from ..ops.split import find_best_split_leaves
 
 # host syncs since the last reset (chip_smoke.py reads and resets it)
 HOST_SYNCS = 0
+# parent histograms rebuilt on the pooled route since the last reset
+POOL_RECOMPUTES = 0
 
 # best-split table rows: 0-10 are the search kernel's [2, 16] row layout
 # (pallas_search._unpack), 11-14 the per-leaf half of the Tree
@@ -253,13 +271,34 @@ def _resume(bins_T, grad, hess, bag_mask, feature_mask, num_bins_per_feature,
     return order, hists, best, begin, count, tree_i, tree_f, K0
 
 
+def _pool_slots(slot_of: np.ndarray, slot_last: np.ndarray, leaf: int,
+                recompute):
+    """The parent's histogram and the children's slots of a pooled split
+    of ``leaf`` (serial.py:899-934): the parent's slot if it is resident,
+    else its histogram rebuilt by ``recompute()`` (counted in
+    ``POOL_RECOMPUTES``); ``s1`` the parent's slot when resident, else the
+    least recently written slot; ``s2`` the least recently written slot
+    other than ``s1``.  Free slots carry -1 and win; ties go to the lowest
+    index (``np.argmin``, as ``jnp.argmin``)."""
+    global POOL_RECOMPUTES
+    ps = int(slot_of[leaf])
+    if ps >= 0:
+        parent, s1 = ps, ps
+    else:
+        POOL_RECOMPUTES += 1
+        parent, s1 = recompute(), int(np.argmin(slot_last))
+    others = np.where(np.arange(len(slot_last)) == s1, 2 ** 30, slot_last)
+    return parent, s1, int(np.argmin(others))
+
+
 def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               bag_mask: torch.Tensor, feature_mask, num_bins_per_feature,
               is_categorical, params: TreeLearnerParams, num_bins: int,
               max_leaves: int, hist_fn_raw=None, fuse_hist: bool = False,
               hist_fn=None, init_tree: Optional[Tree] = None,
               init_leaf_id: Optional[torch.Tensor] = None,
-              init_hist_fn=None) -> Tuple[Tree, torch.Tensor]:
+              init_hist_fn=None,
+              hist_pool: int = 0) -> Tuple[Tree, torch.Tensor]:
     """Grow one tree; returns (tree, leaf_id per row).
 
     ``bins_T`` [F, n] uint8/uint16; ``grad``/``hess``/``bag_mask`` [n]
@@ -277,7 +316,20 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     JAX package turns its raw and record routes off under ``init_tree``
     (serial.py:395, :426).  One fused pass of ``init_hist_fn`` (the level
     histogram, default ``histogram_by_leaf_sorted``) fills every live
-    leaf's histogram."""
+    leaf's histogram.
+
+    ``hist_pool`` with ``0 < hist_pool < max_leaves`` keeps only
+    ``max(hist_pool, 2)`` histograms resident (serial.py:590-606) and grows
+    on the order route; a given ``hist_fn_raw`` then selects the pooled
+    step of kernel 5 instead of the record route, and is not called (the
+    port has no raw layout; every histogram comes from ``hist_fn``).  The
+    pool does not combine with ``init_tree`` (serial.py:606)."""
+    pooled = 0 < hist_pool < max_leaves
+    if pooled and init_tree is not None:
+        raise ValueError("a resumed tree grows unpooled")
+    pool_step = pooled and hist_fn_raw is not None
+    if pooled:
+        hist_fn_raw = None
     if hist_fn is None:
         def hist_fn(b, g, h, m):
             return histogram_single_leaf(b, g, h, m, num_bins)
@@ -317,7 +369,8 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         best = _empty_best(L)
         best[:11, 0] = _host(rows)[0, :11]
 
-        hists = torch.zeros((L, F, num_bins, 3), dtype=hist0.dtype,
+        P = max(hist_pool, 2) if pooled else L
+        hists = torch.zeros((P, F, num_bins, 3), dtype=hist0.dtype,
                             device=dev)
         hists[0] = hist0
         begin = np.zeros(L, np.int64)
@@ -327,6 +380,13 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         tree_i[0] = -1
         tree_f = np.zeros((3, L), np.float32)  # gain, int_value, int_count
         nleaves = 1
+        if pooled:
+            # residency (serial.py:722-727): leaf -> slot, slot -> leaf,
+            # slot -> step of its last write; -1 = none
+            slot_of = np.full(L, -1, np.int64)
+            slot_leaf = np.full(P, -1, np.int64)
+            slot_last = np.full(P, -1, np.int64)
+            slot_of[0] = slot_leaf[0] = slot_last[0] = 0
 
     for step in range(nleaves - 1, L - 1):
         best_leaf = int(np.argmax(best[_BG]))
@@ -375,17 +435,44 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                 rows = search2_update(hists, h_small, best_leaf, new_leaf,
                                       small_is_left, scal, meta)
             else:
-                rs = order[begin_s:begin_s + cnt_s]
-                h_small = hist_fn(take_bins(bins_T, 1, rs),
-                                  grad.index_select(0, rs),
-                                  hess.index_select(0, rs),
-                                  bag_mask.index_select(0, rs))
-                h_large = hists[best_leaf] - h_small
-                h_left, h_right = ((h_small, h_large) if small_is_left
-                                   else (h_large, h_small))
-                rows = search2_rows(h_left, h_right, scal, meta)
-                hists[best_leaf] = h_left
-                hists[new_leaf] = h_right
+                def range_hist(b, cnt):
+                    rs = order[b:b + cnt]
+                    return hist_fn(take_bins(bins_T, 1, rs),
+                                   grad.index_select(0, rs),
+                                   hess.index_select(0, rs),
+                                   bag_mask.index_select(0, rs))
+
+                h_small = range_hist(begin_s, cnt_s)
+                # the parent's histogram and the children's rows: the
+                # buffer rows of the two leaves, or pool slots s1/s2
+                if pooled:
+                    h_parent, s1, s2 = _pool_slots(
+                        slot_of, slot_last, best_leaf,
+                        lambda: range_hist(b0, pcnt))
+                else:
+                    h_parent, s1, s2 = best_leaf, best_leaf, new_leaf
+                if pool_step:
+                    rows = search2_pool(hists, h_small, h_parent, s1, s2,
+                                        small_is_left, scal, meta)
+                else:
+                    if not isinstance(h_parent, torch.Tensor):
+                        h_parent = hists[h_parent]
+                    h_large = h_parent - h_small
+                    h_left, h_right = ((h_small, h_large) if small_is_left
+                                       else (h_large, h_small))
+                    rows = search2_rows(h_left, h_right, scal, meta)
+                    hists[s1] = h_left
+                    hists[s2] = h_right
+                if pooled:
+                    # evict the slots' occupants, then the children claim
+                    # them (serial.py:1021-1029; the parent may be its own
+                    # evictee)
+                    for e in (slot_leaf[s1], slot_leaf[s2]):
+                        if e >= 0:
+                            slot_of[e] = -1
+                    slot_of[best_leaf], slot_of[new_leaf] = s1, s2
+                    slot_leaf[s1], slot_leaf[s2] = best_leaf, new_leaf
+                    slot_last[s1] = slot_last[s2] = step
             res = _host(rows)
         nright = pcnt - nleft
 

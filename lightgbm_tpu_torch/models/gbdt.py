@@ -2,9 +2,10 @@
 
 Counterpart of lightgbm_tpu/models/gbdt.py for the slice: single-device
 growth, leaf-wise (on the mega or record route on the card and the
-order-based route on the CPU: ``_leafwise_hist_fn_raw``, ``_fuse_hist``),
-depthwise or hybrid (``tree_growth``; the level histogram of
-``_level_hist_fn``, kernel 1'' or 2 on the card).
+order-based route on the CPU: ``_leafwise_hist_fn_raw``, ``_fuse_hist``;
+on the pooled order route under ``histogram_pool_size``:
+``_hist_pool_slots``), depthwise or hybrid (``tree_growth``; the level
+histogram of ``_level_hist_fn``, kernel 1'' or 2 on the card).
 Each iteration computes the objective's gradients, re-draws the bagging
 mask and the feature sample (numpy RandomState, draw for draw the JAX
 package's), grows one tree per class, applies shrinkage, updates train
@@ -14,10 +15,9 @@ byte-compatible with the JAX package's.
 
 Not ported in this slice (ROADMAP queue A), and refused with
 NotImplementedError rather than ignored: parallel learners, objectives
-other than binary, hist_dtype=float64, histogram_pool_size > 0 with
-leaf-wise growth (depthwise and hybrid growth ignore it with the JAX
-package's warning).  Forest batching, the lagged stop check, guards,
-checkpoints and telemetry are not carried.
+other than binary, hist_dtype=float64.  Depthwise and hybrid growth ignore
+histogram_pool_size with the JAX package's warning.  Forest batching, the
+lagged stop check, guards, checkpoints and telemetry are not carried.
 """
 
 from __future__ import annotations
@@ -79,9 +79,6 @@ def check_supported(config: Config) -> None:
         no(f"boosting_type={config.boosting_type}", "A: other objectives")
     if config.hist_dtype != "float32":
         no("hist_dtype=float64", "A: float64 histograms")
-    if (float(config.histogram_pool_size) > 0
-            and config.tree_growth == "leafwise"):
-        no("histogram_pool_size>0", "A: histogram pool")
 
 
 def transform_scores(out: np.ndarray, num_class: int, sigmoid: float,
@@ -127,8 +124,9 @@ class GBDT:
                             objective: Optional[ObjectiveFunction]) -> None:
         """GBDT::ResetTrainingData (gbdt.cpp:49-122)."""
         check_supported(self.config)
-        if float(self.config.histogram_pool_size) > 0:
-            # only depthwise/hybrid get here (gbdt.py:364-372)
+        if (float(self.config.histogram_pool_size) > 0
+                and self.config.tree_growth != "leafwise"):
+            # gbdt.py:364-372
             Log.warning(
                 f"histogram_pool_size is ignored for tree_growth="
                 f"{self.config.tree_growth} (depthwise levels build "
@@ -217,7 +215,8 @@ class GBDT:
         histograms and the ``v1`` histogram variant, unless
         ``LGBM_TPU_OPT_HISTS=0`` (the JAX package's knobs, read per call).
         Otherwise None, the order route — always on the CPU, as the JAX
-        package's is None off the TPU, and under ``bsub``."""
+        package's is None off the TPU, and under ``bsub``.  Under the
+        histogram pool it selects kernel 5's pooled step instead."""
         if (self.device.type == "cuda"
                 and self.config.hist_dtype == "float32"
                 and hist_variant() == "v1"
@@ -231,6 +230,24 @@ class GBDT:
         package's knob, read per call here), and where ``fuse_hist_fits``."""
         return (os.environ.get("LGBM_TPU_FUSE_HIST", "1") != "0"
                 and fuse_hist_fits(self._bins_T.shape[0], self._num_bins))
+
+    def _hist_pool_slots(self) -> int:
+        """``histogram_pool_size`` (MB) -> the pool's slot count, the JAX
+        package's rule (gbdt.py:354-387, the reference's
+        serial_tree_learner.cpp:25-37): ``max(2, min(int(MB * 2**20 /
+        per_leaf), num_leaves))``, 0 (every leaf resident) when MB <= 0 or
+        growth is not leaf-wise.  ``per_leaf`` is the port's slot, ``F *
+        num_bins * 3 * 4`` bytes on every device: the JAX package's rule
+        off the TPU (gbdt.py:384-385), so CPU trees match its trees slot
+        for slot.  Its TPU build sizes a slot by the padded raw layout
+        ``[Fp, 4, Bp]`` instead (gbdt.py:375-383), a layout the port does
+        not have."""
+        mb = float(self.config.histogram_pool_size)
+        if mb <= 0 or self.config.tree_growth != "leafwise":
+            return 0
+        per_leaf = self._bins_T.shape[0] * self._num_bins * 3 * 4
+        slots = int(mb * 1024 * 1024 / max(per_leaf, 1))
+        return max(2, min(slots, self.max_leaves))
 
     def _leafwise_hist_fn(self):
         """The single-row-set histogram of leaf-wise growth (kernel 1, or
@@ -257,9 +274,12 @@ class GBDT:
         if growth == "hybrid":
             return grow_tree_hybrid(*args, hist_fn=self._leafwise_hist_fn(),
                                     level_hist_fn=self._level_hist_fn())
+        # under the pool grow_tree takes the order route; the raw
+        # histogram then selects kernel 5's step (serial.py:404, :427)
         raw = self._leafwise_hist_fn_raw()
         return grow_tree(*args, hist_fn_raw=raw,
-                         fuse_hist=raw is not None and self._fuse_hist())
+                         fuse_hist=raw is not None and self._fuse_hist(),
+                         hist_pool=self._hist_pool_slots())
 
     def train_one_iter(self) -> bool:
         """One boosting iteration (gbdt.cpp:217-252).  Returns True when

@@ -1,6 +1,7 @@
 """The port's ops: the CUDA kernels, their wrappers and their plain PyTorch
-versions (histogram, split search, the packed record's partition, the mega
-route's split step, the level histogram of depthwise growth)."""
+versions (histogram, split search and the pooled split step, the packed
+record's partition and write-back, the mega route's split step, the level
+histogram of depthwise growth)."""
 
 import importlib
 from typing import Dict
@@ -11,11 +12,13 @@ KERNEL_COUNTERS = {
     "K1'": ("cuda_histogram", "RECORD_LAUNCHES"),
     "K3": ("cuda_search", "LAUNCHES"),
     "K4": ("cuda_search", "UPDATE_LAUNCHES"),
+    "K5": ("cuda_search", "POOL_LAUNCHES"),
     "K6": ("cuda_record", "COMPACT_LAUNCHES"),
     "K7": ("cuda_record", "PLACE_LAUNCHES"),
     "K8": ("cuda_split_step", "LAUNCHES"),
     "K1″": ("cuda_histogram", "LEVEL_LAUNCHES"),
     "K2": ("cuda_histogram", "BSUB_LAUNCHES"),
+    "K9": ("cuda_record", "WRITE_LAUNCHES"),
 }
 
 

@@ -1,4 +1,4 @@
-"""The record partition's CUDA kernels: K6 (compact) and K7 (place).
+"""The record's CUDA kernels: K6 (compact), K7 (place) and K9 (write).
 
 Counterparts of lightgbm_tpu/ops/record.py ``partition_window``'s
 compaction kernel and ``place_runs``.  On a CUDA record
@@ -8,7 +8,9 @@ per-tile counts, one torch cumsum turns the counts into run offsets and
 the left total (the JAX package computes them in XLA outside its kernels
 too), and K7 copies the runs back into the record at their offsets and
 stamps the child ids.  K7 also places K8's output on the mega route
-(``ops/record.place_window``).  Each wrapper adds one
+(``ops/record.place_window``).  K9 writes a window back into the record
+(``ops/record.write_window``, the counterpart of ``write_window``; no
+learner calls it).  Each wrapper adds one
 to its launch count when it launches its kernel (csrc/record.cu says what
 they replace, their bound and their design).  The plain versions are in
 ops/record.py.
@@ -26,6 +28,7 @@ from .record import TILE, _run_offsets
 # kernel launches since the last reset (chip_smoke.py reads and resets them)
 COMPACT_LAUNCHES = 0
 PLACE_LAUNCHES = 0
+WRITE_LAUNCHES = 0
 
 _VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _I64 = ctypes.c_int64
@@ -42,6 +45,9 @@ def _lib():
         lib.lgbm_record_place.restype = _I
         lib.lgbm_record_place.argtypes = [
             _VP, _VP, _VP, _I64, _VP, _I64, _I, _I64, _I, _I, _VP]
+        lib.lgbm_record_write.restype = _I
+        lib.lgbm_record_write.argtypes = [_VP, _I64, _I, _VP, _I64, _I64,
+                                          _VP]
         if lib.lgbm_record_tile() != TILE:
             raise RuntimeError("csrc/record.cu kTile differs from "
                                "ops/record.py TILE")
@@ -124,3 +130,24 @@ def place_cuda(rec: torch.Tensor, comp: torch.Tensor, counts: torch.Tensor,
     if nt:
         PLACE_LAUNCHES += 1
     return nleft
+
+
+def write_window_cuda(rec: torch.Tensor, out_win: torch.Tensor,
+                      begin: int) -> None:
+    """K9: ``rec[:, begin:begin+cap] = out_win`` in place, ``begin``
+    already placed in ``[0, n - cap]`` (ops/record.write_window)."""
+    global WRITE_LAUNCHES
+    W, cap = out_win.shape
+    _check_record(rec, begin, cap)
+    if out_win.dtype != torch.int32 or out_win.device != rec.device \
+            or not out_win.is_contiguous() or W != rec.shape[0]:
+        raise ValueError(f"out_win must be a contiguous [{rec.shape[0]}, cap] "
+                         f"int32 tensor on {rec.device}")
+    lib = _lib()
+    with torch.cuda.device(rec.device):
+        code = lib.lgbm_record_write(out_win.data_ptr(), cap, W,
+                                     rec.data_ptr(), rec.shape[1], begin,
+                                     _stream(rec.device))
+    _build.check(code, "record write kernel")
+    if cap:
+        WRITE_LAUNCHES += 1

@@ -12,13 +12,17 @@ and adds one to ``LAUNCHES``; on CPU tensors it runs the plain version
 larger child by subtraction from the parent's buffer row, both children
 written into the ``[L, F, B, 3]`` buffer in place, and both searched;
 kernel 4 on the card (counted in ``UPDATE_LAUNCHES``), the plain version
-on the CPU.
+on the CPU.  ``search2_pool`` is the pooled leaf-wise route's step, the
+counterpart of ``search2_pallas_raw`` with the subtraction and the slot
+writes around it: the same over a ``[P, F, B, 3]`` histogram pool, the
+children written to slots ``s1`` and ``s2`` and the parent read from a
+slot or from a recomputed row; kernel 5 on the card (``POOL_LAUNCHES``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Sequence, Tuple, Union
 
 import torch
 
@@ -29,6 +33,7 @@ from .split import SplitResult
 # kernel launches since the last reset (chip_smoke.py reads and resets them)
 LAUNCHES = 0  # kernel 3
 UPDATE_LAUNCHES = 0  # kernel 4
+POOL_LAUNCHES = 0  # kernel 5
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -42,6 +47,9 @@ def _lib():
         lib.lgbm_search2_update.restype = _I
         lib.lgbm_search2_update.argtypes = [_VP, _VP, _I, _I, _I, _VP, _I,
                                             _I] + [_F] * 12 + [_VP, _VP]
+        lib.lgbm_search2_pool.restype = _I
+        lib.lgbm_search2_pool.argtypes = [_VP, _VP, _VP, _I, _I, _I, _VP, _I,
+                                          _I] + [_F] * 12 + [_VP, _VP]
         lib.lgbm_search2_max_features.restype = _I
         lib.lgbm_search2_max_features.argtypes = []
         lib._typed = True
@@ -74,7 +82,7 @@ def search2_rows(h_left: torch.Tensor, h_right: torch.Tensor,
 
 
 def _check_search(hists, meta, scal, F, lib, per_feature_factor=1):
-    """Shared argument checks of kernels 3 and 4."""
+    """Shared argument checks of kernels 3, 4 and 5."""
     for name, t in hists:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -165,6 +173,73 @@ def _search2_update_cuda(hists, h_small, parent, new_leaf, small_is_left,
             lc, rsg, rsh, rc, md, mh, l1, l2, mg, out.data_ptr(), stream)
     _build.check(code, "search-update kernel")
     UPDATE_LAUNCHES += 1
+    return out
+
+
+def search2_pool(pool: torch.Tensor, h_small: torch.Tensor,
+                 parent: Union[int, torch.Tensor], s1: int, s2: int,
+                 small_is_left: bool, scal: Sequence[float],
+                 meta: torch.Tensor) -> torch.Tensor:
+    """``pool[s1]`` <- left child, ``pool[s2]`` <- right child (``h_small``
+    and parent - ``h_small``, routed by ``small_is_left``), in place;
+    returns both children's [2, 16] rows.  ``parent`` is the parent's pool
+    slot or its recomputed [F, B, 3] histogram.  ``s2`` may be neither
+    ``s1`` nor the parent's slot; ``s1`` may be the parent's slot (the left
+    child then overwrites the parent).  ``scal`` and ``meta`` as for
+    ``search2_rows``."""
+    P = pool.shape[0]
+    ps = None if isinstance(parent, torch.Tensor) else int(parent)
+    if not (0 <= s1 < P and 0 <= s2 < P and s1 != s2):
+        raise ValueError(f"slots {s1} and {s2} must be distinct slots of the "
+                         f"{P}-slot pool")
+    if ps is not None and not (0 <= ps < P and ps != s2):
+        raise ValueError(f"the parent's slot {ps} must be a slot of the "
+                         f"{P}-slot pool other than s2={s2}")
+    parent = parent if ps is None else ps
+    if pool.device.type == "cpu":
+        return plain.search2_pool(pool, h_small, parent, s1, s2,
+                                  small_is_left, scal, meta)
+    return _search2_pool_cuda(pool, h_small, parent, s1, s2, small_is_left,
+                              scal, meta)
+
+
+def _search2_pool_cuda(pool, h_small, parent, s1, s2, small_is_left, scal,
+                       meta):
+    """Kernel 5 on the card (raises on anything it does not take; the
+    slots are checked by ``search2_pool``)."""
+    global POOL_LAUNCHES
+    if pool.dim() != 4 or pool.shape[3] != 3 \
+            or h_small.shape != pool.shape[1:]:
+        raise ValueError(f"pool must be [P, F, B, 3] and h_small [F, B, 3], "
+                         f"got {tuple(pool.shape)} and "
+                         f"{tuple(h_small.shape)}")
+    _, F, B, _ = pool.shape
+    dev = pool.device
+    rows = [("pool", pool), ("h_small", h_small)]
+    if not isinstance(parent, torch.Tensor):
+        parent_ptr = pool.data_ptr() + parent * F * B * 3 * pool.element_size()
+    else:
+        if parent.shape != h_small.shape:
+            raise ValueError(f"parent must be [F, B, 3], got "
+                             f"{tuple(parent.shape)}")
+        rows.append(("parent", parent))
+        parent_ptr = parent.data_ptr()
+    for name, t in rows[1:]:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, pool on {dev}")
+    lib = _lib()
+    _check_search(rows, meta, scal, F, lib, per_feature_factor=2)
+    can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = (
+        float(v) for v in scal)
+    out = torch.empty((2, 16), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.lgbm_search2_pool(
+            pool.data_ptr(), h_small.data_ptr(), parent_ptr, s1, s2,
+            int(bool(small_is_left)), meta.data_ptr(), F, B, can, lsg, lsh,
+            lc, rsg, rsh, rc, md, mh, l1, l2, mg, out.data_ptr(), stream)
+    _build.check(code, "pooled search kernel")
+    POOL_LAUNCHES += 1
     return out
 
 

@@ -49,6 +49,10 @@ child's histogram over the whole parent window, the subtraction, both
 buffer rows and both searches in one call (kernel 8 on the card,
 ops/cuda_split_step.py, csrc/split_step.cu); ``place_window`` (K7) then
 places the tiles.  ``split_step_plain`` composes the plain versions.
+
+``write_window`` writes a ``[W, cap]`` window back into the record at a
+column offset (the JAX package's ``write_window``, record.py:618; kernel 9
+on the card, ops/cuda_record.py; no learner calls it).
 """
 
 from __future__ import annotations
@@ -229,6 +233,32 @@ def place_window(rec: torch.Tensor, comp: torch.Tensor, counts: torch.Tensor,
     place_runs(rec, comp, counts[0], counts[1], begin, pcnt, int(nleft),
                left_leaf, right_leaf)
     return nleft
+
+
+def write_window(rec: torch.Tensor, out_win: torch.Tensor,
+                 begin: int) -> torch.Tensor:
+    """``rec[:, begin:begin+cap] = out_win`` in place on the ``[W, n]``
+    int32 record, ``cap = out_win.shape[1]``; returns ``rec``.  ``begin``
+    is placed as ``jax.lax.dynamic_update_slice`` places it (the JAX
+    ``write_window``'s semantics in interpret mode, record.py:628-629): a
+    negative ``begin`` counts from the end (``begin + n``), then it is
+    clamped to ``[0, n - cap]``.  A CPU record takes ``copy_`` into the
+    slice (the plain version), a CUDA record kernel 9."""
+    W, n = rec.shape
+    if out_win.dim() != 2 or out_win.shape[0] != W \
+            or out_win.shape[1] > n or out_win.dtype != rec.dtype:
+        raise ValueError(f"out_win must be [{W}, cap <= {n}] {rec.dtype}, got "
+                         f"{tuple(out_win.shape)} {out_win.dtype}")
+    cap = out_win.shape[1]
+    b = int(begin)
+    b = min(max(b + n if b < 0 else b, 0), n - cap)
+    if rec.device.type != "cpu":
+        from . import cuda_record  # it imports this module
+
+        cuda_record.write_window_cuda(rec, out_win, b)
+    else:
+        rec[:, b:b + cap].copy_(out_win)
+    return rec
 
 
 def partition_window(rec: torch.Tensor, f: int, thr: int, is_cat: bool,

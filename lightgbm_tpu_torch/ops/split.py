@@ -18,12 +18,13 @@ This is the CPU path of ``ops/cuda_search.search2`` and the oracle the
 CUDA kernel is held against on the card.  ``search2_rows`` packs a
 two-child search into the kernels' [2, 16] rows; ``search2_update`` is
 the plain version of kernel 4 (subtract, route, update the buffer rows,
-search).
+search), ``search2_pool`` that of kernel 5 (the same over a histogram
+pool's slots).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Sequence, Union
 
 import torch
 
@@ -200,10 +201,28 @@ def search2_update(hists: torch.Tensor, h_small: torch.Tensor, parent: int,
     ``h_large = hists[parent] - h_small``, the two routed to left and
     right by ``small_is_left``, written in place to ``hists[parent]``
     (left) and ``hists[new_leaf]`` (right), then both searched.  Returns
-    the [2, 16] rows."""
-    h_large = hists[parent] - h_small
+    the [2, 16] rows.  It is ``search2_pool`` with the parent's row as the
+    left child's slot."""
+    return search2_pool(hists, h_small, parent, parent, new_leaf,
+                        small_is_left, scal, meta)
+
+
+def search2_pool(pool: torch.Tensor, h_small: torch.Tensor,
+                 parent: Union[int, torch.Tensor], s1: int, s2: int,
+                 small_is_left: bool, scal: Sequence[float],
+                 meta: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 5, the pooled route's step (the JAX
+    package's subtraction, routing and slot writes around
+    ``search2_pallas_raw``, serial.py:961-1008): ``h_large = parent -
+    h_small`` in float32, where ``parent`` is ``pool[parent]`` for a slot
+    index or the recomputed [F, B, 3] histogram itself; the two routed to
+    left and right by ``small_is_left`` and written to ``pool[s1]`` (left)
+    and ``pool[s2]`` (right); both searched from the written slots, as the
+    kernel searches them.  Returns the [2, 16] rows."""
+    h_parent = parent if isinstance(parent, torch.Tensor) else pool[parent]
+    h_large = h_parent - h_small
     h_left, h_right = ((h_small, h_large) if small_is_left
                        else (h_large, h_small))
-    hists[parent] = h_left
-    hists[new_leaf] = h_right
-    return search2_rows(hists[parent], hists[new_leaf], scal, meta)
+    pool[s1] = h_left
+    pool[s2] = h_right
+    return search2_rows(pool[s1], pool[s2], scal, meta)

@@ -1,7 +1,7 @@
 """Where the time of one tree goes on the card, at the bench shape.
 
     python -m lightgbm_tpu_torch.profile_slice [--rows N] [--trees T]
-        [--growth leafwise|depthwise|hybrid]
+        [--growth leafwise|depthwise|hybrid] [--histogram-pool-size MB]
 
 Trains the bench model (bench.py's config: binary, HIGGS-like rows from
 seed 7, 28 features, 255 bins, 255 leaves) through the port's entry
@@ -11,7 +11,9 @@ timed without it).  ``--growth`` sets ``tree_growth`` (leaf-wise by
 default).  Leaf-wise, it traces whatever route ``train`` takes: the mega
 route by default (K8 ``split_step_kernel`` + K7 per split), the record
 route under ``LGBM_TPU_FUSE_HIST=0``, the order route under
-``LGBM_TPU_OPT_HISTS=0``.  Depthwise runs the level histogram (K1'', or
+``LGBM_TPU_OPT_HISTS=0``; with ``--histogram-pool-size`` (MB, 4 keeps 48
+of the 255 leaves' histograms) the pooled order route (K1 for children and
+rebuilt parents, K5 per split).  Depthwise runs the level histogram (K1'', or
 K2 under ``LGBM_TPU_HIST_KERNEL=bsub``) once per level; hybrid adds the
 resume's level pass and the order route's K1 + K3 per split.
 Prints one JSON object: host wall per tree with and without the profiler,
@@ -65,6 +67,7 @@ def main(argv=None) -> int:
     ap.add_argument("--trees", type=int, default=3)
     ap.add_argument("--growth", default="leafwise",
                     choices=("leafwise", "depthwise", "hybrid"))
+    ap.add_argument("--histogram-pool-size", type=float, default=0.0)
     args = ap.parse_args(argv)
 
     import torch
@@ -79,7 +82,8 @@ def main(argv=None) -> int:
     X, y = _make_data(args.rows)
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
               "learning_rate": 0.1, "min_data_in_leaf": 100,
-              "tree_growth": args.growth, "verbose": -1}
+              "tree_growth": args.growth,
+              "histogram_pool_size": args.histogram_pool_size, "verbose": -1}
     ds = lt.Dataset(X, label=y, max_bin=255, params=params)
     booster = lt.Booster(params=params, train_set=ds)
     booster.update()  # warm
@@ -90,7 +94,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     reset_launch_counts()
-    serial.HOST_SYNCS = 0
+    serial.HOST_SYNCS = serial.POOL_RECOMPUTES = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -118,6 +122,8 @@ def main(argv=None) -> int:
         "launches_per_tree": {name: n / args.trees
                               for name, n in launch_counts().items()},
         "host_syncs_per_tree": serial.HOST_SYNCS / args.trees,
+        "pool_slots": booster._gbdt._hist_pool_slots(),
+        "parents_rebuilt_per_tree": serial.POOL_RECOMPUTES / args.trees,
         "leaves": [t.num_leaves for t in booster._gbdt.models[-args.trees:]],
     }, indent=1))
     return 0

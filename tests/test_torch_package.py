@@ -105,7 +105,6 @@ def test_entry_points_default_to_cuda():
     {"objective": "multiclass", "num_class": 3},
     {"objective": "lambdarank"},
     {"hist_dtype": "float64"},
-    {"histogram_pool_size": 1.0},
     {"tree_learner": "data"},
     {"boosting_type": "dart"},
     {"metric": "l2"},
@@ -123,11 +122,13 @@ def test_out_of_slice_configs_raise(extra):
     {"tree_growth": "hybrid"},
     {"tree_growth": "depthwise", "histogram_pool_size": 1.0},
     {"tree_growth": "hybrid", "histogram_pool_size": 1.0},
+    {"tree_growth": "leafwise", "histogram_pool_size": 0.03},
 ], ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()))
 def test_level_growth_trains_on_cpu(extra, capsys):
     """Depthwise and hybrid growth are in the slice; with them the
     histogram pool is ignored with the JAX package's warning
-    (gbdt.py:364-372), not refused."""
+    (gbdt.py:364-372), not refused.  Leaf-wise growth keeps the pool (a
+    few slots here, against 7 leaves)."""
     X, y = _data()
     params = {"objective": "binary", "num_leaves": 7, "verbose": -1, **extra}
     bst = lt.train(params, lt.Dataset(X, label=y, device="cpu"), 2,
@@ -135,7 +136,9 @@ def test_level_growth_trains_on_cpu(extra, capsys):
     assert bst.num_trees() == 2
     assert bst._gbdt.models[0].num_leaves > 1
     warned = "histogram_pool_size is ignored" in capsys.readouterr().err
-    assert warned == ("histogram_pool_size" in extra)
+    leafwise = extra["tree_growth"] == "leafwise"
+    assert warned == ("histogram_pool_size" in extra and not leafwise)
+    assert (2 <= bst._gbdt._hist_pool_slots() < 7) == leafwise
 
 
 def test_sparse_input_raises():

@@ -2,13 +2,17 @@
 """The JAX package's train and valid AUC on chip_smoke.py's bench data.
 
     JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth depthwise
+    JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth leafwise \
+        --histogram-pool-size 4
 
 Trains ``lightgbm_tpu`` on the data and config ``chip_smoke.py`` trains
 the port on (bench.py's: 1M x 28 HIGGS-like rows from seed 7 plus 200k
 valid rows, binary, 255 bins, 255 leaves, learning_rate 0.1,
 min_data_in_leaf 100) for ``--trees`` rounds with the given
-``tree_growth``, and prints one JSON line with both AUCs.  chip_smoke.py
-holds the port's AUC for the same growth within +-0.005 of these numbers.
+``tree_growth`` (and ``histogram_pool_size`` in MB, 0 = no pool: 4 MB
+keeps 48 of the 255 leaves' histograms at this shape), and prints one JSON
+line with both AUCs.  chip_smoke.py holds the port's AUC for the same
+growth within +-0.005 of these numbers.
 It runs the JAX package on whatever backend JAX picks (the CPU under
 ``JAX_PLATFORMS=cpu``); the AUC, not the time, is its output.
 """
@@ -30,6 +34,7 @@ def main(argv=None) -> int:
     ap.add_argument("--growth", default="depthwise",
                     choices=("leafwise", "depthwise", "hybrid"))
     ap.add_argument("--trees", type=int, default=10)
+    ap.add_argument("--histogram-pool-size", type=float, default=0.0)
     args = ap.parse_args(argv)
 
     import jax
@@ -48,7 +53,8 @@ def main(argv=None) -> int:
               "max_bin": chip_smoke.NUM_BINS,
               "learning_rate": chip_smoke.LEARNING_RATE,
               "min_data_in_leaf": chip_smoke.MIN_DATA,
-              "tree_growth": args.growth, "verbose": -1}
+              "tree_growth": args.growth,
+              "histogram_pool_size": args.histogram_pool_size, "verbose": -1}
     bst = engine.train(params, lgb.Dataset(X, label=y,
                                            max_bin=chip_smoke.NUM_BINS),
                        num_boost_round=args.trees, verbose_eval=False)
@@ -61,6 +67,8 @@ def main(argv=None) -> int:
 
     print(json.dumps({
         "growth": args.growth, "trees": args.trees,
+        "histogram_pool_size": args.histogram_pool_size,
+        "pool_slots": bst._gbdt._hist_pool_slots(),
         "train_auc": auc(X, y), "valid_auc": auc(Xv, yv),
         "leaves": [int(t.num_leaves) for t in bst._gbdt.models],
         "backend": jax.default_backend(),
