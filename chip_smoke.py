@@ -57,9 +57,12 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 10. (run between 7 and 8, on the bench data) holds the level histogram K1''
    against its plain version bitwise at the bench shape with the leaf ids
    of a real depthwise level (255 leaves, most of them empty), with one
-   leaf and with u16 x 300 bins; two launches bitwise equal; K2 bitwise
-   equal to K1'', and K2 with one leaf to K1; times K1'', K2, the plain
-   version and one ``index_add_`` on leaf-bin keys;
+   leaf, with u16 x 300 bins, with ~90 % of every feature's rows in one
+   bin and with u16 x 5000 bins (more than its count table holds); its
+   chunk table bitwise against ``level_layout``'s; two launches bitwise
+   equal; K2 bitwise equal to K1'', and K2 with one leaf to K1; times K1'',
+   K2, ``level_layout`` and the sort alone, the plain version and one
+   ``index_add_`` on leaf-bin keys at the real level and the dominant bin;
 11. holds the pooled split step (K5) against its plain version, bitwise
    (the whole pool and the search rows), at the bench shape on 25 random
    cases with the parent resident in its slot and recomputed, for both
@@ -966,16 +969,44 @@ def phase_trees(torch, lt):
 
 
 # -------------------------------------------------------------- phase 10
+def level_table(torch, ch, bins, lid, g, h, m, num_bins, L):
+    """The chunk table of K1'' from a call of its C entry with a scratch
+    table of our own: (row_start, chunk_start, chunk_row0, chunk_rows,
+    chunk_leaf), the arrays ops/histogram.level_layout builds after its
+    sort."""
+    from lightgbm_tpu_torch.ops.histogram import CHUNK_ROWS
+
+    F, n = bins.shape
+    sorted_leaf, order = torch.sort(lid, stable=True)
+    cap = -(-n // CHUNK_ROWS) + L
+    table = torch.empty(2 * (L + 1) + 3 * cap, dtype=torch.int64,
+                        device="cuda")
+    out = torch.empty((L, F, num_bins, 3), device="cuda")
+    part = torch.empty((cap, F, num_bins, 3), device="cuda")
+    code = ch._level_lib().lgbm_level_hist(
+        bins.data_ptr(), bins.element_size(), g.data_ptr(), h.data_ptr(),
+        m.data_ptr(), order.data_ptr(), sorted_leaf.data_ptr(),
+        sorted_leaf.element_size(), n, F, L, num_bins, 0, table.data_ptr(),
+        part.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    check(code == 0, f"level histogram entry: CUDA error {code}")
+    torch.cuda.synchronize()
+    return table.split([L + 1, L + 1, cap, cap, cap])
+
+
 def phase_level_histogram(torch, train_set):
     """K1'' and K2 against their plain version and each other, at the
-    bench shape with a real level's leaf ids, with one leaf and with u16 x
-    300 bins; times them at the first case."""
+    bench shape with a real level's leaf ids, with one leaf, with u16 x
+    300 bins, with ~90 % of every feature's rows in one bin and with u16 x
+    5000 bins (more than the kernels' count table holds); K2 with one leaf
+    against K1 on every case's bins; times them, and ``level_layout``
+    alone, at the level-6 and dominant-bin cases."""
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.learners.depthwise import grow_tree_depthwise
     from lightgbm_tpu_torch.learners.serial import TreeLearnerParams
     from lightgbm_tpu_torch.ops import cuda_histogram as ch
     from lightgbm_tpu_torch.ops.histogram import (
-        histogram_by_leaf, histogram_by_leaf_sorted_plain)
+        histogram_by_leaf, histogram_by_leaf_sorted_plain, level_layout)
 
     inner = train_set.construct()
     bins = inner.bins_T("cuda")
@@ -1004,13 +1035,27 @@ def phase_level_histogram(torch, train_set):
 
     u16 = torch.from_numpy(rng.randint(0, 300, (F, 100_000)).astype(
         np.uint16)).cuda()
+    dom = torch.where(torch.from_numpy(rng.rand(F, n) < 0.9).cuda(),
+                      torch.full_like(bins, B // 3), bins)
+    many = torch.from_numpy(rng.randint(0, 5000, (4, 100_000)).astype(
+        np.uint16)).cuda()
+
+    def leaves(L, m):
+        return torch.from_numpy(rng.randint(0, L, m).astype(np.int32)).cuda()
+
     cases = [("level-6", bins, lid6, B, NUM_LEAVES),
              ("one-leaf", bins, torch.zeros_like(lid6), B, 1),
-             ("uint16", u16, torch.from_numpy(rng.randint(
-                 0, 64, 100_000).astype(np.int32)).cuda(), 300, 64)]
+             ("uint16", u16, leaves(64, 100_000), 300, 64),
+             ("dominant-bin", dom, lid6, B, NUM_LEAVES),
+             ("many-bins", many, leaves(64, 100_000), 5000, 64)]
     record = None
     for name, b, lid, nb, L in cases:
         g, h, m = stats(b.shape[1])
+        F = b.shape[0]
+        lay = level_layout(lid, L)
+        table = level_table(torch, ch, b, lid, g, h, m, nb, L)
+        check(all(torch.equal(t, x) for t, x in zip(table, lay[2:])),
+              f"K1'' {name}: its chunk table differs from level_layout's")
         a = ch.histogram_by_leaf_sorted_cuda(b, lid, g, h, m, nb, L, "v1")
         a2 = ch.histogram_by_leaf_sorted_cuda(b, lid, g, h, m, nb, L, "v1")
         k2 = ch.histogram_by_leaf_sorted_cuda(b, lid, g, h, m, nb, L, "bsub")
@@ -1028,17 +1073,19 @@ def phase_level_histogram(torch, train_set):
         check(torch.equal(a[..., 2].double(), ref[..., 2]),
               f"K1'' {name}: counts differ from the float64 sums")
         live = int((a[:, 0, :, 2].sum(1) > 0).sum())
-        if L == 1:
-            k1 = ch.histogram_single_leaf_cuda(b, g, h, m, nb)
-            k2s = ch.histogram_single_leaf_bsub_cuda(b, g, h, m, nb)
-            torch.cuda.synchronize()
-            check(torch.equal(k2s, k1) and torch.equal(a[0], k1),
-                  f"K2/K1'' {name}: one leaf differs from K1")
+        k1 = ch.histogram_single_leaf_cuda(b, g, h, m, nb)
+        k2s = ch.histogram_single_leaf_bsub_cuda(b, g, h, m, nb)
+        torch.cuda.synchronize()
+        check(torch.equal(k2s, k1), f"K2 {name}: one leaf differs from K1")
+        check(L > 1 or torch.equal(a[0], k1),
+              f"K1'' {name}: one leaf differs from K1")
+        top = float(a[..., 2].amax())
         say(f"[level-hist {name}] F={F} n={b.shape[1]} B={nb} L={L} "
-            f"non-empty leaves={live} bitwise: launches, K2 == K1'', "
-            f"== plain{', == K1 (one leaf, K1/K2)' if L == 1 else ''} "
+            f"non-empty leaves={live} largest cell={top:.0f} rows bitwise: "
+            f"launches, K2 == K1'', == plain, K2 one leaf == K1"
+            f"{', K1 == K1 (one leaf)' if L == 1 else ''} "
             f"max_abs_err_vs_f64={err64:.3g}")
-        if name == "level-6":
+        if name in ("level-6", "dominant-bin"):
             keys = ((lid.to(torch.int64)[None, :] * F
                      + torch.arange(F, device="cuda")[:, None]) * nb
                     + b.to(torch.int64)).reshape(-1)
@@ -1051,6 +1098,8 @@ def phase_level_histogram(torch, train_set):
             times = {v: time_ms(
                 torch, lambda v=v: ch.histogram_by_leaf_sorted_cuda(
                     b, lid, g, h, m, nb, L, v)) for v in ("v1", "bsub")}
+            layout_ms = time_ms(torch, lambda: level_layout(lid, L))
+            sort_ms = time_ms(torch, lambda: torch.sort(lid, stable=True))
             plain_ms = time_ms(torch, lambda: histogram_by_leaf_sorted_plain(
                 b, lid, g, h, m, nb, L), reps=5, warm=1)
             lib_ms = time_ms(torch, library)
@@ -1058,16 +1107,20 @@ def phase_level_histogram(torch, train_set):
             bound = max(nbytes / HBM_BYTES_PER_S,
                         3 * F * n / F32_FLOPS) * 1e3
             say(f"[level-hist times] {name}: K1'' ms={times['v1']:.4f} "
-                f"K2 ms={times['bsub']:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib_ms:.4f} bound_ms={bound:.5f} "
-                f"({nbytes} bytes) share K1''={bound / times['v1']:.4f} "
+                f"K2 ms={times['bsub']:.4f} level_layout_ms={layout_ms:.4f} "
+                f"(the call's own prep: sort_ms={sort_ms:.4f}, then the "
+                f"chunk table in the kernel) "
+                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={bound:.5f} ({nbytes} bytes) "
+                f"share K1''={bound / times['v1']:.4f} "
                 f"K2={bound / times['bsub']:.4f}")
-            record = {v: dict(max_abs_err=err, ms=times[v], plain_ms=plain_ms,
-                              bound_ms=bound, library_ms=lib_ms)
-                      for v in ("v1", "bsub")}
+            if name == "level-6":
+                record = {v: dict(max_abs_err=err, ms=times[v],
+                                  plain_ms=plain_ms, bound_ms=bound,
+                                  library_ms=lib_ms) for v in ("v1", "bsub")}
             del keys, src
-        del a, a2, k2, cpu, ref
-    del u16, lid6, tree6
+        del a, a2, k2, cpu, ref, k1, k2s, lay, table
+    del u16, dom, many, lid6, tree6
     return record["v1"], record["bsub"]
 
 
@@ -1375,7 +1428,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}), flush=True)
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

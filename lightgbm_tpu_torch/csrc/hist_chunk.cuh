@@ -14,6 +14,31 @@
 // The order of every sum depends only on the rows, never on the grid or
 // the block size: the plain versions (ops/histogram.py) sum in the same
 // order, bitwise.
+//
+// hist_sorted builds the same partials for a group of features without the
+// per-bin walk, which costs O(rows * B) compares per feature.  It stages
+// the chunk's masked stats once for the group and the group's bins (every
+// thread issues all its rows' loads before it stores any), then, feature
+// by feature, sorts the rows by bin, stably, in shared memory:
+//  * rank: S warps own contiguous row segments and walk them 32 rows at a
+//    time in row order.  Ballots, one per bit of the bin, give each lane
+//    the lanes of equal bin among the 32 (the mask __match_any_sync would
+//    give, built as CUB's radix rank builds it); a row's rank is the number
+//    of those below its lane, and the lowest of them adds their number to
+//    the warp's own row of an [S, R] int count table.  No atomics and no
+//    shared cursor: every rank follows from the row order alone;
+//  * scan: each bin's column becomes its warps' exclusive prefix, then an
+//    inclusive scan over bins gives each bin's run; a row's slot is its
+//    bin's start + its warp's prefix + its rank, and its three stats are
+//    written there;
+//  * sum: one thread per bin adds its run, which holds the bin's rows in
+//    row order, from 0.f: hist_rows' additions in hist_rows' order, so the
+//    partials are bitwise hist_rows'.  A bin that holds most of a chunk
+//    puts up to kChunk additions on one thread, as many as each thread
+//    makes in hist_rows.
+// The table holds kTable ints: S = clamp(kTable / B, 1, warps) segments
+// and R = min(B, kTable / S) bins a pass, so B > kTable runs ceil(B / R)
+// passes over bin ranges with one segment.  An empty chunk writes zeros.
 
 #pragma once
 
@@ -91,6 +116,197 @@ __device__ inline void hist_chunk(const Rows& rows, int64_t cap, int chunk,
   const int nrows = (cap - row0 < kChunk) ? (int)(cap - row0) : kChunk;
   hist_rows<StageT>(rows, row0, nrows, f, num_bins,
                     partial + (((int64_t)chunk * F + f) * num_bins) * 3);
+}
+
+constexpr int kTable = 4096;  // ints in hist_sorted's count table
+
+// Dynamic shared memory of hist_sorted over G features of BinT bins.
+template <typename BinT, int G>
+constexpr int hist_sorted_smem() {
+  return kChunk * (6 * (int)sizeof(float) + (int)sizeof(uint16_t)
+                   + G * (int)sizeof(BinT))
+         + (2 * kTable + 32) * (int)sizeof(int);
+}
+
+// Bins [0, nb) of the [S, stride] table `cnt`: each bin's column becomes
+// its segments' exclusive prefix and incl[b] the rows of bins 0..b.  Every
+// thread of the block must call it.
+template <int kThreads>
+__device__ inline void scan_table(int* cnt, int S, int stride, int nb,
+                                  int* incl, int* s_warp) {
+  constexpr int kWarps = kThreads / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (nb + kThreads - 1) / kThreads;
+  const int lo = min(tid * per, nb), hi = min(lo + per, nb);
+  int sum = 0;
+  for (int b = lo; b < hi; ++b) {
+    int run = 0;
+    for (int w = 0; w < S; ++w) {
+      const int c = cnt[w * stride + b];
+      cnt[w * stride + b] = run;
+      run += c;
+    }
+    incl[b] = run;
+    sum += run;
+  }
+  int x = sum;  // inclusive scan of the threads' sums
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < kWarps ? s_warp[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += y;
+    }
+    if (lane < kWarps) s_warp[lane] = v;
+  }
+  __syncthreads();
+  int run = x - sum + (warp ? s_warp[warp - 1] : 0);
+  for (int b = lo; b < hi; ++b) {
+    run += incl[b];
+    incl[b] = run;
+  }
+}
+
+// out: the [nf, num_bins, 3] partials of features f0 .. f0+nf-1 (nf <= G)
+// over sorted positions row0 .. row0+nrows-1 (nrows <= kChunk); `smem`
+// holds hist_sorted_smem<BinT, G>() bytes; blockDim.x == kThreads.  Rows
+// gives row(pos), then bin(f, row), g(row), h(row), m(row).  Every thread
+// of the block must call it.
+template <typename BinT, int G, int kThreads, typename Rows>
+__device__ inline void hist_sorted(const Rows& rows, int64_t row0,
+                                   int nrows, int f0, int nf, int num_bins,
+                                   float* __restrict__ out,
+                                   unsigned char* smem) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kPer = kChunk / kThreads;  // rows a thread stages
+  static_assert(kChunk % kThreads == 0, "kThreads must divide kChunk");
+  float* s_g = reinterpret_cast<float*>(smem);  // staged, in row order
+  float* s_h = s_g + kChunk;
+  float* s_m = s_h + kChunk;
+  float* o_g = s_m + kChunk;  // sorted by bin
+  float* o_h = o_g + kChunk;
+  float* o_m = o_h + kChunk;
+  int* cnt = reinterpret_cast<int*>(o_m + kChunk);  // [S, R]
+  int* incl = cnt + kTable;                         // [R]
+  int* s_warp = incl + kTable;                      // [32]
+  uint16_t* s_rank = reinterpret_cast<uint16_t*>(s_warp + 32);  // [kChunk]
+  BinT* s_bin = reinterpret_cast<BinT*>(s_rank + kChunk);       // [G, kChunk]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  if (nrows == 0) {
+    for (int i = tid; i < nf * num_bins * 3; i += kThreads) out[i] = 0.f;
+    return;
+  }
+  const int S = max(1, min(kWarps, kTable / num_bins));
+  const int R = min(num_bins, kTable / S);
+  const int seg = (nrows + 32 * S - 1) / (32 * S) * 32;  // rows a segment
+
+  {
+    int64_t row[kPer];
+    float g[kPer], h[kPer], m[kPer];
+    int bin[kPer][G];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int r = tid + k * kThreads;
+      row[k] = r < nrows ? rows.row(row0 + r) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (tid + k * kThreads < nrows) {
+        m[k] = rows.m(row[k]);
+        g[k] = rows.g(row[k]);
+        h[k] = rows.h(row[k]);
+#pragma unroll
+        for (int fl = 0; fl < G; ++fl)
+          bin[k][fl] = fl < nf ? rows.bin(f0 + fl, row[k]) : 0;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int r = tid + k * kThreads;
+      if (r < nrows) {
+        s_g[r] = g[k] * m[k];
+        s_h[r] = h[k] * m[k];
+        s_m[r] = m[k];
+#pragma unroll
+        for (int fl = 0; fl < G; ++fl)
+          if (fl < nf) s_bin[fl * kChunk + r] = (BinT)bin[k][fl];
+      }
+    }
+  }
+  for (int i = tid; i < S * R; i += kThreads) cnt[i] = 0;
+  __syncthreads();
+
+  for (int fl = 0; fl < nf; ++fl) {
+    const BinT* sb = s_bin + fl * kChunk;
+    for (int b0 = 0; b0 < num_bins; b0 += R) {
+      const int nb = min(R, num_bins - b0);
+      const int bits = 32 - __clz(nb);  // key nb: a row outside the pass
+      if (warp < S) {  // rank: segment `warp`, 32 rows at a time
+        int* wcnt = cnt + warp * R;
+        const int r1 = min((warp + 1) * seg, nrows);
+        for (int base = warp * seg; base < r1; base += 32) {
+          const int r = base + lane;
+          int key = nb;
+          if (r < r1) {
+            const int b = (int)sb[r] - b0;
+            if (b >= 0 && b < nb) key = b;
+          }
+          unsigned peers = 0xffffffffu;
+          for (int i = 0; i < bits; ++i) {
+            const int bit = (key >> i) & 1;
+            const unsigned vote = __ballot_sync(0xffffffffu, bit);
+            peers &= bit ? vote : ~vote;
+          }
+          const int leader = __ffs(peers) - 1;
+          int before = 0;
+          if (key < nb && lane == leader) {
+            before = wcnt[key];
+            wcnt[key] = before + __popc(peers);
+          }
+          before = __shfl_sync(0xffffffffu, before, leader);
+          if (key < nb)
+            s_rank[r] = (uint16_t)(before
+                                   + __popc(peers & ((1u << lane) - 1u)));
+          __syncwarp();  // this batch's counts before the next one reads
+        }
+      }
+      __syncthreads();
+      scan_table<kThreads>(cnt, S, R, nb, incl, s_warp);
+      __syncthreads();
+      for (int r = tid; r < nrows; r += kThreads) {  // scatter
+        const int b = (int)sb[r] - b0;
+        if (b >= 0 && b < nb) {
+          const int slot = (b ? incl[b - 1] : 0) + cnt[(r / seg) * R + b]
+                           + s_rank[r];
+          o_g[slot] = s_g[r];
+          o_h[slot] = s_h[r];
+          o_m[slot] = s_m[r];
+        }
+      }
+      __syncthreads();
+      for (int b = tid; b < nb; b += kThreads) {  // sum each bin's run
+        const int i1 = incl[b];
+        float g = 0.f, h = 0.f, c = 0.f;
+        for (int i = b ? incl[b - 1] : 0; i < i1; ++i) {
+          g += o_g[i];
+          h += o_h[i];
+          c += o_m[i];
+        }
+        float* o = out + ((int64_t)fl * num_bins + b0 + b) * 3;
+        o[0] = g;
+        o[1] = h;
+        o[2] = c;
+      }
+      for (int i = tid; i < S * R; i += kThreads) cnt[i] = 0;
+      __syncthreads();
+    }
+  }
 }
 
 // Cell i of the histogram: the sum of its nchunks partials in chunk order.

@@ -20,32 +20,45 @@
 // that is 28 + 12 + 4 + 21.8 = 66 MB, ~0.020 ms at 3.35 TB/s.  Operations
 // are ~3 adds per (row, feature), far below any compute bound.
 //
-// Design (simple and deterministic first; it is not near the bound):
-//  * prep, in PyTorch on the device (ops/histogram.level_layout): a stable
-//    sort of the leaf ids gives the sorted row order; each leaf's rows are
-//    cut into chunks of kChunk rows, at least one per leaf, so every chunk
-//    belongs to one leaf and an empty leaf's chunk sums to zero.  The chunk
-//    table holds each chunk's first sorted position and row count, and the
-//    leaves' first chunks; its capacity is ceil(n/kChunk) + L chunks, so
-//    nothing is read back to the host (the unused tail chunks hold no rows).
-//  * K1'' pass 1: grid (chunks, F); each block builds one (chunk, feature)
-//    partial with hist_rows (hist_chunk.cuh, shared with K1, K1' and K8)
-//    through a reader that gathers rows through the sorted order.
-//  * K2 pass 1: grid (ceil(F/16), chunks); one block stages the chunk's
-//    masked stats once and the bins of 16 features (dynamic shared memory:
-//    2048 rows x 16 u16 bins + three float rows is 90 KB), then each thread
-//    owns (feature, bin) cells and walks the staged rows in row order.  It
-//    reads each row's stats once per 16 features instead of once per
-//    feature, and sums every cell in the same order as K1'': the two are
-//    bitwise equal.
+// Design:
+//  * prep: a stable sort of the leaf ids (torch.sort, in the wrapper) gives
+//    the sorted row order; each leaf's rows are cut into chunks of kChunk
+//    rows, at least one per leaf, so every chunk belongs to one leaf and an
+//    empty leaf's chunk sums to zero.  The chunk table holds each chunk's
+//    first sorted position and row count, and the leaves' first rows and
+//    chunks; its capacity is ceil(n/kChunk) + L chunks, so nothing is read
+//    back to the host (the unused tail chunks hold no rows).  One block
+//    (layout_kernel) builds the table from the sorted ids by binary search
+//    and a scan, in one launch where ops/histogram.level_layout, its plain
+//    version, takes some twenty small PyTorch ops.
+//  * pass 1 (both): grid (chunks, feature groups); a block stages its
+//    chunk's masked stats once, gathered through the sorted order, and the
+//    bins of its group, then builds each feature's (chunk, feature) partial
+//    with hist_sorted (hist_chunk.cuh): a stable sort of the chunk's rows by
+//    bin in shared memory (warp-private counts, rows ranked within a warp
+//    by ballots over the bin's bits, a scan, the stats scattered into bin
+//    order), then one thread per bin sums its run in row order.  That is a
+//    few steps a row instead of the B compares a row of a walk per bin,
+//    and no atomics.  The two variants differ only in their group: K1''
+//    takes 4 features and 256 threads a block (kLevelGroup; 94 KB of
+//    shared memory with u8 bins, two blocks to an SM), so a level has 7x
+//    as many blocks as chunks at F = 28; K2 keeps the JAX package's 16
+//    features (kGroup, FGROUP_BSUB) with 512 threads, and reads each row's
+//    stats once per 16 features instead of once per 4, in a quarter of the
+//    blocks.  tools/level_hist_variants.py times the other sizes.  Each
+//    sums every cell in the same order, so the two are bitwise equal.
 //  * pass 2 (both): one thread per (leaf, feature, bin, stat) sums that
 //    leaf's partials in chunk order (reduce_chunks).
 //  No atomics: every sum's order depends only on the rows, so launches are
 //  bitwise repeatable and the plain version (ops/histogram.py
-//  histogram_by_leaf_sorted_plain) equals both bitwise.  With one leaf the
-//  sorted order is the identity and the chunks are K1's, so K2 with one
-//  leaf (lgbm_hist_single_leaf_bsub) equals K1 bitwise.  The cost, as in
-//  K1, is O(rows * B) compares per feature in pass 1.
+//  histogram_by_leaf_sorted_plain) equals both bitwise: per (chunk,
+//  feature, bin) the bin's rows in row order from 0, then a leaf's chunk
+//  partials in chunk order.  With one leaf the sorted order is the
+//  identity and the chunks are K1's, so K2 with one leaf
+//  (lgbm_hist_single_leaf_bsub) equals K1 bitwise.  The least pass 1 can
+//  move is what its gathers through the sorted order touch: a 32-byte
+//  sector per (row, feature) for the bins and per (row, group) for each of
+//  the three stats (PERF.md has how far it runs from that).
 //
 // The kernels run on the caller's stream and allocate nothing; the
 // PyTorch wrapper (ops/cuda_histogram.py) allocates the output and the
@@ -60,12 +73,13 @@ namespace {
 
 using namespace lgbm;
 
-constexpr int kThreads = 256;       // threads per K1'' pass-1 block
+constexpr int kLevelGroup = 4;      // features per K1'' block
+constexpr int kLevelThreads = 256;  // threads per K1'' block
 constexpr int kGroup = 16;          // features per K2 block (FGROUP_BSUB)
-constexpr int kGroupThreads = 512;  // threads per K2 pass-1 block
+constexpr int kGroupThreads = 512;  // threads per K2 block
 
-// Feature-major bins [F, n] and three float rows, read in sorted order:
-// sorted position r is row order[r] (the identity when order is null).
+// Feature-major bins [F, n] and three float rows; sorted position p is row
+// order[p] (the identity when order is null).
 template <typename BinT>
 struct SortedRows {
   const BinT* bins;
@@ -74,13 +88,13 @@ struct SortedRows {
   const float* mask;
   const int64_t* order;
   int64_t n;
-  __device__ int64_t row(int64_t r) const { return order ? order[r] : r; }
-  __device__ int bin(int f, int64_t r) const {
-    return (int)bins[(int64_t)f * n + row(r)];
+  __device__ int64_t row(int64_t p) const { return order ? order[p] : p; }
+  __device__ int bin(int f, int64_t row) const {
+    return (int)bins[(int64_t)f * n + row];
   }
-  __device__ float g(int64_t r) const { return grad[row(r)]; }
-  __device__ float h(int64_t r) const { return hess[row(r)]; }
-  __device__ float m(int64_t r) const { return mask[row(r)]; }
+  __device__ float g(int64_t row) const { return grad[row]; }
+  __device__ float h(int64_t row) const { return hess[row]; }
+  __device__ float m(int64_t row) const { return mask[row]; }
 };
 
 // Chunk c's first sorted position and row count, from the table; without
@@ -100,62 +114,107 @@ struct Chunks {
   }
 };
 
-template <typename BinT>
+// Block (c, g): the partials [c, G*g .. G*g+G-1, B, 3] of [nchunks, F, B, 3].
+template <typename BinT, int G, int kThreads>
 __global__ void __launch_bounds__(kThreads)
-    level_partial_kernel(SortedRows<BinT> rows, Chunks chunks, int num_bins,
-                         float* __restrict__ partial) {
-  // partial: [nchunks, F, B, 3]
-  const int c = blockIdx.x, f = blockIdx.y, F = gridDim.y;
+    level_partial_kernel(SortedRows<BinT> rows, Chunks chunks, int F,
+                         int num_bins, float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int c = blockIdx.x, f0 = blockIdx.y * G;
+  const int nf = (F - f0 < G) ? F - f0 : G;
   int64_t row0;
   int nrows;
   chunks.get(c, &row0, &nrows);
-  hist_rows<BinT>(rows, row0, nrows, f, num_bins,
-                  partial + (((int64_t)c * F + f) * num_bins) * 3);
+  hist_sorted<BinT, G, kThreads>(
+      rows, row0, nrows, f0, nf, num_bins,
+      partial + ((int64_t)c * F + f0) * num_bins * 3, smem);
 }
 
-template <typename BinT>
-__global__ void __launch_bounds__(kGroupThreads)
-    bsub_partial_kernel(SortedRows<BinT> rows, Chunks chunks, int F,
-                        int num_bins, float* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* s_g = reinterpret_cast<float*>(smem);
-  float* s_h = s_g + kChunk;
-  float* s_m = s_h + kChunk;
-  BinT* s_bin = reinterpret_cast<BinT*>(s_m + kChunk);  // [kGroup, kChunk]
+template <typename BinT, int G, int kThreads>
+int launch_partial(const SortedRows<BinT>& rows, const Chunks& chunks,
+                   int F, int nchunks, int num_bins, float* partial,
+                   cudaStream_t s) {
+  const int groups = (F + G - 1) / G;
+  if (groups > 65535) return (int)cudaErrorInvalidValue;
+  const int smem = hist_sorted_smem<BinT, G>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      level_partial_kernel<BinT, G, kThreads>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  level_partial_kernel<BinT, G, kThreads>
+      <<<dim3(nchunks, groups), kThreads, smem, s>>>(rows, chunks, F,
+                                                     num_bins, partial);
+  return 0;
+}
 
-  const int f0 = blockIdx.x * kGroup;
-  const int nf = (F - f0 < kGroup) ? F - f0 : kGroup;
-  const int c = blockIdx.y;
-  int64_t row0;
-  int nrows;
-  chunks.get(c, &row0, &nrows);
+constexpr int kLayoutThreads = 1024;
 
-  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
-    const float m = rows.m(row0 + r);
-    s_g[r] = rows.g(row0 + r) * m;
-    s_h[r] = rows.h(row0 + r) * m;
-    s_m[r] = m;
-  }
-  for (int fl = 0; fl < nf; ++fl)
-    for (int r = threadIdx.x; r < nrows; r += blockDim.x)
-      s_bin[fl * kChunk + r] = (BinT)rows.bin(f0 + fl, row0 + r);
-  __syncthreads();
-
-  for (int cell = threadIdx.x; cell < nf * num_bins; cell += blockDim.x) {
-    const int fl = cell / num_bins, b = cell % num_bins;
-    const BinT* sb = s_bin + fl * kChunk;
-    float g = 0.f, h = 0.f, cnt = 0.f;
-    for (int r = 0; r < nrows; ++r) {
-      if ((int)sb[r] == b) {
-        g += s_g[r];
-        h += s_h[r];
-        cnt += s_m[r];
-      }
+// The chunk table of ops/histogram.level_layout from the sorted leaf ids
+// sl[n]: row_start[l] (the first position of a leaf >= l, l = 0..L),
+// chunk_start[l] (leaf l's first chunk; [L] the chunks in use) and, per
+// chunk c < cap, row0[c], rows[c] and leaf[c] (L for the unused tail, whose
+// row0 and rows are 0).  One block of kLayoutThreads.
+template <typename IdT>
+__global__ void __launch_bounds__(kLayoutThreads)
+    layout_kernel(const IdT* __restrict__ sl, int64_t n, int L, int cap,
+                  int64_t* row_start, int64_t* chunk_start,
+                  int64_t* __restrict__ row0, int64_t* __restrict__ rows,
+                  int64_t* __restrict__ leaf) {
+  __shared__ int64_t s_warp[kLayoutThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int l = tid; l <= L; l += kLayoutThreads) {
+    int64_t lo = 0, hi = n;
+    while (lo < hi) {
+      const int64_t mid = (lo + hi) >> 1;
+      if ((int64_t)sl[mid] < l) lo = mid + 1; else hi = mid;
     }
-    float* out = partial + (((int64_t)c * F + f0 + fl) * num_bins + b) * 3;
-    out[0] = g;
-    out[1] = h;
-    out[2] = cnt;
+    row_start[l] = lo;
+  }
+  __syncthreads();
+  int64_t carry = 0;  // chunk_start: a scan of max(ceil(rows / kChunk), 1)
+  for (int base = 0; base <= L; base += kLayoutThreads) {
+    const int l = base + tid;
+    int64_t v = 0;
+    if (l < L) {
+      const int64_t cnt = row_start[l + 1] - row_start[l];
+      v = cnt > kChunk ? (cnt + kChunk - 1) / kChunk : 1;
+    }
+    int64_t x = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int64_t y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) s_warp[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int64_t w = s_warp[lane];
+      for (int o = 1; o < 32; o <<= 1) {
+        const int64_t y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      s_warp[lane] = w;
+    }
+    __syncthreads();
+    if (l <= L) chunk_start[l] = carry + x - v + (warp ? s_warp[warp - 1] : 0);
+    carry += s_warp[kLayoutThreads / 32 - 1];
+    __syncthreads();
+  }
+  for (int c = tid; c < cap; c += kLayoutThreads) {
+    int lo = 0, hi = L + 1;  // the first l with chunk_start[l] > c
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (chunk_start[mid] <= c) lo = mid + 1; else hi = mid;
+    }
+    const int l = lo - 1;
+    leaf[c] = l;
+    row0[c] = 0;
+    rows[c] = 0;
+    if (l < L) {
+      const int64_t k = (c - chunk_start[l]) * kChunk;
+      const int64_t left = row_start[l + 1] - row_start[l] - k;
+      row0[c] = row_start[l] + k;
+      rows[c] = left < 0 ? 0 : (left > kChunk ? kChunk : left);
+    }
   }
 }
 
@@ -180,22 +239,13 @@ int launch(const SortedRows<BinT>& rows, const Chunks& chunks,
            int num_bins, int variant, float* partial, float* out,
            cudaStream_t s) {
   if (nchunks > 0 && F > 0) {
-    if (variant == 0) {
-      if (F > 65535) return (int)cudaErrorInvalidValue;
-      level_partial_kernel<BinT><<<dim3(nchunks, F), kThreads, 0, s>>>(
-          rows, chunks, num_bins, partial);
-    } else {
-      if (nchunks > 65535) return (int)cudaErrorInvalidValue;
-      const int smem = kChunk * (3 * (int)sizeof(float)
-                                 + kGroup * (int)sizeof(BinT));
-      const cudaError_t e = cudaFuncSetAttribute(
-          bsub_partial_kernel<BinT>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-      bsub_partial_kernel<BinT>
-          <<<dim3((F + kGroup - 1) / kGroup, nchunks), kGroupThreads, smem,
-             s>>>(rows, chunks, F, num_bins, partial);
-    }
+    const int e =
+        variant == 0
+            ? launch_partial<BinT, kLevelGroup, kLevelThreads>(
+                  rows, chunks, F, nchunks, num_bins, partial, s)
+            : launch_partial<BinT, kGroup, kGroupThreads>(
+                  rows, chunks, F, nchunks, num_bins, partial, s);
+    if (e != 0) return e;
   }
   const int64_t per_chunk = (int64_t)F * num_bins * 3;
   const int64_t total = per_chunk * L;
@@ -222,6 +272,18 @@ int dispatch(const void* bins, const float* grad, const float* hess,
                       static_cast<cudaStream_t>(stream));
 }
 
+template <typename IdT>
+int launch_layout(const void* sorted_leaf, int64_t n, int L, int cap,
+                  int64_t* table, cudaStream_t s) {
+  int64_t* row_start = table;
+  int64_t* chunk_start = row_start + (L + 1);
+  int64_t* row0 = chunk_start + (L + 1);
+  layout_kernel<IdT><<<1, kLayoutThreads, 0, s>>>(
+      static_cast<const IdT*>(sorted_leaf), n, L, cap, row_start,
+      chunk_start, row0, row0 + cap, row0 + 2 * (int64_t)cap);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -233,29 +295,41 @@ int lgbm_level_hist_group() { return kGroup; }
 
 // The level histogram of L leaves: K1'' (variant 0) or K2 (variant 1).
 // bins [F, n] (bin_bytes 1: uint8, 2: uint16), grad/hess/mask [n] float32,
-// order [n] int64 (sorted position -> row), chunk_row0/chunk_rows
-// [nchunks] int64, chunk_start [L+1] int64; partial [nchunks, F, B, 3] and
-// out [L, F, B, 3] float32.  All pointers are device pointers; `stream` is
-// a cudaStream_t.
+// order [n] int64 (sorted position -> row) and sorted_leaf [n] (id_bytes 4:
+// int32, 8: int64) from a stable sort of the leaf ids; table
+// [2 (L+1) + 3 cap] int64 scratch for the chunk table, cap = ceil(n/kChunk)
+// + L (row_start [L+1], chunk_start [L+1], chunk_row0, chunk_rows and
+// chunk_leaf [cap]: ops/histogram.level_layout's arrays); partial
+// [cap, F, B, 3] and out [L, F, B, 3] float32.  All pointers are device
+// pointers; `stream` is a cudaStream_t.
 int lgbm_level_hist(const void* bins, int bin_bytes, const float* grad,
                     const float* hess, const float* mask,
-                    const int64_t* order, int64_t n, int F,
-                    const int64_t* chunk_row0, const int64_t* chunk_rows,
-                    const int64_t* chunk_start, int nchunks, int L,
-                    int num_bins, int variant, float* partial, float* out,
+                    const int64_t* order, const void* sorted_leaf,
+                    int id_bytes, int64_t n, int F, int L, int num_bins,
+                    int variant, int64_t* table, float* partial, float* out,
                     void* stream) {
   if (variant != 0 && variant != 1) return (int)cudaErrorInvalidValue;
-  if (order == nullptr || chunk_row0 == nullptr || chunk_rows == nullptr
-      || chunk_start == nullptr)
+  if (order == nullptr || sorted_leaf == nullptr || table == nullptr
+      || L < 1)
     return (int)cudaErrorInvalidValue;
+  const int cap = (int)((n + kChunk - 1) / kChunk) + L;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = id_bytes == 4
+                    ? launch_layout<int32_t>(sorted_leaf, n, L, cap, table, s)
+                : id_bytes == 8
+                    ? launch_layout<int64_t>(sorted_leaf, n, L, cap, table, s)
+                    : (int)cudaErrorInvalidValue;
+  if (e != 0) return e;
+  const int64_t* chunk_start = table + (L + 1);
+  const int64_t* row0 = chunk_start + (L + 1);
   if (bin_bytes == 1)
-    return dispatch<uint8_t>(bins, grad, hess, mask, order, n, F, chunk_row0,
-                             chunk_rows, chunk_start, nchunks, L, num_bins,
+    return dispatch<uint8_t>(bins, grad, hess, mask, order, n, F, row0,
+                             row0 + cap, chunk_start, cap, L, num_bins,
                              variant, partial, out, stream);
   if (bin_bytes == 2)
-    return dispatch<uint16_t>(bins, grad, hess, mask, order, n, F,
-                              chunk_row0, chunk_rows, chunk_start, nchunks, L,
-                              num_bins, variant, partial, out, stream);
+    return dispatch<uint16_t>(bins, grad, hess, mask, order, n, F, row0,
+                              row0 + cap, chunk_start, cap, L, num_bins,
+                              variant, partial, out, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,9 +15,10 @@ byte-compatible with the JAX package's.
 
 Not ported in this slice (ROADMAP queue A), and refused with
 NotImplementedError rather than ignored: parallel learners, objectives
-other than binary, hist_dtype=float64.  Depthwise and hybrid growth ignore
+other than binary, hist_dtype=float64, the non-finite guards
+(nonfinite_policy other than "off").  Depthwise and hybrid growth ignore
 histogram_pool_size with the JAX package's warning.  Forest batching, the
-lagged stop check, guards, checkpoints and telemetry are not carried.
+lagged stop check, checkpoints and telemetry are not carried.
 """
 
 from __future__ import annotations
@@ -79,6 +80,8 @@ def check_supported(config: Config) -> None:
         no(f"boosting_type={config.boosting_type}", "A: other objectives")
     if config.hist_dtype != "float32":
         no("hist_dtype=float64", "A: float64 histograms")
+    if config.nonfinite_policy != "off":
+        no(f"nonfinite_policy={config.nonfinite_policy}", "A9: resilience")
 
 
 def transform_scores(out: np.ndarray, num_class: int, sigmoid: float,

@@ -36,7 +36,7 @@ import torch
 
 from . import _build
 from . import histogram as plain
-from .histogram import CHUNK_ROWS, histogram_feature_major, level_layout
+from .histogram import CHUNK_ROWS, histogram_feature_major
 from .record import rec_height
 
 # kernel launches since the last reset (chip_smoke.py reads and resets them)
@@ -86,8 +86,8 @@ def _level_lib():
     if not getattr(lib, "_typed", False):
         lib.lgbm_level_hist.restype = _I
         lib.lgbm_level_hist.argtypes = [
-            _VP, _I, _VP, _VP, _VP, _VP, _I64, _I, _VP, _VP, _VP, _I, _I, _I,
-            _I, _VP, _VP, _VP]
+            _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I64, _I, _I, _I, _I, _VP,
+            _VP, _VP, _VP]
         lib.lgbm_hist_single_leaf_bsub.restype = _I
         lib.lgbm_hist_single_leaf_bsub.argtypes = [
             _VP, _I, _VP, _VP, _VP, _I, _I64, _I, _VP, _VP, _VP]
@@ -212,8 +212,12 @@ def histogram_by_leaf_sorted_cuda(bins_T, leaf_id, grad, hess, mask,
                          f"{dev}")
     if num_leaves < 1:
         raise ValueError("num_leaves must be >= 1")
-    lay = level_layout(leaf_id, num_leaves)
-    nchunks = lay.chunk_leaf.shape[0]
+    # the prep of ops/histogram.level_layout: the stable sort here, the
+    # chunk table (level_layout's other arrays) in the kernel's scratch
+    sorted_leaf, order = torch.sort(leaf_id, stable=True)
+    nchunks = (n + CHUNK_ROWS - 1) // CHUNK_ROWS + num_leaves
+    table = torch.empty(2 * (num_leaves + 1) + 3 * nchunks,
+                        dtype=torch.int64, device=dev)
     out = torch.empty((num_leaves, F, num_bins, 3), dtype=torch.float32,
                       device=dev)
     partial = torch.empty((nchunks, F, num_bins, 3), dtype=torch.float32,
@@ -222,11 +226,10 @@ def histogram_by_leaf_sorted_cuda(bins_T, leaf_id, grad, hess, mask,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _level_lib().lgbm_level_hist(
             bins_T.data_ptr(), bin_bytes, grad.data_ptr(), hess.data_ptr(),
-            mask.data_ptr(), lay.order.data_ptr(), n, F,
-            lay.chunk_row0.data_ptr(), lay.chunk_rows.data_ptr(),
-            lay.chunk_start.data_ptr(), nchunks, num_leaves, num_bins,
-            0 if v == "v1" else 1, partial.data_ptr(), out.data_ptr(),
-            stream)
+            mask.data_ptr(), order.data_ptr(), sorted_leaf.data_ptr(),
+            sorted_leaf.element_size(), n, F, num_leaves, num_bins,
+            0 if v == "v1" else 1, table.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), stream)
     _build.check(code, f"level histogram kernel ({v})")
     if v == "v1":
         LEVEL_LAUNCHES += 1

@@ -98,7 +98,9 @@ class LevelLayout(NamedTuple):
     CHUNK_ROWS) + L chunks: ``chunk_row0`` (first sorted position),
     ``chunk_rows`` (row count) and ``chunk_leaf`` (L for the unused tail).
     Every entry is computed on the leaf ids' device; nothing is read back
-    to the host."""
+    to the host.  On the card kernels 1'' and 2 build the same chunk table
+    themselves (csrc/level_histogram.cu ``layout_kernel``) after the same
+    stable sort."""
 
     order: torch.Tensor
     sorted_leaf: torch.Tensor

@@ -33,23 +33,30 @@ from lightgbm_tpu_torch.ops.histogram import (
     CHUNK_ROWS, histogram_by_leaf, histogram_by_leaf_sorted_plain,
     histogram_feature_major, leaf_totals, level_layout)
 
-# (name, n, F, B, L, leaf pattern, bin dtype): test_pallas_histogram.py's
-# shapes, its empty and skewed leaves, one leaf, uint16 x 300 bins
+# (name, n, F, B, L, leaf pattern, bin dtype, bin pattern):
+# test_pallas_histogram.py's shapes, its empty and skewed leaves, one leaf,
+# uint16 x 300 bins; ~90 % of the rows in one bin, with leaves of several
+# 2048-row chunks (the kernels' longest per-bin run); uint16 x 5000 bins,
+# more than the kernels' 4096-int count table holds (two bin-range passes)
 CASES = [
-    ("5000x6", 5000, 6, 16, 8, "random", np.uint8),
-    ("1000x3", 1000, 3, 32, 4, "random", np.uint8),
-    ("300x2", 300, 2, 7, 5, "random", np.uint8),
-    ("all-in-0", 2000, 4, 16, 8, "zeros", np.uint8),
-    ("tiny+empty", 2000, 4, 16, 8, "skewed", np.uint8),
-    ("one-leaf", 2000, 4, 16, 1, "zeros", np.uint8),
-    ("uint16", 3000, 3, 300, 6, "random", np.uint16),
+    ("5000x6", 5000, 6, 16, 8, "random", np.uint8, "uniform"),
+    ("1000x3", 1000, 3, 32, 4, "random", np.uint8, "uniform"),
+    ("300x2", 300, 2, 7, 5, "random", np.uint8, "uniform"),
+    ("all-in-0", 2000, 4, 16, 8, "zeros", np.uint8, "uniform"),
+    ("tiny+empty", 2000, 4, 16, 8, "skewed", np.uint8, "uniform"),
+    ("one-leaf", 2000, 4, 16, 1, "zeros", np.uint8, "uniform"),
+    ("uint16", 3000, 3, 300, 6, "random", np.uint16, "uniform"),
+    ("dominant-bin", 6000, 3, 32, 2, "random", np.uint8, "dominant"),
+    ("many-bins", 3000, 2, 5000, 4, "random", np.uint16, "uniform"),
 ]
 IDS = [c[0] for c in CASES]
 
 
-def _inputs(n, F, B, L, pattern, dt, seed=0):
+def _inputs(n, F, B, L, pattern, dt, bin_pattern="uniform", seed=0):
     rng = np.random.RandomState(seed)
     bins = rng.randint(0, B, size=(F, n)).astype(dt)
+    if bin_pattern == "dominant":
+        bins[rng.rand(F, n) < 0.9] = B // 3
     leaf = {"random": rng.randint(0, L, size=n),
             "zeros": np.zeros(n),
             "skewed": np.where(np.arange(n) < 5, L - 1, 2)}[pattern]
@@ -63,10 +70,10 @@ def _t(arrs):
 
 
 @pytest.mark.parametrize("variant", ["v1", "bsub"])
-@pytest.mark.parametrize("name,n,F,B,L,pattern,dt", CASES, ids=IDS)
-def test_matches_jax_sorted_interpret(name, n, F, B, L, pattern, dt,
+@pytest.mark.parametrize("name,n,F,B,L,pattern,dt,bp", CASES, ids=IDS)
+def test_matches_jax_sorted_interpret(name, n, F, B, L, pattern, dt, bp,
                                       variant):
-    arrs = _inputs(n, F, B, L, pattern, dt)
+    arrs = _inputs(n, F, B, L, pattern, dt, bp)
     ours = histogram_by_leaf_sorted(*_t(arrs), B, L, variant=variant)
     ref = np.asarray(jax_sorted(*(jnp.asarray(a) for a in arrs),
                                 num_bins=B, num_leaves=L, interpret=True,
@@ -78,9 +85,9 @@ def test_matches_jax_sorted_interpret(name, n, F, B, L, pattern, dt,
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("name,n,F,B,L,pattern,dt", CASES, ids=IDS)
-def test_matches_jax_segment_sum(name, n, F, B, L, pattern, dt):
-    arrs = _inputs(n, F, B, L, pattern, dt, seed=3)
+@pytest.mark.parametrize("name,n,F,B,L,pattern,dt,bp", CASES, ids=IDS)
+def test_matches_jax_segment_sum(name, n, F, B, L, pattern, dt, bp):
+    arrs = _inputs(n, F, B, L, pattern, dt, bp, seed=3)
     ref = np.asarray(jax_by_leaf(*(jnp.asarray(a) for a in arrs),
                                  num_bins=B, num_leaves=L))
     # the port's segment-sum counterpart: every cell in row order, bitwise
@@ -112,15 +119,16 @@ def test_block_order_is_the_kernels():
     assert not ours[1].any()  # the empty leaf
 
 
-@pytest.mark.parametrize("name,n,F,B,L,pattern,dt", CASES, ids=IDS)
-def test_bsub_equals_v1(name, n, F, B, L, pattern, dt):
+@pytest.mark.parametrize("name,n,F,B,L,pattern,dt,bp", CASES, ids=IDS)
+def test_bsub_equals_v1(name, n, F, B, L, pattern, dt, bp):
     """Within the port: the plain K2 is the plain K1'' bitwise."""
-    arrs = _t(_inputs(n, F, B, L, pattern, dt, seed=7))
+    arrs = _t(_inputs(n, F, B, L, pattern, dt, bp, seed=7))
     assert torch.equal(histogram_by_leaf_sorted(*arrs, B, L, variant="bsub"),
                        histogram_by_leaf_sorted(*arrs, B, L, variant="v1"))
 
 
-@pytest.mark.parametrize("dt,B", [(np.uint8, 37), (np.uint16, 300)])
+@pytest.mark.parametrize("dt,B", [(np.uint8, 37), (np.uint16, 300),
+                                  (np.uint16, 5000)])
 def test_one_leaf_is_the_single_leaf_histogram(dt, B):
     """With one leaf the level histogram, and the single-leaf histogram
     under either variant, is K1's plain version bitwise."""
@@ -135,8 +143,8 @@ def test_one_leaf_is_the_single_leaf_histogram(dt, B):
             bins, lid, g, h, m, B, 1, variant=v)[0], want)
 
 
-@pytest.mark.parametrize("name,n,F,B,L,pattern,dt", CASES, ids=IDS)
-def test_level_layout(name, n, F, B, L, pattern, dt):
+@pytest.mark.parametrize("name,n,F,B,L,pattern,dt,bp", CASES, ids=IDS)
+def test_level_layout(name, n, F, B, L, pattern, dt, bp):
     """Each leaf owns max(ceil(rows / 2048), 1) consecutive chunks that
     cover its sorted rows in order; the capacity's tail holds no rows."""
     leaf = torch.from_numpy(_inputs(n, F, B, L, pattern, dt)[1])
@@ -202,8 +210,8 @@ def test_cuda_entries_have_no_cpu_fallback():
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
-    for name, n, F, B, L, pattern, dt in CASES:
-        arrs = _inputs(n, F, B, L, pattern, dt)
+    for name, n, F, B, L, pattern, dt, bp in CASES:
+        arrs = _inputs(n, F, B, L, pattern, dt, bp)
         dev = [a.cuda() for a in _t(arrs)]
         want = histogram_by_leaf_sorted(*_t(arrs), B, L)
         a = histogram_by_leaf_sorted(*dev, B, L, variant="v1")

@@ -108,6 +108,9 @@ def test_entry_points_default_to_cuda():
     {"tree_learner": "data"},
     {"boosting_type": "dart"},
     {"metric": "l2"},
+    {"nonfinite_policy": "raise"},
+    {"nonfinite_policy": "skip_tree"},
+    {"nonfinite_policy": "clip"},
 ], ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()))
 def test_out_of_slice_configs_raise(extra):
     X, y = _data()
