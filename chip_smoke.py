@@ -8,16 +8,22 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 
 1. prints the card (nvidia-smi name and power limit), the build times and
    each kernel's registers / shared memory (nvcc -Xptxas -v);
-2. holds the histogram kernel (K1) against its plain PyTorch version
-   (float64) at the main path's shapes, checks two launches are bitwise
-   equal, and times kernel, plain version and one PyTorch ``index_add_``
-   call;
+2. holds the histogram kernel (K1) against its plain PyTorch version on
+   the CPU bitwise, against float64 sums, and K2 over one leaf against it,
+   at the main path's shapes and the edge cases (a dominant bin, u16 x
+   5000 bins, 0, 1, 2,049 and 130,001 rows, F = 5 and 29); checks two
+   launches are bitwise equal; times kernel, plain version and one
+   PyTorch ``index_add_`` call at the main path's shapes and at 2,048,
+   16,384, 131,072 and 1M rows, pass 1 and pass 2 apart at the root;
 3. holds the split-search kernel (K3) against its plain version on 100
    random cases and the crafted ties, and times both;
 4. holds the record-window histogram (K1') against its plain version and
    against K1 on the unpacked rows, bitwise, at the record route's shapes
-   (the 1M-row root, a 60k window at an unaligned begin, u16 bins), and
-   times it beside its plain version and ``index_add_``;
+   (the 1M-row root, a 60k window at an unaligned begin, u16 bins) and on
+   windows at odd begins whose F is not a multiple of k (k = 4 and k = 2,
+   u16 x 5000 bins), and times it beside its plain version and
+   ``index_add_`` there and at 2,048, 16,384 and 131,072 rows, pass 1
+   and pass 2 apart at the root;
 5. holds the fused subtract + search + buffer update (K4) against its
    plain version on 100 random cases and the crafted ties;
 6. holds the record partition (K6 compact, K7 place) against its plain
@@ -208,26 +214,77 @@ def phase_build(torch):
 
 
 # --------------------------------------------------------------- phase 2
+SWEEP = (2048, 16_384, 131_072, ROWS)  # K1/K1' row counts timed
+
+
+def _index_add_fn(torch, bins, g, h, m, B):
+    """One ``index_add_`` of the single-leaf sums (the library yardstick)."""
+    F = bins.shape[0]
+    keys = (bins.to(torch.int64) + torch.arange(F, device="cuda")[:, None]
+            * B).reshape(-1)
+    src = torch.stack([g * m, h * m, m], -1).repeat(F, 1)
+    return lambda: torch.zeros(F * B, 3, device="cuda").index_add_(
+        0, keys, src)
+
+
+def _passes_ms(torch, fn):
+    """Device ms per call of K1/K1''s pass 1 and pass 2 (profiler)."""
+    from lightgbm_tpu_torch.profile_slice import device_ms_by_kernel
+
+    dev = device_ms_by_kernel(torch, fn)
+    return (sum(v for k, v in dev.items() if "sorted_partial" in k),
+            sum(v for k, v in dev.items() if "hist_reduce" in k))
+
+
 def phase_histogram(torch):
+    """K1 against its plain version, bitwise (on the CPU, and two launches
+    on the card), and against float64 sums, with K2 over one leaf equal to
+    it, at the main path's shapes and the edge cases; times K1, its plain
+    version and ``index_add_`` at the main path's shapes and across row
+    counts, pass 1 and pass 2 apart at the root."""
     from lightgbm_tpu_torch.ops import cuda_histogram
     from lightgbm_tpu_torch.ops.histogram import histogram_feature_major
 
     rng = np.random.RandomState(0)
-    shapes = [("root", 28, ROWS, 255, np.uint8),
-              ("mid-split", 28, 60_000, 255, np.uint8),
-              ("odd", 5, 700, 37, np.uint8),
-              ("uint16", 28, 100_000, 300, np.uint16)]
+    # (name, F, cap, B, bin dtype, ~90 % of every feature's rows in one bin,
+    #  timed)
+    shapes = [("root", 28, ROWS, 255, np.uint8, False, True),
+              ("mid-split", 28, 60_000, 255, np.uint8, False, True),
+              ("odd", 5, 700, 37, np.uint8, False, True),
+              ("uint16", 28, 100_000, 300, np.uint16, False, True),
+              ("dominant-bin", 28, ROWS, 255, np.uint8, True, True),
+              ("u16x5000", 4, 100_000, 5000, np.uint16, False, False),
+              ("rows-1", 28, 1, 255, np.uint8, False, False),
+              ("rows-2049", 28, 2049, 255, np.uint8, False, False),
+              ("rows-130001", 28, 130_001, 255, np.uint8, False, False),
+              ("F5", 5, 70_001, 37, np.uint8, False, False),
+              ("F29", 29, 70_001, 255, np.uint8, False, False),
+              ("empty", 28, 0, 255, np.uint8, False, False)]
+    shapes += [(f"sweep-{n}", 28, n, 255, np.uint8, False, True)
+               for n in SWEEP if n != ROWS]
     record = None
-    for name, F, cap, B, dt in shapes:
-        bins = torch.from_numpy(rng.randint(0, B, (F, cap)).astype(dt)).cuda()
+    for name, F, cap, B, dt, dominant, timed in shapes:
+        b_np = rng.randint(0, B, (F, cap)).astype(dt)
+        if dominant:
+            b_np[rng.rand(F, cap) < 0.9] = B // 3
+        bins = torch.from_numpy(b_np).cuda()
         g = torch.from_numpy(rng.randn(cap).astype(np.float32)).cuda()
         h = torch.from_numpy(np.abs(rng.randn(cap)).astype(np.float32)).cuda()
         m = torch.from_numpy((rng.rand(cap) < 0.8).astype(np.float32)).cuda()
         k1 = cuda_histogram.histogram_single_leaf_cuda(bins, g, h, m, B)
         k2 = cuda_histogram.histogram_single_leaf_cuda(bins, g, h, m, B)
+        bsub = cuda_histogram.histogram_single_leaf_bsub_cuda(bins, g, h, m,
+                                                              B)
         torch.cuda.synchronize()
         check(torch.equal(k1, k2), f"histogram {name}: launches not bitwise "
               "equal")
+        check(torch.equal(bsub, k1), f"histogram {name}: K2 over one leaf "
+              "differs from K1")
+        cpu = histogram_feature_major(bins.cpu(), g.cpu(), h.cpu(), m.cpu(), B)
+        plain_err = float((k1.cpu() - cpu).abs().max()) if cap else 0.0
+        check(torch.equal(k1.cpu(), cpu),
+              f"histogram {name}: K1 differs from its plain version on the "
+              f"CPU (max abs {plain_err})")
         ref = histogram_feature_major(bins, g.double(), h.double(),
                                       m.double(), B)
         absg = histogram_feature_major(bins, g.double().abs(),
@@ -238,32 +295,34 @@ def phase_histogram(torch):
         tol = 1e-5 * absg[..., :2] + 1e-6
         check(bool((err[..., :2] <= tol).all()),
               f"histogram {name}: g/h beyond 1e-5*sum|x| + 1e-6")
-        cpu = histogram_feature_major(bins.cpu(), g.cpu(), h.cpu(), m.cpu(), B)
-        bitwise_cpu = bool(torch.equal(k1.cpu(), cpu))
-        max_err = float(err.max())
+        max_err = float(err.max()) if cap else 0.0
+        line = (f"[hist {name}] F={F} cap={cap} B={B} {np.dtype(dt).name} "
+                f"bitwise: launches, == plain (CPU), K2 one leaf == K1; "
+                f"max_abs_err_vs_f64={max_err:.3g}")
+        if timed:
+            def kernel():
+                return cuda_histogram.histogram_single_leaf_cuda(
+                    bins, g, h, m, B)
 
-        keys = (bins.to(torch.int64) + torch.arange(F, device="cuda")[:, None]
-                * B).reshape(-1)
-        src = torch.stack([g * m, h * m, m], -1).repeat(F, 1)
-
-        def library():
-            return torch.zeros(F * B, 3, device="cuda").index_add_(0, keys, src)
-
-        ms = time_ms(torch, lambda: cuda_histogram.histogram_single_leaf_cuda(
-            bins, g, h, m, B))
-        plain_ms = time_ms(torch, lambda: histogram_feature_major(
-            bins, g, h, m, B))
-        lib_ms = time_ms(torch, library)
-        nbytes = F * cap * bins.element_size() + 12 * cap + F * B * 12
-        bound = max(nbytes / HBM_BYTES_PER_S, 3 * F * cap / F32_FLOPS) * 1e3
-        say(f"[hist {name}] F={F} cap={cap} B={B} {np.dtype(dt).name} "
-            f"max_abs_err={max_err:.3g} bitwise_vs_cpu_plain={bitwise_cpu} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={bound:.5f}")
-        if name == "root":
-            record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound, library_ms=lib_ms)
-        del bins, g, h, m, keys, src, ref, absg, err
+            ms = time_ms(torch, kernel)
+            plain_ms = time_ms(torch, lambda: histogram_feature_major(
+                bins, g, h, m, B), reps=5, warm=1)
+            lib_ms = time_ms(torch, _index_add_fn(torch, bins, g, h, m, B))
+            nbytes = F * cap * bins.element_size() + 12 * cap + F * B * 12
+            bound = max(nbytes / HBM_BYTES_PER_S,
+                        3 * F * cap / F32_FLOPS) * 1e3
+            line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                     f"library_ms={lib_ms:.4f} bound_ms={bound:.5f} "
+                     f"share={bound / ms:.4f} "
+                     f"faster_than_index_add={ms < lib_ms}")
+            if name == "root":
+                p1, p2 = _passes_ms(torch, kernel)
+                line += f" device pass1_ms={p1:.4f} pass2_ms={p2:.4f}"
+                record = dict(max_abs_err=plain_err, ms=ms,
+                              plain_ms=plain_ms, bound_ms=bound,
+                              library_ms=lib_ms)
+        say(line)
+        del bins, g, h, m, ref, absg, err, cpu
     return record
 
 
@@ -359,11 +418,19 @@ def phase_record_histogram(torch):
     from lightgbm_tpu_torch.ops.record import bins_per_word, num_words
 
     rng = np.random.RandomState(2)
-    shapes = [("root", 28, ROWS, 0, ROWS, 255, np.uint8),
-              ("mid-split", 28, ROWS, 333_333, 60_000, 255, np.uint8),
-              ("uint16", 28, 100_000, 0, 100_000, 300, np.uint16)]
+    # (name, F, record columns, begin, cnt, B, bin dtype, timed); k = 4 for
+    # u8 bins, 2 for u16
+    shapes = [("root", 28, ROWS, 0, ROWS, 255, np.uint8, True),
+              ("mid-split", 28, ROWS, 333_333, 60_000, 255, np.uint8, True),
+              ("uint16", 28, 100_000, 0, 100_000, 300, np.uint16, True),
+              ("k4-F29", 29, 50_000, 777, 40_001, 255, np.uint8, False),
+              ("k2-F5", 5, 50_000, 1001, 30_003, 300, np.uint16, False),
+              ("k2-F29-5000", 29, 20_000, 3, 12_345, 5000, np.uint16,
+               False)]
+    shapes += [(f"sweep-{n}", 28, n + 1001, 1001, n, 255, np.uint8, True)
+               for n in SWEEP if n != ROWS]
     record = None
-    for name, F, n, begin, cnt, B, dt in shapes:
+    for name, F, n, begin, cnt, B, dt, timed in shapes:
         bins, g, h, m, rec = _random_record(torch, rng, F, n, B, dt)
         k = bins_per_word(bins.dtype)
         sl = slice(begin, begin + cnt)
@@ -387,31 +454,30 @@ def phase_record_histogram(torch):
         ref = histogram_feature_major(ub, ug.double(), uh.double(),
                                       um.double(), B)
         max_err = float((a.double() - ref)[..., :2].abs().max())
-
-        keys = (ub.to(torch.int64) + torch.arange(F, device="cuda")[:, None]
-                * B).reshape(-1)
-        src = torch.stack([ug * um, uh * um, um], -1).repeat(F, 1)
-
-        def library():
-            return torch.zeros(F * B, 3, device="cuda").index_add_(
-                0, keys, src)
-
-        ms = time_ms(torch, kernel)
-        plain_ms = time_ms(torch, lambda: plain.histogram_record_window(
-            rec, begin, cnt, F, k, B))
-        lib_ms = time_ms(torch, library)
-        nbytes = (num_words(F, k) + 3) * 4 * cnt + F * B * 12
-        bound = max(nbytes / HBM_BYTES_PER_S, 3 * F * cnt / F32_FLOPS) * 1e3
-        say(f"[hist-record {name}] F={F} n={n} begin={begin} cnt={cnt} B={B} "
-            f"{np.dtype(dt).name} bitwise: launches, ==K1, ==plain "
-            f"max_abs_err_vs_plain={plain_err} "
-            f"max_abs_err_vs_f64={max_err:.3g} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={bound:.5f}")
-        if name == "root":
-            record = dict(max_abs_err=plain_err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound, library_ms=lib_ms)
-        del bins, g, h, m, rec, ub, ug, uh, um, keys, src
+        line = (f"[hist-record {name}] F={F} k={k} n={n} begin={begin} "
+                f"cnt={cnt} B={B} {np.dtype(dt).name} bitwise: launches, "
+                f"==K1, ==plain max_abs_err_vs_plain={plain_err} "
+                f"max_abs_err_vs_f64={max_err:.3g}")
+        if timed:
+            ms = time_ms(torch, kernel)
+            plain_ms = time_ms(torch, lambda: plain.histogram_record_window(
+                rec, begin, cnt, F, k, B), reps=5, warm=1)
+            lib_ms = time_ms(torch, _index_add_fn(torch, ub, ug, uh, um, B))
+            nbytes = (num_words(F, k) + 3) * 4 * cnt + F * B * 12
+            bound = max(nbytes / HBM_BYTES_PER_S,
+                        3 * F * cnt / F32_FLOPS) * 1e3
+            line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                     f"library_ms={lib_ms:.4f} bound_ms={bound:.5f} "
+                     f"share={bound / ms:.4f} "
+                     f"faster_than_index_add={ms < lib_ms}")
+            if name == "root":
+                p1, p2 = _passes_ms(torch, kernel)
+                line += f" device pass1_ms={p1:.4f} pass2_ms={p2:.4f}"
+                record = dict(max_abs_err=plain_err, ms=ms,
+                              plain_ms=plain_ms, bound_ms=bound,
+                              library_ms=lib_ms)
+        say(line)
+        del bins, g, h, m, rec, ub, ug, uh, um
     return record
 
 

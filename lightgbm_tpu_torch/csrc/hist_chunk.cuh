@@ -1,25 +1,26 @@
-// The histogram's chunk loop and its record reader: the code K1/K1'
-// (histogram.cu), K8 (split_step.cu) and K1'' (level_histogram.cu) share,
-// so their sums cannot drift apart.
+// The histogram's chunk code, shared by the histogram kernels so that their
+// sums cannot drift apart.  Every kernel cuts its rows into chunks of kChunk
+// rows, builds one (chunk, feature) partial hist[B, 3] = (sum g*m, sum h*m,
+// sum m) per chunk with each bin's rows added in row order from 0.f, and
+// sums a cell's partials in chunk order (reduce_chunks).  The order of every
+// sum depends only on the rows, never on the grid or the block size: the
+// plain versions (ops/histogram.py) sum in the same order, bitwise.
 //
-// hist_rows builds one partial, hist[B, 3] = (sum g*m, sum h*m, sum m) over
-// the `nrows` (<= kChunk) rows row0, row0+1, ... of a reader: the block
-// stages the rows' bins and masked stats in shared memory (each input read
-// from device memory once per feature), then each thread owns bins tid,
-// tid+blockDim, ... and walks the staged rows in row order, adding the rows
-// whose bin is its own.  Reads of a staged row are broadcasts, so there are
-// no bank conflicts.  hist_chunk is hist_rows over rows [chunk*kChunk,
-// chunk*kChunk + kChunk) of `cap` rows, written to the (chunk, feature)
-// partial.  reduce_chunks sums one cell of the partials in chunk order.
-// The order of every sum depends only on the rows, never on the grid or
-// the block size: the plain versions (ops/histogram.py) sum in the same
-// order, bitwise.
+// hist_rows / hist_chunk are K8's chunk loop (split_step.cu) and nothing
+// else's: the block stages one feature's rows and masked stats in shared
+// memory (each input read from device memory once per feature), then each
+// thread owns bins tid, tid+blockDim, ... and walks the staged rows in row
+// order, adding the rows whose bin is its own (O(rows * B) compares per
+// feature; reads of a staged row are broadcasts, so no bank conflicts).
+// K8 runs it inside one cooperative launch, where hist_sorted's ~88-95 KB of
+// dynamic shared memory a block would cut the resident grid that its grid
+// barrier depends on.
 //
-// hist_sorted builds the same partials for a group of features without the
-// per-bin walk, which costs O(rows * B) compares per feature.  It stages
-// the chunk's masked stats once for the group and the group's bins (every
-// thread issues all its rows' loads before it stores any), then, feature
-// by feature, sorts the rows by bin, stably, in shared memory:
+// hist_sorted builds the same partials for a group of G features without
+// the per-bin walk.  The reader stages the chunk's masked stats once for the
+// group and the group's bins (Rows::stage; every thread issues all its
+// loads before it stores any), then, feature by feature, the block sorts
+// the rows by bin, stably, in shared memory:
 //  * rank: S warps own contiguous row segments and walk them 32 rows at a
 //    time in row order.  Ballots, one per bit of the bin, give each lane
 //    the lanes of equal bin among the 32 (the mask __match_any_sync would
@@ -39,6 +40,20 @@
 // The table holds kTable ints: S = clamp(kTable / B, 1, warps) segments
 // and R = min(B, kTable / S) bins a pass, so B > kTable runs ceil(B / R)
 // passes over bin ranges with one segment.  An empty chunk writes zeros.
+//
+// sorted_partial_kernel is pass 1 of K1, K1' (histogram.cu), K1'' and K2
+// (level_histogram.cu): block (c, g) builds chunk c's partials of features
+// G*g .. G*g+G-1 with hist_sorted over one of three readers:
+//  * SortedRows: feature-major bins [F, n] and three float rows, gathered
+//    through a sorted order (K1'', K2; the identity for K2 over one leaf);
+//  * MatrixRows: the same rows read in place (K1): each thread stages an
+//    aligned 4-byte word of bins a load (4 u8 or 2 u16 bins), not one bin;
+//  * WindowRows: a window of the packed record (K1'), whose G features are
+//    whole record words or a part of one: each thread loads a row's word
+//    once and unpacks the group's bins, and the stats come as bit patterns
+//    from the record.
+// Chunks gives each chunk's rows: a level's chunk table, or the single-leaf
+// layout [c*kChunk, c*kChunk + kChunk).
 
 #pragma once
 
@@ -49,8 +64,9 @@ namespace lgbm {
 
 constexpr int kChunk = 2048;  // rows staged per (chunk, feature) partial
 
-// Columns [begin, begin+cap) of the [W, ld] int32 record, k bins per word,
-// grad/hess/mask bit patterns in rows wb, wb+1, wb+2.
+// K8's record reader: columns [begin, begin+cap) of the [W, ld] int32
+// record, k bins per word, grad/hess/mask bit patterns in rows wb, wb+1,
+// wb+2.
 struct RecordRows {
   const int* rec;
   int64_t ld;
@@ -172,18 +188,232 @@ __device__ inline void scan_table(int* cnt, int S, int stride, int nb,
   }
 }
 
+// The staging of hist_sorted: s_g/s_h/s_m[r] = the masked stats of
+// position row0+r and s_bin[fl * kChunk + r] = its bin of feature f0+fl
+// (fl < nf), r < nrows; every load of a thread is issued before its
+// stores.  Gathered: position p is row rows.row(p).
+template <typename BinT, int G, int kThreads, typename Rows>
+__device__ inline void stage_gathered(const Rows& rows, int64_t row0,
+                                      int nrows, int f0, int nf, float* s_g,
+                                      float* s_h, float* s_m, BinT* s_bin) {
+  constexpr int kPer = kChunk / kThreads;  // rows a thread stages
+  const int tid = threadIdx.x;
+  int64_t row[kPer];
+  float g[kPer], h[kPer], m[kPer];
+  int bin[kPer][G];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int r = tid + k * kThreads;
+    row[k] = r < nrows ? rows.row(row0 + r) : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (tid + k * kThreads < nrows) {
+      m[k] = rows.m(row[k]);
+      g[k] = rows.g(row[k]);
+      h[k] = rows.h(row[k]);
+#pragma unroll
+      for (int fl = 0; fl < G; ++fl)
+        bin[k][fl] = fl < nf ? rows.bin(f0 + fl, row[k]) : 0;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int r = tid + k * kThreads;
+    if (r < nrows) {
+      s_g[r] = g[k] * m[k];
+      s_h[r] = h[k] * m[k];
+      s_m[r] = m[k];
+#pragma unroll
+      for (int fl = 0; fl < G; ++fl)
+        if (fl < nf) s_bin[fl * kChunk + r] = (BinT)bin[k][fl];
+    }
+  }
+}
+
+// The same for rows row0 .. row0+nrows-1 of feature-major bins [F, n]
+// read in place: the stats a float a load, the bins an aligned 4-byte word
+// (kPack bins) a load, 2-9 % faster in K1 than a bin a load
+// (tools/single_hist_variants.py, byte_stage).  A feature's first and last
+// words may hold bins of the rows around the chunk, which are not staged.
+template <typename BinT, int G, int kThreads>
+__device__ inline void stage_contiguous(const BinT* bins, const float* grad,
+                                        const float* hess, const float* mask,
+                                        int64_t n, int64_t row0, int nrows,
+                                        int f0, int nf, float* s_g,
+                                        float* s_h, float* s_m,
+                                        BinT* s_bin) {
+  constexpr int kPer = kChunk / kThreads;
+  constexpr int kPack = 4 / (int)sizeof(BinT);  // bins a word
+  constexpr int kBits = 8 * (int)sizeof(BinT);
+  // a feature's chunk spans at most kChunk / kPack + 1 words
+  constexpr int kWords = (kChunk / kPack + kThreads) / kThreads;
+  const int tid = threadIdx.x;
+  float g[kPer], h[kPer], m[kPer];
+  unsigned w[G][kWords];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int r = tid + k * kThreads;
+    if (r < nrows) {
+      m[k] = mask[row0 + r];
+      g[k] = grad[row0 + r];
+      h[k] = hess[row0 + r];
+    }
+  }
+#pragma unroll
+  for (int fl = 0; fl < G; ++fl) {
+    if (fl < nf) {
+      const uintptr_t a = (uintptr_t)(bins + (int64_t)(f0 + fl) * n + row0);
+      const unsigned* base =
+          reinterpret_cast<const unsigned*>(a & ~(uintptr_t)3);
+      const int nw = ((int)(a & 3) + nrows * (int)sizeof(BinT) + 3) >> 2;
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) {
+        const int wi = tid + i * kThreads;
+        w[fl][i] = wi < nw ? base[wi] : 0u;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int r = tid + k * kThreads;
+    if (r < nrows) {
+      s_g[r] = g[k] * m[k];
+      s_h[r] = h[k] * m[k];
+      s_m[r] = m[k];
+    }
+  }
+#pragma unroll
+  for (int fl = 0; fl < G; ++fl) {
+    if (fl < nf) {
+      // bins of the word before the chunk's first row
+      const int lead = (int)(((uintptr_t)(bins + (int64_t)(f0 + fl) * n
+                                          + row0) & 3) / sizeof(BinT));
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) {
+        const int e = (tid + i * kThreads) * kPack - lead;
+#pragma unroll
+        for (int j = 0; j < kPack; ++j)
+          if (e + j >= 0 && e + j < nrows)
+            s_bin[fl * kChunk + e + j] = (BinT)(w[fl][i] >> (j * kBits));
+      }
+    }
+  }
+}
+
+// Feature-major bins [F, n] and three float rows; sorted position p is row
+// order[p] (the identity when order is null).
+template <typename BinT>
+struct SortedRows {
+  const BinT* bins;
+  const float* grad;
+  const float* hess;
+  const float* mask;
+  const int64_t* order;
+  int64_t n;
+  __device__ int64_t row(int64_t p) const { return order ? order[p] : p; }
+  __device__ int bin(int f, int64_t row) const {
+    return (int)bins[(int64_t)f * n + row];
+  }
+  __device__ float g(int64_t row) const { return grad[row]; }
+  __device__ float h(int64_t row) const { return hess[row]; }
+  __device__ float m(int64_t row) const { return mask[row]; }
+  template <int G, int kThreads>
+  __device__ void stage(int64_t row0, int nrows, int f0, int nf, float* s_g,
+                        float* s_h, float* s_m, BinT* s_bin) const {
+    stage_gathered<BinT, G, kThreads>(*this, row0, nrows, f0, nf, s_g, s_h,
+                                      s_m, s_bin);
+  }
+};
+
+// Feature-major bins [F, n] and three float rows, read in place (K1).
+template <typename BinT>
+struct MatrixRows {
+  const BinT* bins;
+  const float* grad;
+  const float* hess;
+  const float* mask;
+  int64_t n;
+  template <int G, int kThreads>
+  __device__ void stage(int64_t row0, int nrows, int f0, int nf, float* s_g,
+                        float* s_h, float* s_m, BinT* s_bin) const {
+    stage_contiguous<BinT, G, kThreads>(bins, grad, hess, mask, n, row0,
+                                        nrows, f0, nf, s_g, s_h, s_m, s_bin);
+  }
+};
+
+// Columns [begin, begin+cap) of the [W, ld] int32 record (ops/record.py),
+// kPack = 4 / sizeof(BinT) bins a word (4 for u8 bins, 2 for u16), the
+// features in words 0 .. wb-1 and the grad/hess/mask bit patterns in rows
+// wb, wb+1, wb+2.  A group's G features are whole words or a part of one
+// (G a multiple or a divisor of kPack, f0 a multiple of G), so a thread
+// loads each word of a row once and unpacks the group's bins from it; a
+// last word's unused fields are not staged.
+template <typename BinT>
+struct WindowRows {
+  static constexpr int kPack = 4 / (int)sizeof(BinT);
+  const int* rec;
+  int64_t ld;
+  int64_t begin;
+  int wb;
+  template <int G, int kThreads>
+  __device__ void stage(int64_t row0, int nrows, int f0, int nf, float* s_g,
+                        float* s_h, float* s_m, BinT* s_bin) const {
+    static_assert(G % kPack == 0 || kPack % G == 0,
+                  "a group must be whole record words or a part of one");
+    constexpr int kPer = kChunk / kThreads;
+    constexpr int kW = (G + kPack - 1) / kPack;  // words a row holds for it
+    constexpr int kBits = 8 * (int)sizeof(BinT);
+    const int tid = threadIdx.x;
+    // the group's first word and its first field there (0 for whole words)
+    const int w0 = f0 / kPack, i0 = kW == 1 ? f0 % kPack : 0;
+    const int nw = (i0 + nf + kPack - 1) / kPack;
+    const int* col = rec + begin + row0;
+    float g[kPer], h[kPer], m[kPer];
+    unsigned w[kPer][kW];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int r = tid + k * kThreads;
+      if (r < nrows) {
+        m[k] = __int_as_float(col[(int64_t)(wb + 2) * ld + r]);
+        g[k] = __int_as_float(col[(int64_t)wb * ld + r]);
+        h[k] = __int_as_float(col[(int64_t)(wb + 1) * ld + r]);
+#pragma unroll
+        for (int j = 0; j < kW; ++j)
+          w[k][j] = j < nw ? (unsigned)col[(int64_t)(w0 + j) * ld + r] : 0u;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int r = tid + k * kThreads;
+      if (r < nrows) {
+        s_g[r] = g[k] * m[k];
+        s_h[r] = h[k] * m[k];
+        s_m[r] = m[k];
+#pragma unroll
+        for (int fl = 0; fl < G; ++fl) {
+          const int at = i0 + fl;  // field of the group's words
+          if (fl < nf)
+            s_bin[fl * kChunk + r] = (BinT)(w[k][kW == 1 ? 0 : at / kPack]
+                                            >> ((at % kPack) * kBits));
+        }
+      }
+    }
+  }
+};
+
 // out: the [nf, num_bins, 3] partials of features f0 .. f0+nf-1 (nf <= G)
 // over sorted positions row0 .. row0+nrows-1 (nrows <= kChunk); `smem`
 // holds hist_sorted_smem<BinT, G>() bytes; blockDim.x == kThreads.  Rows
-// gives row(pos), then bin(f, row), g(row), h(row), m(row).  Every thread
-// of the block must call it.
+// stages the rows (Rows::stage<G, kThreads>: s_g, s_h, s_m the masked
+// stats and s_bin [G, kChunk] the bins, in row order).  Every thread of
+// the block must call it.
 template <typename BinT, int G, int kThreads, typename Rows>
 __device__ inline void hist_sorted(const Rows& rows, int64_t row0,
                                    int nrows, int f0, int nf, int num_bins,
                                    float* __restrict__ out,
                                    unsigned char* smem) {
   constexpr int kWarps = kThreads / 32;
-  constexpr int kPer = kChunk / kThreads;  // rows a thread stages
   static_assert(kChunk % kThreads == 0, "kThreads must divide kChunk");
   float* s_g = reinterpret_cast<float*>(smem);  // staged, in row order
   float* s_h = s_g + kChunk;
@@ -206,39 +436,8 @@ __device__ inline void hist_sorted(const Rows& rows, int64_t row0,
   const int R = min(num_bins, kTable / S);
   const int seg = (nrows + 32 * S - 1) / (32 * S) * 32;  // rows a segment
 
-  {
-    int64_t row[kPer];
-    float g[kPer], h[kPer], m[kPer];
-    int bin[kPer][G];
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int r = tid + k * kThreads;
-      row[k] = r < nrows ? rows.row(row0 + r) : 0;
-    }
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (tid + k * kThreads < nrows) {
-        m[k] = rows.m(row[k]);
-        g[k] = rows.g(row[k]);
-        h[k] = rows.h(row[k]);
-#pragma unroll
-        for (int fl = 0; fl < G; ++fl)
-          bin[k][fl] = fl < nf ? rows.bin(f0 + fl, row[k]) : 0;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int r = tid + k * kThreads;
-      if (r < nrows) {
-        s_g[r] = g[k] * m[k];
-        s_h[r] = h[k] * m[k];
-        s_m[r] = m[k];
-#pragma unroll
-        for (int fl = 0; fl < G; ++fl)
-          if (fl < nf) s_bin[fl * kChunk + r] = (BinT)bin[k][fl];
-      }
-    }
-  }
+  rows.template stage<G, kThreads>(row0, nrows, f0, nf, s_g, s_h, s_m,
+                                   s_bin);
   for (int i = tid; i < S * R; i += kThreads) cnt[i] = 0;
   __syncthreads();
 
@@ -316,6 +515,60 @@ __device__ __forceinline__ float reduce_chunks(const float* partial,
   float s = 0.f;
   for (int c = 0; c < nchunks; ++c) s += partial[(int64_t)c * per_chunk + i];
   return s;
+}
+
+// Chunk c's first sorted position and row count, from a level's chunk
+// table; without one, the single-leaf layout (rows [c*kChunk, c*kChunk +
+// kChunk) of n).
+struct Chunks {
+  const int64_t* row0;
+  const int64_t* rows;
+  int64_t n;
+  __device__ void get(int c, int64_t* r0, int* nr) const {
+    if (row0 != nullptr) {
+      *r0 = row0[c];
+      *nr = (int)rows[c];
+    } else {
+      *r0 = (int64_t)c * kChunk;
+      *nr = (n - *r0 < kChunk) ? (int)(n - *r0) : kChunk;
+    }
+  }
+};
+
+// Pass 1 of K1, K1', K1'' and K2: block (c, g) writes the partials
+// [c, G*g .. G*g+G-1, B, 3] of [nchunks, F, B, 3].
+template <typename BinT, int G, int kThreads, typename Rows>
+__global__ void __launch_bounds__(kThreads)
+    sorted_partial_kernel(Rows rows, Chunks chunks, int F, int num_bins,
+                          float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int c = blockIdx.x, f0 = blockIdx.y * G;
+  const int nf = (F - f0 < G) ? F - f0 : G;
+  int64_t row0;
+  int nrows;
+  chunks.get(c, &row0, &nrows);
+  hist_sorted<BinT, G, kThreads>(
+      rows, row0, nrows, f0, nf, num_bins,
+      partial + ((int64_t)c * F + f0) * num_bins * 3, smem);
+}
+
+// Launches pass 1 over `nchunks` chunks (> 0) of F features (> 0) on `s`;
+// returns 0 or a CUDA error.
+template <typename BinT, int G, int kThreads, typename Rows>
+inline int launch_sorted_partial(const Rows& rows, const Chunks& chunks, int F,
+                          int nchunks, int num_bins, float* partial,
+                          cudaStream_t s) {
+  const int groups = (F + G - 1) / G;
+  if (groups > 65535) return (int)cudaErrorInvalidValue;
+  const int smem = hist_sorted_smem<BinT, G>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      sorted_partial_kernel<BinT, G, kThreads, Rows>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  sorted_partial_kernel<BinT, G, kThreads, Rows>
+      <<<dim3(nchunks, groups), kThreads, smem, s>>>(rows, chunks, F,
+                                                     num_bins, partial);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace lgbm

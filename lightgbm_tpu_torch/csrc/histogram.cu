@@ -21,23 +21,40 @@
 // at the root.  Operations are ~3 adds per (row, feature), far below any
 // compute bound.
 //
-// Design (a simple, deterministic first version; it is not near the bound):
-//  * pass 1: grid (row chunks, F); each block builds one (chunk, feature)
-//    partial with hist_chunk (hist_chunk.cuh, shared with K8), which
-//    stages the chunk's rows in shared memory and has each thread walk
-//    them in row order for its own bins.  The partial goes to scratch.
+// Design: two passes and no atomics.
+//  * pass 1: grid (row chunks of kChunk rows, features).  Block (c, f)
+//    stages chunk c's masked stats and its bins of feature f in shared
+//    memory, then builds the (chunk, feature) partial with hist_sorted: a
+//    stable sort of the chunk's rows by bin in shared memory, then one
+//    thread per bin adds its run in row order.  That is a few steps a row
+//    where the per-bin walk of the first version (each thread scanning
+//    every staged row for its own bins; hist_rows, now K8's alone) took B
+//    compares a row.  The kernel is sorted_partial_kernel (hist_chunk.cuh),
+//    the pass 1 of K1'' and K2 too, at one feature and 512 threads a block
+//    (kSingleGroup x kSingleThreads, kWindowGroup x kWindowThreads): most
+//    of a tree's launches are on a few chunks, where one feature a block
+//    gives the grid F blocks a chunk; there it is 3x faster than 4
+//    features a block, and at the 1M-row root 12-25 % slower than 4-8
+//    (tools/single_hist_variants.py times 1-8 features a block at 2,048 to
+//    1M rows).  K1 runs it over MatrixRows, which stages the bins in place
+//    an aligned 4-byte word a load; K1' over WindowRows, which loads a
+//    row's record word once and unpacks the block's bin from it (u8 bins
+//    k = 4 to a word, u16 bins k = 2), and takes the stats' bit patterns
+//    from the record.
 //  * pass 2: one thread per (feature, bin, stat) sums the chunk partials in
-//    chunk order (reduce_chunks).
-//  The two kernels differ only in the row reader (a template argument):
-//  K1 reads a feature-major bin matrix and three float rows, K1' unpacks
-//  the bin from its record word and takes the float bit patterns straight
-//  from the window (RecordRows; no [F, cap] unpack in device memory).  The
-//  summation order is the same, so K1' on a window equals K1 on the
-//  unpacked rows, bitwise.
-//  No atomics: the summation order is fixed, so two launches on the same
-//  inputs give bitwise-equal output.  The cost is O(cap * B) compares per
-//  feature in pass 1 (each thread scans every row), which is what a later
-//  PR should remove.
+//    chunk order; it loads kReduceBatch partials before it adds them, so a
+//    thread keeps that many loads in flight over its dependent adds.
+//  Every sum has the first version's order: each bin's rows in row order
+//  from 0.f within a chunk, then the partials in chunk order.  So two
+//  launches are bitwise equal, the plain versions (ops/histogram.py) equal
+//  the kernels bitwise, K1' on a window equals K1 on the unpacked rows, and
+//  K2 with one leaf (level_histogram.cu) equals K1.
+//  Cost on an NVIDIA H100 80GB HBM3 (700 W), chip_smoke.py phases 2 and 4:
+//  at the 1M-row root (F = 28, 255 u8 bins) K1 takes 0.48 ms (device:
+//  pass 1 0.40, pass 2 0.027) and K1' 0.51 ms, against 2.5 ms for one
+//  index_add_ of the same sums and 3.7 ms for the per-bin walk; that is
+//  2.4-2.5 % of the 0.012 ms byte bound.  A 2,048-row set takes 0.0077 ms
+//  of device time (0.039 before), so the call's host side sets its time.
 //
 // The kernels run on the caller's stream and allocate nothing; the
 // PyTorch wrapper (ops/cuda_histogram.py) allocates the output and the
@@ -52,57 +69,76 @@ namespace {
 
 using namespace lgbm;
 
-constexpr int kThreads = 256;  // threads per block in pass 1
+constexpr int kSingleGroup = 1;      // features per K1 block
+constexpr int kSingleThreads = 512;  // threads per K1 block
+constexpr int kWindowGroup = 1;      // features per K1' block (one field)
+constexpr int kWindowThreads = 512;  // threads per K1' block
+constexpr int kReduceBatch = 16;     // partials a pass-2 thread loads at once
+constexpr int kReduceThreads = 256;
 
-// The rows of kernel 1: feature-major bins [F, cap] and three float rows.
-template <typename BinT>
-struct MatrixRows {
-  const BinT* bins;
-  const float* grad;
-  const float* hess;
-  const float* mask;
-  int64_t cap;
-  __device__ int bin(int f, int64_t r) const {
-    return (int)bins[(int64_t)f * cap + r];
-  }
-  __device__ float g(int64_t r) const { return grad[r]; }
-  __device__ float h(int64_t r) const { return hess[r]; }
-  __device__ float m(int64_t r) const { return mask[r]; }
-};
-
-template <typename Rows, typename StageT>
-__global__ void hist_partial_kernel(Rows rows, int64_t cap, int num_bins,
-                                    float* __restrict__ partial) {
-  // partial: [nchunks, F, B, 3]
-  hist_chunk<StageT>(rows, cap, blockIdx.x, blockIdx.y, gridDim.y, num_bins,
-                     partial);
-}
-
-__global__ void hist_reduce_kernel(const float* __restrict__ partial,
-                                   int nchunks, int64_t per_chunk,
-                                   float* __restrict__ out) {
+// Cell i of [F, B, 3]: reduce_chunks' sum, (0.f + p_0) + p_1 + ..., with
+// the loads of kReduceBatch partials issued before their adds.
+__global__ void __launch_bounds__(kReduceThreads)
+    hist_reduce_kernel(const float* __restrict__ partial, int nchunks,
+                       int64_t per_chunk, float* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= per_chunk) return;
-  out[i] = reduce_chunks(partial, nchunks, per_chunk, i);
+  const float* p = partial + i;
+  float s = 0.f;
+  int c = 0;
+  for (; c + kReduceBatch <= nchunks; c += kReduceBatch) {
+    float v[kReduceBatch];
+#pragma unroll
+    for (int j = 0; j < kReduceBatch; ++j)
+      v[j] = __ldg(p + (int64_t)(c + j) * per_chunk);
+#pragma unroll
+    for (int j = 0; j < kReduceBatch; ++j) s += v[j];
+  }
+  for (; c < nchunks; ++c) s += __ldg(p + (int64_t)c * per_chunk);
+  out[i] = s;
 }
 
-template <typename StageT, typename Rows>
-int launch(const Rows& rows, int F, int64_t cap, int num_bins, float* partial,
-           float* out, cudaStream_t stream) {
+// Both passes over the single-leaf chunks of `cap` rows: partial
+// [ceil(cap / kChunk), F, B, 3] scratch, out [F, B, 3].  cap = 0 launches
+// no pass 1 and pass 2 writes zeros.
+template <typename BinT, int G, int kThreads, typename Rows>
+int launch(const Rows& rows, int F, int64_t cap, int num_bins,
+           float* partial, float* out, cudaStream_t s) {
   const int nchunks = (int)((cap + kChunk - 1) / kChunk);
   if (nchunks > 0 && F > 0) {
-    dim3 grid(nchunks, F);
-    hist_partial_kernel<Rows, StageT><<<grid, kThreads, 0, stream>>>(
-        rows, cap, num_bins, partial);
+    const int e = launch_sorted_partial<BinT, G, kThreads>(
+        rows, Chunks{nullptr, nullptr, cap}, F, nchunks, num_bins, partial,
+        s);
+    if (e != 0) return e;
   }
   const int64_t per_chunk = (int64_t)F * num_bins * 3;
   if (per_chunk > 0) {
-    const int threads = 256;
-    const int blocks = (int)((per_chunk + threads - 1) / threads);
-    hist_reduce_kernel<<<blocks, threads, 0, stream>>>(partial, nchunks,
-                                                       per_chunk, out);
+    const int blocks = (int)((per_chunk + kReduceThreads - 1)
+                             / kReduceThreads);
+    hist_reduce_kernel<<<blocks, kReduceThreads, 0, s>>>(partial, nchunks,
+                                                         per_chunk, out);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename BinT>
+int single_leaf(const void* bins, const float* grad, const float* hess,
+                const float* mask, int F, int64_t cap, int num_bins,
+                float* partial, float* out, cudaStream_t s) {
+  const MatrixRows<BinT> rows{static_cast<const BinT*>(bins), grad, hess,
+                              mask, cap};
+  return launch<BinT, kSingleGroup, kSingleThreads>(rows, F, cap, num_bins,
+                                                    partial, out, s);
+}
+
+template <typename BinT>
+int record_window(const int* rec, int64_t ld, int64_t begin, int64_t cnt,
+                  int F, int num_bins, float* partial, float* out,
+                  cudaStream_t s) {
+  constexpr int k = WindowRows<BinT>::kPack;
+  const WindowRows<BinT> rows{rec, ld, begin, (F + k - 1) / k};
+  return launch<BinT, kWindowGroup, kWindowThreads>(rows, F, cnt, num_bins,
+                                                    partial, out, s);
 }
 
 }  // namespace
@@ -120,30 +156,29 @@ int lgbm_hist_single_leaf(const void* bins, int bin_bytes, const float* grad,
                           int64_t cap, int num_bins, float* partial,
                           float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bin_bytes == 1) {
-    const MatrixRows<uint8_t> rows{static_cast<const uint8_t*>(bins), grad,
-                                   hess, mask, cap};
-    return launch<uint8_t>(rows, F, cap, num_bins, partial, out, s);
-  }
-  if (bin_bytes == 2) {
-    const MatrixRows<uint16_t> rows{static_cast<const uint16_t*>(bins), grad,
-                                    hess, mask, cap};
-    return launch<uint16_t>(rows, F, cap, num_bins, partial, out, s);
-  }
+  if (bin_bytes == 1)
+    return single_leaf<uint8_t>(bins, grad, hess, mask, F, cap, num_bins,
+                                partial, out, s);
+  if (bin_bytes == 2)
+    return single_leaf<uint16_t>(bins, grad, hess, mask, F, cap, num_bins,
+                                 partial, out, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // Kernel 1' over columns [begin, begin+cnt) of the [W, ld] int32 record
-// (k = 4 or 2 bins per word, F features in the first ceil(F/k) rows).
+// (k = 4 u8 or 2 u16 bins per word, F features in the first ceil(F/k)
+// rows, the stats in the three rows after them).
 int lgbm_hist_record_window(const int* rec, int64_t ld, int64_t begin,
                             int64_t cnt, int F, int k, int num_bins,
                             float* partial, float* out, void* stream) {
-  if (k != 2 && k != 4) return (int)cudaErrorInvalidValue;
-  const int shift = 32 / k;
-  const RecordRows rows{rec, ld, begin, k, shift, (1u << shift) - 1u,
-                        (F + k - 1) / k};
-  return launch<uint16_t>(rows, F, cnt, num_bins, partial, out,
-                          static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k == 4)
+    return record_window<uint8_t>(rec, ld, begin, cnt, F, num_bins, partial,
+                                  out, s);
+  if (k == 2)
+    return record_window<uint16_t>(rec, ld, begin, cnt, F, num_bins, partial,
+                                   out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

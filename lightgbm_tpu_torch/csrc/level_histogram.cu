@@ -34,7 +34,8 @@
 //  * pass 1 (both): grid (chunks, feature groups); a block stages its
 //    chunk's masked stats once, gathered through the sorted order, and the
 //    bins of its group, then builds each feature's (chunk, feature) partial
-//    with hist_sorted (hist_chunk.cuh): a stable sort of the chunk's rows by
+//    with hist_sorted (sorted_partial_kernel in hist_chunk.cuh, also the
+//    pass 1 of K1 and K1'): a stable sort of the chunk's rows by
 //    bin in shared memory (warp-private counts, rows ranked within a warp
 //    by ballots over the bin's bits, a scan, the stats scattered into bin
 //    order), then one thread per bin sums its run in row order.  That is a
@@ -77,75 +78,6 @@ constexpr int kLevelGroup = 4;      // features per K1'' block
 constexpr int kLevelThreads = 256;  // threads per K1'' block
 constexpr int kGroup = 16;          // features per K2 block (FGROUP_BSUB)
 constexpr int kGroupThreads = 512;  // threads per K2 block
-
-// Feature-major bins [F, n] and three float rows; sorted position p is row
-// order[p] (the identity when order is null).
-template <typename BinT>
-struct SortedRows {
-  const BinT* bins;
-  const float* grad;
-  const float* hess;
-  const float* mask;
-  const int64_t* order;
-  int64_t n;
-  __device__ int64_t row(int64_t p) const { return order ? order[p] : p; }
-  __device__ int bin(int f, int64_t row) const {
-    return (int)bins[(int64_t)f * n + row];
-  }
-  __device__ float g(int64_t row) const { return grad[row]; }
-  __device__ float h(int64_t row) const { return hess[row]; }
-  __device__ float m(int64_t row) const { return mask[row]; }
-};
-
-// Chunk c's first sorted position and row count, from the table; without
-// one, the single-leaf layout (rows [c*kChunk, c*kChunk + kChunk) of n).
-struct Chunks {
-  const int64_t* row0;
-  const int64_t* rows;
-  int64_t n;
-  __device__ void get(int c, int64_t* r0, int* nr) const {
-    if (row0 != nullptr) {
-      *r0 = row0[c];
-      *nr = (int)rows[c];
-    } else {
-      *r0 = (int64_t)c * kChunk;
-      *nr = (n - *r0 < kChunk) ? (int)(n - *r0) : kChunk;
-    }
-  }
-};
-
-// Block (c, g): the partials [c, G*g .. G*g+G-1, B, 3] of [nchunks, F, B, 3].
-template <typename BinT, int G, int kThreads>
-__global__ void __launch_bounds__(kThreads)
-    level_partial_kernel(SortedRows<BinT> rows, Chunks chunks, int F,
-                         int num_bins, float* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int c = blockIdx.x, f0 = blockIdx.y * G;
-  const int nf = (F - f0 < G) ? F - f0 : G;
-  int64_t row0;
-  int nrows;
-  chunks.get(c, &row0, &nrows);
-  hist_sorted<BinT, G, kThreads>(
-      rows, row0, nrows, f0, nf, num_bins,
-      partial + ((int64_t)c * F + f0) * num_bins * 3, smem);
-}
-
-template <typename BinT, int G, int kThreads>
-int launch_partial(const SortedRows<BinT>& rows, const Chunks& chunks,
-                   int F, int nchunks, int num_bins, float* partial,
-                   cudaStream_t s) {
-  const int groups = (F + G - 1) / G;
-  if (groups > 65535) return (int)cudaErrorInvalidValue;
-  const int smem = hist_sorted_smem<BinT, G>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      level_partial_kernel<BinT, G, kThreads>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  level_partial_kernel<BinT, G, kThreads>
-      <<<dim3(nchunks, groups), kThreads, smem, s>>>(rows, chunks, F,
-                                                     num_bins, partial);
-  return 0;
-}
 
 constexpr int kLayoutThreads = 1024;
 
@@ -241,9 +173,9 @@ int launch(const SortedRows<BinT>& rows, const Chunks& chunks,
   if (nchunks > 0 && F > 0) {
     const int e =
         variant == 0
-            ? launch_partial<BinT, kLevelGroup, kLevelThreads>(
+            ? launch_sorted_partial<BinT, kLevelGroup, kLevelThreads>(
                   rows, chunks, F, nchunks, num_bins, partial, s)
-            : launch_partial<BinT, kGroup, kGroupThreads>(
+            : launch_sorted_partial<BinT, kGroup, kGroupThreads>(
                   rows, chunks, F, nchunks, num_bins, partial, s);
     if (e != 0) return e;
   }

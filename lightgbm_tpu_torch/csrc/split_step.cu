@@ -36,10 +36,13 @@
 // generation word) separates the phases.
 //  * A: each item is either one tile of the compaction (compact_tile, K6's
 //    code) or one (2048-column chunk, feature) partial of the left
-//    histogram (hist_chunk, the K1' code, over a reader whose mask is
-//    m*go).  The chunks start at `begin`, as K1' chunks do on any window.
+//    histogram (hist_chunk: K8's chunk loop is hist_rows, a walk of the
+//    staged columns once per bin, over a reader whose mask is m*go; it
+//    adds each bin's columns in the order K1' does, which sorts them by
+//    bin with hist_sorted).  The chunks start at `begin`, as K1' chunks do
+//    on any window.
 //  * B: each thread owns cells of the [F, B, 3] rows: it sums the cell's
-//    partials in chunk order (reduce_chunks, K1' pass 2), reads the
+//    partials in chunk order (reduce_chunks, K1' pass 2's order), reads the
 //    parent there and writes both children (write_children, K4's code).
 //    One owner per cell, so the in-place update is safe as in K4.
 //  * C: block 0 sums the tile counts (integers, exact in any order) into
@@ -75,7 +78,7 @@ using namespace lgbm;
 
 constexpr int kThreads = kTile;  // one thread per column of a tile
 
-// The K1' record reader with the mask restricted to the left child: m * go,
+// The record reader with the mask restricted to the left child: m * go,
 // the product _hist_tile_body forms (mw = mrow * govf).
 struct LeftRows {
   RecordRows r;

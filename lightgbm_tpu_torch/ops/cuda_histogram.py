@@ -6,12 +6,17 @@ over the ``cap`` rows of ``bins_T [F, cap]``.  On a CUDA tensor it
 launches kernel 1 (csrc/histogram.cu, which says what it replaces, its
 bound and its design) and adds one to ``LAUNCHES``; on a CPU tensor it
 returns the plain version (ops/histogram.py).  Nothing else selects
-between the two.
+between the two.  Kernel 1 builds each 2048-row chunk's partials with a
+stable bin sort in shared memory (``hist_sorted``, csrc/hist_chunk.cuh),
+then sums them in chunk order: each bin's rows in row order, the plain
+version's order, so the two agree bitwise.
 
 ``histogram_record_window`` is the same for a window of the packed record
 (the counterpart of ``histogram_single_leaf_raw`` on ``unpack_window``):
 kernel 1' on a CUDA record, counted in ``RECORD_LAUNCHES``, the plain
-version on a CPU one.
+version on a CPU one.  Kernel 1' runs kernel 1's passes over the record's
+words (each word of a row loaded once and unpacked) and equals kernel 1
+on the unpacked rows bitwise.
 
 ``histogram_by_leaf_sorted`` is the level histogram ``hist[L, F,
 num_bins, 3]`` of depthwise growth (the counterpart of
@@ -147,7 +152,9 @@ def _check_rows(bins_T, grad, hess, mask, num_bins):
 
 
 def histogram_single_leaf_cuda(bins_T, grad, hess, mask, num_bins):
-    """Kernel 1 on the card (raises on anything it does not take)."""
+    """Kernel 1 on the card (raises on anything it does not take): pass 1
+    over (2048-row chunks, features), pass 2 over the cells; the
+    [ceil(cap / 2048), F, num_bins, 3] partials are scratch."""
     global LAUNCHES
     F, cap, bin_bytes = _check_rows(bins_T, grad, hess, mask, num_bins)
     out = _launch(_lib().lgbm_hist_single_leaf, "histogram kernel",
@@ -264,7 +271,8 @@ def histogram_record_window(rec: torch.Tensor, begin: int, cnt: int, F: int,
 
 
 def histogram_record_window_cuda(rec, begin, cnt, F, k, num_bins):
-    """Kernel 1' on the card (raises on anything it does not take)."""
+    """Kernel 1' on the card (raises on anything it does not take): kernel
+    1's passes over the window, each bin unpacked from its record word."""
     global RECORD_LAUNCHES
     if rec.device.type != "cuda":
         raise ValueError(f"rec must be a CUDA tensor, got {rec.device}")

@@ -20,14 +20,19 @@ Prints one JSON object: host wall per tree with and without the profiler,
 device busy time per tree (the union of kernel and copy intervals on the
 card), the idle share (1 - busy / wall), the device time per kernel name
 summed over the profiled trees, largest first, each ported kernel's
-launches per profiled tree (from the wrappers' counts) and the host syncs
-per profiled tree.  Needs a CUDA
-card; exits non-zero without one.
+launches per profiled tree (from the wrappers' counts), the host syncs
+per profiled tree and, for K1 and K1', the median and quartiles of the
+row counts they were launched on.  Needs a CUDA card; exits non-zero
+without one.
+
+``device_ms_by_kernel`` (used by chip_smoke.py and tools/) times a call's
+kernels one by one under the profiler.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -59,6 +64,64 @@ def _busy_us(events) -> float:
     if cur_e is not None:
         busy += cur_e - cur_s
     return busy
+
+
+def device_ms_by_kernel(torch, fn, reps: int = 20, warm: int = 3):
+    """Device ms per call of ``fn`` for each kernel name it launches (the
+    name's first 80 characters), over ``reps`` profiled calls after
+    ``warm`` unprofiled ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = e.name[:80]
+            out[key] = out.get(key, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
+
+
+def _quartiles(xs):
+    """Median and quartiles of ``xs`` (the nearest-rank ones), its count
+    and total."""
+    xs = sorted(xs)
+    if not xs:
+        return {"launches": 0}
+    at = lambda q: xs[min(len(xs) - 1, int(q * len(xs)))]  # noqa: E731
+    return {"launches": len(xs), "q1": at(0.25), "median": at(0.5),
+            "q3": at(0.75), "min": xs[0], "max": xs[-1], "rows": sum(xs)}
+
+
+@contextlib.contextmanager
+def _record_rows(rows):
+    """Inside, every K1 / K1' launch appends its row count to
+    ``rows["K1"]`` / ``rows["K1'"]``."""
+    from lightgbm_tpu_torch.ops import cuda_histogram as ch
+
+    k1, k1r = ch.histogram_single_leaf_cuda, ch.histogram_record_window_cuda
+
+    def single(bins_T, *a, **kw):
+        rows["K1"].append(int(bins_T.shape[1]))
+        return k1(bins_T, *a, **kw)
+
+    def window(rec, begin, cnt, *a, **kw):
+        rows["K1'"].append(int(cnt))
+        return k1r(rec, begin, cnt, *a, **kw)
+
+    ch.histogram_single_leaf_cuda = single
+    ch.histogram_record_window_cuda = window
+    try:
+        yield
+    finally:
+        ch.histogram_single_leaf_cuda = k1
+        ch.histogram_record_window_cuda = k1r
 
 
 def main(argv=None) -> int:
@@ -95,8 +158,9 @@ def main(argv=None) -> int:
     plain_wall = time.perf_counter() - t0
     reset_launch_counts()
     serial.HOST_SYNCS = serial.POOL_RECOMPUTES = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    rows = {"K1": [], "K1'": []}
+    with _record_rows(rows), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.trees):
             booster.update()
@@ -124,6 +188,7 @@ def main(argv=None) -> int:
         "host_syncs_per_tree": serial.HOST_SYNCS / args.trees,
         "pool_slots": booster._gbdt._hist_pool_slots(),
         "parents_rebuilt_per_tree": serial.POOL_RECOMPUTES / args.trees,
+        "rows_per_launch": {k: _quartiles(v) for k, v in rows.items()},
         "leaves": [t.num_leaves for t in booster._gbdt.models[-args.trees:]],
     }, indent=1))
     return 0

@@ -35,9 +35,27 @@ SHAPES = [(5, 700, 37, np.uint8), (28, 2048, 255, np.uint8),
           (3, 500, 300, np.uint16)]
 
 
-def _inputs(F, cap, B, dt, seed=11):
+# the kernels' edge cases: ~90 % of every feature's rows in one bin, more
+# bins than their 4096-int count table (bin-range passes), a row count one
+# past a chunk, F not a multiple of the kernels' feature group
+# (name, F, cap, B, bin dtype, dominant bin)
+EDGE = [("dominant-bin", 28, 3000, 255, np.uint8, True),
+        ("u16x5000", 3, 1500, 5000, np.uint16, False),
+        ("rows-2049", 6, 2049, 255, np.uint8, False),
+        ("F29", 29, 900, 255, np.uint8, False)]
+# record windows at an odd begin whose F is not a multiple of k (k = 2 for
+# u16 bins, 4 for u8): (name, F, cap, B, bin dtype, begin)
+EDGE_WINDOWS = [("k2-F5", 5, 1200, 300, np.uint16, 101),
+                ("k4-F29", 29, 900, 255, np.uint8, 37),
+                ("k2-F3-5000", 3, 1500, 5000, np.uint16, 211)]
+
+
+def _inputs(F, cap, B, dt, seed=11, dominant=False):
     rng = np.random.RandomState(seed)
-    return (rng.randint(0, B, size=(F, cap)).astype(dt),
+    bins = rng.randint(0, B, size=(F, cap)).astype(dt)
+    if dominant:
+        bins[rng.rand(F, cap) < 0.9] = B // 3
+    return (bins,
             rng.randn(cap).astype(np.float32),
             np.abs(rng.randn(cap)).astype(np.float32),
             (rng.rand(cap) < 0.7).astype(np.float32))
@@ -59,6 +77,38 @@ def test_matches_jax_pallas_interpret(F, cap, B, dt):
     np.testing.assert_array_equal(ours[..., 2], ref[..., 2])
     np.testing.assert_allclose(ours[..., :2], ref[..., :2], rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("name,F,cap,B,dt,dominant", EDGE,
+                         ids=[e[0] for e in EDGE])
+def test_edge_matches_jax_pallas_interpret(name, F, cap, B, dt, dominant):
+    """The plain version of K1 against the JAX kernel in interpret mode at
+    the kernels' edge cases.  Counts exact; g and h within 1e-5 of each
+    cell's sum of |x| (+ 1e-5): a dominant bin sums ~2,700 rows whose
+    signs cancel, so its f32 rounding, in two summation orders, scales
+    with sum |x| and not with the small result."""
+    bins, g, h, m = _inputs(F, cap, B, dt, seed=23, dominant=dominant)
+    ours = _port(bins, g, h, m, B)
+    ref = np.asarray(jax_single_leaf(
+        jnp.asarray(bins), jnp.asarray(g), jnp.asarray(h), jnp.asarray(m),
+        num_bins=B, interpret=True))
+    assert ours.shape == (F, B, 3) and ours.dtype == np.float32
+    np.testing.assert_array_equal(ours[..., 2], ref[..., 2])
+    absum = histogram_feature_major(
+        torch.from_numpy(bins), *(torch.from_numpy(a).double().abs()
+                                  for a in (g, h, m)), B).numpy()
+    assert (np.abs(ours[..., :2] - ref[..., :2])
+            <= 1e-5 * absum[..., :2] + 1e-5).all()
+
+
+def test_empty_and_one_row_sets():
+    """No rows give zeros; one row equals the JAX segment sum bitwise."""
+    bins, g, h, m = _inputs(29, 1, 255, np.uint8, seed=29)
+    assert not _port(bins[:, :0], g[:0], h[:0], m[:0], 255).any()
+    ref = np.asarray(jax_hist_fm(jnp.asarray(bins), jnp.asarray(g),
+                                 jnp.asarray(h), jnp.asarray(m),
+                                 num_bins=255))
+    np.testing.assert_array_equal(_port(bins, g, h, m, 255), ref)
 
 
 @pytest.mark.parametrize("F,cap,B,dt", SHAPES)
@@ -106,7 +156,19 @@ def _record_window(F, cap, B, dt, begin=211, seed=17):
 
 @pytest.mark.parametrize("F,cap,B,dt", SHAPES)
 def test_record_window_matches_jax_raw(F, cap, B, dt):
-    (bins, g, h, m), rec, begin = _record_window(F, cap, B, dt)
+    _check_record_window_against_jax(F, cap, B, dt, 211)
+
+
+@pytest.mark.parametrize("name,F,cap,B,dt,begin", EDGE_WINDOWS,
+                         ids=[e[0] for e in EDGE_WINDOWS])
+def test_edge_record_window_matches_jax_raw(name, F, cap, B, dt, begin):
+    """The plain version of K1' at odd begins whose F is not a multiple of
+    k, against the JAX raw kernel; tolerances as above."""
+    _check_record_window_against_jax(F, cap, B, dt, begin)
+
+
+def _check_record_window_against_jax(F, cap, B, dt, begin):
+    (bins, g, h, m), rec, begin = _record_window(F, cap, B, dt, begin)
     k = R.bins_per_word(torch.from_numpy(bins).dtype)
     ours = histogram_record_window(rec, begin, cap, F, k, B).numpy()
     jrec = JR.build_record(*(jnp.asarray(a) for a in (bins, g, h, m)),
@@ -166,3 +228,40 @@ def test_record_kernel_matches_plain_on_card():
         np.testing.assert_array_equal(
             a.cpu().numpy(),
             histogram_record_window(rec, begin, cap, F, k, B).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,F,cap,B,dt,dominant", EDGE,
+                         ids=[e[0] for e in EDGE])
+def test_edge_kernel_matches_plain_on_card(name, F, cap, B, dt, dominant):
+    """K1 at the edge cases: bitwise its plain version, and K2 over one
+    leaf bitwise K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
+    bins, g, h, m = _inputs(F, cap, B, dt, seed=23, dominant=dominant)
+    dev = [torch.from_numpy(a).cuda() for a in (bins, g, h, m)]
+    a = cuda_histogram.histogram_single_leaf_cuda(*dev, B)
+    np.testing.assert_array_equal(a.cpu().numpy(), _port(bins, g, h, m, B))
+    torch.testing.assert_close(
+        cuda_histogram.histogram_single_leaf_bsub_cuda(*dev, B), a, rtol=0,
+        atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,F,cap,B,dt,begin", EDGE_WINDOWS,
+                         ids=[e[0] for e in EDGE_WINDOWS])
+def test_edge_record_kernel_matches_plain_on_card(name, F, cap, B, dt, begin):
+    """K1' on windows at an odd begin whose F is not a multiple of k:
+    bitwise its plain version and K1 on the unpacked rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
+    (bins, g, h, m), rec, begin = _record_window(F, cap, B, dt, begin)
+    k = R.bins_per_word(torch.from_numpy(bins).dtype)
+    a = histogram_record_window(rec.cuda(), begin, cap, F, k, B)
+    want = histogram_record_window(rec, begin, cap, F, k, B).numpy()
+    np.testing.assert_array_equal(a.cpu().numpy(), want)
+    sl = slice(begin, begin + cap)
+    k1 = cuda_histogram.histogram_single_leaf_cuda(
+        *(torch.from_numpy(np.ascontiguousarray(x)).cuda()
+          for x in (bins[:, sl], g[sl], h[sl], m[sl])), B)
+    np.testing.assert_array_equal(a.cpu().numpy(), k1.cpu().numpy())
