@@ -32,11 +32,18 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    record after the split bitwise, rows outside the window untouched;
 7. holds the mega route's split step (K8) against its plain version,
    bitwise (comp's valid lanes, counts, the buffer rows, the search rows,
-   nleft), on the 1M-row root window, a 60k interior window at an
-   unaligned begin, all-left, all-right, a ragged last tile, a one-tile
-   window, a categorical split and u16 x 300 bins; runs K7 on K8's output
+   nleft), with two launches bitwise equal, on the 1M-row root window, a
+   60k interior window at an unaligned begin, a 6,000-column window,
+   all-left, all-right, a ragged last tile, a one-tile window, 2,049
+   columns at an odd begin, a categorical split, u16 x 300 bins, ~90 % of
+   every feature's columns in one bin, u16 x 5000 bins (several count-
+   table passes, a four-level scan), F = 29 with u16 bins (k = 2) and
+   crafted equal gains across bins and features (the winner must be the
+   smallest feature and the largest threshold); runs K7 on K8's output
    and holds the record bitwise against the plain placement, rows outside
-   the window untouched; times K8 at the root and at the one-tile window;
+   the window untouched; prints the resident grid (blocks an SM) and
+   K8's registers and spills, and times K8 at 1M, 60,000, 6,000 and 400
+   columns beside its times before the redesign;
 8. trains the bench model (bench.py's config: binary, 1M x 28 HIGGS-like
    rows from seed 7 plus 200k valid rows, 255 bins, 255 leaves) through
    ``lightgbm_tpu_torch``'s entry points on the three routes in turn: the
@@ -77,10 +84,13 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    both shapes and K3 at F=2000;
 12. writes windows back into a record with K9 through
    ``ops/record.write_window`` at begin 0, 1, 37, 500 and 511 and at two
-   begins the call clamps, and holds each record bitwise against the
-   plain version (``copy_`` on the CPU) and against ``copy_`` into the
-   same slice on the card; times K9, its plain version and ``copy_`` on a
-   1M-column window of the bench record's 12 rows;
+   begins the call clamps, and at begins 0-3 on records of 16 rows whose
+   length is not a multiple of 4 and of one row, with window widths that
+   are not multiples of 4; holds each record bitwise against the plain
+   version (``copy_`` on the CPU) and against ``copy_`` into the same
+   slice on the card; times K9 and ``copy_`` (its plain version and the
+   one library call) on a 1M-column window of the bench record's 12 rows
+   at begin 0 and 37, as calls and as device time;
 13. (run with phase 8) the ``pooled`` main path: the bench model with
    ``histogram_pool_size=4`` (48 slots of 85,680 B against 255 leaves),
    checked for its exact launches (K1 = trees + splits + recomputes, K3 =
@@ -618,29 +628,69 @@ def phase_partition(torch):
 
 
 # --------------------------------------------------------------- phase 7
+# K8's time before its redesign at the four windows phase 7 times, those of
+# tools/split_step_phases.py (ms of 20 calls after 3, PERF.md §6)
+K8_PARENT_MS = {"root": 3.9426, "interior": 0.4397, "small": 0.2468,
+                "one-tile": 0.2515}
+
+
+def _tied_record(torch, rng, F, n, B):
+    """Feature 0 uniform over the bins (the split feature); every other
+    feature of a column in bin 3 or bin B-4, the same for all of them, with
+    the gradient +4 in bin 3 and -4 in bin B-4: in each child every
+    threshold from 3 to B-5 of every feature but 0 ties for the best."""
+    from lightgbm_tpu_torch.ops.record import build_record
+
+    col = np.where(rng.rand(n) < 0.5, 3, B - 4).astype(np.uint8)
+    bins = np.repeat(col[None], F, 0)
+    bins[0] = rng.randint(0, B, n)
+    bins = torch.from_numpy(bins).cuda()
+    g = torch.from_numpy(np.where(col == 3, 4.0, -4.0).astype(np.float32)
+                         ).cuda()
+    h = torch.ones(n, dtype=torch.float32, device="cuda")
+    m = torch.ones(n, dtype=torch.float32, device="cuda")
+    return build_record(bins, g, h, m)
+
+
 def phase_split_step(torch):
-    from lightgbm_tpu_torch.ops import cuda_histogram, cuda_record
+    from lightgbm_tpu_torch.ops import _build, cuda_histogram, cuda_record
     from lightgbm_tpu_torch.ops import cuda_split_step
     from lightgbm_tpu_torch.ops import record as R
     from lightgbm_tpu_torch.ops.cuda_search import pack_meta
 
     rng = np.random.RandomState(5)
-    F, n, B, T = N_FEAT, ROWS, NUM_BINS, R.TILE
-    big = _random_record(torch, rng, F, n, B, np.uint8)[-1]
-    u16 = _random_record(torch, rng, F, 100_000, 300, np.uint16)[-1]
-    # (name, record, bins, begin, pcnt, f, thr, is_cat)
-    cases = [("root", big, B, 0, n, 13, 127, False),
-             ("interior", big, B, 333_333, 60_000, 6, 90, False),
-             ("all-left", big, B, 1000, 200_000, 20, B - 1, False),
-             ("all-right", big, B, 1000, 200_000, 20, B, True),
-             ("ragged", big, B, 12_345, 5 * T + 77, 27, 40, False),
-             ("one-tile", big, B, 5_003, 400, 2, 100, False),
-             ("categorical", big, B, 777, 100_000, 4, 17, True),
-             ("uint16", u16, 300, 0, 100_000, 11, 150, False)]
+    n, B, T = ROWS, NUM_BINS, R.TILE
+    # (record, bins a word)
+    big = (_random_record(torch, rng, N_FEAT, n, B, np.uint8)[-1], 4)
+    u16 = (_random_record(torch, rng, N_FEAT, 100_000, 300, np.uint16)[-1],
+           2)
+    dom_bins = rng.randint(0, B, (N_FEAT, 300_000)).astype(np.uint8)
+    dom_bins[rng.rand(N_FEAT, 300_000) < 0.9] = B // 3
+    dom = (R.build_record(*(torch.from_numpy(a).cuda() for a in (
+        dom_bins, rng.randn(300_000).astype(np.float32),
+        np.abs(rng.randn(300_000)).astype(np.float32),
+        (rng.rand(300_000) < 0.8).astype(np.float32)))), 4)
+    wide = (_random_record(torch, rng, 6, 40_000, 5000, np.uint16)[-1], 2)
+    odd = (_random_record(torch, rng, 29, 50_000, 300, np.uint16)[-1], 2)
+    tied = (_tied_record(torch, rng, N_FEAT, 20_000, B), 4)
+    # (name, (record, k), F, bins, begin, pcnt, f, thr, is_cat)
+    cases = [("root", big, N_FEAT, B, 0, n, 13, 127, False),
+             ("interior", big, N_FEAT, B, 333_333, 60_000, 6, 90, False),
+             ("small", big, N_FEAT, B, 777_777, 6_000, 20, 60, False),
+             ("all-left", big, N_FEAT, B, 1000, 200_000, 20, B - 1, False),
+             ("all-right", big, N_FEAT, B, 1000, 200_000, 20, B, True),
+             ("ragged", big, N_FEAT, B, 12_345, 5 * T + 77, 27, 40, False),
+             ("one-tile", big, N_FEAT, B, 5_003, 400, 2, 100, False),
+             ("2049-odd-begin", big, N_FEAT, B, 12_347, 2049, 9, 130, False),
+             ("categorical", big, N_FEAT, B, 777, 100_000, 4, 17, True),
+             ("uint16", u16, N_FEAT, 300, 0, 100_000, 11, 150, False),
+             ("dominant", dom, N_FEAT, B, 5, 250_001, 7, B // 3, False),
+             ("u16x5000", wide, 6, 5000, 1001, 30_003, 3, 2400, False),
+             ("F29-u16", odd, 29, 300, 777, 40_001, 28, 140, False),
+             ("ties", tied, N_FEAT, B, 3, 15_001, 0, 127, False)]
     L, parent, new = 4, 1, 3
     out, times = None, {}
-    for name, rec, nb, begin, pcnt, f, thr, is_cat in cases:
-        k = R.bins_per_word(torch.uint8 if nb <= 256 else torch.uint16)
+    for name, (rec, k), F, nb, begin, pcnt, f, thr, is_cat in cases:
         W = rec.shape[0]
         hists = torch.from_numpy(rng.randn(L, F, nb, 3).astype(np.float32)
                                  ).cuda()
@@ -648,9 +698,11 @@ def phase_split_step(torch):
             rec, begin, pcnt, F, k, nb)  # the parent's own histogram
         iscat = np.zeros(F, bool)
         iscat[f] = is_cat
-        meta = pack_meta(torch.ones(F, dtype=torch.bool),
-                         torch.full((F,), nb), torch.from_numpy(iscat),
-                         "cuda")
+        fmask = torch.ones(F, dtype=torch.bool)
+        if name == "ties":
+            fmask[0] = False  # the split feature is out of the search
+        meta = pack_meta(fmask, torch.full((F,), nb),
+                         torch.from_numpy(iscat), "cuda")
         go = R.go_flags(rec, f, thr, is_cat, begin, pcnt, k).float()
         wb = R.num_words(F, k)
         g, h, m = (rec[wb + i, begin:begin + pcnt].view(torch.float32)
@@ -697,6 +749,11 @@ def phase_split_step(torch):
         check(nleft == int(counts_p[0].sum()), f"K8 {name}: nleft {nleft}")
         expect = {"all-left": pcnt, "all-right": 0}.get(name)
         check(expect is None or nleft == expect, f"K8 {name}: nleft {nleft}")
+        if name == "ties":  # the largest tied threshold, the smallest feature
+            check(all(int(rows_c[c, 1]) == 1 and int(rows_c[c, 2]) == B - 5
+                      for c in range(2)),
+                  f"K8 ties: (feature, threshold) {rows_c[:, 1:3].tolist()}"
+                  f", not (1, {B - 5}) in both children")
         # K7 on K8's output against the plain placement
         rk, rp = rec.clone(), rec_c.clone()
         cuda_record.place_cuda(rk, comp, counts, begin, pcnt, parent, new)
@@ -707,18 +764,19 @@ def phase_split_step(torch):
         check(torch.equal(rk_c[:, :begin], rec_c[:, :begin])
               and torch.equal(rk_c[:, begin + pcnt:], rec_c[:, begin + pcnt:]),
               f"K7 after K8 {name}: rows outside the window moved")
-        grid = cuda_split_step.grid_blocks(pcnt, F)
-        say(f"[split-step {name}] begin={begin} pcnt={pcnt} f={f} thr={thr} "
-            f"cat={is_cat} B={nb} nleft={nleft} grid={grid}: comp lanes, "
-            "counts, buffer rows, search rows bitwise == plain; two launches "
-            "equal; K7 record bitwise == plain, outside untouched")
-        if name in ("root", "one-tile"):
+        grid = cuda_split_step.grid_blocks(pcnt, F, nb)
+        say(f"[split-step {name}] begin={begin} pcnt={pcnt} F={F} f={f} "
+            f"thr={thr} cat={is_cat} B={nb} k={k} nleft={nleft} grid={grid}: "
+            "comp lanes, counts, buffer rows, search rows bitwise == plain; "
+            "two launches equal; K7 record bitwise == plain, outside "
+            "untouched")
+        if name in K8_PARENT_MS:
             hs = hists.clone()
             ms = time_ms(torch, lambda: kernel(hs))
             nbytes = 2 * (W - 1) * 4 * pcnt + 3 * F * nb * 12
             bound = max(nbytes / HBM_BYTES_PER_S,
                         3 * F * pcnt / F32_FLOPS) * 1e3
-            times[name] = (ms, bound)
+            times[name] = (ms, bound, grid)
             if name == "root":
                 hpc = hists.clone()
                 plain_ms = time_ms(torch, lambda: R.split_step_plain(
@@ -726,11 +784,21 @@ def phase_split_step(torch):
                 out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound, library_ms=None)
         del hists, hk, hk2, comp, comp2, comp_c, comp_p, rk, rp, rk_c, rec_c
-    (ms, bound), (ms1, bound1) = times["root"], times["one-tile"]
-    say(f"[split-step times] root ms={ms:.4f} bound_ms={bound:.5f} "
-        f"share={bound / ms:.4f} plain_ms={out['plain_ms']:.4f}; one-tile "
-        f"(400 columns) ms={ms1:.4f} bound_ms={bound1:.6f}")
-    del big, u16
+        del rec
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for nb in (B, 300):
+        cap = cuda_split_step.grid_blocks(1 << 40, N_FEAT, nb)
+        say(f"[split-step occupancy] B={nb}: resident grid {cap} blocks on "
+            f"{sms} SMs, {cap / sms:g} blocks an SM")
+    for line in _build.ptxas_report("split_step").splitlines():
+        if "Used" in line or "spill" in line:
+            say(f"[split-step ptxas] {line.strip()}")
+    for name, (ms, bound, grid) in times.items():
+        say(f"[split-step times] {name} ms={ms:.4f} bound_ms={bound:.6f} "
+            f"share={bound / ms:.4f} grid={grid} "
+            f"parent_ms={K8_PARENT_MS[name]:.4f}")
+    say(f"[split-step times] root plain_ms={out['plain_ms']:.4f}")
+    del big, u16, dom, wide, odd, tied
     return out
 
 
@@ -1289,51 +1357,68 @@ def phase_pool_search(torch):
 
 # -------------------------------------------------------------- phase 12
 def phase_writeback(torch):
-    """K9 through ``write_window`` at begin 0, 1, 37, 500, 511 and two
-    clamped begins (counted), each record bitwise against the plain
-    version and against ``copy_`` on the card; times at a 1M-column
-    window of the bench record's 12 rows."""
+    """K9 through ``write_window`` on records of 16 rows (row length a
+    multiple of 4 and not) and of one row, at begins of every residue mod
+    4, windows whose width is and is not a multiple of 4, and two clamped
+    begins (counted), each record bitwise against the plain version and
+    against ``copy_`` on the card; times at a 1M-column window of the bench
+    record's 12 rows at begin 0 and at begin 37, beside ``copy_``."""
     from lightgbm_tpu_torch.ops import launch_counts
     from lightgbm_tpu_torch.ops import record as R
+    from lightgbm_tpu_torch.profile_slice import device_ms_by_kernel
 
     rng = np.random.RandomState(12)
     T = R.TILE
-    rec = torch.from_numpy(rng.randint(-2**30, 2**30, (16, 8 * T))
-                           .astype(np.int32))
-    out = torch.from_numpy(rng.randint(-2**30, 2**30, (16, 2 * T))
-                           .astype(np.int32))
-    n, cap = rec.shape[1], out.shape[1]
-    begins = (0, 1, 37, 500, T - 1, 7 * T, -5)
-    recs = [rec.cuda() for _ in begins]
-    out_c = out.cuda()
+    # (rows, record columns, window columns, begin)
+    cases = [(16, 8 * T, 2 * T, b) for b in (0, 1, 37, 500, T - 1, 7 * T,
+                                             -5)]
+    cases += [(W, n, cap, b) for W, n, cap in ((16, 8 * T + 1, 2 * T + 3),
+                                               (1, 8 * T, 1235), (1, 9, 5))
+              for b in (0, 1, 2, 3)]
+    recs, outs = [], []
+    for W, n, cap, _ in cases:
+        recs.append(torch.from_numpy(rng.randint(-2**30, 2**30, (W, n))
+                                     .astype(np.int32)))
+        outs.append(torch.from_numpy(rng.randint(-2**30, 2**30, (W, cap))
+                                     .astype(np.int32)))
+    dev = [r.cuda() for r in recs]
+    outs_c = [o.cuda() for o in outs]
     reset_counts()
-    for r, b in zip(recs, begins):
-        R.write_window(r, out_c, b)
+    for r, o, (_, _, _, b) in zip(dev, outs_c, cases):
+        R.write_window(r, o, b)
     torch.cuda.synchronize()
     launches = launch_counts()["K9"]
-    check(launches == len(begins), f"K9: {launches} launches for "
-          f"{len(begins)} windows")
-    for r, b in zip(recs, begins):
+    check(launches == len(cases), f"K9: {launches} launches for "
+          f"{len(cases)} windows")
+    for r, rec, o, (W, n, cap, b) in zip(dev, recs, outs, cases):
         placed = min(max(b + n if b < 0 else b, 0), n - cap)
         lib = rec.cuda()
-        lib[:, placed:placed + cap].copy_(out_c)
-        cpu = R.write_window(rec.clone(), out, b)
+        lib[:, placed:placed + cap].copy_(o.cuda())
+        cpu = R.write_window(rec.clone(), o, b)
         check(torch.equal(r.cpu(), cpu) and torch.equal(r, lib),
-              f"K9 begin={b}: record differs from the plain version's or "
-              "copy_'s")
+              f"K9 W={W} n={n} cap={cap} begin={b}: record differs from the "
+              "plain version's or copy_'s")
     rec_big = torch.empty((12, ROWS + 2 * T), dtype=torch.int32,
                           device="cuda").random_(-2**30, 2**30)
     out_big = torch.empty((12, ROWS), dtype=torch.int32,
                           device="cuda").random_(-2**30, 2**30)
-    ms = time_ms(torch, lambda: R.write_window(rec_big, out_big, 37))
-    # the plain version is this copy_, and it is the one library call
-    copy_ms = time_ms(torch, lambda: rec_big[:, 37:37 + ROWS].copy_(out_big))
+    t = {}
+    for b in (0, 37):
+        k9 = lambda: R.write_window(rec_big, out_big, b)  # noqa: E731
+        # the plain version is this copy_, the one library call
+        lib = lambda: rec_big[:, b:b + ROWS].copy_(out_big)  # noqa: E731
+        t[b] = (time_ms(torch, k9), time_ms(torch, lib),
+                sum(device_ms_by_kernel(torch, k9).values()),
+                sum(device_ms_by_kernel(torch, lib).values()))
     bound = 2 * 12 * ROWS * 4 / HBM_BYTES_PER_S * 1e3
-    say(f"[writeback] begins={begins} launches={launches}: records bitwise "
-        f"== plain (CPU) and == copy_ (card); 1M-column window x 12 rows: "
-        f"ms={ms:.4f} copy_ms={copy_ms:.4f} bound_ms={bound:.5f} "
-        f"share={bound / ms:.4f}")
-    del rec_big, out_big, recs
+    say(f"[writeback] {len(cases)} windows, launches={launches}: records "
+        "bitwise == plain (CPU) and == copy_ (card); 1M-column window x 12 "
+        "rows (call ms, then device ms): " + "; ".join(
+            f"begin {b} ms={ms:.4f} copy_ms={cms:.4f} device {dms:.4f} / "
+            f"copy_ {dcms:.4f}" for b, (ms, cms, dms, dcms) in t.items())
+        + f"; bound_ms={bound:.5f} share at 37={bound / t[37][0]:.4f}")
+    del rec_big, out_big, dev
+    ms, copy_ms = t[37][:2]
     return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=copy_ms,
                 bound_ms=bound, library_ms=copy_ms)
 

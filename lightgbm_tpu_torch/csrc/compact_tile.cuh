@@ -30,10 +30,13 @@ struct SplitRule {
   unsigned fmask;  // its bit mask after the shift
   int thr;
   int is_cat;
-  __device__ bool go(const int* rec, int64_t ld, int64_t col) const {
-    const unsigned w = (unsigned)rec[(int64_t)fword * ld + col];
+  // from the split feature's packed word w of the column
+  __device__ bool go_word(unsigned w) const {
     const int fv = (int)((w >> fshift) & fmask);
     return is_cat ? (fv == thr) : (fv <= thr);
+  }
+  __device__ bool go(const int* rec, int64_t ld, int64_t col) const {
+    return go_word((unsigned)rec[(int64_t)fword * ld + col]);
   }
 };
 

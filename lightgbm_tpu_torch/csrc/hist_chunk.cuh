@@ -6,21 +6,11 @@
 // sum depends only on the rows, never on the grid or the block size: the
 // plain versions (ops/histogram.py) sum in the same order, bitwise.
 //
-// hist_rows / hist_chunk are K8's chunk loop (split_step.cu) and nothing
-// else's: the block stages one feature's rows and masked stats in shared
-// memory (each input read from device memory once per feature), then each
-// thread owns bins tid, tid+blockDim, ... and walks the staged rows in row
-// order, adding the rows whose bin is its own (O(rows * B) compares per
-// feature; reads of a staged row are broadcasts, so no bank conflicts).
-// K8 runs it inside one cooperative launch, where hist_sorted's ~88-95 KB of
-// dynamic shared memory a block would cut the resident grid that its grid
-// barrier depends on.
-//
-// hist_sorted builds the same partials for a group of G features without
-// the per-bin walk.  The reader stages the chunk's masked stats once for the
-// group and the group's bins (Rows::stage; every thread issues all its
-// loads before it stores any), then, feature by feature, the block sorts
-// the rows by bin, stably, in shared memory:
+// hist_sorted builds the partials of a group of G features.  The reader
+// stages the chunk's masked stats once for the group and the group's bins
+// (Rows::stage; every thread issues all its loads before it stores any),
+// then, feature by feature, the block sorts the rows by bin, stably, in
+// shared memory:
 //  * rank: S warps own contiguous row segments and walk them 32 rows at a
 //    time in row order.  Ballots, one per bit of the bin, give each lane
 //    the lanes of equal bin among the 32 (the mask __match_any_sync would
@@ -33,10 +23,9 @@
 //    bin's start + its warp's prefix + its rank, and its three stats are
 //    written there;
 //  * sum: one thread per bin adds its run, which holds the bin's rows in
-//    row order, from 0.f: hist_rows' additions in hist_rows' order, so the
-//    partials are bitwise hist_rows'.  A bin that holds most of a chunk
-//    puts up to kChunk additions on one thread, as many as each thread
-//    makes in hist_rows.
+//    row order, from 0.f: each bin's rows in row order, the order of the
+//    plain versions.  A bin that holds most of a chunk puts up to kChunk
+//    additions on one thread.
 // The table holds kTable ints: S = clamp(kTable / B, 1, warps) segments
 // and R = min(B, kTable / S) bins a pass, so B > kTable runs ceil(B / R)
 // passes over bin ranges with one segment.  An empty chunk writes zeros.
@@ -54,6 +43,11 @@
 //    from the record.
 // Chunks gives each chunk's rows: a level's chunk table, or the single-leaf
 // layout [c*kChunk, c*kChunk + kChunk).
+//
+// K8 (split_step.cu) calls hist_sorted inside its cooperative launch, one
+// (chunk, group) item at a time, over a reader of its own (LeftWindowRows:
+// the record window with each column's mask times its go flag), on the
+// single-leaf layout from the window's begin.
 
 #pragma once
 
@@ -63,76 +57,6 @@
 namespace lgbm {
 
 constexpr int kChunk = 2048;  // rows staged per (chunk, feature) partial
-
-// K8's record reader: columns [begin, begin+cap) of the [W, ld] int32
-// record, k bins per word, grad/hess/mask bit patterns in rows wb, wb+1,
-// wb+2.
-struct RecordRows {
-  const int* rec;
-  int64_t ld;
-  int64_t begin;
-  int k;
-  int shift;
-  unsigned bmask;
-  int wb;
-  __device__ int bin(int f, int64_t r) const {
-    const unsigned w = (unsigned)rec[(int64_t)(f / k) * ld + begin + r];
-    return (int)((w >> ((f % k) * shift)) & bmask);
-  }
-  __device__ float word(int row, int64_t r) const {
-    return __int_as_float(rec[(int64_t)row * ld + begin + r]);
-  }
-  __device__ float g(int64_t r) const { return word(wb, r); }
-  __device__ float h(int64_t r) const { return word(wb + 1, r); }
-  __device__ float m(int64_t r) const { return word(wb + 2, r); }
-};
-
-// out: one [num_bins, 3] partial; every thread of the block must call it.
-template <typename StageT, typename Rows>
-__device__ inline void hist_rows(const Rows& rows, int64_t row0, int nrows,
-                                 int f, int num_bins,
-                                 float* __restrict__ out) {
-  __shared__ StageT s_bin[kChunk];
-  __shared__ float s_g[kChunk];
-  __shared__ float s_h[kChunk];
-  __shared__ float s_m[kChunk];
-
-  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
-    const float m = rows.m(row0 + r);
-    s_bin[r] = (StageT)rows.bin(f, row0 + r);
-    s_g[r] = rows.g(row0 + r) * m;
-    s_h[r] = rows.h(row0 + r) * m;
-    s_m[r] = m;
-  }
-  __syncthreads();
-
-  for (int b = threadIdx.x; b < num_bins; b += blockDim.x) {
-    float g = 0.f, h = 0.f, c = 0.f;
-    for (int r = 0; r < nrows; ++r) {
-      if ((int)s_bin[r] == b) {
-        g += s_g[r];
-        h += s_h[r];
-        c += s_m[r];
-      }
-    }
-    out[b * 3 + 0] = g;
-    out[b * 3 + 1] = h;
-    out[b * 3 + 2] = c;
-  }
-  __syncthreads();  // the staged rows are read before a next chunk
-}
-
-// partial: [nchunks, F, num_bins, 3]; every thread of the block must call
-// it.
-template <typename StageT, typename Rows>
-__device__ inline void hist_chunk(const Rows& rows, int64_t cap, int chunk,
-                                  int f, int F, int num_bins,
-                                  float* __restrict__ partial) {
-  const int64_t row0 = (int64_t)chunk * kChunk;
-  const int nrows = (cap - row0 < kChunk) ? (int)(cap - row0) : kChunk;
-  hist_rows<StageT>(rows, row0, nrows, f, num_bins,
-                    partial + (((int64_t)chunk * F + f) * num_bins) * 3);
-}
 
 constexpr int kTable = 4096;  // ints in hist_sorted's count table
 
@@ -508,12 +432,28 @@ __device__ inline void hist_sorted(const Rows& rows, int64_t row0,
   }
 }
 
-// Cell i of the histogram: the sum of its nchunks partials in chunk order.
+constexpr int kReduceLoads = 16;  // partials reduce_chunks loads at once
+
+// Cell i of the histogram: the sum of its nchunks partials in chunk order,
+// (0.f + p_0) + p_1 + ..., with kReduceLoads loads issued before their
+// adds.  The loads go through L2 only (__ldcg): K8 reads partials that
+// other blocks wrote earlier in the same launch (after a grid barrier),
+// where the read-only path (__ldg) is not coherent.
 __device__ __forceinline__ float reduce_chunks(const float* partial,
                                                int nchunks, int64_t per_chunk,
                                                int64_t i) {
+  const float* p = partial + i;
   float s = 0.f;
-  for (int c = 0; c < nchunks; ++c) s += partial[(int64_t)c * per_chunk + i];
+  int c = 0;
+  for (; c + kReduceLoads <= nchunks; c += kReduceLoads) {
+    float v[kReduceLoads];
+#pragma unroll
+    for (int j = 0; j < kReduceLoads; ++j)
+      v[j] = __ldcg(p + (int64_t)(c + j) * per_chunk);
+#pragma unroll
+    for (int j = 0; j < kReduceLoads; ++j) s += v[j];
+  }
+  for (; c < nchunks; ++c) s += __ldcg(p + (int64_t)c * per_chunk);
   return s;
 }
 

@@ -28,8 +28,7 @@
 //    stable sort of the chunk's rows by bin in shared memory, then one
 //    thread per bin adds its run in row order.  That is a few steps a row
 //    where the per-bin walk of the first version (each thread scanning
-//    every staged row for its own bins; hist_rows, now K8's alone) took B
-//    compares a row.  The kernel is sorted_partial_kernel (hist_chunk.cuh),
+//    every staged row for its own bins) took B compares a row.  The kernel is sorted_partial_kernel (hist_chunk.cuh),
 //    the pass 1 of K1'' and K2 too, at one feature and 512 threads a block
 //    (kSingleGroup x kSingleThreads, kWindowGroup x kWindowThreads): most
 //    of a tree's launches are on a few chunks, where one feature a block

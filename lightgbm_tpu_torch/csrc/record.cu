@@ -46,13 +46,22 @@
 // kernel walks the window in TILE-column blocks and rotates each block by
 // begin % TILE so that its aligned output blocks can alias the record
 // (record.py:575-660); on the card a column offset costs nothing, so K9
-// is a plain 2-D copy: one thread per (row, column), grid (column blocks,
-// W), threads of a block on neighbouring columns, so reads and writes are
-// coalesced.  The wrapper places begin first as the TPU interpret path's
+// is a 2-D copy, grid (column blocks, W), in which each thread writes
+// kWriteVecs 16-byte-aligned int4s of a destination row, all its loads
+// issued before its stores, neighbouring threads on neighbouring int4s; the
+// row's first 0-3 words up to a 16-byte boundary (the head) and its last
+// 0-3 words (the tail) are written one word a thread by the first block of
+// the row.  The source row is read with int4 loads where it has the
+// destination's alignment, and otherwise with four 4-byte loads an int4
+// (coalesced across the warp all the same).  Loads and stores are plain
+// cached ones: a caller's next kernel may read the written window from
+// L2.  The wrapper places begin first as the TPU interpret path's
 // dynamic_update_slice does (negative from the end, clamped to [0,
 // n-cap]).  No learner calls it (as in the JAX package;
 // tools/tpu_parity_check.py does).  Bound: memory, 2*W*cap*4 bytes (96 MB
-// for a 1M-column window at W=12, 0.0287 ms at 3.35 TB/s).
+// for a 1M-column window at W=12, 0.0287 ms at 3.35 TB/s); on an NVIDIA
+// H100 80GB HBM3 (700 W) K9 takes ~0.030 ms of device time there and one
+// copy_ of the same slice ~0.037 (chip_smoke.py phase 12).
 //
 // The kernels run on the caller's stream and allocate nothing; the wrapper
 // (ops/cuda_record.py) allocates comp, the counts and the offsets.  Each C
@@ -102,13 +111,52 @@ __global__ void __launch_bounds__(kTile)
 }
 
 constexpr int kWriteThreads = 256;
+constexpr int kWriteVecs = 4;  // int4s a thread moves (all loads first)
+
+// Words before the first 16-byte boundary at or after p (0-3), at most
+// cap.
+__device__ inline int64_t head_words(const int* p, int64_t cap) {
+  const int64_t h = (int64_t)((16 - ((uintptr_t)p & 15)) & 15) / 4;
+  return h < cap ? h : cap;
+}
 
 __global__ void __launch_bounds__(kWriteThreads)
     write_kernel(const int* __restrict__ out_win, int64_t cap,
                  int* __restrict__ rec, int64_t ld, int64_t begin) {
-  const int64_t c = (int64_t)blockIdx.x * kWriteThreads + threadIdx.x;
   const int64_t w = blockIdx.y;
-  if (c < cap) rec[w * ld + begin + c] = out_win[w * cap + c];
+  int* dst = rec + w * ld + begin;
+  const int* src = out_win + w * cap;
+  const int64_t head = head_words(dst, cap);
+  const int64_t nvec = (cap - head) / 4;
+  const bool aligned = ((uintptr_t)(src + head) & 15) == 0;
+  const int64_t v0 =
+      (int64_t)blockIdx.x * kWriteThreads * kWriteVecs + threadIdx.x;
+  int4 x[kWriteVecs];
+#pragma unroll
+  for (int k = 0; k < kWriteVecs; ++k) {
+    const int64_t v = v0 + k * kWriteThreads;
+    if (v < nvec) {
+      const int* s = src + head + 4 * v;
+      if (aligned) {
+        x[k] = *reinterpret_cast<const int4*>(s);
+      } else {
+        x[k].x = s[0];
+        x[k].y = s[1];
+        x[k].z = s[2];
+        x[k].w = s[3];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kWriteVecs; ++k) {
+    const int64_t v = v0 + k * kWriteThreads;
+    if (v < nvec) *reinterpret_cast<int4*>(dst + head + 4 * v) = x[k];
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 8) {  // the head and the tail
+    const bool at_head = threadIdx.x < 4;
+    const int64_t i = at_head ? threadIdx.x : head + 4 * nvec + threadIdx.x - 4;
+    if (i < (at_head ? head : cap)) dst[i] = src[i];
+  }
 }
 
 }  // namespace
@@ -148,8 +196,10 @@ int lgbm_record_place(const int* comp, const int* counts, const int* offs,
 // record; the caller has placed begin in [0, ld-cap].
 int lgbm_record_write(const int* out_win, int64_t cap, int W, int* rec,
                       int64_t ld, int64_t begin, void* stream) {
-  const int64_t blocks = (cap + kWriteThreads - 1) / kWriteThreads;
-  if (blocks > 0 && W > 0)
+  const int64_t vecs = cap / 4;  // int4s a row's body holds, at most
+  constexpr int64_t per_block = kWriteThreads * kWriteVecs;
+  const int64_t blocks = vecs > 0 ? (vecs + per_block - 1) / per_block : 1;
+  if (cap > 0 && W > 0)
     write_kernel<<<dim3((unsigned)blocks, (unsigned)W), kWriteThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(out_win, cap, rec, ld,
                                                         begin);

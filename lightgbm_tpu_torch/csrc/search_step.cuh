@@ -180,6 +180,192 @@ __device__ inline void scan_feature(const float* hist, const int* meta,
   for (int k = 0; k < 6; ++k) sb[2 + k] = st[k];
 }
 
+// scan_feature's result computed by one warp (every lane must call it;
+// lane 0 writes sb).  The reversed bin stream x[j] = hist[B-1-j] is cut
+// into blocked_cumsum's blocks of 16, lane q owning block q of each
+// 32-block segment:
+//  * pass 1: each lane sums its block in order from 0.f (the block total
+//    T_q, level 0's within-block adds);
+//  * the block's offset E_q, the inclusive prefix of the totals up to
+//    block q-1 in blocked_cumsum's order: with at most 16 blocks, each
+//    lane adds T_0, T_1, ..., T_{q-1} to 0.f in order (broadcasts);
+//    with more, the 16-lane halves are level 1's blocks of totals, each
+//    lane sums its half's totals up to its own in order, the half's offset
+//    comes from BlockedScan3 over level 1's block totals (the levels above,
+//    warp-uniform, pushed in order), and E_q is lane q-1's sum plus that
+//    offset (carried across segments);
+//  * pass 2: each lane walks its block in order again, the exclusive tail
+//    of element i being (within-block sum of 0..i-1) + E_q, and of its
+//    first element the last prefix of the block before (lane q-1's, or
+//    the previous segment's); every add is scan_feature's, so the tails,
+//    gains and stats are its floats bitwise;
+//  * each lane keeps its best with scan_feature's strict ">" from high bin
+//    to low, then a butterfly argmax over the lanes takes the largest gain
+//    and among equal gains the largest bin, which is what scan_feature's
+//    high-to-low strict ">" keeps.  Invalid and NaN gains never win.
+// `hist` is read with plain loads: K8 writes the row earlier in the same
+// launch.  B > 16 * 16 * 32 takes several segments, B > 256 the level-1
+// halves, B > 4096 BlockedScan3's levels above.
+__device__ inline void scan_feature_warp(const float* hist, const int* meta,
+                                         int f, int B, int c, const Scal& p,
+                                         float* sb) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const bool can = p.can[c] > 0.f;
+  const float sg = p.sg[c], sh = p.sh[c], cnt = p.cnt[c];
+  const float min_gain_shift =
+      __fadd_rn(leaf_gain(sg, sh, p.l1, p.l2), p.min_gain);
+  const bool fmask = meta[f * 4 + 0] > 0;
+  const int nb = meta[f * 4 + 1];
+  const bool iscat = meta[f * 4 + 2] > 0;
+  const float* hf = hist + (int64_t)f * B * 3;
+  const int n1 = (B + kScanBlock - 1) / kScanBlock;  // level-0 blocks
+  const bool blocked0 = B > kScanBlock;   // level 0 offsets its blocks
+  const bool blocked1 = n1 > kScanBlock;  // so does level 1
+  BlockedScan3 upper;  // the levels above level 1 (B > 256)
+  if (blocked1) upper.init((n1 + kScanBlock - 1) / kScanBlock);
+  float e2[3] = {0.f, 0.f, 0.f};  // offset of the next level-1 block
+  float e1[3] = {0.f, 0.f, 0.f};  // E of the next segment's first block
+  float tin0[3] = {0.f, 0.f, 0.f};  // tail entering the next segment
+  float best = -INFINITY;
+  int best_bin = -1;
+  float st[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int q0 = 0; q0 < n1; q0 += 32) {
+    const int q = q0 + lane;
+    const int j0 = q * kScanBlock;
+    const int len = q < n1 ? min(kScanBlock, B - j0) : 0;
+    float T[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kScanBlock; ++i) {
+      if (i < len) {
+        const float* x = hf + (int64_t)(B - 1 - j0 - i) * 3;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) T[k] = __fadd_rn(T[k], x[k]);
+      }
+    }
+    float E[3] = {0.f, 0.f, 0.f};
+    if (blocked0 && !blocked1) {  // one segment of <= 16 blocks
+      for (int r = 0; r + 1 < n1; ++r) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float v = __shfl_sync(kAll, T[k], r);
+          if (r < lane) E[k] = __fadd_rn(E[k], v);
+        }
+      }
+    } else if (blocked1) {
+      const int half = lane >> 4, lh = lane & 15;
+      float w1[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float v = __shfl_sync(kAll, T[k], half * 16 + i);
+          if (i <= lh) w1[k] = __fadd_rn(w1[k], v);
+        }
+      }
+      // each half's total is the sum at its last block
+      const int last0 = min(15, n1 - 1 - q0);
+      const int last1 = min(15, n1 - 1 - q0 - 16);
+      float off0[3], off1[3];  // the two halves' offsets
+      float t1[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        off0[k] = e2[k];
+        t1[k] = __shfl_sync(kAll, w1[k], last0);
+      }
+      upper.push(t1, off1);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        t1[k] = __shfl_sync(kAll, w1[k], 16 + max(last1, 0));
+        e2[k] = off1[k];
+      }
+      if (last1 >= 0) upper.push(t1, e2);
+      float incl1[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        incl1[k] = __fadd_rn(w1[k], half ? off1[k] : off0[k]);
+        const float prev = __shfl_up_sync(kAll, incl1[k], 1);
+        E[k] = lane ? prev : e1[k];
+        e1[k] = __shfl_sync(kAll, incl1[k], 31);
+      }
+    }
+    // the last prefix of each block, handed to the next block's first
+    // element
+    float tin[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float lastp = blocked0 ? __fadd_rn(T[k], E[k]) : T[k];
+      const float prev = __shfl_up_sync(kAll, lastp, 1);
+      tin[k] = lane ? prev : tin0[k];
+      tin0[k] = __shfl_sync(kAll, lastp, 31);
+    }
+    float w[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kScanBlock; ++i) {
+      if (i < len) {
+        const int t = B - 1 - j0 - i;
+        float tail[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          tail[k] = i == 0 ? tin[k] : (blocked0 ? __fadd_rn(w[k], E[k])
+                                                : w[k]);
+        const float hg = hf[t * 3 + 0], hh = hf[t * 3 + 1],
+                    hc = hf[t * 3 + 2];
+        float lg, lh, lc, rg, rh, rc;
+        if (iscat) {
+          lg = hg; lh = hh; lc = hc;
+          rg = __fsub_rn(sg, hg); rh = __fsub_rn(sh, hh);
+          rc = __fsub_rn(cnt, hc);
+        } else {
+          const float th_eps = __fadd_rn(tail[1], kEpsilon);
+          rg = tail[0]; rh = th_eps; rc = tail[2];
+          lg = __fsub_rn(sg, tail[0]); lh = __fsub_rn(sh, th_eps);
+          lc = __fsub_rn(cnt, tail[2]);
+        }
+        const bool in_range = fmask && (iscat ? (t < nb) : (t < nb - 1));
+        const float gain = __fadd_rn(leaf_gain(lg, lh, p.l1, p.l2),
+                                     leaf_gain(rg, rh, p.l1, p.l2));
+        const bool valid = in_range && can && lc >= p.min_data &&
+                           rc >= p.min_data && lh >= p.min_hess &&
+                           rh >= p.min_hess && gain >= min_gain_shift;
+        if (valid && gain > best) {
+          best = gain;
+          best_bin = t;
+          st[0] = lg; st[1] = lh; st[2] = lc;
+          st[3] = rg; st[4] = rh; st[5] = rc;
+        }
+        w[0] = __fadd_rn(w[0], hg);
+        w[1] = __fadd_rn(w[1], hh);
+        w[2] = __fadd_rn(w[2], hc);
+      }
+    }
+  }
+  float g = best;
+  int b = best_bin;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float og = __shfl_xor_sync(kAll, g, o);
+    const int ob = __shfl_xor_sync(kAll, b, o);
+    if (og > g || (og == g && ob > b)) {
+      g = og;
+      b = ob;
+    }
+  }
+  const unsigned own = __ballot_sync(kAll, b >= 0 && best_bin == b);
+  const int src = own ? __ffs(own) - 1 : 0;
+  float out[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const float v = __shfl_sync(kAll, st[k], src);
+    out[k] = own ? v : 0.f;
+  }
+  if (lane == 0) {
+    sb[0] = g;
+    sb[1] = (float)b;
+    for (int k = 0; k < 6; ++k) sb[2 + k] = out[k];
+  }
+}
+
 // The winner over the F per-feature bests `s_best` [F, kPerFeature] of
 // child c: the largest gain, the smallest feature among equal gains.
 // Writes the child's [16] result row.

@@ -55,13 +55,15 @@ def _lib():
     return lib
 
 
-def _check_record(rec: torch.Tensor, begin: int, pcnt: int) -> None:
+def _check_record(rec: torch.Tensor, begin: int, pcnt: int,
+                  min_rows: int = 6) -> None:
     if rec.device.type != "cuda":
         raise ValueError(f"rec must be a CUDA tensor, got {rec.device}")
     if rec.dtype != torch.int32 or rec.dim() != 2 or not rec.is_contiguous():
         raise ValueError("rec must be a contiguous [W, n] int32 tensor")
-    if rec.shape[0] < 6:
-        raise ValueError(f"rec has {rec.shape[0]} rows; a record has >= 6")
+    if rec.shape[0] < min_rows:
+        raise ValueError(f"rec has {rec.shape[0]} rows; this kernel takes "
+                         f">= {min_rows}")
     if begin < 0 or pcnt < 0 or begin + pcnt > rec.shape[1]:
         raise ValueError(f"window [{begin}, {begin + pcnt}) is outside "
                          f"[0, {rec.shape[1]})")
@@ -138,16 +140,21 @@ def write_window_cuda(rec: torch.Tensor, out_win: torch.Tensor,
     already placed in ``[0, n - cap]`` (ops/record.write_window)."""
     global WRITE_LAUNCHES
     W, cap = out_win.shape
-    _check_record(rec, begin, cap)
-    if out_win.dtype != torch.int32 or out_win.device != rec.device \
+    # any [W, n] int32 record, as the plain version takes
+    _check_record(rec, begin, cap, min_rows=1)
+    dev = rec.device
+    if W > 65535:
+        raise ValueError(f"the write-back kernel takes at most 65535 rows, "
+                         f"got {W}")
+    if out_win.dtype != torch.int32 or out_win.device != dev \
             or not out_win.is_contiguous() or W != rec.shape[0]:
         raise ValueError(f"out_win must be a contiguous [{rec.shape[0]}, cap] "
-                         f"int32 tensor on {rec.device}")
+                         f"int32 tensor on {dev}")
     lib = _lib()
-    with torch.cuda.device(rec.device):
+    with torch.cuda.device(dev):
         code = lib.lgbm_record_write(out_win.data_ptr(), cap, W,
                                      rec.data_ptr(), rec.shape[1], begin,
-                                     _stream(rec.device))
+                                     torch.cuda.current_stream().cuda_stream)
     _build.check(code, "record write kernel")
     if cap:
         WRITE_LAUNCHES += 1

@@ -15,7 +15,6 @@ then places ``comp`` into the record.  The wrapper adds one to
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -43,23 +42,15 @@ def _lib():
             [_VP, _I64, _I, _I64, _I64, _I, _I, _I, _I, _I, _I, _VP, _I, _I,
              _VP] + [_F] * 12 + [_VP, _VP, _VP, _VP, _VP, _VP])
         lib.lgbm_split_step_grid.restype = _I
-        lib.lgbm_split_step_grid.argtypes = [_I64, _I]
-        lib.lgbm_split_step_max_features.restype = _I
-        lib.lgbm_split_step_max_features.argtypes = []
+        lib.lgbm_split_step_grid.argtypes = [_I64, _I, _I]
         lib._typed = True
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _max_features() -> int:
-    """The largest F the kernel takes (its shared memory on this card)."""
-    return _lib().lgbm_split_step_max_features()
-
-
-def grid_blocks(pcnt: int, F: int) -> int:
-    """Blocks of K8's cooperative grid for a ``pcnt``-column window (on
-    the current CUDA device)."""
-    return _lib().lgbm_split_step_grid(pcnt, F)
+def grid_blocks(pcnt: int, F: int, num_bins: int) -> int:
+    """Blocks of K8's cooperative grid for a ``pcnt``-column window of F
+    features and ``num_bins`` bins (on the current CUDA device)."""
+    return _lib().lgbm_split_step_grid(pcnt, F, num_bins)
 
 
 def _barrier(dev: torch.device, stream: int) -> torch.Tensor:
@@ -114,17 +105,15 @@ def split_step_cuda(rec: torch.Tensor, hists: torch.Tensor, f: int, thr: int,
     if len(scal) != 12:
         raise ValueError("scal must hold 12 values")
     lib = _lib()
-    max_f = _max_features()
-    if F > max_f:
-        raise ValueError(f"the split-step kernel takes at most {max_f} "
-                         "features")
     dev = rec.device
     nt = -(-pcnt // TILE)
     nchunks = -(-pcnt // CHUNK_ROWS)
     comp = torch.empty((nt, W - 1, 2 * TILE), dtype=torch.int32, device=dev)
     counts = torch.empty((2, nt), dtype=torch.int32, device=dev)
-    partial = torch.empty((nchunks, F, num_bins, 3), dtype=torch.float32,
-                          device=dev)
+    # the chunk partials, then (after the kernel's reduction) both
+    # children's per-feature bests [2, F, 8]
+    partial = torch.empty(max(nchunks * F * num_bins * 3, 2 * F * 8),
+                          dtype=torch.float32, device=dev)
     rows = torch.empty((2, 16), dtype=torch.float32, device=dev)
     can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = (
         float(v) for v in scal)

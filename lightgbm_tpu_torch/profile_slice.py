@@ -22,8 +22,8 @@ card), the idle share (1 - busy / wall), the device time per kernel name
 summed over the profiled trees, largest first, each ported kernel's
 launches per profiled tree (from the wrappers' counts), the host syncs
 per profiled tree and, for K1 and K1', the median and quartiles of the
-row counts they were launched on.  Needs a CUDA card; exits non-zero
-without one.
+row counts they were launched on (for K8, of its windows' columns).
+Needs a CUDA card; exits non-zero without one.
 
 ``device_ms_by_kernel`` (used by chip_smoke.py and tools/) times a call's
 kernels one by one under the profiler.
@@ -102,10 +102,13 @@ def _quartiles(xs):
 @contextlib.contextmanager
 def _record_rows(rows):
     """Inside, every K1 / K1' launch appends its row count to
-    ``rows["K1"]`` / ``rows["K1'"]``."""
+    ``rows["K1"]`` / ``rows["K1'"]``, and every K8 launch its window's
+    column count to ``rows["K8"]``."""
     from lightgbm_tpu_torch.ops import cuda_histogram as ch
+    from lightgbm_tpu_torch.ops import cuda_split_step as k8
 
     k1, k1r = ch.histogram_single_leaf_cuda, ch.histogram_record_window_cuda
+    step = k8.split_step_cuda
 
     def single(bins_T, *a, **kw):
         rows["K1"].append(int(bins_T.shape[1]))
@@ -115,13 +118,19 @@ def _record_rows(rows):
         rows["K1'"].append(int(cnt))
         return k1r(rec, begin, cnt, *a, **kw)
 
+    def split_step(rec, hists, f, thr, is_cat, begin, pcnt, *a, **kw):
+        rows["K8"].append(int(pcnt))
+        return step(rec, hists, f, thr, is_cat, begin, pcnt, *a, **kw)
+
     ch.histogram_single_leaf_cuda = single
     ch.histogram_record_window_cuda = window
+    k8.split_step_cuda = split_step
     try:
         yield
     finally:
         ch.histogram_single_leaf_cuda = k1
         ch.histogram_record_window_cuda = k1r
+        k8.split_step_cuda = step
 
 
 def main(argv=None) -> int:
@@ -158,7 +167,7 @@ def main(argv=None) -> int:
     plain_wall = time.perf_counter() - t0
     reset_launch_counts()
     serial.HOST_SYNCS = serial.POOL_RECOMPUTES = 0
-    rows = {"K1": [], "K1'": []}
+    rows = {"K1": [], "K1'": [], "K8": []}
     with _record_rows(rows), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -316,9 +316,11 @@ def test_train_pooled_matches_jax():
     (0, 2 * JAX_TILE), (1, 2 * JAX_TILE), (37, 2 * JAX_TILE),
     (500, 2 * JAX_TILE), (JAX_TILE - 1, 2 * JAX_TILE), (-5, 2 * JAX_TILE),
     (-10 ** 6, 2 * JAX_TILE), (7 * JAX_TILE, 2 * JAX_TILE),
-    (10 ** 9, 2 * JAX_TILE), (123, 777), (0, 8 * JAX_TILE)],
+    (10 ** 9, 2 * JAX_TILE), (123, 777), (0, 8 * JAX_TILE), (1, 777),
+    (2, 777), (3, 777)],
     ids=["0", "1", "37", "500", "tile-1", "negative", "far-negative",
-         "past-end", "far", "ragged", "whole"])
+         "past-end", "far", "ragged", "whole", "odd-cap-1", "odd-cap-2",
+         "odd-cap-3"])
 def test_write_window_matches_jax(begin, cap):
     rng = np.random.RandomState(begin % 97 + cap)
     rec = rng.randint(-2 ** 30, 2 ** 30, (16, 8 * JAX_TILE)).astype(np.int32)
@@ -328,6 +330,19 @@ def test_write_window_matches_jax(begin, cap):
                                        interpret=True))
     ours = torch.from_numpy(rec.copy())
     assert write_window(ours, torch.from_numpy(out), begin) is ours
+    np.testing.assert_array_equal(ours.numpy(), want)
+
+
+@pytest.mark.parametrize("begin", [0, 1, 2, 3])
+def test_write_window_one_row_matches_jax(begin):
+    rng = np.random.RandomState(begin)
+    rec = rng.randint(-2 ** 30, 2 ** 30, (1, 3000)).astype(np.int32)
+    out = rng.randint(-2 ** 30, 2 ** 30, (1, 777)).astype(np.int32)
+    want = np.asarray(jax_write_window(jnp.asarray(rec), jnp.asarray(out),
+                                       jnp.int32(begin), 777,
+                                       interpret=True))
+    ours = torch.from_numpy(rec.copy())
+    write_window(ours, torch.from_numpy(out), begin)
     np.testing.assert_array_equal(ours.numpy(), want)
 
 
@@ -413,11 +428,13 @@ def test_wide_search_kernel_matches_plain_on_card():
 def test_write_kernel_matches_plain_on_card():
     _needs_card()
     rng = np.random.RandomState(9)
-    rec = torch.from_numpy(rng.randint(-2 ** 30, 2 ** 30, (12, 5000))
-                           .astype(np.int32))
-    out = torch.from_numpy(rng.randint(-2 ** 30, 2 ** 30, (12, 1234))
-                           .astype(np.int32))
-    for begin in (0, 1, 37, 500, 511, 4000):
-        a = write_window(rec.clone(), out, begin)
-        b = write_window(rec.cuda(), out.cuda(), begin)
-        assert torch.equal(a, b.cpu())
+    # rows of a multiple of 4 words and not, one row, odd window widths
+    for W, n, cap in ((12, 5000, 1234), (12, 5001, 1235), (1, 5000, 777)):
+        rec = torch.from_numpy(rng.randint(-2 ** 30, 2 ** 30, (W, n))
+                               .astype(np.int32))
+        out = torch.from_numpy(rng.randint(-2 ** 30, 2 ** 30, (W, cap))
+                               .astype(np.int32))
+        for begin in (0, 1, 2, 3, 37, 500, 511, 4000):
+            a = write_window(rec.clone(), out, begin)
+            b = write_window(rec.cuda(), out.cuda(), begin)
+            assert torch.equal(a, b.cpu())

@@ -56,19 +56,36 @@ CASES = [
     ("u16_300_bins", 1800, 5, 300, np.uint16, None, 0, 1800, 4, 150, False),
     ("categorical", 2100, 6, 16, np.uint8, None, 0, 2100, 5, 3, True),
     ("bagging", 2500, 7, 23, np.uint8, 0.7, 0, 2500, 3, 10, False),
+    # ~90 % of every feature's columns in one bin
+    ("dominant_bin", 3000, 6, 23, np.uint8, None, 0, 3000, 2, 7, False),
+    # k = 2 with F % k != 0, 40 bins (the card stages them as u8), a window
+    # one column past a chunk at an odd begin
+    ("u16_F7_odd_begin", 2600, 7, 40, np.uint16, None, 333, 2049, 6, 20,
+     False),
+    # 600 bins: a three-level blocked scan (600 -> 38 -> 3)
+    ("u16_600_bins", 1500, 3, 600, np.uint16, None, 0, 1500, 1, 300, False),
+    # every feature but the split feature 0 the same two bins 2 and B-3:
+    # each child's thresholds 2..B-4 of those features all tie
+    ("ties", 2000, 6, 16, np.uint8, None, 0, 2000, 0, 7, False),
 ]
 
 
 def _data(case, integer):
-    _, n, F, B, dt, bag, *_ = case
+    name, n, F, B, dt, bag, *_ = case
     rng = np.random.RandomState(n + F)
     bins = rng.randint(0, B, (F, n)).astype(dt)
+    if name == "dominant_bin":
+        bins[rng.rand(F, n) < 0.9] = B // 3
     if integer:
         g = rng.randint(-8, 9, n).astype(np.float32)
         h = rng.randint(1, 5, n).astype(np.float32)
     else:
         g = rng.randn(n).astype(np.float32)
         h = (np.abs(rng.randn(n)) + 0.1).astype(np.float32)
+    if name == "ties":
+        col = np.where(rng.rand(n) < 0.5, 2, B - 3)
+        bins[1:] = col
+        g = np.where(col == 2, 4.0, -4.0).astype(np.float32)
     m = (np.ones(n, np.float32) if bag is None
          else (rng.rand(n) < bag).astype(np.float32))
     return bins, g, h, m
@@ -121,8 +138,18 @@ def _jax_step(case, arrs, k, hists, scal, fmask, iscat):
             np.asarray(cr), rec_pass, cap)
 
 
-@pytest.mark.parametrize("integer", [True, False], ids=["int", "float"])
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+# With ~90 % of the columns in one bin the float sums' orders (the JAX
+# kernel's 512-column tiles, the port's 2048-column chunks) move the gains
+# of near-empty sides by more than rtol 1e-4: that case is held in integer
+# form only, where every sum is exact and the comparison bitwise.
+INTEGER_ONLY = {"dominant_bin"}
+RUNS = [(c, integer) for c in CASES for integer in (True, False)
+        if integer or c[0] not in INTEGER_ONLY]
+
+
+@pytest.mark.parametrize(
+    "case,integer", RUNS,
+    ids=[f"{c[0]}-{'int' if i else 'float'}" for c, i in RUNS])
 def test_split_step_matches_jax(case, integer):
     name, n, F, B, dt, _, begin, pcnt, f, thr, is_cat = case
     arrs, k, rec, hists, scal, fmask, iscat, go = _inputs(case, integer)
@@ -165,6 +192,8 @@ def test_split_step_matches_jax(case, integer):
 
     # search rows
     np.testing.assert_array_equal(rows_np[:, 1:3], res_j[:, 1:3])
+    if name == "ties":  # feature 1 is out of the sample (_inputs)
+        np.testing.assert_array_equal(rows_np[:, 1:3], [[2, B - 4]] * 2)
     for c in range(2):
         if res_j[c, 1] < 0:
             assert rows_np[c, 0] == res_j[c, 0] == -np.inf
