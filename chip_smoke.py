@@ -15,8 +15,14 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    launches are bitwise equal; times kernel, plain version and one
    PyTorch ``index_add_`` call at the main path's shapes and at 2,048,
    16,384, 131,072 and 1M rows, pass 1 and pass 2 apart at the root;
-3. holds the split-search kernel (K3) against its plain version on 100
-   random cases and the crafted ties, and times both;
+3. prints the search kernels' registers and spills, holds the split-search
+   kernel (K3) against its plain version, its [2, 16] rows torch.equal, on
+   100 random cases and the crafted ties at F = 28 x 255 bins, on 10 and
+   the tie at each of the warp scan's other branches (B = 7: no block
+   offsets; 300: the level-1 halves; 600: two segments; 5000: u16 bins,
+   levels above 256 blocks) and at F = 5000 (above the shared-memory
+   ceiling the kernels had before the warp scan), and times both beside
+   the one-thread scan's time;
 4. holds the record-window histogram (K1') against its plain version and
    against K1 on the unpacked rows, bitwise, at the record route's shapes
    (the 1M-row root, a 60k window at an unaligned begin, u16 bins) and on
@@ -25,7 +31,9 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    ``index_add_`` there and at 2,048, 16,384 and 131,072 rows, pass 1
    and pass 2 apart at the root;
 5. holds the fused subtract + search + buffer update (K4) against its
-   plain version on 100 random cases and the crafted ties;
+   plain version, buffer and rows torch.equal, at phase 3's shapes and
+   cases (small left and right in turn), and times it beside the
+   one-thread scan's time;
 6. holds the record partition (K6 compact, K7 place) against its plain
    versions on the 1M-row root window, a 60k interior window at an
    unaligned begin, all-left, all-right and a ragged last tile: the whole
@@ -77,11 +85,12 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    K2, ``level_layout`` and the sort alone, the plain version and one
    ``index_add_`` on leaf-bin keys at the real level and the dominant bin;
 11. holds the pooled split step (K5) against its plain version, bitwise
-   (the whole pool and the search rows), at the bench shape on 25 random
-   cases with the parent resident in its slot and recomputed, for both
-   values of ``small_is_left``, and at F=2000 x 256 bins; holds the
-   search (K3) at F=2000 against its plain version, bitwise; times K5 at
-   both shapes and K3 at F=2000;
+   (the whole pool and the search rows), with the parent resident in its
+   slot and recomputed, for both values of ``small_is_left``: at the bench
+   shape on 25 cases, at phase 3's other shapes and at F=2000 x 256 bins;
+   holds K3 and K4 at F=2000 against their plain versions, bitwise; times
+   K5 at the bench shape and K3, K4 and K5 at F=2000 beside the one-thread
+   scan's times;
 12. writes windows back into a record with K9 through
    ``ops/record.write_window`` at begin 0, 1, 37, 500 and 511 and at two
    begins the call clamps, and at begins 0-3 on records of 16 rows whose
@@ -337,9 +346,34 @@ def phase_histogram(torch):
 
 
 # --------------------------------------------------------------- phase 3
-def _search_cases(rng, F, B):
+# K3/K4/K5's ms a call with the one-thread scan they had before the warp
+# scan (chip_smoke.py, PERF.md §6), at F = 28, B = 255 and at F = 2000,
+# B = 256 (K4 was not timed there)
+SEARCH_PARENT_MS = {("K3", 28): 0.1413, ("K4", 28): 0.2065,
+                    ("K5", 28): 0.1720, ("K3", 2000): 1.8964,
+                    ("K5", 2000): 3.6206}
+# the warp scan's branches F = 28 x 255 bins never reaches: no block offsets
+# (7), the level-1 halves (300), two segments (600), u16 bins and the
+# levels above 256 blocks (5000)
+SCAN_BINS = (7, 300, 600, 5000)
+WIDE_F = 5000  # features beyond the shared-memory ceiling K3/K4/K5 had
+
+
+def _parent_ms(kernel, F):
+    ms = SEARCH_PARENT_MS.get((kernel, F))
+    return "not timed" if ms is None else f"{ms:.4f}"
+
+
+def _search_shapes():
+    """(F, B, random cases) of phases 3, 5 and 11: the main path's shape,
+    the scan's branches and F = 5000; each shape adds its crafted tie."""
+    return ([(N_FEAT, NUM_BINS, 100)]
+            + [(N_FEAT, b, 10) for b in SCAN_BINS] + [(WIDE_F, NUM_BINS, 2)])
+
+
+def _search_cases(rng, F, B, count=100):
     cases = []
-    for _ in range(100):
+    for _ in range(count):
         hs = []
         for _c in range(2):
             g = rng.randn(F, B).astype(np.float32)
@@ -368,45 +402,71 @@ def _search_cases(rng, F, B):
     return cases
 
 
+def _case_tensors(torch, case):
+    """A case's two children on the card, its meta and its scal (the leaf
+    totals are feature 2's sums)."""
+    from lightgbm_tpu_torch.ops import cuda_search
+
+    hs, fmask, nbpf, iscat, consts = case
+    hl, hr = (torch.from_numpy(a).cuda() for a in hs)
+    meta = cuda_search.pack_meta(torch.from_numpy(fmask),
+                                 torch.from_numpy(nbpf),
+                                 torch.from_numpy(iscat), "cuda")
+    scal = [1.0]
+    for hcur in hs:
+        scal += [float(v) for v in hcur[2].sum(axis=0)]
+    return hl, hr, meta, scal + consts
+
+
+def _check_tie(rows, B, what):
+    """The crafted tie: feature 2 (not its copy 9) at bin B//2 - 1 (the
+    largest of three equal thresholds).  Below 64 bins the random features
+    can outscore the crafted one (the case is then held bitwise only)."""
+    if B >= 64:
+        check(int(rows[0, 1]) == 2 and int(rows[0, 2]) == B // 2 - 1,
+              f"{what}: tie resolved to {rows[0, 1:3].tolist()}")
+
+
+def _search_ptxas():
+    from lightgbm_tpu_torch.ops import _build
+
+    for line in _build.ptxas_report("search").splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            say(f"[search ptxas] {line.strip()}")
+
+
 def phase_search(torch):
+    """K3 against its plain version, its [2, 16] rows torch.equal, at the
+    main path's shape (100 random cases and the crafted tie), at the scan's
+    branches (B = 7, 300, 600, 5000) and at F = 5000; times both."""
     from lightgbm_tpu_torch.ops import cuda_search
     from lightgbm_tpu_torch.ops.split import search2_rows
 
     rng = np.random.RandomState(1)
+    _search_ptxas()
+    n = 0
+    for F, B, count in _search_shapes():
+        for case in _search_cases(rng, F, B, count):
+            hl, hr, meta, scal = _case_tensors(torch, case)
+            k = cuda_search._search2_rows_cuda(hl, hr, scal, meta)
+            p = search2_rows(hl, hr, scal, meta)
+            check(torch.equal(k, p), f"K3 F={F} B={B}: rows differ from the "
+                  f"plain version's:\n{k.tolist()}\n{p.tolist()}")
+            n += 1
+        _check_tie(k, B, f"K3 F={F} B={B}")  # the last case is the tie
+        if (F, B) == (N_FEAT, NUM_BINS):
+            ms = time_ms(torch, lambda: cuda_search._search2_rows_cuda(
+                hl, hr, scal, meta))
+            plain_ms = time_ms(torch, lambda: search2_rows(hl, hr, scal,
+                                                           meta))
     F, B = N_FEAT, NUM_BINS
-    worst, bitwise, n = 0.0, 0, 0
-    for hs, fmask, nbpf, iscat, consts in _search_cases(rng, F, B):
-        hl, hr = (torch.from_numpy(a).cuda() for a in hs)
-        meta = cuda_search.pack_meta(torch.from_numpy(fmask),
-                                     torch.from_numpy(nbpf),
-                                     torch.from_numpy(iscat), "cuda")
-        scal = [1.0]
-        for hcur in hs:  # leaf totals: feature 2's sums
-            scal += [float(v) for v in hcur[2].sum(axis=0)]
-        scal += consts
-        k = cuda_search._search2_rows_cuda(hl, hr, scal, meta)
-        p = search2_rows(hl, hr, scal, meta)
-        kk, pp = k.cpu().numpy(), p.cpu().numpy()
-        check((kk[:, 1:3] == pp[:, 1:3]).all(),
-              f"search: feature/threshold differ {kk[:, 1:3]} vs {pp[:, 1:3]}")
-        fin = np.isfinite(pp[:, :11]) & (pp[:, 1:2] >= 0)
-        np.testing.assert_allclose(kk[:, :11][fin], pp[:, :11][fin],
-                                   rtol=1e-5, atol=1e-6)
-        worst = max(worst, float(np.abs(kk[:, :11][fin] - pp[:, :11][fin])
-                                 .max(initial=0.0)))
-        bitwise += int(np.array_equal(kk, pp, equal_nan=True))
-        n += 1
-    tie = kk  # the last case is the crafted tie
-    check(int(tie[0, 1]) == 2 and int(tie[0, 2]) == B // 2 - 1,
-          f"search: tie resolved to {tie[0, 1:3]}")
-    ms = time_ms(torch, lambda: cuda_search._search2_rows_cuda(
-        hl, hr, scal, meta))
-    plain_ms = time_ms(torch, lambda: search2_rows(hl, hr, scal, meta))
     nbytes = 2 * F * B * 12 + F * 16 + 2 * 16 * 4
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    say(f"[search] cases={n} bitwise_equal={bitwise} max_abs_err={worst:.3g} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.6f}")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+    say(f"[search] cases={n} rows torch.equal plain (F=28 x B=255, "
+        f"B={'/'.join(map(str, SCAN_BINS))}, F={WIDE_F}) ms={ms:.4f} "
+        f"parent_ms={_parent_ms('K3', F)} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound:.6f}")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 library_ms=None)
 
 
@@ -493,55 +553,51 @@ def phase_record_histogram(torch):
 
 # --------------------------------------------------------------- phase 5
 def phase_search_update(torch):
+    """K4 against its plain version, the buffer and the rows torch.equal,
+    at phase 3's shapes (small left and right in turn); times both."""
     from lightgbm_tpu_torch.ops import cuda_search
     from lightgbm_tpu_torch.ops.split import search2_update
 
     rng = np.random.RandomState(3)
-    F, B, L, parent, new = N_FEAT, NUM_BINS, 4, 1, 3
-    worst, n = 0.0, 0
-    for i, (hs, fmask, nbpf, iscat, consts) in enumerate(
-            _search_cases(rng, F, B)):
-        hl, hr = (torch.from_numpy(a).cuda() for a in hs)
-        hists = torch.from_numpy(
-            rng.randn(L, F, B, 3).astype(np.float32)).cuda()
-        hists[parent] = hl + hr
-        small_is_left = i % 2 == 0
-        small = hl if small_is_left else hr
-        meta = cuda_search.pack_meta(torch.from_numpy(fmask),
-                                     torch.from_numpy(nbpf),
-                                     torch.from_numpy(iscat), "cuda")
-        scal = [1.0]
-        for hcur in hs:  # leaf totals: feature 2's sums
-            scal += [float(v) for v in hcur[2].sum(axis=0)]
-        scal += consts
-        hk, hp = hists.clone(), hists.clone()
-        k = cuda_search._search2_update_cuda(hk, small, parent, new,
-                                             small_is_left, scal, meta)
-        p = search2_update(hp, small, parent, new, small_is_left, scal, meta)
-        check(torch.equal(hk, hp), "K4: updated buffer differs from the "
-              "plain version's")
-        check(torch.equal(hk[[0, 2]], hists[[0, 2]]), "K4: other rows moved")
-        kk, pp = k.cpu().numpy(), p.cpu().numpy()
-        check((kk[:, 1:3] == pp[:, 1:3]).all(),
-              f"K4: feature/threshold differ {kk[:, 1:3]} vs {pp[:, 1:3]}")
-        fin = np.isfinite(pp[:, :11]) & (pp[:, 1:2] >= 0)
-        np.testing.assert_allclose(kk[:, :11][fin], pp[:, :11][fin],
-                                   rtol=1e-5, atol=1e-6)
-        worst = max(worst, float(np.abs(kk[:, :11][fin] - pp[:, :11][fin])
-                                 .max(initial=0.0)))
-        n += 1
-    # the last case is the crafted tie (small = left = tie, parent = 2 tie)
-    check(int(kk[0, 1]) == 2 and int(kk[0, 2]) == B // 2 - 1,
-          f"K4: tie resolved to {kk[0, 1:3]}")
-    ms = time_ms(torch, lambda: cuda_search._search2_update_cuda(
-        hk, small, parent, new, True, scal, meta))
-    plain_ms = time_ms(torch, lambda: search2_update(
-        hp, small, parent, new, True, scal, meta))
+    L, parent, new = 4, 1, 3
+    n = 0
+    for F, B, count in _search_shapes():
+        for i, case in enumerate(_search_cases(rng, F, B, count)):
+            hl, hr, meta, scal = _case_tensors(torch, case)
+            hists = torch.from_numpy(
+                rng.randn(L, F, B, 3).astype(np.float32)).cuda()
+            hists[parent] = hl + hr
+            small_is_left = i % 2 == 0
+            small = hl if small_is_left else hr
+            hk, hp = hists.clone(), hists.clone()
+            k = cuda_search._search2_update_cuda(hk, small, parent, new,
+                                                 small_is_left, scal, meta)
+            p = search2_update(hp, small, parent, new, small_is_left, scal,
+                               meta)
+            check(torch.equal(hk, hp), f"K4 F={F} B={B}: updated buffer "
+                  "differs from the plain version's")
+            check(torch.equal(hk[[0, 2]], hists[[0, 2]]),
+                  f"K4 F={F} B={B}: other rows moved")
+            check(torch.equal(k, p), f"K4 F={F} B={B}: rows differ from the "
+                  f"plain version's:\n{k.tolist()}\n{p.tolist()}")
+            n += 1
+        # the last case is the crafted tie (small = left = tie, parent = 2
+        # tie)
+        _check_tie(k, B, f"K4 F={F} B={B}")
+        if (F, B) == (N_FEAT, NUM_BINS):
+            ms = time_ms(torch, lambda: cuda_search._search2_update_cuda(
+                hk, small, parent, new, True, scal, meta))
+            plain_ms = time_ms(torch, lambda: search2_update(
+                hp, small, parent, new, True, scal, meta))
+        del hists, hk, hp
+    F, B = N_FEAT, NUM_BINS
     nbytes = 4 * F * B * 12 + F * 16 + 2 * 16 * 4
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    say(f"[search-update] cases={n} rows bitwise, max_abs_err={worst:.3g} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.6f}")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+    say(f"[search-update] cases={n} buffer and rows torch.equal plain "
+        f"(F=28 x B=255, B={'/'.join(map(str, SCAN_BINS))}, F={WIDE_F}) "
+        f"ms={ms:.4f} parent_ms={_parent_ms('K4', F)} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound:.6f}")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 library_ms=None)
 
 
@@ -1260,14 +1316,17 @@ def phase_level_histogram(torch, train_set):
 
 # -------------------------------------------------------------- phase 11
 def phase_pool_search(torch):
-    """K5 against its plain version, bitwise, at the bench shape (resident
-    and recomputed parent, both values of small_is_left) and at F=2000 x
-    256 bins; K3 at F=2000 against its plain version, bitwise; times."""
+    """K5 against its plain version, the pool and the rows torch.equal
+    (resident and recomputed parent, both values of small_is_left), at the
+    bench shape (25 cases), at the scan's branches (B = 7, 300, 600, 5000)
+    and at F = 5000 x 255 and 2000 x 256 bins; K3 and K4 at F = 2000
+    against their plain versions, bitwise; times K5 at the bench shape and
+    K3, K4 and K5 at F = 2000 beside their one-thread scan's times."""
     from lightgbm_tpu_torch.ops import cuda_search
     from lightgbm_tpu_torch.ops import split as plain
 
     rng = np.random.RandomState(11)
-    F, B, P = N_FEAT, NUM_BINS, 6
+    P = 6
 
     def run(hl, hr, meta, scal, resident, sil):
         """K5 and its plain version on the same pool; True if bitwise."""
@@ -1284,41 +1343,41 @@ def phase_pool_search(torch):
         p = plain.search2_pool(pp, small, parent, s1, s2, sil, scal, meta)
         return torch.equal(pk, pp) and torch.equal(k, p), k
 
-    cases = _search_cases(rng, F, B)
     n = 0
-    for hs, fmask, nbpf, iscat, consts in cases[:24] + cases[-1:]:
-        hl, hr = (torch.from_numpy(a).cuda() for a in hs)
-        meta = cuda_search.pack_meta(torch.from_numpy(fmask),
-                                     torch.from_numpy(nbpf),
-                                     torch.from_numpy(iscat), "cuda")
-        scal = [1.0]
-        for hcur in hs:  # leaf totals: feature 2's sums
-            scal += [float(v) for v in hcur[2].sum(axis=0)]
-        scal += consts
-        for resident in (True, False):
-            for sil in (True, False):
-                same, k = run(hl, hr, meta, scal, resident, sil)
-                check(same, f"K5: pool or rows differ from the plain "
-                      f"version's (resident={resident}, small_is_left={sil})")
-                n += 1
-    kk = k.cpu().numpy()  # the crafted tie: small = tie, parent = 2 * tie
-    check(int(kk[0, 1]) == 2 and int(kk[0, 2]) == B // 2 - 1,
-          f"K5: tie resolved to {kk[0, 1:3]}")
-    pool = torch.from_numpy(rng.randn(P, F, B, 3).astype(np.float32)).cuda()
-    ms = time_ms(torch, lambda: cuda_search._search2_pool_cuda(
-        pool, hl, 2, 2, 5, True, scal, meta))
-    plain_ms = time_ms(torch, lambda: plain.search2_pool(
-        pool, hl, 2, 2, 5, True, scal, meta))
+    shapes = [(F, B, 24 if F == N_FEAT and B == NUM_BINS else count)
+              for F, B, count in _search_shapes()]
+    for F, B, count in shapes:
+        for case in _search_cases(rng, F, B, count):
+            hl, hr, meta, scal = _case_tensors(torch, case)
+            for resident in (True, False):
+                for sil in (True, False):
+                    same, k = run(hl, hr, meta, scal, resident, sil)
+                    check(same, f"K5 F={F} B={B}: pool or rows differ from "
+                          f"the plain version's (resident={resident}, "
+                          f"small_is_left={sil})")
+                    n += 1
+        # the crafted tie: small = tie, parent = 2 * tie
+        _check_tie(k, B, f"K5 F={F} B={B}")
+        if (F, B) == (N_FEAT, NUM_BINS):
+            pool = torch.from_numpy(
+                rng.randn(P, F, B, 3).astype(np.float32)).cuda()
+            ms = time_ms(torch, lambda: cuda_search._search2_pool_cuda(
+                pool, hl, 2, 2, 5, True, scal, meta))
+            plain_ms = time_ms(torch, lambda: plain.search2_pool(
+                pool, hl, 2, 2, 5, True, scal, meta))
+            del pool
+    F, B = N_FEAT, NUM_BINS
     nbytes = 4 * F * B * 12 + F * 16 + 2 * 16 * 4
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    say(f"[pool-search] cases={n} (25 x resident/recomputed x small left/"
-        f"right) pool and rows bitwise == plain ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound:.6f} ({nbytes} bytes) "
-        f"share={bound / ms:.5f}")
+    say(f"[pool-search] cases={n} (resident/recomputed x small left/right "
+        f"at F=28 x B=255, B={'/'.join(map(str, SCAN_BINS))}, F={WIDE_F}) "
+        f"pool and rows torch.equal plain ms={ms:.4f} "
+        f"parent_ms={_parent_ms('K5', F)} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound:.6f} ({nbytes} bytes) share={bound / ms:.5f}")
     record = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                   library_ms=None)
 
-    # ---- F=2000 x 256 bins: K5 and K3
+    # ---- F=2000 x 256 bins: K5, K4 and K3
     Fw, Bw = 2000, 256
     hw = [np.stack([rng.randn(Fw, Bw), np.abs(rng.randn(Fw, Bw)) + 0.1,
                     rng.randint(1, 50, (Fw, Bw))], -1).astype(np.float32)
@@ -1338,20 +1397,30 @@ def phase_pool_search(torch):
     check(torch.equal(k3, plain.search2_rows(hl, hr, scal, meta)),
           f"K3 F={Fw}: rows differ from the plain version's")
     check(int(k3[0, 1]) >= 0, f"K3 F={Fw}: no split found")
+    bufs = torch.from_numpy(rng.randn(4, Fw, Bw, 3).astype(np.float32)
+                            ).cuda()
+    bufs[1] = hl + hr
+    bk, bp = bufs.clone(), bufs.clone()
+    k4 = cuda_search._search2_update_cuda(bk, hl, 1, 3, True, scal, meta)
+    p4 = plain.search2_update(bp, hl, 1, 3, True, scal, meta)
+    check(torch.equal(bk, bp) and torch.equal(k4, p4),
+          f"K4 F={Fw}: buffer or rows differ from the plain version's")
     pool = torch.from_numpy(rng.randn(4, Fw, Bw, 3).astype(np.float32)).cuda()
     ms5 = time_ms(torch, lambda: cuda_search._search2_pool_cuda(
         pool, hl, 2, 2, 3, True, scal, meta), reps=5, warm=1)
+    ms4 = time_ms(torch, lambda: cuda_search._search2_update_cuda(
+        bk, hl, 1, 3, True, scal, meta), reps=5, warm=1)
     ms3 = time_ms(torch, lambda: cuda_search._search2_rows_cuda(
         hl, hr, scal, meta), reps=5, warm=1)
-    b5 = (4 * Fw * Bw * 12 + Fw * 16 + 128) / HBM_BYTES_PER_S * 1e3
+    b45 = (4 * Fw * Bw * 12 + Fw * 16 + 128) / HBM_BYTES_PER_S * 1e3
     b3 = (2 * Fw * Bw * 12 + Fw * 16 + 128) / HBM_BYTES_PER_S * 1e3
     say(f"[pool-search F={Fw} B={Bw}] K5 (resident/recomputed x small "
-        f"left/right) and K3 bitwise == plain; K5 ms={ms5:.4f} "
-        f"bound_ms={b5:.5f} share={b5 / ms5:.5f}; K3 ms={ms3:.4f} "
-        f"bound_ms={b3:.5f} share={b3 / ms3:.5f}; max features "
-        f"K3/K4,K5 = {cuda_search._lib().lgbm_search2_max_features()}/"
-        f"{cuda_search._lib().lgbm_search2_max_features() // 2}")
-    del pool, hl, hr
+        f"left/right), K4 and K3 bitwise == plain; "
+        + "; ".join(f"{name} ms={t:.4f} parent_ms={_parent_ms(name, Fw)} "
+                    f"bound_ms={bd:.5f} share={bd / t:.5f}"
+                    for name, t, bd in (("K3", ms3, b3), ("K4", ms4, b45),
+                                        ("K5", ms5, b45))))
+    del pool, bufs, bk, bp, hl, hr
     return record
 
 

@@ -21,15 +21,16 @@
 // Sources including this are built with -fmad=false, so no multiply-add
 // is contracted and the f32 arithmetic is the plain version's.
 //
-// One feature of one child is scanned by one thread, from the highest
-// bin down, carrying the suffix sums (summed in the plain version's
-// blocked order, BlockedScan3, so both give the same floats) and keeping
-// the best (gain, bin) with a strict ">": a high-to-low scan with strict
-// improvement keeps the LARGEST bin among equal gains, like the
-// reference's own scan (feature_histogram.hpp:129,154).  Per-feature
-// bests go to shared memory; one thread per child then walks the features
-// in ascending order with a strict ">", which keeps the SMALLEST feature
-// among equal gains.
+// One (child, feature) is scanned by one warp (scan_feature_warp): the
+// exclusive suffix sums over bins > t, from the highest bin down, are
+// summed in the plain version's blocked order (blocked_cumsum), add for
+// add, so both give the same floats, and the best (gain, bin) is kept with
+// a strict ">" from high bin to low: the LARGEST bin among equal gains,
+// like the reference's own scan (feature_histogram.hpp:129,154).  Each
+// pair's best (kPerFeature floats) goes to global scratch; the winner over
+// the features is the largest gain and, among equal gains, the SMALLEST
+// feature (pick_winner, one thread, in K8; the last block's parallel
+// argmax in K3/K4/K5), and winner_row writes its [16] result row.
 
 #pragma once
 
@@ -125,65 +126,13 @@ __device__ __forceinline__ float leaf_out(float g, float h, float l1,
   return __fdiv_rn(-sgn * reg, __fadd_rn(h, l2));
 }
 
-// One feature's scan of one child: the best (gain, bin) over its bins and
-// the six stats there, into sb[0..7] = (gain, bin, lg, lh, lc, rg, rh, rc).
-// `hist` is the child's [F, B, 3] row.  It is not __restrict__: K4, K5
-// and K8 write the row earlier in the same launch.
-__device__ inline void scan_feature(const float* hist, const int* meta,
-                                    int f, int B, int c, const Scal& p,
-                                    float* sb) {
-  const bool can = p.can[c] > 0.f;
-  const float sg = p.sg[c], sh = p.sh[c], cnt = p.cnt[c];
-  const float min_gain_shift =
-      __fadd_rn(leaf_gain(sg, sh, p.l1, p.l2), p.min_gain);
-  const bool fmask = meta[f * 4 + 0] > 0;
-  const int nb = meta[f * 4 + 1];
-  const bool iscat = meta[f * 4 + 2] > 0;
-  const float* hf = hist + (int64_t)f * B * 3;
-  float best = -INFINITY;
-  int best_bin = -1;
-  float st[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float tail[3] = {0.f, 0.f, 0.f};  // sums over bins > t
-  BlockedScan3 scan;
-  scan.init(B);
-  for (int t = B - 1; t >= 0; --t) {
-    const float hg = hf[t * 3 + 0], hh = hf[t * 3 + 1], hc = hf[t * 3 + 2];
-    const float tg = tail[0], th = tail[1], tc = tail[2];
-    float lg, lh, lc, rg, rh, rc;
-    if (iscat) {
-      lg = hg; lh = hh; lc = hc;
-      rg = __fsub_rn(sg, hg); rh = __fsub_rn(sh, hh);
-      rc = __fsub_rn(cnt, hc);
-    } else {
-      const float th_eps = __fadd_rn(th, kEpsilon);
-      rg = tg; rh = th_eps; rc = tc;
-      lg = __fsub_rn(sg, tg); lh = __fsub_rn(sh, th_eps);
-      lc = __fsub_rn(cnt, tc);
-    }
-    const bool in_range = fmask && (iscat ? (t < nb) : (t < nb - 1));
-    const float gain = __fadd_rn(leaf_gain(lg, lh, p.l1, p.l2),
-                                 leaf_gain(rg, rh, p.l1, p.l2));
-    const bool valid = in_range && can && lc >= p.min_data &&
-                       rc >= p.min_data && lh >= p.min_hess &&
-                       rh >= p.min_hess && gain >= min_gain_shift;
-    if (valid && gain > best) {
-      best = gain;
-      best_bin = t;
-      st[0] = lg; st[1] = lh; st[2] = lc;
-      st[3] = rg; st[4] = rh; st[5] = rc;
-    }
-    const float cur[3] = {hg, hh, hc};
-    scan.push(cur, tail);
-  }
-  sb[0] = best;
-  sb[1] = (float)best_bin;
-  for (int k = 0; k < 6; ++k) sb[2 + k] = st[k];
-}
-
-// scan_feature's result computed by one warp (every lane must call it;
-// lane 0 writes sb).  The reversed bin stream x[j] = hist[B-1-j] is cut
-// into blocked_cumsum's blocks of 16, lane q owning block q of each
-// 32-block segment:
+// One feature's scan of one child, by one warp (every lane must call it;
+// lane 0 writes sb): the best (gain, bin) over the feature's bins and the
+// six stats there, into sb[0..7] = (gain, bin, lg, lh, lc, rg, rh, rc);
+// gain -inf and bin -1 when no bin is valid.  `hist` is the child's
+// [F, B, 3] row.  The reversed bin stream x[j] = hist[B-1-j] is cut into
+// blocked_cumsum's blocks of 16, lane q owning block q of each 32-block
+// segment:
 //  * pass 1: each lane sums its block in order from 0.f (the block total
 //    T_q, level 0's within-block adds);
 //  * the block's offset E_q, the inclusive prefix of the totals up to
@@ -197,15 +146,16 @@ __device__ inline void scan_feature(const float* hist, const int* meta,
 //  * pass 2: each lane walks its block in order again, the exclusive tail
 //    of element i being (within-block sum of 0..i-1) + E_q, and of its
 //    first element the last prefix of the block before (lane q-1's, or
-//    the previous segment's); every add is scan_feature's, so the tails,
-//    gains and stats are its floats bitwise;
-//  * each lane keeps its best with scan_feature's strict ">" from high bin
-//    to low, then a butterfly argmax over the lanes takes the largest gain
-//    and among equal gains the largest bin, which is what scan_feature's
-//    high-to-low strict ">" keeps.  Invalid and NaN gains never win.
-// `hist` is read with plain loads: K8 writes the row earlier in the same
-// launch.  B > 16 * 16 * 32 takes several segments, B > 256 the level-1
-// halves, B > 4096 BlockedScan3's levels above.
+//    the previous segment's); every add is blocked_cumsum's, so the tails,
+//    gains and stats are the plain version's floats bitwise;
+//  * each lane keeps its best with a strict ">" from high bin to low, then
+//    a butterfly argmax over the lanes takes the largest gain and among
+//    equal gains the largest bin, which is what one high-to-low walk with
+//    a strict ">" keeps.  Invalid and NaN gains never win.
+// `hist` is read with plain loads, not __restrict__: K4, K5 and K8 write
+// the row earlier in the same launch.  B <= 16 takes no block offsets,
+// B > 256 the level-1 halves, B > 512 (32 blocks of 16) several segments,
+// B > 4096 BlockedScan3's levels above.
 __device__ inline void scan_feature_warp(const float* hist, const int* meta,
                                          int f, int B, int c, const Scal& p,
                                          float* sb) {
@@ -366,30 +316,22 @@ __device__ inline void scan_feature_warp(const float* hist, const int* meta,
   }
 }
 
-// The winner over the F per-feature bests `s_best` [F, kPerFeature] of
-// child c: the largest gain, the smallest feature among equal gains.
-// Writes the child's [16] result row.
-__device__ inline void pick_winner(const float* hist, const float* s_best,
-                                   const int* meta, int F, int B, int c,
-                                   const Scal& p, float* out) {
+// Child c's [16] result row, won by feature fbest with its per-feature
+// best sb [kPerFeature], or fbest = -1 when no feature has a valid split
+// (then sb is not read).  Loads go through L2 only (__ldcg): the bests and
+// the child's row may have been written by other blocks of the launch.
+__device__ inline void winner_row(const float* hist, const float* sb,
+                                  int fbest, const int* meta, int F, int B,
+                                  int c, const Scal& p, float* out) {
   const float sg = p.sg[c], sh = p.sh[c], cnt = p.cnt[c];
-  float best = -INFINITY;
-  int fbest = -1;
-  for (int f = 0; f < F; ++f) {
-    if (s_best[f * kPerFeature] > best) {
-      best = s_best[f * kPerFeature];
-      fbest = f;
-    }
-  }
   float row[16];
   for (int k = 0; k < 16; ++k) row[k] = 0.f;
   float st[6];
   if (fbest >= 0) {
-    const float* sb = s_best + fbest * kPerFeature;
-    row[0] = __fsub_rn(best, leaf_gain(sg, sh, p.l1, p.l2));
+    row[0] = __fsub_rn(__ldcg(sb), leaf_gain(sg, sh, p.l1, p.l2));
     row[1] = (float)fbest;
-    row[2] = sb[1];
-    for (int k = 0; k < 6; ++k) st[k] = sb[2 + k];
+    row[2] = __ldcg(sb + 1);
+    for (int k = 0; k < 6; ++k) st[k] = __ldcg(sb + 2 + k);
   } else {
     // no valid split: stats at (feature 0, bin B-1) like the plain version
     row[0] = -INFINITY;
@@ -397,9 +339,10 @@ __device__ inline void pick_winner(const float* hist, const float* s_best,
     row[2] = 0.f;
     const float* h0 = hist + (int64_t)(B - 1) * 3;
     if (F > 0 && meta[2] > 0) {
-      st[0] = h0[0]; st[1] = h0[1]; st[2] = h0[2];
-      st[3] = __fsub_rn(sg, h0[0]); st[4] = __fsub_rn(sh, h0[1]);
-      st[5] = __fsub_rn(cnt, h0[2]);
+      const float h[3] = {__ldcg(h0), __ldcg(h0 + 1), __ldcg(h0 + 2)};
+      st[0] = h[0]; st[1] = h[1]; st[2] = h[2];
+      st[3] = __fsub_rn(sg, h[0]); st[4] = __fsub_rn(sh, h[1]);
+      st[5] = __fsub_rn(cnt, h[2]);
     } else {
       st[0] = sg; st[1] = __fsub_rn(sh, kEpsilon); st[2] = cnt;
       st[3] = 0.f; st[4] = kEpsilon; st[5] = 0.f;
@@ -411,40 +354,45 @@ __device__ inline void pick_winner(const float* hist, const float* s_best,
   for (int k = 0; k < 16; ++k) out[k] = row[k];
 }
 
-// Cell i of a split's buffer rows: the left child goes to rows[0] and the
-// right to rows[1], with `small` the smaller child's value and the larger
-// one parent[i] - small (elementwise f32).  `parent` may be rows[0] (the
-// left child overwrites the parent in place): the thread that calls it for
-// cell i reads the parent there and then writes both children, so no cell
-// is read after another thread has written it.
-__device__ __forceinline__ void write_children(const float* parent,
-                                               float* const rows[2],
-                                               int64_t i, float small,
+// The winner over the F per-feature bests `s_best` [F, kPerFeature] of
+// child c, by one thread: the largest gain, the smallest feature among
+// equal gains.  Writes the child's [16] result row.
+__device__ inline void pick_winner(const float* hist, const float* s_best,
+                                   const int* meta, int F, int B, int c,
+                                   const Scal& p, float* out) {
+  float best = -INFINITY;
+  int fbest = -1;
+  for (int f = 0; f < F; ++f) {
+    if (s_best[f * kPerFeature] > best) {
+      best = s_best[f * kPerFeature];
+      fbest = f;
+    }
+  }
+  winner_row(hist, s_best + (fbest >= 0 ? fbest : 0) * kPerFeature, fbest,
+             meta, F, B, c, p, out);
+}
+
+// Cell i of a split's buffer rows, given the parent's and the smaller
+// child's values there: the left child goes to rows[0] and the right to
+// rows[1], the larger one being parent - small (elementwise f32).
+__device__ __forceinline__ void store_children(float* const rows[2],
+                                               int64_t i, float parent,
+                                               float small,
                                                int small_is_left) {
-  const float large = __fsub_rn(parent[i], small);
+  const float large = __fsub_rn(parent, small);
   rows[0][i] = small_is_left ? small : large;
   rows[1][i] = small_is_left ? large : small;
 }
 
-// Both children's searches in one block, once their rows are written and
-// visible to it: the block's threads scan the (child, feature) pairs into
-// s_best [2, F, kPerFeature] (shared memory), then threads 0 and 1 pick
-// the children's winners into out [2, 16].  Every thread of the block
-// must call it.
-__device__ inline void search_children(float* const rows[2],
-                                       const int* meta, int F, int B,
-                                       const Scal& p, float* s_best,
-                                       float* out) {
-  for (int i = threadIdx.x; i < 2 * F; i += blockDim.x) {
-    const int c = i / F, f = i % F;
-    scan_feature(rows[c], meta, f, B, c, p, s_best + i * kPerFeature);
-  }
-  __syncthreads();
-  if (threadIdx.x < 2) {
-    const int c = threadIdx.x;
-    pick_winner(rows[c], s_best + c * F * kPerFeature, meta, F, B, c, p,
-                out + c * 16);
-  }
+// store_children with the parent read at cell i.  `parent` may be rows[0]
+// (the left child overwrites the parent in place): the thread that calls
+// it for cell i reads the parent there and then writes both children, so
+// no cell is read after another thread has written it.
+__device__ __forceinline__ void write_children(const float* parent,
+                                               float* const rows[2],
+                                               int64_t i, float small,
+                                               int small_is_left) {
+  store_children(rows, i, parent[i], small, small_is_left);
 }
 
 }  // namespace lgbm

@@ -55,12 +55,12 @@
 //    update is safe as in K4.
 //  * C: one warp per (child, feature), the 2F warps spread over the grid
 //    (warp w of block b takes pair b + w * grid), scans the child's row
-//    (scan_feature_warp, search_step.cuh: scan_feature's floats, bitwise)
+//    (scan_feature_warp, search_step.cuh: the plain version's floats)
 //    and writes the pair's best to global scratch [2, F, kPerFeature]
 //    (the front of the spent partials).
 //  * D: block 0 sums the tile counts (integers, exact in any order) into
 //    the left count and picks both children's winners over the features
-//    (pick_winner, K4's code).
+//    (pick_winner, search_step.cuh).
 // Every float sum is cut by column chunks that depend only on begin and
 // pcnt and is reduced in chunk order, never by the grid size or by which
 // block finishes first, and there are no float atomics: two launches give

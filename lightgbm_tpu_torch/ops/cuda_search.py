@@ -17,12 +17,18 @@ counterpart of ``search2_pallas_raw`` with the subtraction and the slot
 writes around it: the same over a ``[P, F, B, 3]`` histogram pool, the
 children written to slots ``s1`` and ``s2`` and the parent read from a
 slot or from a recomputed row; kernel 5 on the card (``POOL_LAUNCHES``).
+
+The three kernels write each (child, feature)'s best to a scratch of
+``2 * F * 8`` floats and pick the winners in the last block behind an
+integer ticket; both live in ``_WORK``, allocated once per device (the
+scratch grown when a wider F comes) and shared by every launch there, so
+one stream at a time may search on a device.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple, Union
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 
@@ -36,22 +42,25 @@ UPDATE_LAUNCHES = 0  # kernel 4
 POOL_LAUNCHES = 0  # kernel 5
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PER_FEATURE = 8  # floats of one (child, feature) best (csrc kPerFeature)
+
+# device index -> (ticket int32 [1], bests float32 [>= 2 * F * 8])
+_WORK: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _lib():
     lib = _build.load("search")
     if not getattr(lib, "_typed", False):
         lib.lgbm_search2.restype = _I
+        # ... best, ticket, out, stream
         lib.lgbm_search2.argtypes = [_VP, _VP, _VP, _I, _I] + [_F] * 13 + [
-            _VP, _VP]
+            _VP] * 4
         lib.lgbm_search2_update.restype = _I
         lib.lgbm_search2_update.argtypes = [_VP, _VP, _I, _I, _I, _VP, _I,
-                                            _I] + [_F] * 12 + [_VP, _VP]
+                                            _I] + [_F] * 12 + [_VP] * 4
         lib.lgbm_search2_pool.restype = _I
         lib.lgbm_search2_pool.argtypes = [_VP, _VP, _VP, _I, _I, _I, _VP, _I,
-                                          _I] + [_F] * 12 + [_VP, _VP]
-        lib.lgbm_search2_max_features.restype = _I
-        lib.lgbm_search2_max_features.argtypes = []
+                                          _I] + [_F] * 12 + [_VP] * 4
         lib._typed = True
     return lib
 
@@ -81,7 +90,19 @@ def search2_rows(h_left: torch.Tensor, h_right: torch.Tensor,
     return _search2_rows_cuda(h_left, h_right, scal, meta)
 
 
-def _check_search(hists, meta, scal, F, lib, per_feature_factor=1):
+def _workspace(dev: torch.device, F: int) -> Tuple[int, int]:
+    """Pointers to the device's ticket (zero between launches) and bests
+    scratch, the scratch grown to ``2 * F`` bests if it is smaller."""
+    work = _WORK.get(dev.index)
+    if work is None or work[1].numel() < 2 * F * _PER_FEATURE:
+        ticket = (torch.zeros(1, dtype=torch.int32, device=dev)
+                  if work is None else work[0])
+        work = _WORK[dev.index] = (ticket, torch.empty(
+            2 * F * _PER_FEATURE, dtype=torch.float32, device=dev))
+    return work[1].data_ptr(), work[0].data_ptr()
+
+
+def _check_search(hists, meta, scal, F):
     """Shared argument checks of kernels 3, 4 and 5."""
     for name, t in hists:
         if t.dtype != torch.float32:
@@ -95,9 +116,6 @@ def _check_search(hists, meta, scal, F, lib, per_feature_factor=1):
                          f"on {dev}")
     if len(scal) != 12:
         raise ValueError("scal must hold 12 values")
-    max_f = lib.lgbm_search2_max_features() // per_feature_factor
-    if F > max_f:
-        raise ValueError(f"the search kernel takes at most {max_f} features")
 
 
 def _search2_rows_cuda(h_left, h_right, scal, meta):
@@ -111,9 +129,8 @@ def _search2_rows_cuda(h_left, h_right, scal, meta):
             f"and {tuple(h_right.shape)}")
     if h_right.device != dev:
         raise ValueError(f"h_right is on {h_right.device}, h_left on {dev}")
+    _check_search([("h_left", h_left), ("h_right", h_right)], meta, scal, F)
     lib = _lib()
-    _check_search([("h_left", h_left), ("h_right", h_right)], meta, scal, F,
-                  lib)
     can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = (
         float(v) for v in scal)
     out = torch.empty((2, 16), dtype=torch.float32, device=dev)
@@ -122,7 +139,7 @@ def _search2_rows_cuda(h_left, h_right, scal, meta):
         code = lib.lgbm_search2(
             h_left.data_ptr(), h_right.data_ptr(), meta.data_ptr(), F, B,
             can, lsg, lsh, lc, can, rsg, rsh, rc, md, mh, l1, l2, mg,
-            out.data_ptr(), stream)
+            *_workspace(dev, F), out.data_ptr(), stream)
     _build.check(code, "search kernel")
     LAUNCHES += 1
     return out
@@ -158,9 +175,8 @@ def _search2_update_cuda(hists, h_small, parent, new_leaf, small_is_left,
     if h_small.device != hists.device:
         raise ValueError(f"h_small is on {h_small.device}, hists on "
                          f"{hists.device}")
+    _check_search([("hists", hists), ("h_small", h_small)], meta, scal, F)
     lib = _lib()
-    _check_search([("hists", hists), ("h_small", h_small)], meta, scal, F,
-                  lib, per_feature_factor=2)
     can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = (
         float(v) for v in scal)
     dev = hists.device
@@ -170,7 +186,8 @@ def _search2_update_cuda(hists, h_small, parent, new_leaf, small_is_left,
         code = lib.lgbm_search2_update(
             hists.data_ptr(), h_small.data_ptr(), parent, new_leaf,
             int(bool(small_is_left)), meta.data_ptr(), F, B, can, lsg, lsh,
-            lc, rsg, rsh, rc, md, mh, l1, l2, mg, out.data_ptr(), stream)
+            lc, rsg, rsh, rc, md, mh, l1, l2, mg, *_workspace(dev, F),
+            out.data_ptr(), stream)
     _build.check(code, "search-update kernel")
     UPDATE_LAUNCHES += 1
     return out
@@ -227,8 +244,8 @@ def _search2_pool_cuda(pool, h_small, parent, s1, s2, small_is_left, scal,
     for name, t in rows[1:]:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, pool on {dev}")
+    _check_search(rows, meta, scal, F)
     lib = _lib()
-    _check_search(rows, meta, scal, F, lib, per_feature_factor=2)
     can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = (
         float(v) for v in scal)
     out = torch.empty((2, 16), dtype=torch.float32, device=dev)
@@ -237,7 +254,8 @@ def _search2_pool_cuda(pool, h_small, parent, s1, s2, small_is_left, scal,
         code = lib.lgbm_search2_pool(
             pool.data_ptr(), h_small.data_ptr(), parent_ptr, s1, s2,
             int(bool(small_is_left)), meta.data_ptr(), F, B, can, lsg, lsh,
-            lc, rsg, rsh, rc, md, mh, l1, l2, mg, out.data_ptr(), stream)
+            lc, rsg, rsh, rc, md, mh, l1, l2, mg, *_workspace(dev, F),
+            out.data_ptr(), stream)
     _build.check(code, "pooled search kernel")
     POOL_LAUNCHES += 1
     return out

@@ -14,6 +14,15 @@ and crafted cases of tests/test_pallas_search.py.
 ``search2_update_pallas`` in interpret mode on the JAX package's raw
 ``[P, Fp, 4, Bp]`` buffer holding the same values: the two updated rows
 bitwise (the subtraction is elementwise float32), the search as above.
+
+Beside the F = 9, B = 31 cases, the three searches (``search2_rows``,
+``search2_update``, ``search2_pool``; kernels 3, 4 and 5) run at B = 7,
+300 and 600, the bin counts that reach the warp scan's other branches on
+the card (no block offsets; the level-1 halves; two 512-bin segments),
+against ``search2_pallas`` / ``search2_update_pallas`` /
+``search2_pallas_raw`` in interpret mode.  The tests marked ``cuda`` hold
+each kernel bitwise against its plain version at those shapes, at 5,000
+bins and at F = 5,000.
 """
 
 import numpy as np
@@ -23,12 +32,13 @@ import jax.numpy as jnp
 import torch
 
 from lightgbm_tpu.ops.pallas_search import (search2_pallas,
+                                            search2_pallas_raw,
                                             search2_update_pallas)
 from lightgbm_tpu.ops.split import find_best_split_leaves as jax_fbsl
 from lightgbm_tpu_torch.ops import cuda_search
 from lightgbm_tpu_torch.ops.cuda_search import (pack_meta, search2,
-                                                search2_rows, search2_update,
-                                                unpack)
+                                                search2_pool, search2_rows,
+                                                search2_update, unpack)
 
 FLOAT_FIELDS = ("gain", "left_sum_grad", "left_sum_hess", "left_count",
                 "right_sum_grad", "right_sum_hess", "right_count",
@@ -84,7 +94,7 @@ def _jax_jnp(hl, hr, totl, totr, fmask, nbpf, iscat, can=True, **kw):
     return [type(res)(*[a[i] for a in res]) for i in range(2)]
 
 
-def _check(port, ref, exact, floats=True):
+def _check(port, ref, exact, floats=True, rtol=1e-5):
     for a, b in zip(port, ref):
         assert int(a.feature) == int(b.feature)
         assert int(a.threshold) == int(b.threshold)
@@ -95,7 +105,7 @@ def _check(port, ref, exact, floats=True):
             if exact:
                 assert x == y or (np.isnan(x) and np.isnan(y)), k
             else:
-                np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-6,
+                np.testing.assert_allclose(x, y, rtol=rtol, atol=1e-6,
                                            err_msg=k)
 
 
@@ -191,21 +201,78 @@ def test_cuda_entry_has_no_cpu_fallback():
     assert cuda_search.LAUNCHES == before
 
 
+# ------------------------------------------------- the scan's branches
+# B = 7: one block of 16, no offsets; B = 300: level 1's 16-lane halves;
+# B = 600: two 512-bin segments.  A masked feature, a categorical one, a
+# short one and all five constraints.  Against the Pallas kernel the floats
+# agree to SHAPE_RTOL: over hundreds of bins its triangular-matmul suffix
+# sums and the blocked scan round a few ulps apart (1.3e-5 seen at 300
+# bins); feature and threshold are exact, and against the jnp search,
+# whose suffix sums take the blocked order, the port is bitwise.
+SHAPE_BINS = (7, 300, 600)
+SHAPE_RTOL = 1e-4
+
+
+def _shape_case(B, F=9, seed=None):
+    seed = B if seed is None else seed
+    hl, totl, fmask, nbpf, iscat = _mk(F=F, B=B, seed=seed)
+    hr, totr, *_ = _mk(F=F, B=B, seed=seed + 100)
+    fmask, nbpf, iscat = fmask.copy(), nbpf.copy(), iscat.copy()
+    fmask[0] = False
+    iscat[3] = True
+    nbpf[7] = max(2, B - 5)
+    return ((hl, hr, totl, totr, fmask, nbpf, iscat),
+            dict(min_data=3.0, min_hess=0.5, l1=0.25, l2=1.0,
+                 min_gain=0.01))
+
+
+@pytest.mark.parametrize("B", SHAPE_BINS)
+def test_shapes_match_jax_pallas_interpret(B):
+    args, kw = _shape_case(B)
+    _check(_port(*args, **kw), _jax_kernel(*args, **kw), exact=False,
+           rtol=SHAPE_RTOL)
+
+
+@pytest.mark.parametrize("B", SHAPE_BINS)
+def test_shapes_match_jax_jnp_bitwise(B):
+    args, kw = _shape_case(B)
+    _check(_port(*args, **kw), _jax_jnp(*args, **kw), exact=True)
+
+
+# (F, B) of the tests on the card: the CASES at F = 9, B = 31, the scan's
+# branches, a four-level scan over 5,000 bins and F = 5,000 features
+CARD_SHAPES = [(9, 31), *[(9, b) for b in SHAPE_BINS], (9, 5000),
+               (5000, 255)]
+CARD_IDS = [f"F{f}-B{b}" for f, b in CARD_SHAPES]
+
+
+def _card_cases(F, B):
+    return CASES if (F, B) == (9, 31) else [_shape_case(B, F=F)]
+
+
+def _same(a, b):
+    """Bitwise equal rows (NaN where the other has NaN)."""
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def _scal(totl, totr, kw):
+    return [1.0, *[float(v) for v in totl], *[float(v) for v in totr],
+            *_consts(kw)]
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("F,B", CARD_SHAPES, ids=CARD_IDS)
+def test_kernel_matches_plain_on_card(F, B):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
-    for args, kw in CASES:
+    for args, kw in _card_cases(F, B):
         hl, hr, totl, totr, fmask, nbpf, iscat = args
-        t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
-        got = search2(t(hl), t(hr), *[float(v) for v in totl],
-                      *[float(v) for v in totr], True, t(fmask), t(nbpf),
-                      t(iscat), *_consts(kw))
-        want = _port(*args, **kw)
-        for a, b in zip(got, want):
-            for x, y in zip(a, b):
-                assert float(x) == float(y) or (
-                    np.isnan(float(x)) and np.isnan(float(y)))
+        t = torch.from_numpy
+        meta = pack_meta(t(fmask), t(nbpf), t(iscat), "cpu")
+        scal = _scal(totl, totr, kw)
+        want = search2_rows(t(hl), t(hr), scal, meta)
+        got = search2_rows(t(hl).cuda(), t(hr).cuda(), scal, meta.cuda())
+        _same(got.cpu(), want)
 
 
 # --------------------------------------------------------------- kernel 4
@@ -303,19 +370,109 @@ def test_update_cuda_entry_has_no_cpu_fallback():
     assert cuda_search.UPDATE_LAUNCHES == before
 
 
+@pytest.mark.parametrize("B", SHAPE_BINS)
+@pytest.mark.parametrize("small_is_left", [True, False],
+                         ids=["small_left", "small_right"])
+def test_update_shapes_match_jax_pallas_interpret(B, small_is_left):
+    (hl, hr, totl, totr, fmask, nbpf, iscat), kw = _shape_case(B)
+    before, ours, rows, theirs, ref, _, _ = _update_both(
+        hl, hr, totl, totr, small_is_left, fmask, nbpf, iscat, B, **kw)
+    np.testing.assert_array_equal(ours[[_PARENT, _NEW]],
+                                  theirs[[_PARENT, _NEW]])
+    np.testing.assert_array_equal(ours[[0, 2]], before[[0, 2]])
+    _check((unpack(rows, 0), unpack(rows, 1)), ref, exact=False,
+           rtol=SHAPE_RTOL)
+
+
 @pytest.mark.cuda
-def test_update_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("F,B", CARD_SHAPES, ids=CARD_IDS)
+def test_update_kernel_matches_plain_on_card(F, B):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
-    for (hl, hr, totl, totr, fmask, nbpf, iscat), sil, seed in UPDATE_CASES:
+    cases = (UPDATE_CASES if (F, B) == (9, 31) else
+             [(_shape_case(B, F=F)[0], sil, B) for sil in (True, False)])
+    for (hl, hr, totl, totr, fmask, nbpf, iscat), sil, seed in cases:
         hists, small = _update_inputs(hl, hr, sil, seed)
         t = torch.from_numpy
-        scal = [1.0, *[float(v) for v in totl], *[float(v) for v in totr],
-                *_consts({})]
+        scal = _scal(totl, totr, {})
         cpu_h, dev_h = t(hists.copy()), t(hists.copy()).cuda()
         a = search2_update(cpu_h, t(small), _PARENT, _NEW, sil, scal,
                            pack_meta(t(fmask), t(nbpf), t(iscat), "cpu"))
         b = search2_update(dev_h, t(small).cuda(), _PARENT, _NEW, sil, scal,
                            pack_meta(t(fmask), t(nbpf), t(iscat), "cuda"))
         assert torch.equal(cpu_h, dev_h.cpu())
-        assert torch.equal(a, b.cpu())
+        _same(b.cpu(), a)
+
+
+# --------------------------------------------------------------- kernel 5
+_SLOTS = 5
+
+
+def _pool_inputs(hl, hr, resident, seed):
+    """A pool of noise with the parent (left + right) in slot 1 when
+    resident, else as a tensor of its own; returns the pool, the parent
+    argument and the slots (s1, s2) the children take."""
+    rng = np.random.RandomState(seed + 50)
+    pool = rng.randn(_SLOTS, *hl.shape).astype(np.float32)
+    parent = hl + hr
+    if resident:
+        pool[1] = parent
+        return pool, 1, 1, 4
+    return pool, torch.from_numpy(parent), 3, 0
+
+
+@pytest.mark.parametrize("B", SHAPE_BINS)
+@pytest.mark.parametrize("resident", [True, False],
+                         ids=["resident", "recomputed"])
+def test_pool_shapes_match_jax_raw_search(B, resident):
+    """``search2_pool`` (the plain version of kernel 5) against the JAX
+    pooled route: the subtraction and routing in XLA, then
+    ``search2_pallas_raw`` on the routed children."""
+    (hl, hr, totl, totr, fmask, nbpf, iscat), kw = _shape_case(B)
+    small_is_left = resident  # both routings over the two parents
+    small = hl if small_is_left else hr
+    pool, arg, s1, s2 = _pool_inputs(hl, hr, resident, B)
+    large = np.asarray(jnp.asarray(hl + hr) - jnp.asarray(small))
+    jl, jr = (small, large) if small_is_left else (large, small)
+    tot = [float(v) for h in (jl, jr) for v in h[2].sum(axis=0)]
+    scal = [1.0, *tot, *_consts(kw)]
+    t = torch.from_numpy
+    ours = t(pool.copy())
+    meta = pack_meta(t(fmask), t(nbpf), t(iscat), "cpu")
+    rows = search2_pool(ours, t(small), arg, s1, s2, small_is_left, scal,
+                        meta)
+    np.testing.assert_array_equal(ours[s1].numpy(), jl)
+    np.testing.assert_array_equal(ours[s2].numpy(), jr)
+    untouched = [i for i in range(_SLOTS) if i not in (s1, s2)]
+    np.testing.assert_array_equal(ours[untouched].numpy(), pool[untouched])
+    F = hl.shape[0]
+    Fp, Bp = -(-F // 8) * 8, -(-B // 128) * 128
+    f = jnp.float32
+    ref = search2_pallas_raw(
+        jnp.asarray(np.stack([_raw(jl, Fp, Bp), _raw(jr, Fp, Bp)])),
+        *[f(v) for v in tot], jnp.bool_(True), jnp.asarray(fmask),
+        jnp.asarray(nbpf), jnp.asarray(iscat), *[f(v) for v in _consts(kw)],
+        interpret=True)
+    _check((unpack(rows, 0), unpack(rows, 1)), ref, exact=False,
+           rtol=SHAPE_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,B", CARD_SHAPES[1:], ids=CARD_IDS[1:])
+def test_pool_kernel_matches_plain_on_card_shapes(F, B):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
+    (hl, hr, totl, totr, fmask, nbpf, iscat), kw = _shape_case(B, F=F)
+    t = torch.from_numpy
+    meta = pack_meta(t(fmask), t(nbpf), t(iscat), "cpu")
+    scal = _scal(totl, totr, kw)
+    for resident in (True, False):
+        for sil in (True, False):
+            pool, arg, s1, s2 = _pool_inputs(hl, hr, resident, B)
+            small = t(hl if sil else hr)
+            cpu, dev = t(pool.copy()), t(pool.copy()).cuda()
+            a = search2_pool(cpu, small, arg, s1, s2, sil, scal, meta)
+            b = search2_pool(dev, small.cuda(), arg if resident else
+                             arg.cuda(), s1, s2, sil, scal, meta.cuda())
+            assert torch.equal(cpu, dev.cpu())
+            _same(b.cpu(), a)
