@@ -34,10 +34,18 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    plain version, buffer and rows torch.equal, at phase 3's shapes and
    cases (small left and right in turn), and times it beside the
    one-thread scan's time;
-6. holds the record partition (K6 compact, K7 place) against its plain
-   versions on the 1M-row root window, a 60k interior window at an
-   unaligned begin, all-left, all-right and a ragged last tile: the whole
-   record after the split bitwise, rows outside the window untouched;
+6. prints record.cu's registers and spills, holds the record partition
+   (K6 compact, K7 place) against its plain versions on the 1M-row root
+   window, a 60k interior window at an unaligned begin, all-left,
+   all-right, a ragged last tile, windows at begin % 4 = 1, 2 and 3 of
+   lengths that are not multiples of 4, windows of 1, 3, 5, 400, 513 and
+   16,683 columns, a window whose middle tiles are all left then all
+   right, a u16 record with an odd number of carried rows, a W = 505
+   record (F = 2000) and the 2^24-column envelope (32,768 tiles): the
+   whole record after the split bitwise, rows outside the window
+   untouched, K6's run lanes and counts == the plain version's; times K6
+   and K7 (call and device ms) at the root, 16,683 and 400 columns beside
+   their times before the redesign and their byte bounds;
 7. holds the mega route's split step (K8) against its plain version,
    bitwise (comp's valid lanes, counts, the buffer rows, the search rows,
    nleft), with two launches bitwise equal, on the 1M-row root window, a
@@ -47,11 +55,12 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    every feature's columns in one bin, u16 x 5000 bins (several count-
    table passes, a four-level scan), F = 29 with u16 bins (k = 2) and
    crafted equal gains across bins and features (the winner must be the
-   smallest feature and the largest threshold); runs K7 on K8's output
-   and holds the record bitwise against the plain placement, rows outside
-   the window untouched; prints the resident grid (blocks an SM) and
-   K8's registers and spills, and times K8 at 1M, 60,000, 6,000 and 400
-   columns beside its times before the redesign;
+   smallest feature and the largest threshold), and a 16,683-column
+   window; runs K7 on K8's output and holds the record bitwise against
+   the plain placement, rows outside the window untouched, and times K7
+   there at the root, 16,683 and 400 columns; prints the resident grid
+   (blocks an SM) and K8's registers and spills, and times K8 at 1M,
+   60,000, 6,000 and 400 columns beside its times before the redesign;
 8. trains the bench model (bench.py's config: binary, 1M x 28 HIGGS-like
    rows from seed 7 plus 200k valid rows, 255 bins, 255 leaves) through
    ``lightgbm_tpu_torch``'s entry points on the three routes in turn: the
@@ -602,22 +611,124 @@ def phase_search_update(torch):
 
 
 # --------------------------------------------------------------- phase 6
+# K6's and K7's (call ms, device ms of every kernel the call launches)
+# before their redesign (one thread a column, and K7 with the run-offset
+# scan before it, a cumsum and a subtraction) at the windows phases 6 and
+# 7 time: tools/partition_variants.py --parent-csrc, its parent run
+# (W = 12, begin 0; PERF.md section 6)
+PARTITION_PARENT_MS = {("K6", "root"): (0.0900, 0.0457),
+                       ("K6", "median"): (0.0655, 0.0030),
+                       ("K6", "400"): (0.0413, 0.0027),
+                       ("K7", "root"): (0.0992, 0.0483),
+                       ("K7", "median"): (0.0891, 0.0066),
+                       ("K7", "400"): (0.0695, 0.0057)}
+PARTITION_TIMED = {"root": 1_000_000, "median": 16_683, "400": 400}
+ENVELOPE = 1 << 24  # the float32 count envelope: nt = 32,768 tiles
+
+
+def _parent_partition_ms(kernel, name):
+    ms = PARTITION_PARENT_MS.get((kernel, name))
+    return ("not timed" if ms is None
+            else f"{ms[0]:.4f} parent_device_ms={ms[1]:.4f}")
+
+
+def _record_ptxas():
+    from lightgbm_tpu_torch.ops import _build
+
+    for line in _build.ptxas_report("record").splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            say(f"[record ptxas] {line.strip()}")
+
+
+def _crafted_record(torch, rng, n, f, T):
+    """Random u8 bins, 28 features, but feature f's bins 0 over window
+    tiles 1-2 and 254 over tiles 3-4 of a window at begin 3: tiles with
+    no rights, then tiles with no lefts, in the middle of the window."""
+    from lightgbm_tpu_torch.ops.record import build_record
+
+    bins = rng.randint(0, NUM_BINS, (N_FEAT, n)).astype(np.uint8)
+    bins[f, 3 + T:3 + 3 * T] = 0
+    bins[f, 3 + 3 * T:3 + 5 * T] = NUM_BINS - 1
+    return build_record(*(torch.from_numpy(a).cuda() for a in (
+        bins, rng.randn(n).astype(np.float32),
+        np.abs(rng.randn(n)).astype(np.float32),
+        (rng.rand(n) < 0.8).astype(np.float32))))
+
+
+def _envelope_record(torch, n):
+    """A W = 12 record of n columns made on the card (seed 0)."""
+    from lightgbm_tpu_torch.ops.record import build_record
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bins = torch.randint(0, NUM_BINS, (N_FEAT, n), dtype=torch.uint8,
+                         device="cuda", generator=gen)
+    g = torch.randn(n, device="cuda", generator=gen)
+    h = torch.rand(n, device="cuda", generator=gen)
+    m = (torch.rand(n, device="cuda", generator=gen) < 0.8).float()
+    return build_record(bins, g, h, m)
+
+
+def _partition_times(torch, name, W, pcnt, k6, k7):
+    """Call ms and device ms of K6 and K7 at one window, with the byte
+    bounds."""
+    from lightgbm_tpu_torch.profile_slice import device_ms_by_kernel
+
+    out = {}
+    for kernel, fn, tag, nbytes in (
+            ("K6", k6, "compact_kernel", 2 * (W - 1) * 4 * pcnt),
+            ("K7", k7, "place_kernel", (2 * W - 1) * 4 * pcnt)):
+        ms = time_ms(torch, fn)
+        dev = sum(v for key, v in device_ms_by_kernel(torch, fn).items()
+                  if tag in key)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out[kernel] = (ms, dev, bound)
+        say(f"[partition times] {kernel} {name} ({pcnt} columns) "
+            f"ms={ms:.4f} device_ms={dev:.4f} bound_ms={bound:.5f} "
+            f"share={bound / ms:.4f} "
+            f"parent_ms={_parent_partition_ms(kernel, name)}")
+    return out
+
+
 def phase_partition(torch):
     from lightgbm_tpu_torch.ops import cuda_record
     from lightgbm_tpu_torch.ops import record as R
 
+    _record_ptxas()
     rng = np.random.RandomState(4)
     F, n, B = N_FEAT, ROWS, NUM_BINS
-    *_, rec = _random_record(torch, rng, F, n, B, np.uint8)
-    k, W = 4, rec.shape[0]
     T = R.TILE
-    cases = [("root", 0, n, 13, 127, False),
-             ("interior", 333_333, 60_000, 6, 90, False),
-             ("all-left", 1000, 200_000, 20, B - 1, False),
-             ("all-right", 1000, 200_000, 20, B, True),
-             ("ragged", 12_345, 5 * T + 77, 27, 40, True)]
-    out = {}
-    for name, begin, pcnt, f, thr, is_cat in cases:
+    # (record, bins a word)
+    recs = {"big": (_random_record(torch, rng, F, n, B, np.uint8)[-1], 4),
+            "crafted": (_crafted_record(torch, rng, 6 * T + 100, 2, T), 4),
+            "u16-odd": (_random_record(torch, rng, 9, 20_000, 300,
+                                       np.uint16)[-1], 2),
+            "wide": (_random_record(torch, rng, 2000, 5_000, B,
+                                    np.uint8)[-1], 4),
+            "envelope": (_envelope_record(torch, ENVELOPE), 4)}
+    # (name, record, begin, pcnt, f, thr, is_cat)
+    cases = [("root", "big", 0, n, 13, 127, False),
+             ("interior", "big", 333_333, 60_000, 6, 90, False),
+             ("all-left", "big", 1000, 200_000, 20, B - 1, False),
+             ("all-right", "big", 1000, 200_000, 20, B, True),
+             ("ragged", "big", 12_345, 5 * T + 77, 27, 40, True),
+             ("begin%4=1", "big", 1001, 1297, 2, 7, False),
+             ("begin%4=2", "big", 1002, 1299, 3, 100, False),
+             ("begin%4=3", "big", 1003, 1301, 5, 11, True),
+             ("pcnt=1", "big", 333, 1, 1, 7, False),
+             ("pcnt=3", "big", 5, 3, 4, 200, False),
+             ("pcnt=5", "big", 6, 5, 0, 100, False),
+             ("pcnt=513", "big", 37, 513, 3, 100, False),
+             ("median", "big", 5555, 16_683, 9, 120, False),
+             ("400", "big", 77, 400, 9, 120, False),
+             ("left-then-right-tiles", "crafted", 3, 6 * T + 90, 2, 7,
+              False),
+             ("u16-odd-R", "u16-odd", 7, 19_001, 8, 150, False),
+             ("W=505", "wide", 13, 4_900, 1777, 127, False),
+             ("envelope", "envelope", 0, ENVELOPE, 13, 127, False)]
+    times, out = {}, {}
+    for name, key, begin, pcnt, f, thr, is_cat in cases:
+        rec, k = recs[key]
+        W = rec.shape[0]
         rk, rp = rec.clone(), rec.clone()
         nl_k = int(R.partition_window(rk, f, thr, is_cat, begin, pcnt, 3, 9,
                                       k))
@@ -630,6 +741,7 @@ def phase_partition(torch):
         err = int((rk.to(torch.int64) - rp.to(torch.int64)).abs().max())
         check(err == 0 and torch.equal(rk, rp),
               f"K6/K7 {name}: record differs from the plain version's")
+        del rp
         check(torch.equal(rk[:, :begin], rec[:, :begin])
               and torch.equal(rk[:, begin + pcnt:], rec[:, begin + pcnt:]),
               f"K6/K7 {name}: rows outside the window moved")
@@ -643,43 +755,51 @@ def phase_partition(torch):
             check(torch.equal(comp[:, :, half].permute(1, 0, 2)[:, valid],
                               comp_p[:, :, half].permute(1, 0, 2)[:, valid]),
                   f"K6 {name}: run lanes differ")
+        del comp_p
         expect = {"all-left": pcnt, "all-right": 0}.get(name)
         check(expect is None or nl_k == expect, f"K6/K7 {name}: nleft {nl_k}")
-        say(f"[partition {name}] begin={begin} pcnt={pcnt} f={f} thr={thr} "
-            f"cat={is_cat} nleft={nl_k}: record bitwise == plain, outside "
-            "untouched, K6 runs == plain")
+        if name == "left-then-right-tiles":
+            check(cl[1:3].tolist() == [T, T] and cl[3:5].tolist() == [0, 0],
+                  f"K6 {name}: tiles 1-4 hold {cl[1:5].tolist()} lefts")
+        grid = cuda_record.grids(-(-pcnt // T), W, rec.device)
+        say(f"[partition {name}] W={W} k={k} begin={begin} pcnt={pcnt} "
+            f"f={f} thr={thr} cat={is_cat} nleft={nl_k} grid={grid}: record "
+            "bitwise == plain, outside untouched, K6 runs == plain")
+        if name in PARTITION_TIMED:
+            snap = rk.clone()
+            times[name] = _partition_times(
+                torch, name, W, pcnt,
+                lambda: cuda_record.compact_cuda(rec, f, thr, is_cat, begin,
+                                                 pcnt, k),
+                lambda: cuda_record.place_cuda(rk, comp, counts, begin, pcnt,
+                                               3, 9))
+            # K7 rewrites the same columns with the same values
+            check(torch.equal(rk, snap),
+                  "K7: repeated launches changed the record")
+            del snap
         if name == "root":
-            out = dict(begin=begin, pcnt=pcnt, f=f, thr=thr, is_cat=is_cat,
-                       rk=rk, comp=comp, counts=counts, cl=cl, cr=cr,
-                       comp_p=comp_p, nleft=nl_k, err=float(err))
-    # times at the root split
-    o = out
-    win = rec[:W - 1, :n]
-    k6_ms = time_ms(torch, lambda: cuda_record.compact_cuda(
-        rec, o["f"], o["thr"], o["is_cat"], 0, n, k))
-    k6_plain = time_ms(torch, lambda: R.compact_tiles(
-        win, R.go_flags(rec, o["f"], o["thr"], o["is_cat"], 0, n, k)))
-    rk = o["rk"]  # K7 rewrites the same columns with the same values
-    snap = rk.clone()
-    k7_ms = time_ms(torch, lambda: cuda_record.place_cuda(
-        rk, o["comp"], o["counts"], 0, n, 3, 9))
-    rp2 = rec.clone()
-    k7_plain = time_ms(torch, lambda: R.place_runs(
-        rp2, o["comp_p"], o["cl"], o["cr"], 0, n, o["nleft"], 3, 9))
-    check(torch.equal(rk, snap) and torch.equal(rp2, snap),
-          "K7: repeated launches changed the record")
-    # K6 reads the W-1 rows above the leaf id and writes them to comp; K7
-    # reads them back and writes all W rows (the leaf id stamped)
-    k6_bound = 2 * (W - 1) * 4 * n / HBM_BYTES_PER_S * 1e3
-    k7_bound = (2 * W - 1) * 4 * n / HBM_BYTES_PER_S * 1e3
-    say(f"[partition root times] K6 ms={k6_ms:.4f} plain_ms={k6_plain:.4f} "
-        f"bound_ms={k6_bound:.5f} K7 ms={k7_ms:.4f} plain_ms={k7_plain:.4f} "
-        f"bound_ms={k7_bound:.5f}")
-    err = o["err"]
-    del rec, rk, rp2, snap, win, out, o
-    return (dict(max_abs_err=err, ms=k6_ms, plain_ms=k6_plain,
+            win = rec[:W - 1, :n]
+            k6_plain = time_ms(torch, lambda: R.compact_tiles(
+                win, R.go_flags(rec, f, thr, is_cat, 0, n, k)))
+            comp_p, cl, cr = R.compact_tiles(win, R.go_flags(
+                rec, f, thr, is_cat, 0, n, k))
+            rp2 = rec.clone()
+            k7_plain = time_ms(torch, lambda: R.place_runs(
+                rp2, comp_p, cl, cr, 0, n, nl_k, 3, 9))
+            check(torch.equal(rp2, rk), "K7: the plain version's timed "
+                  "runs differ from the kernel's record")
+            say(f"[partition times] root plain K6 ms={k6_plain:.4f} "
+                f"K7 ms={k7_plain:.4f}")
+            out = dict(err=float(err), k6_plain=k6_plain, k7_plain=k7_plain)
+            del win, comp_p, rp2
+        del rk, comp, counts
+    del recs
+    torch.cuda.empty_cache()
+    (k6_ms, _, k6_bound), (k7_ms, _, k7_bound) = (
+        times["root"]["K6"], times["root"]["K7"])
+    return (dict(max_abs_err=out["err"], ms=k6_ms, plain_ms=out["k6_plain"],
                  bound_ms=k6_bound, library_ms=None),
-            dict(max_abs_err=err, ms=k7_ms, plain_ms=k7_plain,
+            dict(max_abs_err=out["err"], ms=k7_ms, plain_ms=out["k7_plain"],
                  bound_ms=k7_bound, library_ms=None))
 
 
@@ -713,6 +833,7 @@ def phase_split_step(torch):
     from lightgbm_tpu_torch.ops import cuda_split_step
     from lightgbm_tpu_torch.ops import record as R
     from lightgbm_tpu_torch.ops.cuda_search import pack_meta
+    from lightgbm_tpu_torch.profile_slice import device_ms_by_kernel
 
     rng = np.random.RandomState(5)
     n, B, T = ROWS, NUM_BINS, R.TILE
@@ -737,6 +858,7 @@ def phase_split_step(torch):
              ("all-right", big, N_FEAT, B, 1000, 200_000, 20, B, True),
              ("ragged", big, N_FEAT, B, 12_345, 5 * T + 77, 27, 40, False),
              ("one-tile", big, N_FEAT, B, 5_003, 400, 2, 100, False),
+             ("median", big, N_FEAT, B, 5_555, 16_683, 9, 120, False),
              ("2049-odd-begin", big, N_FEAT, B, 12_347, 2049, 9, 130, False),
              ("categorical", big, N_FEAT, B, 777, 100_000, 4, 17, True),
              ("uint16", u16, N_FEAT, 300, 0, 100_000, 11, 150, False),
@@ -820,6 +942,19 @@ def phase_split_step(torch):
         check(torch.equal(rk_c[:, :begin], rec_c[:, :begin])
               and torch.equal(rk_c[:, begin + pcnt:], rec_c[:, begin + pcnt:]),
               f"K7 after K8 {name}: rows outside the window moved")
+        timed = {"root": "root", "median": "median", "one-tile": "400"}
+        if name in timed:  # K7 on K8's output at phase 6's windows
+            fn = lambda: cuda_record.place_cuda(  # noqa: E731
+                rk, comp, counts, begin, pcnt, parent, new)
+            ms = time_ms(torch, fn)
+            dev = sum(v for key, v in device_ms_by_kernel(torch, fn).items()
+                      if "place_kernel" in key)
+            check(torch.equal(rk.cpu(), rk_c),
+                  f"K7 after K8 {name}: repeated launches changed the record")
+            say(f"[split-step K7 times] {name} ({pcnt} columns) ms={ms:.4f} "
+                f"device_ms={dev:.4f} bound_ms="
+                f"{(2 * W - 1) * 4 * pcnt / HBM_BYTES_PER_S * 1e3:.5f} "
+                f"parent_ms={_parent_partition_ms('K7', timed[name])}")
         grid = cuda_split_step.grid_blocks(pcnt, F, nb)
         say(f"[split-step {name}] begin={begin} pcnt={pcnt} F={F} f={f} "
             f"thr={thr} cat={is_cat} B={nb} k={k} nleft={nleft} grid={grid}: "

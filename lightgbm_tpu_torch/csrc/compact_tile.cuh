@@ -1,5 +1,9 @@
-// One tile of the record partition's compaction: the code K6 (record.cu)
-// and K8 (split_step.cu) share, so the two cannot drift apart.
+// One tile of the record partition's compaction as K8 (split_step.cu)
+// runs it inside its cooperative launch; the helper is K8's alone.  K6
+// (record.cu) writes the same comp and counts with a design of its own
+// (rows staged in shared memory, 16-byte stores) and shares only kTile and
+// SplitRule with it, so chip_smoke.py holds both K6's and K8's comp against
+// the plain compact_tiles.
 //
 // A split sends column j of the parent's window [begin, begin+pcnt) left
 // when its bin of the split feature is <= thr (== thr for a categorical

@@ -57,10 +57,25 @@ on the card, ops/cuda_record.py; no learner calls it).
 
 from __future__ import annotations
 
+import importlib
+
 import torch
 
 # columns per compaction tile; must equal kTile in csrc/record.cu
 TILE = 512
+
+
+# the CUDA wrapper modules by name, each imported once at its first use:
+# each imports this module, so this one cannot import them at its top
+_CUDA_MODULES = {}
+
+
+def _cuda(name: str):
+    mod = _CUDA_MODULES.get(name)
+    if mod is None:
+        mod = importlib.import_module(f"{__package__}.{name}")
+        _CUDA_MODULES[name] = mod
+    return mod
 
 
 def bins_per_word(bin_dtype) -> int:
@@ -147,7 +162,7 @@ def _run_offsets(counts: torch.Tensor):
     """Exclusive per-tile start offsets of the left (row 0) and right
     (row 1) runs within their halves, from the per-tile counts [2, nt]
     (record.py:529), and the left total nleft as a 0-d view of the same
-    scan."""
+    scan.  The plain path's; K7 computes the same offsets itself."""
     incl = torch.cumsum(counts, 1, dtype=torch.int32)
     nleft = incl[0, -1] if counts.shape[1] else incl.new_zeros(())
     return incl - counts, nleft
@@ -225,10 +240,8 @@ def place_window(rec: torch.Tensor, comp: torch.Tensor, counts: torch.Tensor,
     0-d tensor on the record's device.  A CPU record takes ``place_runs``,
     a CUDA record kernel 7."""
     if rec.device.type != "cpu":
-        from . import cuda_record  # it imports this module
-
-        return cuda_record.place_cuda(rec, comp, counts, begin, pcnt,
-                                      left_leaf, right_leaf)
+        return _cuda("cuda_record").place_cuda(rec, comp, counts, begin,
+                                               pcnt, left_leaf, right_leaf)
     nleft = _run_offsets(counts)[1]
     place_runs(rec, comp, counts[0], counts[1], begin, pcnt, int(nleft),
                left_leaf, right_leaf)
@@ -253,9 +266,7 @@ def write_window(rec: torch.Tensor, out_win: torch.Tensor,
     b = int(begin)
     b = min(max(b + n if b < 0 else b, 0), n - cap)
     if rec.device.type != "cpu":
-        from . import cuda_record  # it imports this module
-
-        cuda_record.write_window_cuda(rec, out_win, b)
+        _cuda("cuda_record").write_window_cuda(rec, out_win, b)
     else:
         rec[:, b:b + cap].copy_(out_win)
     return rec
@@ -272,10 +283,8 @@ def partition_window(rec: torch.Tensor, f: int, thr: int, is_cat: bool,
     it on the host to slice the smaller child.  A CPU record takes the
     plain versions, a CUDA record kernels 6 and 7."""
     if rec.device.type != "cpu":
-        from . import cuda_record  # it imports this module
-
-        comp, counts = cuda_record.compact_cuda(rec, f, thr, is_cat, begin,
-                                                pcnt, k)
+        comp, counts = _cuda("cuda_record").compact_cuda(
+            rec, f, thr, is_cat, begin, pcnt, k)
     else:
         go = go_flags(rec, f, thr, is_cat, begin, pcnt, k)
         comp, cl, cr = compact_tiles(
@@ -331,9 +340,7 @@ def split_step(rec: torch.Tensor, hists: torch.Tensor, f: int, thr: int,
     ``split_step_plain`` does; ``place_window`` then partitions the record.
     A CPU record takes the plain version, a CUDA record kernel 8."""
     if rec.device.type != "cpu":
-        from . import cuda_split_step  # it imports this module
-
-        return cuda_split_step.split_step_cuda(
+        return _cuda("cuda_split_step").split_step_cuda(
             rec, hists, f, thr, is_cat, begin, pcnt, parent, new_leaf, scal,
             meta, k, num_bins)
     return split_step_plain(rec, hists, f, thr, is_cat, begin, pcnt, parent,

@@ -19,10 +19,14 @@ resume's level pass and the order route's K1 + K3 per split.
 Prints one JSON object: host wall per tree with and without the profiler,
 device busy time per tree (the union of kernel and copy intervals on the
 card), the idle share (1 - busy / wall), the device time per kernel name
-summed over the profiled trees, largest first, each ported kernel's
-launches per profiled tree (from the wrappers' counts), the host syncs
-per profiled tree and, for K1 and K1', the median and quartiles of the
-row counts they were launched on (for K8, of its windows' columns).
+summed over the profiled trees, largest first, the device events
+(kernels and copies) per tree, each ported kernel's launches per
+profiled tree (from the wrappers' counts), the host syncs per profiled
+tree and, for K1 and K1', the median and quartiles of the row counts
+they were launched on (for K8, K6 and K7, of their windows' columns);
+the columns the partition kernels moved a tree, the bytes K6 and K7 must
+move for them (K6 2(W-1)·4, K7 (2W-1)·4 a column) and the byte bound a
+tree at 3.35 TB/s.
 Needs a CUDA card; exits non-zero without one.
 
 ``device_ms_by_kernel`` (used by chip_smoke.py and tools/) times a call's
@@ -38,6 +42,8 @@ import sys
 import time
 
 import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
 
 def _make_data(n: int, seed: int = 7):
@@ -102,13 +108,17 @@ def _quartiles(xs):
 @contextlib.contextmanager
 def _record_rows(rows):
     """Inside, every K1 / K1' launch appends its row count to
-    ``rows["K1"]`` / ``rows["K1'"]``, and every K8 launch its window's
-    column count to ``rows["K8"]``."""
+    ``rows["K1"]`` / ``rows["K1'"]``, and every K8, K6 and K7 launch its
+    window's column count to ``rows["K8"]``, ``rows["K6"]``,
+    ``rows["K7"]`` (and the record's height to ``rows["K6 W"]``,
+    ``rows["K7 W"]``)."""
     from lightgbm_tpu_torch.ops import cuda_histogram as ch
+    from lightgbm_tpu_torch.ops import cuda_record as cr
     from lightgbm_tpu_torch.ops import cuda_split_step as k8
 
     k1, k1r = ch.histogram_single_leaf_cuda, ch.histogram_record_window_cuda
     step = k8.split_step_cuda
+    compact, place = cr.compact_cuda, cr.place_cuda
 
     def single(bins_T, *a, **kw):
         rows["K1"].append(int(bins_T.shape[1]))
@@ -122,15 +132,39 @@ def _record_rows(rows):
         rows["K8"].append(int(pcnt))
         return step(rec, hists, f, thr, is_cat, begin, pcnt, *a, **kw)
 
+    def compact_cuda(rec, f, thr, is_cat, begin, pcnt, *a, **kw):
+        rows["K6"].append(int(pcnt))
+        rows["K6 W"].append(int(rec.shape[0]))
+        return compact(rec, f, thr, is_cat, begin, pcnt, *a, **kw)
+
+    def place_cuda(rec, comp, counts, begin, pcnt, *a, **kw):
+        rows["K7"].append(int(pcnt))
+        rows["K7 W"].append(int(rec.shape[0]))
+        return place(rec, comp, counts, begin, pcnt, *a, **kw)
+
     ch.histogram_single_leaf_cuda = single
     ch.histogram_record_window_cuda = window
     k8.split_step_cuda = split_step
+    cr.compact_cuda, cr.place_cuda = compact_cuda, place_cuda
     try:
         yield
     finally:
         ch.histogram_single_leaf_cuda = k1
         ch.histogram_record_window_cuda = k1r
         k8.split_step_cuda = step
+        cr.compact_cuda, cr.place_cuda = compact, place
+
+
+def _partition_bytes(rows, trees):
+    """Columns K6 and K7 were launched on a tree, the bytes each must move
+    for them and the byte bound a tree (ms at 3.35 TB/s)."""
+    k6 = sum(2 * (w - 1) * 4 * c for c, w in zip(rows["K6"], rows["K6 W"]))
+    k7 = sum((2 * w - 1) * 4 * c for c, w in zip(rows["K7"], rows["K7 W"]))
+    return {"columns_per_tree": {"K6": sum(rows["K6"]) / trees,
+                                 "K7": sum(rows["K7"]) / trees},
+            "bytes_per_tree": {"K6": k6 / trees, "K7": k7 / trees},
+            "bound_ms_per_tree": {"K6": k6 / trees / HBM_BYTES_PER_S * 1e3,
+                                  "K7": k7 / trees / HBM_BYTES_PER_S * 1e3}}
 
 
 def main(argv=None) -> int:
@@ -167,7 +201,8 @@ def main(argv=None) -> int:
     plain_wall = time.perf_counter() - t0
     reset_launch_counts()
     serial.HOST_SYNCS = serial.POOL_RECOMPUTES = 0
-    rows = {"K1": [], "K1'": [], "K8": []}
+    rows = {"K1": [], "K1'": [], "K8": [], "K6": [], "K7": [], "K6 W": [],
+            "K7 W": []}
     with _record_rows(rows), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -182,7 +217,7 @@ def main(argv=None) -> int:
     for e in dev_events:
         per_kernel[e.name[:80]] = per_kernel.get(e.name[:80], 0.0) + (
             e.time_range.end - e.time_range.start)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:20]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "rows": args.rows, "trees": args.trees, "growth": args.growth,
@@ -191,13 +226,16 @@ def main(argv=None) -> int:
         "device_busy_s_per_tree": busy_s / args.trees,
         "idle_share": 1.0 - busy_s / wall,
         "device_events": len(dev_events),
+        "device_events_per_tree": len(dev_events) / args.trees,
         "kernel_ms_per_tree": {k: v / 1e3 / args.trees for k, v in top},
         "launches_per_tree": {name: n / args.trees
                               for name, n in launch_counts().items()},
         "host_syncs_per_tree": serial.HOST_SYNCS / args.trees,
         "pool_slots": booster._gbdt._hist_pool_slots(),
         "parents_rebuilt_per_tree": serial.POOL_RECOMPUTES / args.trees,
-        "rows_per_launch": {k: _quartiles(v) for k, v in rows.items()},
+        "rows_per_launch": {k: _quartiles(v) for k, v in rows.items()
+                            if " W" not in k},
+        "partition": _partition_bytes(rows, args.trees),
         "leaves": [t.num_leaves for t in booster._gbdt.models[-args.trees:]],
     }, indent=1))
     return 0

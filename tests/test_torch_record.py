@@ -101,13 +101,55 @@ CASES = [
      [(5, 3, True, 0, 2100, 0, 1)]),
     ("u16_two_splits", 1800, 5, 300, np.uint16, 0.8,
      [(4, 150, False, 0, 1800, 0, 1), (0, 99, False, 0, None, 0, 2)]),
+    # windows at each 16-byte misalignment of begin, none a multiple of 4
+    # columns long (the kernels' scalar heads and tails)
+    ("begin_mod4_1", 3000, 6, 16, np.uint8, 0.7,
+     [(2, 7, False, 1001, 1297, 0, 1)]),
+    ("begin_mod4_2", 3000, 6, 16, np.uint8, 0.7,
+     [(3, 9, False, 1002, 1299, 3, 4)]),
+    ("begin_mod4_3", 3000, 7, 23, np.uint8, 0.6,
+     [(5, 11, True, 1003, 1301, 2, 5)]),
+    # windows of 1, 3 and 5 columns and one column past a tile
+    ("pcnt_1", 700, 6, 16, np.uint8, 0.7, [(1, 7, False, 333, 1, 0, 1)]),
+    ("pcnt_3", 700, 6, 16, np.uint8, 0.7, [(4, 7, False, 5, 3, 0, 1)]),
+    ("pcnt_5", 700, 6, 16, np.uint8, 0.7, [(0, 8, False, 6, 5, 1, 2)]),
+    ("pcnt_513", 1200, 6, 16, np.uint8, 0.7,
+     [(3, 6, False, 37, 513, 0, 1)]),
+    # tiles 1-2 of the window all left, tiles 3-4 all right (CRAFT)
+    ("middle_tiles_all_left_then_all_right", 6 * 512 + 100, 6, 16, np.uint8,
+     0.7, [(2, 7, False, 3, 6 * 512 + 90, 0, 1)]),
+    # u16 bins with an odd number of carried rows (R = W - 1 = 9)
+    ("u16_odd_rows", 2500, 9, 300, np.uint16, 0.8,
+     [(8, 150, False, 7, 2301, 0, 1)]),
+    # a wide record: F = 2000 at u8 bins, W = 505 (more rows than one
+    # staging buffer of K6 holds)
+    ("wide_w505", 3000, 2000, 255, np.uint8, 0.7,
+     [(1777, 127, False, 13, 2900, 0, 1)]),
 ]
+
+
+def _craft_left_then_right(bins):
+    # window [3, 3 + 6*512 + 90) split on feature 2 at bin 7
+    bins[2, 3 + 512:3 + 3 * 512] = 0
+    bins[2, 3 + 3 * 512:3 + 5 * 512] = 15
+
+
+# case name -> an edit of its [F, n] bins
+CRAFT = {"middle_tiles_all_left_then_all_right": _craft_left_then_right}
+
+
+def _case_arrays(case):
+    name, n, F, B, dt, bag, _ = case
+    arrs = _data(n, F, B, dt, seed=n, bag_frac=bag)
+    if name in CRAFT:
+        CRAFT[name](arrs[0])
+    return arrs
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_partition_window_matches_jax(case):
-    _, n, F, B, dt, bag, splits = case
-    arrs = _data(n, F, B, dt, seed=n, bag_frac=bag)
+    name, n, F, B, dt, bag, splits = case
+    arrs = _case_arrays(case)
     k = _k(dt)
     W = R.rec_height(F, k)
     rec = _port_rec(arrs)
@@ -123,10 +165,15 @@ def test_partition_window_matches_jax(case):
         np.testing.assert_array_equal(rec.numpy(),
                                       np.asarray(jrec)[:W, :n])
         nleft_prev = jnl
-    if case[0] == "all_left":
+    if name == "all_left":
         assert nleft_prev == n
-    if case[0] == "all_right":
+    if name == "all_right":
         assert nleft_prev == 0
+    if name in CRAFT:  # tiles 1-4 of the window are what they claim
+        go = arrs[0][2, 3:3 + splits[0][4]] <= 7
+        T = R.TILE
+        assert [int(go[t * T:(t + 1) * T].sum()) for t in range(1, 5)] == [
+            T, T, 0, 0]
     # the record is still a permutation of the rows
     assert sorted(rec[R.row_id_row(W)].tolist()) == list(range(n))
 
@@ -185,6 +232,16 @@ def test_cuda_entries_have_no_cpu_fallback():
             cuda_split_step.LAUNCHES) == before
 
 
+def test_dispatchers_resolve_each_cuda_module_once():
+    """ops/record's dispatchers keep the CUDA wrapper modules they import
+    (no import statement on every call), and they are the modules the
+    wrappers live in, so a patched wrapper is the one that runs."""
+    assert R._cuda("cuda_record") is cuda_record
+    assert R._cuda("cuda_split_step") is cuda_split_step
+    assert R._CUDA_MODULES["cuda_record"] is cuda_record
+    assert R._cuda("cuda_record") is R._cuda("cuda_record")
+
+
 def test_build_treats_a_newer_header_as_stale(tmp_path, monkeypatch):
     """A library is rebuilt when its source or any shared csrc/*.cuh header
     is newer than it, so an edited header never leaves a stale kernel
@@ -214,8 +271,9 @@ def test_build_treats_a_newer_header_as_stale(tmp_path, monkeypatch):
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
-    for _, n, F, B, dt, bag, splits in CASES:
-        arrs = _data(n, F, B, dt, seed=n, bag_frac=bag)
+    for case in CASES:
+        _, n, F, B, dt, bag, splits = case
+        arrs = _case_arrays(case)
         k = _k(dt)
         rec, dev = _port_rec(arrs), _port_rec(arrs).cuda()
         nleft_prev = None

@@ -17,8 +17,11 @@ first use.  Prints one summary line a run (s/tree with and without the
 profiler, device busy ms and idle share, the single-leaf histograms'
 device ms a tree: K1 and K1' passes 1 and 2 by kernel name, launches,
 host syncs, K8's device ms a tree (the mega route's split step), the
-split searches' (K3, K4 and K5: kernels named ``search2*``), K1/K1'
-row-count and K8 window-size quartiles where the checkout reports them)
+split searches' (K3, K4 and K5: kernels named ``search2*``), the record
+partition's (K6 ``compact_kernel``, K7 ``place_kernel``), the device
+events a tree, K1/K1' row-count and K8/K6/K7 window-size quartiles and
+the partition's columns and byte bound a tree where the checkout reports
+them)
 and writes every run's full JSON to ``--out`` (default
 ``build/profile_routes.json``).
 Needs a CUDA card.
@@ -85,18 +88,25 @@ def summary(tag: str, route: str, r: dict) -> str:
             hist[hist_pass(name)] += v
     k8 = sum(v for name, v in kms.items() if "split_step_kernel" in name)
     search = sum(v for name, v in kms.items() if "search2" in name)
+    k6 = sum(v for name, v in kms.items() if "compact_kernel" in name)
+    k7 = sum(v for name, v in kms.items() if "place_kernel" in name)
+    events = r.get("device_events_per_tree",
+                   r["device_events"] / r["trees"])
     launches = {k: v for k, v in r["launches_per_tree"].items() if v}
     line = (f"[{route} {tag}] s/tree {r['wall_s_per_tree_unprofiled']:.4f} "
             f"(profiled {r['wall_s_per_tree_profiled']:.4f}) busy ms/tree "
             f"{r['device_busy_s_per_tree'] * 1e3:.2f} idle "
             f"{r['idle_share']:.3f} | "
             + " ".join(f"{k} {v:.3f}" for k, v in hist.items())
-            + f" K8 {k8:.3f} K3/K4/K5 {search:.3f} ms/tree | launches/tree "
+            + f" K8 {k8:.3f} K3/K4/K5 {search:.3f} K6 {k6:.3f} K7 {k7:.3f}"
+            f" ms/tree | device events/tree {events:.1f} | launches/tree "
             f"{json.dumps(launches)}"
             f" host syncs/tree {r['host_syncs_per_tree']:.1f} leaves "
             f"{r['leaves']}")
     if "rows_per_launch" in r:
         line += f" | rows per launch {json.dumps(r['rows_per_launch'])}"
+    if "partition" in r:
+        line += f" | partition {json.dumps(r['partition'])}"
     top = sorted(kms.items(), key=lambda kv: -kv[1])[:6]
     line += " | top " + "; ".join(f"{k[:60]} {v:.2f}" for k, v in top)
     return line
