@@ -1,10 +1,12 @@
 """User-facing ``Dataset`` and ``Booster``.
 
-Counterpart of lightgbm_tpu/basic.py for the slice's surface: lazy
+Counterpart of lightgbm_tpu/basic.py for the port's surface: lazy
 binning of an in-memory matrix (validation sets aligned to their
-reference), ``Booster`` training updates, prediction, evaluation and
-the model text round trip.  Every object lives on one device, resolved
-by ``backend.resolve_device``: CUDA unless ``device="cpu"`` is passed.
+reference) with labels, weights, query groups and init scores;
+``Booster`` training updates, prediction (``[n]``, or ``[n, K]`` for
+multiclass), evaluation and the model text round trip.  Every object
+lives on one device, resolved by ``backend.resolve_device``: CUDA unless
+``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def _to_2d_float(data) -> np.ndarray:
     if hasattr(data, "tocsr"):
         raise NotImplementedError(
             "sparse input is not ported to lightgbm_tpu_torch yet (ROADMAP "
-            "queue A: CLI and file input)")
+            "queue A6: file and sparse input)")
     if hasattr(data, "values") and not isinstance(data, np.ndarray):
         data = data.values  # pandas
     arr = np.asarray(data, dtype=np.float64)
@@ -46,7 +48,8 @@ class Dataset:
 
     def __init__(self, data, label=None, max_bin: int = 256,
                  reference: Optional["Dataset"] = None, weight=None,
-                 init_score=None, feature_name: Optional[List[str]] = None,
+                 group=None, init_score=None,
+                 feature_name: Optional[List[str]] = None,
                  categorical_feature: Optional[Sequence[int]] = None,
                  params: Optional[Dict[str, Any]] = None, device=None):
         self.data = data
@@ -54,6 +57,7 @@ class Dataset:
         self.max_bin = int(max_bin)
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = list(categorical_feature or [])
@@ -67,7 +71,7 @@ class Dataset:
         if isinstance(self.data, str):
             raise NotImplementedError(
                 "file input is not ported to lightgbm_tpu_torch yet (ROADMAP "
-                "queue A: CLI and file input)")
+                "queue A6: file and sparse input)")
         params = key_alias_transform(dict(self.params))
         params.setdefault("max_bin", self.max_bin)
         cfg = Config.from_dict(params)
@@ -75,6 +79,8 @@ class Dataset:
             raise LightGBMError("label should not be None for training data")
         meta = Metadata(label=np.asarray(self.label), weights=self.weight,
                         init_score=self.init_score)
+        if self.group is not None:
+            meta.set_field("group", np.asarray(self.group))
         X = _to_2d_float(self.data)
         if self.reference is not None:
             self._inner = self.reference.construct().align_with(X, meta)
@@ -91,11 +97,34 @@ class Dataset:
                 feature_names=self.feature_name)
         return self._inner
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     params=None) -> "Dataset":
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params or self.params,
-                       device=self.device)
+                       group=group, init_score=init_score,
+                       params=params or self.params, device=self.device)
+
+    def set_field(self, field_name: str, data) -> None:
+        """label, weight, group (or query) or init_score, on the binned
+        dataset too once it is built (reference basic.py set_field)."""
+        if self._inner is not None:
+            self._inner.metadata.set_field(field_name, data)
+        if field_name == "label":
+            self.label = data
+        elif field_name == "weight":
+            self.weight = data
+        elif field_name in ("group", "query"):
+            self.group = data
+        elif field_name == "init_score":
+            self.init_score = data
+
+    def get_field(self, field_name: str):
+        """The field as set; once built, as the binned dataset holds it
+        (``group`` as query sizes)."""
+        if self._inner is not None:
+            return self._inner.metadata.get_field(field_name)
+        return {"label": self.label, "weight": self.weight,
+                "group": self.group, "query": self.group,
+                "init_score": self.init_score}.get(field_name)
 
 
 class Booster:
@@ -109,6 +138,7 @@ class Booster:
         self.params = dict(params or {})
         self.device = resolve_device(device)
         self.name_valid_sets: List[str] = []
+        self.train_data_name = "training"
         cfg = Config.from_dict(self.params)
         self.config = cfg
         if train_set is not None:
@@ -118,7 +148,7 @@ class Booster:
             if cfg.input_model:
                 raise NotImplementedError(
                     "continued training is not ported to lightgbm_tpu_torch "
-                    "yet (ROADMAP queue A: CLI and file input)")
+                    "yet (ROADMAP queue A2: the training API surface)")
             inner = train_set.construct()
             objective = None
             if cfg.objective != "none":
@@ -149,7 +179,14 @@ class Booster:
         self.device = gbdt.device
         self.config = gbdt.config
         self.name_valid_sets = []
+        self.train_data_name = "training"
         self._gbdt = gbdt
+        return self
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        """Name used for the training set in eval output (reference
+        basic.py set_train_data_name)."""
+        self.train_data_name = name
         return self
 
     def add_valid(self, data: Dataset, name: str) -> None:
@@ -161,7 +198,7 @@ class Booster:
         return self._gbdt.train_one_iter()
 
     def eval_train(self):
-        return self._eval_at(0, "training")
+        return self._eval_at(0, self.train_data_name)
 
     def eval_valid(self):
         out = []
@@ -174,10 +211,17 @@ class Booster:
         metrics = (gb.train_metrics if data_idx == 0
                    else gb.valid_metrics[data_idx - 1])
         vals = gb.eval_at(data_idx)
-        return [(name, m.name, vals[m.name], m.bigger_is_better)
-                for m in metrics]
+        out = []
+        for m in metrics:
+            keys = ([f"{m.name}@{k}" for k in m.eval_at]
+                    if hasattr(m, "eval_multi") else [m.name])
+            out += [(name, key, vals[key], m.bigger_is_better)
+                    for key in keys]
+        return out
 
     def predict(self, data, num_iteration: int = -1, raw_score: bool = False):
+        """Raw-feature prediction: ``[n]``, or ``[n, K]`` for multiclass
+        (softmax probabilities; raw scores with ``raw_score``)."""
         X = _to_2d_float(data)
         if raw_score:
             return self._gbdt.predict_raw_score(X, num_iteration)

@@ -38,14 +38,17 @@ def tree_from_numpy(d: Dict[str, np.ndarray], device) -> Tree:
 def trees_from_numpy(trees: Sequence[Dict[str, np.ndarray]], device=None,
                      objective: str = "binary", sigmoid: float = 1.0,
                      max_feature_idx: Optional[int] = None,
-                     feature_names: Optional[List[str]] = None
-                     ) -> Tuple[List[Tree], Booster]:
+                     feature_names: Optional[List[str]] = None,
+                     num_class: int = 1) -> Tuple[List[Tree], Booster]:
     """The port's Trees and a prediction-mode Booster over them.
 
-    ``max_feature_idx`` defaults to the largest real split feature."""
+    ``trees`` is the JAX package's ``models`` list, iteration-major for
+    ``num_class`` > 1 (tree i*K + k is class k's).  ``max_feature_idx``
+    defaults to the largest real split feature."""
     dev = resolve_device(device)
     out = [tree_from_numpy(d, dev) for d in trees]
-    gb = GBDT(Config(objective=objective, sigmoid=sigmoid), device=dev)
+    gb = GBDT(Config(objective=objective, sigmoid=sigmoid,
+                     num_class=num_class), device=dev)
     gb.models = list(out)
     gb.sigmoid = float(sigmoid)
     gb._loaded_objective = objective

@@ -1,10 +1,14 @@
-"""Evaluation metrics (host numpy, float64).
+"""Evaluation metrics.
 
-Counterpart of lightgbm_tpu/metrics.py's host path (``Metric.eval``), for
-the slice's metrics: auc, binary_logloss, binary_error.  Scores are raw
-model outputs; the sigmoid is applied inside the metric like the
-reference (binary_metric.hpp).  The other metrics are not ported yet and
-raise.
+Counterpart of lightgbm_tpu/metrics.py.  Scores are raw model outputs,
+class-major ``[K, n]`` for multiclass; the sigmoid or softmax is applied
+inside the metric like the reference.  auc, binary_logloss and
+binary_error run on the host in float64 (``Metric.eval``); ndcg is the
+host metric of ``metrics_rank.py``.  l2, l1, multi_logloss and
+multi_error take the path ``GBDT.eval_at`` takes in the JAX package, its
+``eval_jax``: ``eval_torch`` computes each row's loss in float32 on the
+scores' device, sums the weighted losses in float64 and divides by the
+sum of the weights.
 """
 
 from __future__ import annotations
@@ -13,6 +17,9 @@ from types import SimpleNamespace
 from typing import List, Optional
 
 import numpy as np
+import torch
+
+from .objectives import exp_f32, sum_classes
 
 _EPS = 1e-15
 
@@ -20,6 +27,24 @@ _EPS = 1e-15
 class Metric:
     name = "none"
     bigger_is_better = False
+    eval_torch = None  # device path; the metrics below that have one
+
+    def _dev_arrays(self, device):
+        """(label, weights) as float32 tensors on ``device``, weights of 1
+        where the data has none; made once per device."""
+        key = str(device)
+        if getattr(self, "_dev", None) is None or self._dev[0] != key:
+            lab = torch.as_tensor(self.label, dtype=torch.float32,
+                                  device=device)
+            w = (torch.ones_like(lab) if self.weights is None else
+                 torch.as_tensor(self.weights, dtype=torch.float32,
+                                 device=device))
+            self._dev = (key, lab, w)
+        return self._dev[1:]
+
+    def _mean(self, loss: torch.Tensor, w: torch.Tensor) -> float:
+        """Σ loss·w (float32 products, float64 sum) / sum_weights."""
+        return float((loss * w).double().sum() / self.sum_weights)
 
     def init(self, metadata, num_data: int) -> None:
         self.label = np.asarray(metadata.label, np.float64)
@@ -36,6 +61,24 @@ class Metric:
 
     def eval(self, scores: np.ndarray) -> float:
         raise NotImplementedError
+
+
+class L2Metric(Metric):
+    """Reports RMSE (AverageLoss takes sqrt, regression_metric.hpp:98-101)."""
+
+    name = "l2"
+
+    def eval_torch(self, scores):
+        lab, w = self._dev_arrays(scores.device)
+        return float(np.sqrt(self._mean((scores.reshape(-1) - lab) ** 2, w)))
+
+
+class L1Metric(Metric):
+    name = "l1"
+
+    def eval_torch(self, scores):
+        lab, w = self._dev_arrays(scores.device)
+        return self._mean((scores.reshape(-1) - lab).abs(), w)
 
 
 class BinaryLoglossMetric(Metric):
@@ -94,6 +137,37 @@ class AUCMetric(Metric):
         return float(1.0 - auc_sum / (total_pos * total_neg))
 
 
+def class_index(lab: torch.Tensor, num_class: int) -> torch.Tensor:
+    """The class a float label reads from ``[K, n]`` scores, as the JAX
+    package's gather takes it: truncated to an integer, a negative index
+    counted from the end, then clamped into 0..K-1."""
+    idx = lab.to(torch.int64)
+    idx = torch.where(idx < 0, idx + num_class, idx)
+    return idx.clamp(0, num_class - 1)
+
+
+class MultiLoglossMetric(Metric):
+    """Softmax logloss (multiclass_metric.hpp)."""
+
+    name = "multi_logloss"
+
+    def eval_torch(self, scores):
+        lab, w = self._dev_arrays(scores.device)
+        z = scores - scores.amax(dim=0, keepdim=True)
+        logp = z - torch.log(sum_classes(exp_f32(z)))[None, :]
+        loss = -logp.gather(0, class_index(lab, scores.shape[0])[None])[0]
+        return self._mean(loss, w)
+
+
+class MultiErrorMetric(Metric):
+    name = "multi_error"
+
+    def eval_torch(self, scores):
+        lab, w = self._dev_arrays(scores.device)
+        err = (scores.argmax(dim=0) != lab.to(torch.int64)).float()
+        return self._mean(err, w)
+
+
 def _eval(metric: Metric, scores, label, weights=None) -> float:
     md = SimpleNamespace(label=np.asarray(label), weights=weights)
     metric.init(md, len(md.label))
@@ -119,21 +193,27 @@ def create_metrics(config, metadata=None,
                    num_data: Optional[int] = None) -> List[Metric]:
     """Factory (metric.cpp:9-28); unknown names raise."""
     out: List[Metric] = []
-    names = config.metric or ["binary_logloss"]
+    names = config.metric or _default_metric(config.objective)
     for name in names:
         name = name.strip()
-        if name == "binary_logloss":
-            m: Metric = BinaryLoglossMetric(config)
+        if name in ("l2", "mse", "mean_squared_error", "regression"):
+            m: Metric = L2Metric()
+        elif name in ("l1", "mae", "mean_absolute_error"):
+            m = L1Metric()
+        elif name == "binary_logloss":
+            m = BinaryLoglossMetric(config)
         elif name == "binary_error":
             m = BinaryErrorMetric(config)
         elif name == "auc":
             m = AUCMetric()
-        elif name in ("l2", "mse", "mean_squared_error", "regression", "l1",
-                      "mae", "mean_absolute_error", "multi_logloss",
-                      "multi_error", "ndcg", "ndcg@"):
-            raise NotImplementedError(
-                f"metric {name!r} is not ported to lightgbm_tpu_torch yet "
-                "(ROADMAP queue A: other objectives)")
+        elif name == "multi_logloss":
+            m = MultiLoglossMetric()
+        elif name == "multi_error":
+            m = MultiErrorMetric()
+        elif name in ("ndcg", "ndcg@"):
+            from .metrics_rank import NDCGMetric
+
+            m = NDCGMetric(config)
         elif name in ("", "none", "null"):
             continue
         else:
@@ -143,3 +223,12 @@ def create_metrics(config, metadata=None,
                    num_data if num_data is not None else len(metadata.label))
         out.append(m)
     return out
+
+
+def _default_metric(objective: str) -> List[str]:
+    return {
+        "regression": ["l2"],
+        "binary": ["binary_logloss"],
+        "multiclass": ["multi_logloss"],
+        "lambdarank": ["ndcg"],
+    }.get(objective, ["l2"])

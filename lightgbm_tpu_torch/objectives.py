@@ -1,8 +1,11 @@
 """Objective functions: per-row gradients and hessians as tensor ops.
 
-Counterpart of lightgbm_tpu/objectives.py for the slice's objective,
-binary logloss (binary_objective.hpp:62-88).  The others (regression,
-multiclass, ranking) are not ported yet (ROADMAP queue A) and raise.
+Counterpart of lightgbm_tpu/objectives.py: L2 regression, binary logloss
+and softmax multiclass; LambdaRank lives in ``objectives_rank.py``.
+Scores are class-major ``[num_class, n]`` for multiclass and ``[n]``
+otherwise.  Every float32 op runs in the JAX package's order, with its
+exp (``exp_f32``) and its flush of subnormal results, so the gradients
+are the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -67,6 +70,20 @@ class ObjectiveFunction:
         raise NotImplementedError
 
 
+class RegressionL2(ObjectiveFunction):
+    """L2 regression: g = score - label, h = 1 (x weight)
+    (regression_objective.hpp:24-39)."""
+
+    name = "regression"
+
+    def get_gradients(self, scores):
+        g = scores - self.label
+        h = torch.ones_like(scores)
+        if self.weights is not None:
+            g, h = g * self.weights, h * self.weights
+        return g, h
+
+
 class BinaryLogloss(ObjectiveFunction):
     """Binary logloss on labels {0,1} -> {-1,+1}: response =
     -2*l*sig / (1 + exp(2*l*sig*s)); hess = |r| * (2*sig - |r|), with
@@ -116,13 +133,82 @@ class BinaryLogloss(ObjectiveFunction):
         return g, h
 
 
+class MulticlassSoftmax(ObjectiveFunction):
+    """Softmax multiclass (multiclass_objective.hpp:13-94): scores are
+    [K, n]; g = p - 1{y=k}, h = 2 p (1-p)."""
+
+    name = "multiclass"
+
+    def __init__(self, config):
+        self.num_class = int(config.num_class)
+        if self.num_class <= 1:
+            raise ValueError("multiclass objective needs num_class > 1")
+
+    def init(self, metadata, num_data, device):
+        super().init(metadata, num_data, device)
+        # the float label against each class index, as _multiclass_grads
+        # builds it: a label outside 0..K-1 (or not whole) matches no class
+        classes = torch.arange(self.num_class, dtype=torch.float32,
+                               device=self.label.device)
+        self._onehot = (self.label[None, :] == classes[:, None]).float()
+
+    def get_gradients(self, scores):
+        p = softmax_classes(scores)
+        g = p - self._onehot
+        h = flush_subnormal(2.0 * p * (1.0 - p))
+        if self.weights is not None:
+            g = flush_subnormal(g * self.weights[None, :])
+            h = flush_subnormal(h * self.weights[None, :])
+        return g, h
+
+
+def softmax_classes(scores: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax(scores, axis=0)`` over ``[K, n]`` as XLA's CPU
+    build computes it: exp(z - max) through ``exp_f32``, then division by
+    the sum over the K classes, added in class order (written out, so
+    that the card and the CPU add in the same order)."""
+    e = exp_f32(scores - scores.amax(dim=0, keepdim=True))
+    return flush_subnormal(e / sum_classes(e))
+
+
+def sum_classes(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the classes (dim 0) of ``[K, n]``, added in class order as
+    XLA adds K < 32 terms."""
+    total = x[0]
+    for k in range(1, x.shape[0]):
+        total = total + x[k]
+    return total
+
+
+_OBJECTIVES = {"regression": "regression", "regression_l2": "regression",
+               "mean_squared_error": "regression", "mse": "regression",
+               "l2": "regression", "binary": "binary",
+               "multiclass": "multiclass", "softmax": "multiclass",
+               "lambdarank": "lambdarank"}
+
+
+def objective_kind(name: str) -> str:
+    """The objective an ``objective=`` name selects (the aliases of
+    create_objective, objective_function.cpp:9-20); unknown names
+    raise."""
+    if name not in _OBJECTIVES:
+        raise ValueError(f"Unknown objective: {name!r}")
+    return _OBJECTIVES[name]
+
+
 def create_objective(config, metadata=None, num_data=None, device="cpu"):
     """Factory (objective_function.cpp:9-20)."""
-    if config.objective != "binary":
-        raise NotImplementedError(
-            f"objective={config.objective!r} is not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP queue A: other objectives)")
-    obj = BinaryLogloss(config)
+    kind = objective_kind(config.objective)
+    if kind == "regression":
+        obj = RegressionL2()
+    elif kind == "binary":
+        obj = BinaryLogloss(config)
+    elif kind == "multiclass":
+        obj = MulticlassSoftmax(config)
+    else:
+        from .objectives_rank import LambdarankNDCG
+
+        obj = LambdarankNDCG(config)
     if metadata is not None:
         obj.init(metadata,
                  num_data if num_data is not None else len(metadata.label),

@@ -24,7 +24,8 @@ share), each block in row order, then each leaf's block partials in
 block order.  ``histogram_by_leaf`` is the segment-sum counterpart (each
 cell in row order); it is a test oracle and follows no kernel.
 ``leaf_totals`` takes the per-leaf sums from feature 0's bins in XLA's
-CPU reduction order.
+CPU reduction order (``xla_sum``, which the LambdaRank gradients use
+too).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from .record import unpack_window
 
 # rows per block; must equal kChunk in csrc/hist_chunk.cuh
 CHUNK_ROWS = 2048
-# XLA's CPU tree-reduction window (the order of ``leaf_totals``)
+# XLA's CPU tree-reduction window (the order of ``xla_sum``)
 REDUCE_WINDOW = 32
 
 
@@ -184,27 +185,28 @@ def histogram_by_leaf(bins_T: torch.Tensor, leaf_id: torch.Tensor,
         .contiguous()
 
 
-def _xla_sum_bins(x: torch.Tensor) -> torch.Tensor:
-    """Σ over axis 1 of [K, B, 3] in XLA's CPU order: B <= 32 summed in
-    order; otherwise B padded to whole windows of 32 (half the padding,
-    rounded down, in front), each window summed in order, and the window
-    sums reduced the same way."""
-    K, B = x.shape[:2]
-    if B <= REDUCE_WINDOW:
-        acc = torch.zeros_like(x[:, 0])
-        for b in range(B):
-            acc = acc + x[:, b]
-        return acc
-    W = -(-B // REDUCE_WINDOW)
-    pad = W * REDUCE_WINDOW - B
-    z = x.new_zeros((K, pad // 2) + x.shape[2:])
-    zh = x.new_zeros((K, pad - pad // 2) + x.shape[2:])
-    xp = torch.cat([z, x, zh], 1).reshape((K, W, REDUCE_WINDOW)
-                                          + x.shape[2:])
-    acc = torch.zeros_like(xp[:, :, 0])
-    for i in range(REDUCE_WINDOW):
-        acc = acc + xp[:, :, i]
-    return _xla_sum_bins(acc)
+def xla_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Σ over ``dim`` in the order XLA's CPU build adds (its tree
+    reduction): more than 32 elements are padded with zeros to whole
+    windows of 32 (half the padding, rounded down, in front), each window
+    is summed in order, and the window sums are reduced the same way.
+    Every step is an elementwise add, so any device gives the same bits."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > REDUCE_WINDOW:
+        w = -(-x.shape[0] // REDUCE_WINDOW)
+        pad = w * REDUCE_WINDOW - x.shape[0]
+        if pad:
+            x = torch.cat([x.new_zeros((pad // 2,) + x.shape[1:]), x,
+                           x.new_zeros((pad - pad // 2,) + x.shape[1:])])
+        x = x.reshape((w, REDUCE_WINDOW) + x.shape[1:])
+        acc = x[:, 0]
+        for i in range(1, REDUCE_WINDOW):
+            acc = acc + x[:, i]
+        x = acc
+    acc = x[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
 
 
 def leaf_totals(hist: torch.Tensor) -> torch.Tensor:
@@ -213,4 +215,4 @@ def leaf_totals(hist: torch.Tensor) -> torch.Tensor:
     axis=1)`` of learners/depthwise.py:108 and serial.py:632, in the order
     XLA's CPU tree-reduction takes (bitwise equal to it).  Every step is an
     elementwise float add, so the totals are the same on any device."""
-    return _xla_sum_bins(hist[:, 0])
+    return xla_sum(hist[:, 0], 1)

@@ -2,21 +2,28 @@
 
     python -m lightgbm_tpu_torch.profile_slice [--rows N] [--trees T]
         [--growth leafwise|depthwise|hybrid] [--histogram-pool-size MB]
+        [--objective binary|regression|multiclass|lambdarank]
 
 Trains the bench model (bench.py's config: binary, HIGGS-like rows from
 seed 7, 28 features, 255 bins, 255 leaves) through the port's entry
-points, warms one tree, then grows ``--trees`` trees under
+points, warms one iteration, then runs ``--trees`` iterations under
 ``torch.profiler`` with CPU and CUDA activities (after the same number
-timed without it).  ``--growth`` sets ``tree_growth`` (leaf-wise by
-default).  Leaf-wise, it traces whatever route ``train`` takes: the mega
-route by default (K8 ``split_step_kernel`` + K7 per split), the record
+timed without it).  ``--objective`` trains chip_smoke.py's main path for
+that objective instead (``synthetic``'s data): regression or five-class
+multiclass (one tree per class an iteration) on the same rows, or
+LambdaRank on 10,000 MSLR-WEB10K-shaped queries (136 features, 31
+leaves); the report also gives the gradients' device ms an iteration
+(kernel by kernel, ``device_ms_by_kernel``).  ``--growth`` sets
+``tree_growth`` (leaf-wise by default).  Leaf-wise, it traces whatever
+route ``train`` takes: the mega route by default (K8 ``split_step_kernel`` + K7 per split), the record
 route under ``LGBM_TPU_FUSE_HIST=0``, the order route under
 ``LGBM_TPU_OPT_HISTS=0``; with ``--histogram-pool-size`` (MB, 4 keeps 48
 of the 255 leaves' histograms) the pooled order route (K1 for children and
 rebuilt parents, K5 per split).  Depthwise runs the level histogram (K1'', or
 K2 under ``LGBM_TPU_HIST_KERNEL=bsub``) once per level; hybrid adds the
 resume's level pass and the order route's K1 + K3 per split.
-Prints one JSON object: host wall per tree with and without the profiler,
+Prints one JSON object (times "per tree" are per iteration): host wall
+per tree with and without the profiler,
 device busy time per tree (the union of kernel and copy intervals on the
 card), the idle share (1 - busy / wall), the device time per kernel name
 summed over the profiled trees, largest first, the device events
@@ -41,19 +48,7 @@ import json
 import sys
 import time
 
-import numpy as np
-
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-
-
-def _make_data(n: int, seed: int = 7):
-    """bench.py make_data (train rows only)."""
-    rng = np.random.RandomState(seed)
-    X = rng.randn(n, 28).astype(np.float32)
-    w1, w2 = rng.randn(28), rng.randn(28)
-    z = X @ w1 + 0.5 * (X**2 - 1.0) @ w2 + 0.8 * X[:, 0] * X[:, 1]
-    z = (z - z.mean()) / z.std()
-    return X, (z + 0.5 * rng.randn(n) > 0).astype(np.float32)
 
 
 def _busy_us(events) -> float:
@@ -174,6 +169,9 @@ def main(argv=None) -> int:
     ap.add_argument("--growth", default="leafwise",
                     choices=("leafwise", "depthwise", "hybrid"))
     ap.add_argument("--histogram-pool-size", type=float, default=0.0)
+    ap.add_argument("--objective", default="binary",
+                    choices=("binary", "regression", "multiclass",
+                             "lambdarank"))
     args = ap.parse_args(argv)
 
     import torch
@@ -185,12 +183,12 @@ def main(argv=None) -> int:
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.learners import serial
     from lightgbm_tpu_torch.ops import launch_counts, reset_launch_counts
-    X, y = _make_data(args.rows)
-    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
-              "learning_rate": 0.1, "min_data_in_leaf": 100,
-              "tree_growth": args.growth,
-              "histogram_pool_size": args.histogram_pool_size, "verbose": -1}
-    ds = lt.Dataset(X, label=y, max_bin=255, params=params)
+    from lightgbm_tpu_torch.synthetic import workload
+
+    params, (X, y, group), _ = workload(args.objective, args.rows,
+                                        growth=args.growth,
+                                        pool_mb=args.histogram_pool_size)
+    ds = lt.Dataset(X, label=y, group=group, max_bin=255, params=params)
     booster = lt.Booster(params=params, train_set=ds)
     booster.update()  # warm
     torch.cuda.synchronize()
@@ -218,9 +216,17 @@ def main(argv=None) -> int:
         per_kernel[e.name[:80]] = per_kernel.get(e.name[:80], 0.0) + (
             e.time_range.end - e.time_range.start)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
+    gb = booster._gbdt
+    scores = gb._scores if gb.num_class > 1 else gb._scores[0]
+    grad_ms = device_ms_by_kernel(
+        torch, lambda: gb.objective.get_gradients(scores), reps=3, warm=1)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "rows": args.rows, "trees": args.trees, "growth": args.growth,
+        "objective": args.objective, "rows": gb.num_data,
+        "trees": args.trees, "growth": args.growth,
+        "gradients_device_ms_per_iter": sum(grad_ms.values()),
+        "gradients_kernel_ms_per_iter": dict(sorted(
+            grad_ms.items(), key=lambda kv: -kv[1])[:8]),
         "wall_s_per_tree_unprofiled": plain_wall / args.trees,
         "wall_s_per_tree_profiled": wall / args.trees,
         "device_busy_s_per_tree": busy_s / args.trees,
@@ -236,7 +242,8 @@ def main(argv=None) -> int:
         "rows_per_launch": {k: _quartiles(v) for k, v in rows.items()
                             if " W" not in k},
         "partition": _partition_bytes(rows, args.trees),
-        "leaves": [t.num_leaves for t in booster._gbdt.models[-args.trees:]],
+        "leaves": [t.num_leaves
+                   for t in gb.models[-args.trees * gb.num_class:]],
     }, indent=1))
     return 0
 

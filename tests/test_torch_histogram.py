@@ -45,9 +45,11 @@ EDGE = [("dominant-bin", 28, 3000, 255, np.uint8, True),
         ("F29", 29, 900, 255, np.uint8, False)]
 # record windows at an odd begin whose F is not a multiple of k (k = 2 for
 # u16 bins, 4 for u8): (name, F, cap, B, bin dtype, begin)
+# (k4-F136: the LambdaRank main path's width, a 39-word record)
 EDGE_WINDOWS = [("k2-F5", 5, 1200, 300, np.uint16, 101),
                 ("k4-F29", 29, 900, 255, np.uint8, 37),
-                ("k2-F3-5000", 3, 1500, 5000, np.uint16, 211)]
+                ("k2-F3-5000", 3, 1500, 5000, np.uint16, 211),
+                ("k4-F136", 136, 700, 255, np.uint8, 37)]
 
 
 def _inputs(F, cap, B, dt, seed=11, dominant=False):

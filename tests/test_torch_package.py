@@ -101,13 +101,10 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("extra", [
-    {"objective": "regression"},
-    {"objective": "multiclass", "num_class": 3},
-    {"objective": "lambdarank"},
     {"hist_dtype": "float64"},
     {"tree_learner": "data"},
     {"boosting_type": "dart"},
-    {"metric": "l2"},
+    {"objective": "none"},
     {"nonfinite_policy": "raise"},
     {"nonfinite_policy": "skip_tree"},
     {"nonfinite_policy": "clip"},

@@ -67,6 +67,11 @@ CASES = [
     # every feature but the split feature 0 the same two bins 2 and B-3:
     # each child's thresholds 2..B-4 of those features all tie
     ("ties", 2000, 6, 16, np.uint8, None, 0, 2000, 0, 7, False),
+    # the LambdaRank configuration's width: 136 u8 features (k = 4, a
+    # record of 37 words), at the root and on a window at an odd begin
+    ("F136_root", 1500, 136, 31, np.uint8, None, 0, 1500, 100, 15, False),
+    ("F136_window", 2500, 136, 31, np.uint8, 0.8, 611, 1301, 135, 9,
+     False),
 ]
 
 
