@@ -144,7 +144,24 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    (ROADMAP C3: the metrics are float32 noise there in both packages)
    and fails unless leaf 0, the leaf that shortfall lands on, is the
    only leaf of any class's first tree off its Newton step; then runs again at 300k + 60k rows, where multi_logloss and
-   multi_error are held within +-0.005 of the JAX package's.
+   multi_error are held within +-0.005 of the JAX package's;
+17. (run after phase 8, on the bench data, on the default mega route) the
+   training API: (a) ``train`` with the training and valid sets in
+   ``valid_sets`` (binary_logloss and auc), 40 rounds, ``learning_rates``
+   0.1 x 20 then 4.0 x 20, ``early_stopping_rounds=3`` and
+   ``evals_result``: it stops before round 40 at the best round the
+   callback's rule gives on the recorded history, ``predict`` defaults to
+   it bitwise, and its first 20 trees' text equals a plain 20-round
+   ``train``'s (timed beside it, with host syncs, peak memory and K8/K7
+   launches); (b) 10 trees saved to a file, continued for 10 more: the
+   replayed valid scores bitwise the 10-tree booster's, and the 20 trees'
+   text the plain run's; (c) an ``fobj`` returning the built-in
+   gradients grows the plain run's first 10 trees bitwise, and five-class
+   multiclass at 300k rows does for 2 iterations; (d) ``snapshot_state``
+   / ``restore_state`` replays 3 iterations bitwise under bagging 0.8 and
+   feature_fraction 0.9; (e) ``rollback_one_iter`` restores the scores
+   within 1e-6; (f) a 3-fold stratified ``cv`` of 5 rounds, whose means
+   equal the fold boosters' own ``eval_valid`` means.
 
 Every phase must pass or the script exits non-zero without a result.  The
 line before the last is the kernels' JSON record, the last line the
@@ -1930,6 +1947,266 @@ def phase_objective(torch, lt, card, kind, rows=ROWS):
     return dict(s_per_tree=elapsed / n, grad_ms=grad_ms, peak=peak)
 
 
+# ----------------------------------------------------------------- phase 17
+API_ROUNDS, API_STOP = 40, 3
+API_RATES = [0.1] * 20 + [4.0] * 20
+
+
+def _tree_texts(text: str):
+    """The ``Tree=i`` blocks of a model text."""
+    return text.split("feature importances:")[0].split("Tree=")[1:]
+
+
+def _best_round(evals, train_name, stop):
+    """(best iteration, 1-based; round it stops at, 0-based) by the early
+    stopping callback's rule on a recorded history, or None."""
+    keys = [(d, m) for d in evals for m in evals[d]]
+    best = dict.fromkeys(keys, (None, 0))
+    for i in range(len(evals[keys[0][0]][keys[0][1]])):
+        for d, m in keys:
+            v, bi = best[(d, m)]
+            now = evals[d][m][i]
+            if v is None or (now > v if m == "auc" else now < v):
+                best[(d, m)] = (now, i)
+            elif d != train_name and i - bi >= stop:
+                return bi + 1, i
+    return None
+
+
+def _same_trees_bitwise(torch, a, b) -> bool:
+    ok = len(a) == len(b)
+    for ta, tb in zip(a, b):
+        ok &= ta.num_leaves == tb.num_leaves
+        ok &= all(bool(torch.equal(getattr(ta, k), getattr(tb, k)))
+                  for k in TREE_FIELDS)
+    return ok
+
+
+def _timed_train(torch, fn):
+    """(result, s, host syncs, peak B, launches) of ``fn()``, with every
+    count set to 0 just before and read just after."""
+    from lightgbm_tpu_torch.learners import serial
+    from lightgbm_tpu_torch.ops import launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, serial.HOST_SYNCS,
+            torch.cuda.max_memory_allocated(), launch_counts())
+
+
+def _mega_counts_ok(counts, trees) -> bool:
+    splits = sum(t.num_leaves - 1 for t in trees)
+    want = dict.fromkeys(counts, 0)
+    want.update({"K1'": len(trees), "K3": len(trees), "K8": splits,
+                 "K7": splits})
+    return counts == want and splits > 0
+
+
+def _builtin_fobj(torch, lt, params, train_set):
+    """A custom objective returning the built-in objective's gradients:
+    the port's objective on the card, fed the host scores ``train``
+    hands a custom objective."""
+    from lightgbm_tpu_torch.objectives import create_objective
+
+    inner = train_set.construct()
+    obj = create_objective(lt.Config.from_dict(params), inner.metadata,
+                           inner.num_data, "cuda")
+
+    def fobj(preds, _dataset):
+        s = torch.from_numpy(preds).cuda().reshape(-1, inner.num_data)
+        g, h = obj.get_gradients(s if s.shape[0] > 1 else s[0])
+        return g.reshape(-1).cpu().numpy(), h.reshape(-1).cpu().numpy()
+
+    return fobj
+
+
+def phase_api(torch, lt, params, train_set, valid_set, Xv):
+    """The training API on the bench data, mega route (see item 17)."""
+    import tempfile
+
+    from lightgbm_tpu_torch.synthetic import workload
+
+    # leaf-wise and unpooled whatever the earlier phases' train calls
+    # left in the dataset's merged parameters
+    base = dict(params, metric=["binary_logloss", "auc"],
+                tree_growth="leafwise", histogram_pool_size=0.0)
+    with route_env("mega"):
+        # the bare mega run: 20 rounds, no valid set
+        plain, plain_s, plain_syncs, plain_peak, plain_n = _timed_train(
+            torch, lambda: lt.train(dict(base), train_set, 20,
+                                    verbose_eval=False))
+        plain_trees = plain._gbdt.models
+        check(_mega_counts_ok(plain_n, plain_trees),
+              f"api: the plain run's launches {plain_n}")
+        plain_text = _tree_texts(plain.model_to_string())
+        # (a) early stopping with both sets, two metrics, a rate schedule
+        evals = {}
+        run_a, a_s, a_syncs, a_peak, a_n = _timed_train(torch, lambda: lt.train(
+            dict(base), train_set, API_ROUNDS,
+            valid_sets=[train_set, valid_set], valid_names=["train", "valid"],
+            early_stopping_rounds=API_STOP, evals_result=evals,
+            learning_rates=API_RATES, verbose_eval=False))
+        a_trees = run_a._gbdt.models
+        recomputed = _best_round(evals, "train", API_STOP)
+        pa = run_a.predict(Xv)
+        a_ok = (run_a.current_iteration < API_ROUNDS
+                and recomputed is not None
+                and recomputed[0] == run_a.best_iteration
+                and recomputed[1] + 1 == run_a.current_iteration
+                and np.array_equal(pa, run_a.predict(
+                    Xv, num_iteration=run_a.best_iteration))
+                and not np.array_equal(pa, run_a.predict(
+                    Xv, num_iteration=API_ROUNDS))
+                and _tree_texts(run_a.model_to_string(
+                    num_iteration=20)) == plain_text)
+        say(f"[api a] early stopping: stopped after "
+            f"{run_a.current_iteration} of {API_ROUNDS} rounds, "
+            f"best_iteration={run_a.best_iteration} (recomputed from "
+            f"evals_result: {recomputed}), best_score="
+            f"{json.dumps(run_a.best_score)}; predict default == "
+            f"best_iteration bitwise, first 20 trees' text == the plain "
+            f"run's: {a_ok}")
+        check(a_ok, "api (a): early stopping")
+        # what an iteration of (a) adds to the bare run's: each set's
+        # evaluation (a host copy of its scores, auc and binary_logloss
+        # on the host) and the new tree's walk over the valid rows
+        from lightgbm_tpu_torch.models.tree import predict_binned
+
+        cost = {}
+        for name, fn in (("eval_train", run_a.eval_train),
+                         ("eval_valid", run_a.eval_valid),
+                         ("valid_walk", lambda: predict_binned(
+                             a_trees[-1], run_a._gbdt._valid_bins[0]))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            cost[name] = round(time.perf_counter() - t0, 4)
+        say(f"[api a] host s of one iteration's extra work: "
+            f"{json.dumps(cost)}")
+        check(_mega_counts_ok(a_n, a_trees),
+              f"api (a): launches {a_n} are not the mega route's")
+        rows = {"a": (a_s / len(a_trees), a_syncs / len(a_trees), a_peak,
+                      a_n),
+                "plain": (plain_s / 20, plain_syncs / 20, plain_peak,
+                          plain_n)}
+        for run, (spt, spp, peak, n) in rows.items():
+            say(f"[api {run}] s/tree={spt:.4f} learner host_syncs_per_tree="
+                f"{spp:.1f} peak_mem_bytes={peak} launches={json.dumps(n)}")
+        del run_a
+
+        # (b) 10 + 10 from a saved file
+        b10 = lt.train(dict(base), train_set, 10, valid_sets=[valid_set],
+                       verbose_eval=False)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "m10.txt")
+            b10.save_model(path)
+            cont = lt.Booster(dict(base, input_model=path), train_set)
+            cont.add_valid(valid_set, "valid")
+            replay_ok = (torch.equal(cont._gbdt._valid_scores[0],
+                                     b10._gbdt._valid_scores[0])
+                         and torch.equal(cont._gbdt._scores,
+                                         b10._gbdt._scores))
+            rebind = [(bool(torch.equal(t.threshold_bin[:t.num_leaves - 1],
+                                        o.threshold_bin[:o.num_leaves - 1])))
+                      for t, o in zip(cont._gbdt.models, b10._gbdt.models)]
+            for _ in range(10):
+                cont.update()
+        cont_ok = _tree_texts(cont.model_to_string()) == plain_text
+        say(f"[api b] 10 + 10 from a file: threshold_bin recovered in "
+            f"{sum(rebind)}/10 trees; replayed train and valid scores == "
+            f"the 10-tree booster's bitwise: {replay_ok}; 20 trees' text "
+            f"== the plain run's: {cont_ok}")
+        check(all(rebind) and replay_ok and cont_ok, "api (b): continued "
+              "training")
+        del b10, cont
+
+        # (c) fobj with the built-in gradients
+        fob = lt.train(dict(base), train_set, 10,
+                       fobj=_builtin_fobj(torch, lt, base, train_set),
+                       verbose_eval=False)
+        fobj_ok = _same_trees_bitwise(torch, fob._gbdt.models,
+                                      plain_trees[:10])
+        del fob
+        mparams, (X, y, _), _ = workload("multiclass", MULTICLASS_BAND_ROWS)
+        mset = lt.Dataset(X, label=y, max_bin=mparams["max_bin"],
+                          params=mparams)
+        del X, y
+        mc = [lt.train(dict(mparams), mset, 2, fobj=f, verbose_eval=False)
+              for f in (None, _builtin_fobj(torch, lt, mparams, mset))]
+        mc_ok = (len(mc[0]._gbdt.models) == 10
+                 and _same_trees_bitwise(torch, mc[0]._gbdt.models,
+                                         mc[1]._gbdt.models))
+        say(f"[api c] fobj returning the built-in gradients: binary 10 "
+            f"trees bitwise the plain run's: {fobj_ok}; multiclass "
+            f"{MULTICLASS_BAND_ROWS} rows, 2 iterations (10 trees) bitwise "
+            f"the built-in run's: {mc_ok}")
+        check(fobj_ok and mc_ok, "api (c): fobj")
+        del mc, mset
+
+        # (d) snapshot / restore under bagging and feature fraction
+        bag = lt.Booster(dict(base, bagging_fraction=0.8, bagging_freq=1,
+                              feature_fraction=0.9), train_set)
+        bag.add_valid(valid_set, "valid")
+        bag.update()
+        gb = bag._gbdt
+        snap = gb.snapshot_state()
+        runs = []
+        for _ in range(2):
+            gb.restore_state(snap)
+            for _ in range(3):
+                bag.update()
+            runs.append((list(gb.models), gb._scores.clone(),
+                         gb._valid_scores[0].clone()))
+        snap_ok = (_same_trees_bitwise(torch, runs[0][0], runs[1][0])
+                   and torch.equal(runs[0][1], runs[1][1])
+                   and torch.equal(runs[0][2], runs[1][2]))
+        # (e) rollback
+        before = (gb._scores.clone(), gb._valid_scores[0].clone())
+        bag.update()
+        bag.rollback_one_iter()
+        roll_err = max(float((gb._scores - before[0]).abs().max()),
+                       float((gb._valid_scores[0] - before[1]).abs().max()))
+        roll_ok = bag.current_iteration == 4 and roll_err <= 1e-6
+        say(f"[api d] snapshot/restore, 3 iterations twice under bagging "
+            f"0.8 / feature_fraction 0.9: bitwise {snap_ok}; [api e] "
+            f"rollback_one_iter: iteration {bag.current_iteration}, scores "
+            f"within {roll_err:.3g} of before (<= 1e-6: {roll_ok})")
+        check(snap_ok, "api (d): snapshot/restore")
+        check(roll_ok, "api (e): rollback")
+        del bag, gb, snap, runs, before
+
+        # (f) cross validation
+        seen = {}
+        hist, cv_s, cv_syncs, cv_peak, cv_n = _timed_train(torch, lambda: lt.cv(
+            dict(base), train_set, num_boost_round=5, nfold=3,
+            stratified=True, callbacks=[lambda env: seen.setdefault(
+                "folds", env.model)]))
+        folds = seen["folds"].boosters
+        per_fold = [b.eval_valid() for b in folds]
+        cv_ok = len(folds) == 3 and all(b.current_iteration == 5
+                                        for b in folds)
+        for j, (_, metric, _, _) in enumerate(per_fold[0]):
+            vals = [f[j][2] for f in per_fold]
+            cv_ok &= hist[f"valid {metric}-mean"][-1] == float(np.mean(vals))
+        cv_trees = [t for b in folds for t in b._gbdt.models]
+        cv_ok &= _mega_counts_ok(cv_n, cv_trees)
+        say(f"[api f] cv 3 folds x 5 rounds (stratified): "
+            f"{json.dumps({k: v[-1] for k, v in hist.items()})}; means == "
+            f"the fold boosters' eval_valid means: {cv_ok}; "
+            f"s/tree={cv_s / len(cv_trees):.4f} learner host_syncs_per_tree="
+            f"{cv_syncs / len(cv_trees):.1f} peak_mem_bytes={cv_peak} "
+            f"K8={cv_n['K8']} K7={cv_n['K7']}")
+        check(cv_ok, "api (f): cv")
+        del folds, seen
+    return dict(a=rows["a"], plain=rows["plain"],
+                cv=(cv_s / len(cv_trees), cv_syncs / len(cv_trees), cv_peak))
+
+
 def main() -> int:
     try:
         import torch
@@ -1978,6 +2255,7 @@ def main() -> int:
           and main_dw["leaves"] == main_bsub["leaves"],
           f"depthwise under bsub and v1 differ: {main_bsub['auc']} vs "
           f"{main_dw['auc']}")
+    phase_api(torch, lt, *data)
     del data
     phase_trees(torch, lt)
     phase_wide(torch, lt)

@@ -1,9 +1,10 @@
 """Binned dataset: the column store the port trains on.
 
 Counterpart of lightgbm_tpu/io/dataset.py for the in-memory matrix path
-(``from_matrix`` / ``align_with``).  Binning is host numpy — the same
-BinMapper code and the same shared-seed sample draw as the JAX package,
-so the bin matrix and the bin boundaries are bitwise equal to it.  The
+(``from_matrix`` / ``align_with``) and row subsets (``subset``).
+Binning is host numpy — the same BinMapper code and the same
+shared-seed sample draw as the JAX package, so the bin matrix and the
+bin boundaries are bitwise equal to it.  The
 device-side form is the feature-major ``[F, n]`` uint8/uint16 tensor
 (``bins_T``), uploaded once per device and cached on the dataset.
 
@@ -150,6 +151,16 @@ class BinnedDataset:
         _encode_bins(X, self.used_feature_map, self.bin_mappers, X_bin)
         return BinnedDataset(X_bin, self.bin_mappers, self.used_feature_map,
                              self.num_total_features, metadata,
+                             self.feature_names)
+
+    def subset(self, indices: np.ndarray) -> "BinnedDataset":
+        """The rows ``indices``, sharing this dataset's bin mappers
+        (Dataset::Subset, dataset.cpp:59; the JAX package's
+        io/dataset.py:933)."""
+        indices = np.asarray(indices)
+        return BinnedDataset(self.X_bin[indices], self.bin_mappers,
+                             self.used_feature_map, self.num_total_features,
+                             self.metadata.subset(indices),
                              self.feature_names)
 
     def check_align(self, other: "BinnedDataset") -> bool:

@@ -17,12 +17,19 @@ the final row -> leaf map and of the valid scores through a binned walk.
 iteration i.  Model text save/load is the reference format,
 byte-compatible with the JAX package's.
 
+The training API's state (the JAX package's): user gradients for a
+custom objective (``objective=none``), ``rollback_one_iter``, exact
+``snapshot_state`` / ``restore_state``, and continued training
+(``merge_from``), which rebinds a loaded model's trees into this
+dataset's bins (``_rebind_tree``, exact where the JAX package's is not:
+ROADMAP C4) and replays them tree by tree into the scores.
+
 Not ported yet (ROADMAP queue A), and refused with NotImplementedError
-rather than ignored: custom objectives (objective=none, A2), DART (A3),
-hist_dtype=float64 (A5), parallel learners (A8), the non-finite guards
-(nonfinite_policy other than "off", A9).  Depthwise and hybrid growth
-ignore histogram_pool_size with the JAX package's warning.  Forest
-batching, the lagged stop check, checkpoints and telemetry are not
+rather than ignored: DART (A3), hist_dtype=float64 (A5), parallel
+learners (A8), the non-finite guards (nonfinite_policy other than
+"off", A9).  Depthwise and hybrid growth ignore histogram_pool_size with
+the JAX package's warning.  Forest batching, the lagged stop check
+(the port's stop check is eager), checkpoints and telemetry are not
 carried.
 """
 
@@ -46,8 +53,9 @@ from ..metrics import Metric, create_metrics
 from ..objectives import ObjectiveFunction, objective_kind
 from ..ops.cuda_histogram import (hist_variant, histogram_record_window,
                                   histogram_single_leaf, make_level_hist_fn)
-from .tree import (Tree, empty_tree, finalize_thresholds_device,
-                   pack_threshold_bounds, predict_binned, predict_raw)
+from .tree import (TREE_FIELDS, Tree, empty_tree, finalize_thresholds_device,
+                   pack_threshold_bounds, predict_binned, predict_leaf_raw,
+                   predict_raw)
 
 # leaf_count/internal_count ride the float32 histogram count channel,
 # integer-exact only up to 2**24 rows (lightgbm_tpu/learners/serial.py:78)
@@ -75,9 +83,6 @@ def check_supported(config: Config) -> None:
             f"{what} is not ported to lightgbm_tpu_torch yet (ROADMAP "
             f"queue {item})")
 
-    if config.objective == "none":
-        no("objective=none (a custom objective, fobj)",
-           "A2: the training API surface")
     if config.tree_learner != "serial":
         no(f"tree_learner={config.tree_learner}", "A8: parallel")
     if config.boosting_type != "gbdt":
@@ -86,6 +91,8 @@ def check_supported(config: Config) -> None:
         no("hist_dtype=float64", "A5: float64 histograms")
     if config.nonfinite_policy != "off":
         no(f"nonfinite_policy={config.nonfinite_policy}", "A9: resilience")
+    if config.objective == "none":  # a custom objective: any num_class
+        return
     kind = objective_kind(config.objective)
     if (int(config.num_class) > 1) != (kind == "multiclass"):
         raise ValueError(f"objective={config.objective} with num_class="
@@ -126,12 +133,14 @@ class GBDT:
         self.max_leaves = config.num_leaves_
         self.models: List[Tree] = []
         self.iter_ = 0
+        self.num_init_iteration = 0
         self.label_idx = 0
         self.max_feature_idx = -1
         self.feature_names: List[str] = []
         self.sigmoid = float(config.sigmoid)
         self.objective = objective
         self.train_set: Optional[BinnedDataset] = None
+        self.valid_sets: List[BinnedDataset] = []
         self.train_metrics: List[Metric] = []
         self.valid_metrics: List[List[Metric]] = []
         self._valid_bins: List[torch.Tensor] = []
@@ -181,10 +190,14 @@ class GBDT:
 
     def add_valid_dataset(self, valid_set: BinnedDataset) -> None:
         """GBDT::AddValidDataset (gbdt.cpp:124-140); replays the trees
-        already trained onto the new set."""
+        already in the model onto the new set, one at a time in model
+        order.  Every tree in ``models`` is in this dataset's bins: trees
+        of a loaded model enter only through ``merge_from``, which
+        rebinds them."""
         if self.train_set is None or not self.train_set.check_align(valid_set):
             raise ValueError("validation set is not aligned with the "
                              "training set's bin mappers")
+        self.valid_sets.append(valid_set)
         self.valid_metrics.append(
             create_metrics(self.config, valid_set.metadata, valid_set.num_data))
         vb = torch.from_numpy(np.ascontiguousarray(valid_set.X_bin)) \
@@ -314,14 +327,27 @@ class GBDT:
                          fuse_hist=raw is not None and self._fuse_hist(),
                          hist_pool=self._hist_pool_slots())
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting iteration (gbdt.cpp:217-252): one tree per class.
+        ``grad`` / ``hess`` are a custom objective's gradients, ``[K·n]``
+        class-major (gbdt.py:695-701); without them the objective's.
         Returns True when no tree could be grown (training should stop)."""
         K = self.num_class
-        grad, hess = self.objective.get_gradients(
-            self._scores if K > 1 else self._scores[0])
-        if K == 1:
-            grad, hess = grad[None], hess[None]
+        if grad is not None and hess is not None:
+            grad, hess = (torch.as_tensor(np.asarray(a, np.float32))
+                          .reshape(K, self.num_data).to(self.device)
+                          for a in (grad, hess))
+        elif self.objective is None:
+            from ..basic import LightGBMError
+
+            raise LightGBMError(
+                "objective=none needs the gradients of a custom objective: "
+                "pass fobj to train / Booster.update")
+        else:
+            grad, hess = self.objective.get_gradients(
+                self._scores if K > 1 else self._scores[0])
+            if K == 1:
+                grad, hess = grad[None], hess[None]
         self._update_bagging()
         # the K feature samples in class order before any tree grows: the
         # JAX package's _feat_rng draws (gbdt.py:719-724)
@@ -342,6 +368,124 @@ class GBDT:
             could_split |= tree.num_leaves > 1
         self.iter_ += 1
         return not could_split
+
+    def _train_rows(self) -> torch.Tensor:
+        """The training bins row-major ``[n, F]`` int32, for a binned walk
+        of the training rows."""
+        return self._bins_T.T.to(torch.int32)
+
+    def snapshot_state(self) -> tuple:
+        """Every per-iteration mutable of the training state, for an exact
+        rewind (gbdt.py:877-899): copies of the train and valid scores,
+        the model count, ``iter_``, both RandomStates and the bag mask.
+        Unlike ``rollback_one_iter`` (whose (s + d) - d round trip leaves
+        float32 residue), ``restore_state`` is bitwise."""
+        return (self._scores.clone(), len(self.models), self.iter_,
+                self._bag_rng.get_state(), self._feat_rng.get_state(),
+                self._bag_mask.clone(),
+                [v.clone() for v in self._valid_scores])
+
+    def restore_state(self, snap: tuple) -> None:
+        """Rewind to a ``snapshot_state`` capture; installs copies, so the
+        snapshot stays reusable (gbdt.py:901-919)."""
+        scores, n_models, it, bag_state, feat_state, bag_mask, valid = snap
+        self._scores = scores.clone()
+        del self.models[n_models:]
+        self.iter_ = it
+        self._bag_rng.set_state(bag_state)
+        self._feat_rng.set_state(feat_state)
+        self._bag_mask = bag_mask.clone()
+        for i, v in enumerate(valid):
+            self._valid_scores[i] = v.clone()
+
+    def rollback_one_iter(self) -> None:
+        """GBDT::RollbackOneIter (gbdt.cpp:254-271): subtract the last
+        iteration's K trees from the train and valid scores and pop them.
+        Trees of an init model are not rolled back."""
+        if self.iter_ <= 0:
+            return
+        K = self.num_class
+        rows = self._train_rows()
+        for k, tree in enumerate(self.models[-K:]):
+            self._scores[k] -= predict_binned(tree, rows)
+            for vi, vb in enumerate(self._valid_bins):
+                self._valid_scores[vi][k] -= predict_binned(tree, vb)
+        del self.models[-K:]
+        self.iter_ -= 1
+
+    def merge_from(self, other: "GBDT", prepend: bool = False) -> None:
+        """GBDT::MergeFrom (gbdt.h:44-61): add another model's trees.
+        ``prepend`` puts them first (continued training from an init
+        model, gbdt.cpp:589-592) and replays them into the train and
+        valid scores one tree at a time in model order, in float32, as
+        the training loop adds its trees, so the scores equal the init
+        model's own training scores bitwise."""
+        if other.num_class != self.num_class:
+            raise ValueError("cannot merge models with different num_class")
+        K = self.num_class
+        incoming = [_tree_to(t, self.device) for t in other.models]
+        if self.train_set is not None:
+            bounds = self._bounds_mat.cpu().numpy()
+            incoming = [self._rebind_tree(t, bounds) for t in incoming]
+        if prepend:
+            self.models = incoming + self.models
+            self.num_init_iteration = len(incoming) // K
+            if self.train_set is not None and incoming:
+                rows = self._train_rows()
+                for i, tree in enumerate(incoming):
+                    self._scores[i % K] += predict_binned(tree, rows)
+                    for vi, vb in enumerate(self._valid_bins):
+                        self._valid_scores[vi][i % K] += predict_binned(
+                            tree, vb)
+        else:
+            self.models = self.models + incoming
+        self.iter_ = len(self.models) // K - self.num_init_iteration
+
+    def _rebind_tree(self, tree: Tree, bounds: np.ndarray) -> Tree:
+        """A tree of another model in THIS dataset's bins (gbdt.py:1269-
+        1315).  Only the raw-value program (``split_feature_real``,
+        ``threshold_real``, ``decision_type``) is read.  A numerical
+        node's bin is the first whose float32 bound is >= the float32
+        threshold: ``threshold_real`` is the float32 rounding of the
+        split bin's float64 bound (``finalize_thresholds_device``;
+        ``bounds`` is that float32 matrix), so a model of this dataset
+        gets every ``threshold_bin`` back exactly (the JAX package's
+        float64 search with a relative epsilon lands one bin too high
+        wherever float32 rounded the bound up: ROADMAP C4).  A
+        categorical node's bin is its category's; a feature that is
+        trivial here sends every row left."""
+        nl = tree.num_leaves
+        if nl <= 1:
+            return tree
+        sf = tree.split_feature_real.cpu().numpy()
+        tr = tree.threshold_real.cpu().numpy().astype(np.float32)
+        dt = tree.decision_type.cpu().numpy()
+        ds = self.train_set
+        lens = [len(b) for b in ds.bin_thresholds_real()]
+        tb = np.zeros(sf.shape, np.int32)
+        sf_inner = np.zeros(sf.shape, np.int32)
+        dt2 = dt.copy()
+        for i in range(nl - 1):
+            if sf[i] < 0:
+                continue
+            inner = int(ds.used_feature_map[int(sf[i])])
+            if inner < 0:  # bin <= num_bins: always left
+                tb[i], dt2[i] = self._num_bins, 0
+                continue
+            sf_inner[i] = inner
+            if dt[i] == 1:
+                tb[i] = ds.bin_mappers[inner].category_to_bin.get(
+                    int(tr[i]), self._num_bins)
+            else:
+                row = bounds[inner, :lens[inner]]
+                tb[i] = min(int(np.searchsorted(row, tr[i], side="left")),
+                            lens[inner] - 1)
+
+        def dev(a):
+            return torch.from_numpy(a).to(self.device)
+
+        return tree.replace(split_feature=dev(sf_inner),
+                            threshold_bin=dev(tb), decision_type=dev(dt2))
 
     # ------------------------------------------------------------------- eval
     def eval_at(self, data_idx: int) -> Dict[str, float]:
@@ -370,6 +514,18 @@ class GBDT:
                 out[m.name] = m.eval(host)
         return out
 
+    def predict_at(self, data_idx: int) -> np.ndarray:
+        """A host copy of the ``[K, n]`` float32 scores of train (0) or
+        valid set ``data_idx`` (1..); never a view of the live scores,
+        which training updates in place."""
+        scores = (self._scores if data_idx == 0
+                  else self._valid_scores[data_idx - 1])
+        return np.array(scores.cpu())
+
+    @property
+    def current_iteration(self) -> int:
+        return len(self.models) // max(self.num_class, 1)
+
     # ---------------------------------------------------------------- predict
     def _raw_scores(self, X, num_iteration: int = -1) -> np.ndarray:
         """Σ over each class's trees of raw-feature walks, accumulated in
@@ -386,6 +542,22 @@ class GBDT:
         for i, tree in enumerate(self.models[:n_iter * K]):
             acc[i % K] += predict_raw(tree, Xt)
         return acc.cpu().numpy().astype(np.float64)
+
+    def predict_leaf_index(self, X, num_iteration: int = -1) -> np.ndarray:
+        """Each row's leaf in each tree, ``[n, trees]`` int32, by a raw
+        walk per tree (gbdt.py:1100-1133); ``num_iteration`` counts
+        iterations (K trees each)."""
+        K = self.num_class
+        n_iter = len(self.models) // K
+        if num_iteration > 0:
+            n_iter = min(n_iter, num_iteration)
+        Xt = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(
+            self.device)
+        if n_iter == 0:
+            return np.zeros((Xt.shape[0], 0), np.int32)
+        leaves = torch.stack([predict_leaf_raw(t, Xt)
+                              for t in self.models[:n_iter * K]], dim=1)
+        return leaves.to(torch.int32).cpu().numpy()
 
     def predict_raw_score(self, X, num_iteration: int = -1) -> np.ndarray:
         return raw_score_output(self._raw_scores(X, num_iteration),
@@ -474,7 +646,23 @@ class GBDT:
         self._loaded_objective = kv.get("objective", "")
         self.feature_names = kv.get("feature_names", "").split()
         self.models = [_tree_from_lines(b, self.device) for b in blocks]
+        self.num_init_iteration = len(self.models) // max(self.num_class, 1)
         self.iter_ = 0
+
+    def dump_model(self, num_iteration: int = -1) -> Dict:
+        """GBDT::DumpModel (gbdt.cpp:438-477) as a JSON-ready dict."""
+        names = self.feature_names or [
+            f"Column_{i}" for i in range(self.max_feature_idx + 1)]
+        num_used = len(self.models)
+        if num_iteration > 0:
+            num_used = min(num_iteration * self.num_class, num_used)
+        return {"name": self.name, "num_class": self.num_class,
+                "label_index": self.label_idx,
+                "max_feature_idx": self.max_feature_idx,
+                "objective": self.objective_name(), "sigmoid": self.sigmoid,
+                "feature_names": names,
+                "tree_info": [_tree_to_json(self.models[i], i)
+                              for i in range(num_used)]}
 
     @property
     def num_trees(self) -> int:
@@ -513,6 +701,42 @@ def _tree_to_string(tree: Tree) -> str:
            "internal_count=" + _arr_str(tree.internal_count, ni, cnt),
            ""]
     return "\n".join(out)
+
+
+def _tree_to_json(tree: Tree, index: int) -> Dict:
+    """Tree::ToJSON (tree.cpp:153-191): nested node dicts."""
+    nl = tree.num_leaves
+    a = {k: getattr(tree, k).cpu().numpy() for k in TREE_FIELDS}
+
+    def leaf_node(leaf: int) -> Dict:
+        return {"leaf_index": int(leaf),
+                "leaf_parent": int(a["leaf_parent"][leaf]),
+                "leaf_value": float(a["leaf_value"][leaf]),
+                "leaf_count": int(a["leaf_count"][leaf])}
+
+    # a child is always created after its parent (tree.cpp:52-96), so a
+    # reverse sweep builds every child's dict before its parent's
+    built: Dict[int, Dict] = {}
+    for i in range(nl - 2, -1, -1):
+        li, ri = int(a["left_child"][i]), int(a["right_child"][i])
+        built[i] = {
+            "split_index": i,
+            "split_feature": int(a["split_feature_real"][i]),
+            "split_gain": float(a["split_gain"][i]),
+            "threshold": float(a["threshold_real"][i]),
+            "decision_type": "==" if a["decision_type"][i] == 1 else "<=",
+            "internal_value": float(a["internal_value"][i]),
+            "internal_count": int(a["internal_count"][i]),
+            "left_child": built[li] if li >= 0 else leaf_node(~li),
+            "right_child": built[ri] if ri >= 0 else leaf_node(~ri)}
+    return {"tree_index": index, "num_leaves": nl,
+            "tree_structure": built[0] if nl > 1 else leaf_node(0)}
+
+
+def _tree_to(tree: Tree, device) -> Tree:
+    """``tree`` with every tensor on ``device``."""
+    return tree.replace(**{k: getattr(tree, k).to(device)
+                           for k in TREE_FIELDS})
 
 
 def _tree_from_lines(lines: List[str], device) -> Tree:

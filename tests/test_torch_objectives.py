@@ -231,8 +231,7 @@ def test_unknown_objective_and_class_count_raise():
              "num_class"),
             ({"objective": "multiclass", "num_class": 1}, ValueError,
              "num_class"),
-            ({"objective": "none"}, NotImplementedError,
-             "ROADMAP queue A2: the training API")):
+            ({"objective": "none"}, lt.LightGBMError, "fobj")):
         with pytest.raises(err, match=match):
             lt.train(dict(params, verbose=-1),
                      lt.Dataset(X, label=y, device="cpu"), 1, device="cpu")

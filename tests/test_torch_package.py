@@ -100,6 +100,32 @@ def test_entry_points_default_to_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_api_modules_are_scanned():
+    """The training API's modules are among the sources checked above."""
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    assert {"callback.py", "engine.py", "basic.py"} <= names
+
+
+def test_api_entry_points_default_to_cuda(tmp_path):
+    """cv, a Booster from a model file or string and an unpickled Booster
+    take the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is usable")
+    X, y = _data()
+    ds = lt.Dataset(X, label=y, device="cpu")
+    params = {"objective": "binary", "verbose": -1}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lt.cv(params, ds, 1, nfold=2)
+    text = lt.train(params, ds, 1, verbose_eval=False,
+                    device="cpu").model_to_string()
+    path = tmp_path / "m.txt"
+    path.write_text(text)
+    for kw in ({"model_str": text}, {"model_file": str(path)}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lt.Booster(**kw)
+    assert lt.Booster(model_str=text, device="cpu").num_trees() == 1
+
+
 @pytest.mark.parametrize("extra", [
     {"hist_dtype": "float64"},
     {"tree_learner": "data"},
@@ -110,9 +136,14 @@ def test_entry_points_default_to_cuda():
     {"nonfinite_policy": "clip"},
 ], ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()))
 def test_out_of_slice_configs_raise(extra):
+    """Each configuration outside the port raises, naming its ROADMAP
+    item; objective=none is in it (a custom objective), and training
+    without the fobj that supplies its gradients raises naming fobj."""
     X, y = _data()
     params = {"objective": "binary", "verbose": -1, **extra}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    err, match = ((lt.LightGBMError, "fobj") if extra == {"objective": "none"}
+                  else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(err, match=match):
         lt.train(params, lt.Dataset(X, label=y, device="cpu"), 1,
                  device="cpu")
 
