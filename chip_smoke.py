@@ -163,6 +163,27 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    within 1e-6; (f) a 3-fold stratified ``cv`` of 5 rounds, whose means
    equal the fold boosters' own ``eval_valid`` means.
 
+18. (run after phase 17, on the bench data, on the default mega route)
+   prediction and serving: (a) the bench model at 100 trees; kernel P1
+   (``csrc/predict.cu``) held bitwise against its plain version on the
+   card, sums and leaf indices, on all 1.2M rows in the chunked order
+   (``GBDT._iter_chunk``), at ``num_iteration=37``, on rows with NaN,
+   +-inf and +-3e9 in five features, a five-class model (300k rows, 4
+   iterations), a model with a categorical feature holding NaN, one-leaf
+   trees and a 7-leaf continuation of a 31-leaf model; the valid AUC
+   from ``predict`` against the one training reported; ``Booster.predict``
+   on 1M rows timed (wall, rows/s, P1 launches and synchronizing calls a
+   call) beside P1's and the plain version's device ms and P1's bound;
+   (b) the model saved with its ``.sha256`` sidecar, loaded into a
+   ``ServingEngine`` (buckets 8 ... 1024) behind a ``MicroBatchQueue``:
+   8 client threads x 250 requests of 1, 7, 64, 300 and 1,024 rows,
+   every response bitwise ``Booster.predict`` of its rows, no kernel
+   built after prewarm, ``memory_reserved`` flat; p50/p99 latency,
+   requests/s, rows/s and each bucket's dispatch ms (8, 128, 1,024);
+   (c) a hot-swap under load to a 120-tree continuation, every response
+   the offline answer of the model its ``model_id`` names; (d) 100
+   ``POST /v1/predict`` over HTTP, ``/v1/healthz`` and ``/metrics``.
+
 Every phase must pass or the script exits non-zero without a result.  The
 line before the last is the kernels' JSON record, the last line the
 device record.  Without a CUDA card, or without the package beside it, it
@@ -2207,6 +2228,390 @@ def phase_api(torch, lt, params, train_set, valid_set, Xv):
                 cv=(cv_s / len(cv_trees), cv_syncs / len(cv_trees), cv_peak))
 
 
+# ----------------------------------------------------------------- phase 18
+PREDICT_TREES, SWAP_TREES = 100, 20  # the served model, its continuation
+SERVE_SIZES = (1, 7, 64, 300, 1024)
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 250  # per client
+HTTP_REQUESTS = 100
+P1_BUCKETS = (8, 128, 1024)  # dispatch device ms timed at these
+
+
+def _p1_cases(torch, lt, params, train_set, X_all):
+    """The models and inputs P1 is held on against its plain version:
+    (name, booster, X [n, F] f32 on the card, n_trees, chunk_iters)."""
+    from lightgbm_tpu_torch.synthetic import multiclass_labels
+
+    rng = np.random.RandomState(18)
+    X = X_all[:1_000_000]
+    small = dict(params, num_leaves=31)
+    # a categorical column (category = floor(4 * x0) + 4, 0..8) with NaN
+    Xc = X[:200_000].copy()
+    Xc[:, 0] = np.clip(np.floor(Xc[:, 0] * 4) + 4, 0, 8)
+    yc = train_set.label[:200_000]
+    cat = lt.train(small, lt.Dataset(Xc, label=yc, params=small,
+                                     categorical_feature=[0]), 10)
+    Xc[rng.choice(len(Xc), 20_000, replace=False), 0] = np.nan
+    # rows with NaN, +-inf and +-3e9 in five features
+    Xs = X_all[:200_000].copy()
+    for j, v in enumerate((np.nan, np.inf, -np.inf, 3e9, -3e9)):
+        Xs[rng.choice(len(Xs), 20_000, replace=False), j * 5] = v
+    y5, _ = multiclass_labels(X[:300_000], X[:0])
+    mc = lt.train(dict(params, objective="multiclass", num_class=5,
+                       metric="multi_logloss"),
+                  lt.Dataset(X[:300_000], label=y5, params=params), 4)
+    stump = lt.train(dict(small, min_gain_to_split=1e9),
+                     lt.Dataset(X[:100_000], label=yc[:100_000],
+                                params=small), 3)
+    base31 = lt.train(small, lt.Dataset(X[:200_000], label=yc,
+                                        params=small), 10)
+    cont7 = lt.train(dict(small, num_leaves=7),
+                     lt.Dataset(X[:200_000], label=yc, params=small), 10,
+                     init_model=base31)
+    return [("cat_nan", cat, Xc), ("special_values", None, Xs),
+            ("five_class", mc, X[:300_000]), ("one_leaf", stump, Xs),
+            ("cont_31_then_7", cont7, X[:200_000])]
+
+
+def _p1_hold(torch, name, p, X, n_trees, chunk):
+    """P1 (sum and leaves modes) on the packed trees ``p`` against its
+    plain version on the card, bitwise; returns the max |difference| of
+    the sums."""
+    from lightgbm_tpu_torch.models.tree import (ensemble_leaves_raw,
+                                                ensemble_sum_raw)
+    from lightgbm_tpu_torch.ops.cuda_predict import (ensemble_leaves_cuda,
+                                                     ensemble_sum_cuda)
+
+    Xc = torch.from_numpy(np.ascontiguousarray(X, np.float32)).cuda()
+    s_k = ensemble_sum_cuda(p, Xc, n_trees, chunk)
+    s_p = ensemble_sum_raw(p, Xc, n_trees, chunk)
+    l_k = ensemble_leaves_cuda(p, Xc, n_trees)
+    l_p = ensemble_leaves_raw(p, Xc, n_trees)
+    torch.cuda.synchronize()
+    err = float((s_k - s_p).abs().max())
+    ok = torch.equal(s_k, s_p) and torch.equal(l_k, l_p)
+    leaves = [int(v) for v in p.num_leaves[:n_trees].tolist()]
+    say(f"[predict {name}] {X.shape[0]} rows x {n_trees} trees (leaves "
+        f"{min(leaves)}-{max(leaves)}, K={p.num_class}, depth {p.depth}), "
+        f"chunks of {chunk} iterations: sums and leaves bitwise the plain "
+        f"version's: {ok} (max |diff| {err:.3g})")
+    check(ok, f"predict {name}: P1 differs from its plain version")
+    return err
+
+
+def _auc(y, s):
+    from lightgbm_tpu_torch.metrics import auc
+
+    return float(auc(s, y))
+
+
+def _percentiles(xs):
+    a = np.asarray(xs) * 1e3
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def phase_predict(torch, lt, params, train_set, valid_set, Xv):
+    """Phase 18 (a): P1 held bitwise against its plain version on the
+    bench model and the edge models; Booster.predict timed."""
+    from lightgbm_tpu_torch.models.tree import ensemble_sum_raw
+    from lightgbm_tpu_torch.ops import cuda_predict, launch_counts
+
+    base = dict(params, tree_growth="leafwise", histogram_pool_size=0.0)
+    with route_env("mega"):
+        t0 = time.perf_counter()
+        bst = lt.train(dict(base), train_set, PREDICT_TREES,
+                       valid_sets=[valid_set], valid_names=["valid"],
+                       verbose_eval=False)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        cases = _p1_cases(torch, lt, base, train_set,
+                          np.concatenate([train_set.data, Xv]))
+    gb = bst._gbdt
+    X_all = np.ascontiguousarray(np.concatenate([train_set.data, Xv]),
+                                 np.float32)
+    n_all = X_all.shape[0]
+    err = _p1_hold(torch, "bench_all_rows", gb._packed(), X_all,
+                   PREDICT_TREES, gb._iter_chunk(n_all))
+    err = max(err, _p1_hold(torch, "num_iteration_37", gb._packed(), X_all,
+                            37, gb._iter_chunk(n_all)))
+    # the timed call's shape: 1M rows in chunks of _iter_chunk(1M)
+    err = max(err, _p1_hold(torch, "predict_1M", gb._packed(), X_all[:ROWS],
+                            PREDICT_TREES, gb._iter_chunk(ROWS)))
+    for name, b, X in cases:
+        g = (b or bst)._gbdt
+        T = len(g.models)
+        err = max(err, _p1_hold(torch, name, g._packed(), X, T,
+                                g._iter_chunk(X.shape[0])))
+    del cases
+    # the valid AUC from predict against the one training reported
+    reported = bst.eval_valid()[0][2]
+    from_predict = _auc(valid_set.label, bst.predict(Xv, raw_score=True))
+    say(f"[predict auc] valid AUC from predict {from_predict:.6f}, "
+        f"reported by training {reported:.6f} [{CARD['name']}]")
+    check(abs(from_predict - reported) <= 1e-6, "predict: valid AUC")
+
+    # timing on 1M rows: Booster.predict (host wall), P1 and the plain
+    # version (device ms, CUDA events)
+    X1 = X_all[:ROWS]
+    p = gb._packed()
+    Xc = torch.from_numpy(X1).cuda()
+    chunk = gb._iter_chunk(ROWS)
+    bst.predict(X1)
+    torch.cuda.synchronize()
+    reset_counts()
+    syncs = []
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        import warnings
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = bst.predict(X1)
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    predict_s = time.perf_counter() - t0
+    one_call = launch_counts()["P1"]
+    check(one_call == 1 and out.shape == (ROWS,)
+          and bool(np.isfinite(out).all()),
+          f"predict: {one_call} P1 launches for one call")
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        bst.predict(X1)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    ms = time_ms(torch, lambda: cuda_predict.ensemble_sum_cuda(
+        p, Xc, PREDICT_TREES, chunk), reps=10, warm=2)
+    plain_ms = time_ms(torch, lambda: ensemble_sum_raw(
+        p, Xc, PREDICT_TREES, chunk), reps=2, warm=1)
+    # the bytes P1 must move: X once, the scores once, the node table once;
+    # the operations: one comparison a node visited (from the leaves' depths)
+    leaves = cuda_predict.ensemble_leaves_cuda(p, Xc, PREDICT_TREES)
+    depth = torch.stack([t.leaf_depth.cuda()[leaves[i].long()]
+                         for i, t in enumerate(gb.models)])
+    visits = float(depth.double().sum())
+    nbytes = X1.nbytes + ROWS * 4 + p.nbytes()
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, visits / F32_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= visits / F32_FLOPS \
+        else "operations"
+    say(f"[predict time] Booster.predict {ROWS} rows x {PREDICT_TREES} "
+        f"trees of {NUM_LEAVES} leaves: wall {wall * 1e3:.2f} ms "
+        f"(first timed call {predict_s * 1e3:.2f} ms), "
+        f"{ROWS / wall:.4g} rows/s; P1 {one_call} launch and "
+        f"{len(syncs)} synchronizing calls a predict; P1 device "
+        f"ms={ms:.4f}, plain version ms={plain_ms:.2f}, bound "
+        f"ms={bound_ms:.5f} ({bound_by}: {nbytes} B, {visits:.4g} node "
+        f"visits, mean depth {visits / ROWS / PREDICT_TREES:.2f}), share "
+        f"{100 * bound_ms / ms:.2f} %; node table {p.nbytes()} B; "
+        f"training {PREDICT_TREES} trees {train_s:.1f}s")
+    del Xc, leaves, depth
+    return bst, one_call, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=None,
+                               max_abs_err=err, predict_wall_ms=wall * 1e3)
+
+
+def _serve_pool(rng, Xv, bst_by_id):
+    """The requests (rows of each size) and every model's offline answer
+    to each, computed before any client runs."""
+    reqs = [Xv[rng.randint(0, len(Xv) - n):][:n].astype(np.float64)
+            for n in SERVE_SIZES for _ in range(8)]
+    want = {mid: [b.predict(X).tobytes() for X in reqs]
+            for mid, b in bst_by_id.items()}
+    return reqs, want
+
+
+def _run_clients(q, reqs, n_clients, n_each, out, stop=None):
+    """Client threads sending ``n_each`` requests each (or until
+    ``stop``): (latencies, errors)."""
+    import threading
+
+    lats, errs, lock = [], [], threading.Lock()
+
+    def client(c):
+        for i in range(n_each):
+            if stop is not None and stop.is_set():
+                return
+            j = (c * 7 + i) % len(reqs)
+            t0 = time.perf_counter()
+            try:
+                r = q.predict(reqs[j], timeout=120)
+            except Exception as e:  # noqa: BLE001 — counted, checked empty
+                errs.append(e)
+                return
+            with lock:
+                lats.append(time.perf_counter() - t0)
+                out.append((j, r.model_id, r.values.tobytes()))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    return threads, lats, errs
+
+
+def phase_serving(torch, lt, bst, params, train_set, Xv):
+    """Phase 18 (b)-(d): the engine and queue under 8 clients, the
+    hot-swap under load and the HTTP front end."""
+    import threading
+    import urllib.request
+
+    from lightgbm_tpu_torch import serving
+    from lightgbm_tpu_torch.obs import telemetry
+    from lightgbm_tpu_torch.ops import _build, cuda_predict, launch_counts
+
+    out_dir = os.path.join(ROOT, "build", "serving")
+    os.makedirs(out_dir, exist_ok=True)
+    path_a = os.path.join(out_dir, "bench100.txt")
+    bst.save_model(path_a)
+    check(os.path.exists(path_a + ".sha256"), "serving: no sidecar")
+    with route_env("mega"):
+        more = lt.train(dict(params, tree_growth="leafwise",
+                             histogram_pool_size=0.0), train_set,
+                        SWAP_TREES, init_model=bst, verbose_eval=False)
+    path_b = os.path.join(out_dir, "bench120.txt")
+    more.save_model(path_b)
+    off_a = lt.Booster(model_file=path_a)
+    off_b = lt.Booster(model_file=path_b)
+    pm = serving.load_packed_model(path_a)
+    t0 = time.perf_counter()
+    eng = serving.ServingEngine(pm)
+    warm_s = time.perf_counter() - t0
+    id_a = eng.model_id
+    pm_b = serving.load_packed_model(path_b)
+    id_b = pm_b.model_id
+    # P1 at the dispatches' shapes: bucket inputs padded as the engine
+    # pads them, the whole model in one chunk, on both served models
+    err = 0.0
+    for m in (pm, pm_b):
+        for n in (1024, 300, 7, 1):
+            Xp = np.zeros((eng.bucket_for(n), m.num_features), np.float32)
+            Xp[:n] = Xv[:n]
+            err = max(err, _p1_hold(
+                torch, f"bucket_{Xp.shape[0]}_rows_{n}", m.packed, Xp,
+                m.num_trees, m.num_trees // m.num_class))
+    rng = np.random.RandomState(180)
+    reqs, want = _serve_pool(rng, Xv, {id_a: off_a, id_b: off_b})
+    telemetry.get_telemetry().reset()
+    torch.cuda.synchronize()
+    builds, reserved = _build.BUILDS, torch.cuda.memory_reserved()
+    reset_counts()
+    # (b) 8 clients x 250 requests through one queue
+    res = []
+    with serving.MicroBatchQueue(eng) as q:
+        t0 = time.perf_counter()
+        threads, lats, errs = _run_clients(q, reqs, SERVE_CLIENTS,
+                                           SERVE_REQUESTS, res)
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = launch_counts()["P1"]
+    tel = telemetry.get_telemetry()
+    dispatches = tel.counter("serving.dispatches")
+    grew = torch.cuda.memory_reserved() - reserved
+    built = _build.BUILDS - builds
+    same = all(mid == id_a and blob == want[id_a][j]
+               for j, mid, blob in res)
+    rows = sum(reqs[j].shape[0] for j, _, _ in res)
+    p50, p99 = _percentiles(lats)
+    say(f"[serve b] {len(res)} requests ({SERVE_CLIENTS} clients x "
+        f"{SERVE_REQUESTS}, sizes {list(SERVE_SIZES)}) in {wall:.3f}s: "
+        f"{len(res) / wall:.1f} requests/s, {rows / wall:.4g} rows/s, "
+        f"latency p50 {p50:.3f} ms p99 {p99:.3f} ms; {dispatches} "
+        f"dispatches, P1 launches {launches}; every response bitwise "
+        f"Booster.predict of its rows: {same}; kernel builds after "
+        f"prewarm {built}; memory_reserved grew {grew} B; prewarm of "
+        f"{len(eng.buckets)} buckets {warm_s:.3f}s; errors {len(errs)}")
+    check(not errs and len(res) == SERVE_CLIENTS * SERVE_REQUESTS,
+          f"serving: {len(errs)} errors")
+    check(same, "serving: a response differs from Booster.predict")
+    check(built == 0 and grew == 0,
+          f"serving: {built} builds, reserved grew {grew} B")
+    check(launches == dispatches > 0, f"serving: {launches} P1 launches "
+          f"for {dispatches} dispatches")
+    # one dispatch's device ms (P1 alone) and host ms (pad, copies, sync)
+    bucket_ms = {}
+    for b in P1_BUCKETS:
+        Xh = np.ascontiguousarray(reqs[-1][:b], np.float32)  # 1,024 rows
+        Xb = torch.from_numpy(Xh).cuda()
+        dev_ms = time_ms(torch, lambda: cuda_predict.ensemble_sum_cuda(
+            pm.packed, Xb, pm.num_trees, pm.num_trees), reps=50, warm=5)
+        host = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            eng._dispatch_rows(pm, Xh)
+            host.append(time.perf_counter() - t0)
+        bucket_ms[b] = (dev_ms, statistics.median(host) * 1e3)
+    say("[serve dispatch] " + ", ".join(
+        f"bucket {b}: P1 device ms={d:.4f}, whole dispatch host "
+        f"ms={h:.4f}" for b, (d, h) in bucket_ms.items()))
+
+    # (c) hot-swap under load to the 120-tree continuation
+    res_c = []
+    stop = threading.Event()
+    with serving.MicroBatchQueue(eng) as q:
+        threads, lats_c, errs_c = _run_clients(q, reqs, 4, 10 ** 6, res_c,
+                                               stop)
+        while len(res_c) < 100 and not errs_c:
+            time.sleep(0.005)
+        summary = serving.adopt_model(eng, path_b)
+        n_at = len(res_c)
+        while len(res_c) < n_at + 200 and not errs_c:
+            time.sleep(0.005)
+        stop.set()
+        for t in threads:
+            t.join(120)
+    ids = {mid for _, mid, _ in res_c}
+    swap_ok = (not errs_c and ids == {id_a, id_b}
+               and all(blob == want[mid][j] for j, mid, blob in res_c))
+    say(f"[serve c] hot-swap under load (4 clients): {len(res_c)} "
+        f"responses, model ids {sorted(i[:12] for i in ids)}, each "
+        f"bitwise the offline answer of the model it names: {swap_ok}; "
+        f"swap {summary['seconds']:.3f}s, kernel builds "
+        f"{summary['warm']['compiles']}")
+    check(swap_ok, f"serving: hot-swap ({len(errs_c)} errors)")
+
+    # (d) HTTP
+    http_lats, http_ok = [], True
+    with serving.MicroBatchQueue(eng) as q:
+        server = serving.ServingServer(eng, q, port=0).start()
+        try:
+            for i in range(HTTP_REQUESTS):
+                j = i % len(reqs)
+                body = json.dumps({"rows": reqs[j].tolist()}).encode()
+                rq = urllib.request.Request(
+                    server.url + "/v1/predict", data=body,
+                    headers={"Content-Type": "application/json"})
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(rq, timeout=60) as resp:
+                    got = json.loads(resp.read())
+                http_lats.append(time.perf_counter() - t0)
+                http_ok &= (resp.status == 200 and got["model_id"] == id_b
+                            and np.asarray(got["predictions"]).tobytes()
+                            == want[id_b][j])
+            with urllib.request.urlopen(server.url + "/v1/healthz",
+                                        timeout=60) as resp:
+                health = json.loads(resp.read())
+            with urllib.request.urlopen(server.url + "/metrics",
+                                        timeout=60) as resp:
+                metrics = resp.read().decode()
+        finally:
+            server.close()
+    hp50, hp99 = _percentiles(http_lats)
+    say(f"[serve d] HTTP: {HTTP_REQUESTS} POST /v1/predict, latency p50 "
+        f"{hp50:.3f} ms p99 {hp99:.3f} ms, bitwise offline: {http_ok}; "
+        f"healthz {health['status']} {health['num_trees']} trees on "
+        f"{health['device']}; /metrics {len(metrics.splitlines())} lines")
+    check(http_ok and health["status"] == "ok"
+          and health["num_trees"] == PREDICT_TREES + SWAP_TREES
+          and "lgbm_serving_requests_total" in metrics
+          and "lgbm_memory_reserved_bytes" in metrics, "serving: HTTP")
+    return dict(launches=launches, max_abs_err=err, p50=p50, p99=p99,
+                rps=len(res) / wall, rows_ps=rows / wall,
+                http=(hp50, hp99), buckets=bucket_ms)
+
+
 def main() -> int:
     try:
         import torch
@@ -2256,12 +2661,18 @@ def main() -> int:
           f"depthwise under bsub and v1 differ: {main_bsub['auc']} vs "
           f"{main_dw['auc']}")
     phase_api(torch, lt, *data)
-    del data
+    params, train_set, valid_set, Xv = data
+    reset_counts()
+    served, one_call, p1 = phase_predict(torch, lt, params, train_set, valid_set, Xv)
+    serve = phase_serving(torch, lt, served, params, train_set, Xv)
+    del data, served, train_set, valid_set
     phase_trees(torch, lt)
     phase_wide(torch, lt)
     for kind in ("regression", "multiclass", "lambdarank"):
         phase_objective(torch, lt, card, kind)
     phase_objective(torch, lt, card, "multiclass", rows=MULTICLASS_BAND_ROWS)
+    p1_launches = one_call + serve["launches"]  # one predict + served
+    p1["max_abs_err"] = max(p1["max_abs_err"], serve["max_abs_err"])
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s "
         f"on {card}")
     src = "lightgbm_tpu_torch/csrc/"
@@ -2310,6 +2721,12 @@ def main() -> int:
         dict(name="write_window", route="cuda", source=src + "record.cu",
              replaces="lightgbm_tpu/ops/record.py:655", path="writeback",
              bound_by="bytes", **writeback),
+        # no pallas_call: the JAX package predicts in jnp (the stacked
+        # walk, models/tree.py:192-228; ops/predict_matmul.py:153 on TPU)
+        dict(name="ensemble_predict", route="cuda",
+             source=src + "predict.cu",
+             replaces="lightgbm_tpu/models/tree.py:192", path="predict+serve",
+             launches=p1_launches, **p1),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,7 @@ from .io.dataset import BinnedDataset
 from .io.metadata import Metadata
 from .models.gbdt import GBDT, check_supported
 from .objectives import create_objective
+from .resilience.atomic import atomic_write
 
 
 class LightGBMError(Exception):
@@ -437,8 +438,12 @@ class Booster:
         return self.best_iteration if num_iteration <= 0 else num_iteration
 
     def save_model(self, filename: str, num_iteration: int = -1) -> None:
-        with open(filename, "w") as fh:
-            fh.write(self.model_to_string(num_iteration))
+        """The model text, written atomically with a ``.sha256`` sidecar
+        (the JAX package's ``save_model_to_file``): a preemption mid-save
+        never leaves a truncated model under the real name, and the
+        serving hot-swap verifies the sidecar."""
+        atomic_write(filename, self.model_to_string(num_iteration),
+                     checksum=True)
 
     def model_to_string(self, num_iteration: int = -1) -> str:
         return self._gbdt.save_model_to_string(

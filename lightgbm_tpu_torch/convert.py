@@ -50,6 +50,7 @@ def trees_from_numpy(trees: Sequence[Dict[str, np.ndarray]], device=None,
     gb = GBDT(Config(objective=objective, sigmoid=sigmoid,
                      num_class=num_class), device=dev)
     gb.models = list(out)
+    gb._models_changed()
     gb.sigmoid = float(sigmoid)
     gb._loaded_objective = objective
     if max_feature_idx is None:

@@ -53,9 +53,10 @@ from ..metrics import Metric, create_metrics
 from ..objectives import ObjectiveFunction, objective_kind
 from ..ops.cuda_histogram import (hist_variant, histogram_record_window,
                                   histogram_single_leaf, make_level_hist_fn)
-from .tree import (TREE_FIELDS, Tree, empty_tree, finalize_thresholds_device,
-                   pack_threshold_bounds, predict_binned, predict_leaf_raw,
-                   predict_raw)
+from ..ops.predict import ensemble_leaves, ensemble_sum
+from .tree import (TREE_FIELDS, PackedTrees, Tree, empty_tree,
+                   finalize_thresholds_device, pack_threshold_bounds,
+                   pack_trees, predict_binned)
 
 # leaf_count/internal_count ride the float32 histogram count channel,
 # integer-exact only up to 2**24 rows (lightgbm_tpu/learners/serial.py:78)
@@ -132,6 +133,9 @@ class GBDT:
         self.learning_rate = float(config.learning_rate)
         self.max_leaves = config.num_leaves_
         self.models: List[Tree] = []
+        # bumped by every change of ``models``: the packed ensemble's key
+        self._model_version = 0
+        self._pack_cache: Optional[tuple] = None
         self.iter_ = 0
         self.num_init_iteration = 0
         self.label_idx = 0
@@ -366,6 +370,7 @@ class GBDT:
                 self._valid_scores[vi][k] += predict_binned(tree, vb)
             self.models.append(tree)
             could_split |= tree.num_leaves > 1
+        self._models_changed()
         self.iter_ += 1
         return not could_split
 
@@ -391,6 +396,7 @@ class GBDT:
         scores, n_models, it, bag_state, feat_state, bag_mask, valid = snap
         self._scores = scores.clone()
         del self.models[n_models:]
+        self._models_changed()
         self.iter_ = it
         self._bag_rng.set_state(bag_state)
         self._feat_rng.set_state(feat_state)
@@ -411,6 +417,7 @@ class GBDT:
             for vi, vb in enumerate(self._valid_bins):
                 self._valid_scores[vi][k] -= predict_binned(tree, vb)
         del self.models[-K:]
+        self._models_changed()
         self.iter_ -= 1
 
     def merge_from(self, other: "GBDT", prepend: bool = False) -> None:
@@ -439,6 +446,7 @@ class GBDT:
                             tree, vb)
         else:
             self.models = self.models + incoming
+        self._models_changed()
         self.iter_ = len(self.models) // K - self.num_init_iteration
 
     def _rebind_tree(self, tree: Tree, bounds: np.ndarray) -> Tree:
@@ -527,37 +535,61 @@ class GBDT:
         return len(self.models) // max(self.num_class, 1)
 
     # ---------------------------------------------------------------- predict
-    def _raw_scores(self, X, num_iteration: int = -1) -> np.ndarray:
-        """Σ over each class's trees of raw-feature walks, accumulated in
-        float32 in tree order, returned as float64 [K, n];
-        ``num_iteration`` counts iterations (K trees each)."""
+    def _models_changed(self) -> None:
+        """Every change of ``models`` calls this: a packed ensemble built
+        before it is stale (gbdt.py:993-1006's version counter)."""
+        self._model_version += 1
+
+    def _packed(self) -> PackedTrees:
+        """The whole ensemble as one ``PackedTrees`` on the model's device,
+        built once per model version (a prediction takes a prefix of it)."""
+        cache = self._pack_cache
+        if cache is None or cache[0] != self._model_version:
+            cache = (self._model_version,
+                     pack_trees(self.models, self.num_class, self.device))
+            self._pack_cache = cache
+        return cache[1]
+
+    def _iter_chunk(self, n_rows: int) -> int:
+        """Boosting iterations a chunk sum holds (gbdt.py:1035-1044): the
+        JAX package bounds rows * trees a dispatch, and its chunk sums set
+        the float order that P1 and its plain version keep."""
+        return max(1, 16_000_000 // max(n_rows * self.num_class, 1))
+
+    def _n_trees(self, num_iteration: int) -> int:
+        """Trees of the first ``num_iteration`` iterations (all for <= 0)."""
         K = self.num_class
         n_iter = len(self.models) // K
         if num_iteration > 0:
             n_iter = min(n_iter, num_iteration)
-        Xt = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(
+        return n_iter * K
+
+    def _device_rows(self, X) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(
             self.device)
-        acc = torch.zeros((K, Xt.shape[0]), dtype=torch.float32,
-                          device=self.device)
-        for i, tree in enumerate(self.models[:n_iter * K]):
-            acc[i % K] += predict_raw(tree, Xt)
+
+    def _raw_scores(self, X, num_iteration: int = -1) -> np.ndarray:
+        """Σ over each class's trees of raw-feature walks, in float32 in
+        tree order within chunks of ``_iter_chunk`` iterations, as float64
+        [K, n] (gbdt.py:1046-1088): one P1 launch on the card and one
+        copy back; ``num_iteration`` counts iterations (K trees each)."""
+        Xt = self._device_rows(X)
+        n_trees = self._n_trees(num_iteration)
+        if n_trees == 0:
+            return np.zeros((self.num_class, Xt.shape[0]), np.float64)
+        acc = ensemble_sum(self._packed(), Xt, n_trees,
+                           self._iter_chunk(Xt.shape[0]))
         return acc.cpu().numpy().astype(np.float64)
 
     def predict_leaf_index(self, X, num_iteration: int = -1) -> np.ndarray:
-        """Each row's leaf in each tree, ``[n, trees]`` int32, by a raw
-        walk per tree (gbdt.py:1100-1133); ``num_iteration`` counts
-        iterations (K trees each)."""
-        K = self.num_class
-        n_iter = len(self.models) // K
-        if num_iteration > 0:
-            n_iter = min(n_iter, num_iteration)
-        Xt = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(
-            self.device)
-        if n_iter == 0:
+        """Each row's leaf in each tree, ``[n, trees]`` int32
+        (gbdt.py:1100-1133): one P1 launch on the card; ``num_iteration``
+        counts iterations (K trees each)."""
+        Xt = self._device_rows(X)
+        n_trees = self._n_trees(num_iteration)
+        if n_trees == 0:
             return np.zeros((Xt.shape[0], 0), np.int32)
-        leaves = torch.stack([predict_leaf_raw(t, Xt)
-                              for t in self.models[:n_iter * K]], dim=1)
-        return leaves.to(torch.int32).cpu().numpy()
+        return ensemble_leaves(self._packed(), Xt, n_trees).cpu().numpy().T
 
     def predict_raw_score(self, X, num_iteration: int = -1) -> np.ndarray:
         return raw_score_output(self._raw_scores(X, num_iteration),
@@ -646,6 +678,7 @@ class GBDT:
         self._loaded_objective = kv.get("objective", "")
         self.feature_names = kv.get("feature_names", "").split()
         self.models = [_tree_from_lines(b, self.device) for b in blocks]
+        self._models_changed()
         self.num_init_iteration = len(self.models) // max(self.num_class, 1)
         self.iter_ = 0
 

@@ -1,7 +1,7 @@
 """The port's ops: the CUDA kernels, their wrappers and their plain PyTorch
 versions (histogram, split search and the pooled split step, the packed
 record's partition and write-back, the mega route's split step, the level
-histogram of depthwise growth)."""
+histogram of depthwise growth, ensemble prediction)."""
 
 import importlib
 from typing import Dict
@@ -19,6 +19,7 @@ KERNEL_COUNTERS = {
     "K1″": ("cuda_histogram", "LEVEL_LAUNCHES"),
     "K2": ("cuda_histogram", "BSUB_LAUNCHES"),
     "K9": ("cuda_record", "WRITE_LAUNCHES"),
+    "P1": ("cuda_predict", "LAUNCHES"),
 }
 
 

@@ -28,7 +28,8 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("histogram", "search", "record", "split_step", "level_histogram")
+SOURCES = ("histogram", "search", "record", "split_step", "level_histogram",
+           "predict")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no contracted multiply-adds: the kernels' f32 arithmetic must be the
@@ -39,6 +40,9 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# libraries built (nvcc runs) in this process: serving's steady state
+# builds none after prewarm
+BUILDS = 0
 
 
 def _nvcc() -> str:
@@ -92,8 +96,10 @@ def build_all(force: bool = False) -> Dict[str, float]:
     """Build every stale (or, with ``force``, every) kernel library, one
     ``nvcc`` per source, all started together.  Returns wall seconds per
     source (0.0 for one that was already current)."""
+    global BUILDS
     with _lock:
         names = [n for n in SOURCES if force or _stale(n)]
+        BUILDS += len(names)
         t0 = time.perf_counter()
         procs = {n: _start(n) for n in names}
         secs = {n: 0.0 for n in SOURCES}

@@ -106,6 +106,45 @@ def test_api_modules_are_scanned():
     assert {"callback.py", "engine.py", "basic.py"} <= names
 
 
+def test_serving_modules_are_scanned():
+    """Serving, obs, resilience, analysis and the predictor are among
+    the sources checked above."""
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    for sub, mods in (("serving", ("engine", "queue", "hotswap", "server")),
+                      ("obs", ("telemetry", "tracing", "export", "flightrec",
+                               "memory", "manifest")),
+                      ("resilience", ("atomic", "faults")),
+                      ("analysis", ("lockcheck",)),
+                      ("ops", ("predict", "cuda_predict"))):
+        for m in mods + ("__init__",):
+            assert os.path.join(sub, m + ".py") in names, (sub, m)
+
+
+_BLOCKED_SERVE = _BLOCKED_RUN.replace('print("OK")', '''
+import os, tempfile
+from lightgbm_tpu_torch.serving import (InProcessClient, MicroBatchQueue,
+                                        ServingEngine)
+path = os.path.join(tempfile.mkdtemp(), "m.txt")
+b.save_model(path)
+eng = ServingEngine(path, buckets=(8,), device="cpu")
+with MicroBatchQueue(eng, max_delay_s=0.001) as q:
+    code, out = InProcessClient(eng, q).predict(X[:3].tolist())
+assert code == 200 and out["n"] == 3, out
+assert not any(m == "jax" or m.startswith(("jax.", "lightgbm_tpu."))
+               or m == "lightgbm_tpu" for m in sys.modules)
+print("OK")
+''')
+
+
+def test_serves_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_SERVE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("OK")
+
+
 def test_api_entry_points_default_to_cuda(tmp_path):
     """cv, a Booster from a model file or string and an unpickled Booster
     take the card unless asked for the CPU."""
