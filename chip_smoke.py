@@ -170,16 +170,26 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    (``GBDT._iter_chunk``), at ``num_iteration=37``, on rows with NaN,
    +-inf and +-3e9 in five features, a five-class model (300k rows, 4
    iterations), a model with a categorical feature holding NaN, one-leaf
-   trees and a 7-leaf continuation of a 31-leaf model; the valid AUC
-   from ``predict`` against the one training reported; ``Booster.predict``
-   on 1M rows timed (wall, rows/s, P1 launches and synchronizing calls a
-   call) beside P1's and the plain version's device ms and P1's bound;
+   trees and a 7-leaf continuation of a 31-leaf model; and in P1's other
+   configurations: 1 and 8 rows (one tree a thread), 32 rows a block with
+   chunks of 3 iterations (group boundaries inside chunks; records through
+   L1 and staged) and the bench trees' columns spread over 5,000
+   features at 1,024 rows (tiled) and 4,096 rows (X read from global
+   memory); the valid AUC from ``predict`` against the one training
+   reported; ``Booster.predict`` on 1M rows timed (wall, rows/s, P1
+   launches and synchronizing calls a call) beside P1's and the plain
+   version's device ms and P1's bound, its wall split into stages (input
+   to float64, float32, host-to-device copy, P1, copy back, float64 and
+   transform); P1's ms a call and kernel device ms (profiler), node visits
+   a second and PR 13's time at 1M rows (sums and leaves) and at 1, 8,
+   128 and 1,024 rows;
    (b) the model saved with its ``.sha256`` sidecar, loaded into a
    ``ServingEngine`` (buckets 8 ... 1024) behind a ``MicroBatchQueue``:
    8 client threads x 250 requests of 1, 7, 64, 300 and 1,024 rows,
    every response bitwise ``Booster.predict`` of its rows, no kernel
    built after prewarm, ``memory_reserved`` flat; p50/p99 latency,
-   requests/s, rows/s and each bucket's dispatch ms (8, 128, 1,024);
+   requests/s, rows/s and the dispatch's P1 and host ms at 1, 8, 128 and
+   1,024 rows;
    (c) a hot-swap under load to a 120-tree continuation, every response
    the offline answer of the model its ``model_id`` names; (d) 100
    ``POST /v1/predict`` over HTTP, ``/v1/healthz`` and ``/metrics``.
@@ -265,6 +275,36 @@ def time_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+SPIN_CYCLES = 100_000_000  # 50 ms or more: longer than the enqueue
+
+
+def queued_ms(torch, fn, calls: int = 50, reps: int = 5) -> float:
+    """Device ms a call of ``fn`` with no host in the loop: ``calls`` calls
+    enqueued behind a spin kernel (``torch.cuda._sleep``) while the card
+    is busy, then run back to back between two CUDA events; the median of
+    ``reps`` such runs, over ``calls``.  No CUDA graph (its private memory
+    pool would change the caching allocator's state, and so the peaks of
+    the phases after this one)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        enqueue_s = time.perf_counter() - t0
+        b.record()
+        b.synchronize()
+        check(enqueue_s < 0.02, f"queued_ms: enqueuing {calls} calls took "
+              f"{enqueue_s * 1e3:.1f} ms, not within the spin")
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -2233,7 +2273,15 @@ PREDICT_TREES, SWAP_TREES = 100, 20  # the served model, its continuation
 SERVE_SIZES = (1, 7, 64, 300, 1024)
 SERVE_CLIENTS, SERVE_REQUESTS = 8, 250  # per client
 HTTP_REQUESTS = 100
-P1_BUCKETS = (8, 128, 1024)  # dispatch device ms timed at these
+P1_BUCKETS = (1, 8, 128, 1024)  # P1 and dispatch ms timed at these rows
+WIDE_F = 5000  # the wide configuration's hold: the bench trees' 28 columns
+# P1's times before its redesign (NVIDIA H100 80GB HBM3, 700.00 W): CUDA-
+# event ms a call at 1M rows and buckets 8, 128 and 1,024 from PR 13's own
+# phase 18 (PERF.md section 6); at 1 row and in leaves mode at 1M rows,
+# PR 13's kernel timed beside this one by tools/p1_variants.py
+# --parent-csrc
+PR13_P1_MS = {"sum": 5.0246, "leaves": 4.9837, 1: 0.3602, 8: 0.5990,
+              128: 0.5652, 1024: 0.4849}
 
 
 def _p1_cases(torch, lt, params, train_set, X_all):
@@ -2272,28 +2320,35 @@ def _p1_cases(torch, lt, params, train_set, X_all):
             ("cont_31_then_7", cont7, X[:200_000])]
 
 
-def _p1_hold(torch, name, p, X, n_trees, chunk):
+def _p1_hold(torch, name, p, X, n_trees, chunk, config=None):
     """P1 (sum and leaves modes) on the packed trees ``p`` against its
-    plain version on the card, bitwise; returns the max |difference| of
-    the sums."""
+    plain version on the card, bitwise, in ``p1_config``'s configuration
+    or ``config``; returns the max |difference| of the sums."""
     from lightgbm_tpu_torch.models.tree import (ensemble_leaves_raw,
                                                 ensemble_sum_raw)
     from lightgbm_tpu_torch.ops.cuda_predict import (ensemble_leaves_cuda,
-                                                     ensemble_sum_cuda)
+                                                     ensemble_sum_cuda,
+                                                     p1_config)
 
     Xc = torch.from_numpy(np.ascontiguousarray(X, np.float32)).cuda()
-    s_k = ensemble_sum_cuda(p, Xc, n_trees, chunk)
+    s_k = ensemble_sum_cuda(p, Xc, n_trees, chunk, config)
     s_p = ensemble_sum_raw(p, Xc, n_trees, chunk)
-    l_k = ensemble_leaves_cuda(p, Xc, n_trees)
+    l_k = ensemble_leaves_cuda(p, Xc, n_trees, config)
     l_p = ensemble_leaves_raw(p, Xc, n_trees)
     torch.cuda.synchronize()
     err = float((s_k - s_p).abs().max())
     ok = torch.equal(s_k, s_p) and torch.equal(l_k, l_p)
     leaves = [int(v) for v in p.num_leaves[:n_trees].tolist()]
-    say(f"[predict {name}] {X.shape[0]} rows x {n_trees} trees (leaves "
-        f"{min(leaves)}-{max(leaves)}, K={p.num_class}, depth {p.depth}), "
-        f"chunks of {chunk} iterations: sums and leaves bitwise the plain "
-        f"version's: {ok} (max |diff| {err:.3g})")
+    if config is None:
+        config = p1_config(X.shape[0], X.shape[1], n_trees, p.num_class,
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count, p.max_tree_nodes)
+    say(f"[predict {name}] {X.shape[0]} rows x {X.shape[1]} features x "
+        f"{n_trees} trees (leaves {min(leaves)}-{max(leaves)}, "
+        f"K={p.num_class}, depth {p.depth}), chunks of {chunk} iterations, "
+        f"P1 (rows a block, tiled, staged records) {tuple(config)}: sums "
+        f"and leaves bitwise the plain version's: {ok} (max |diff| "
+        f"{err:.3g})")
     check(ok, f"predict {name}: P1 differs from its plain version")
     return err
 
@@ -2342,6 +2397,7 @@ def phase_predict(torch, lt, params, train_set, valid_set, Xv):
         err = max(err, _p1_hold(torch, name, g._packed(), X, T,
                                 g._iter_chunk(X.shape[0])))
     del cases
+    err = max(err, _p1_redesign_holds(torch, gb, X_all))
     # the valid AUC from predict against the one training reported
     reported = bst.eval_valid()[0][2]
     from_predict = _auc(valid_set.label, bst.predict(Xv, raw_score=True))
@@ -2381,17 +2437,19 @@ def phase_predict(torch, lt, params, train_set, valid_set, Xv):
         bst.predict(X1)
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
+    stages = _predict_stages(torch, bst, X1, out)
     ms = time_ms(torch, lambda: cuda_predict.ensemble_sum_cuda(
         p, Xc, PREDICT_TREES, chunk), reps=10, warm=2)
     plain_ms = time_ms(torch, lambda: ensemble_sum_raw(
         p, Xc, PREDICT_TREES, chunk), reps=2, warm=1)
-    # the bytes P1 must move: X once, the scores once, the node table once;
-    # the operations: one comparison a node visited (from the leaves' depths)
+    # the bytes P1 must move: X once, the scores once, the node records,
+    # leaf values and roots once; the operations: one comparison a node
+    # visited (from the leaves' depths)
     leaves = cuda_predict.ensemble_leaves_cuda(p, Xc, PREDICT_TREES)
-    depth = torch.stack([t.leaf_depth.cuda()[leaves[i].long()]
-                         for i, t in enumerate(gb.models)])
-    visits = float(depth.double().sum())
-    nbytes = X1.nbytes + ROWS * 4 + p.nbytes()
+    visits = _visits(torch, gb.models, leaves)
+    table = 4 * (p.node.numel() + p.leaf_value.numel() + p.root.numel()
+                 + p.node_offset.numel())
+    nbytes = X1.nbytes + ROWS * 4 + table
     bound_ms = max(nbytes / HBM_BYTES_PER_S, visits / F32_FLOPS) * 1e3
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= visits / F32_FLOPS \
         else "operations"
@@ -2403,12 +2461,137 @@ def phase_predict(torch, lt, params, train_set, valid_set, Xv):
         f"ms={ms:.4f}, plain version ms={plain_ms:.2f}, bound "
         f"ms={bound_ms:.5f} ({bound_by}: {nbytes} B, {visits:.4g} node "
         f"visits, mean depth {visits / ROWS / PREDICT_TREES:.2f}), share "
-        f"{100 * bound_ms / ms:.2f} %; node table {p.nbytes()} B; "
+        f"{100 * bound_ms / ms:.2f} %; node records {table} B; "
         f"training {PREDICT_TREES} trees {train_s:.1f}s")
-    del Xc, leaves, depth
+    say("[predict stages] Booster.predict on 1M rows, median of 5, ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; sum {sum(stages.values()):.2f} of the wall {wall * 1e3:.2f}")
+    p1_ms = _p1_times(torch, gb, X1, Xc, visits, leaves)
+    del Xc, leaves
     return bst, one_call, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, library_ms=None,
-                               max_abs_err=err, predict_wall_ms=wall * 1e3)
+                               max_abs_err=err, predict_wall_ms=wall * 1e3,
+                               p1_ms=p1_ms, stages=stages)
+
+
+def _visits(torch, trees, leaves):
+    """Node visits of a leaves-mode result ``[T, n]``: each row's leaf
+    depth in each tree."""
+    depth = torch.stack([t.leaf_depth.to(leaves.device)[leaves[i].long()]
+                         for i, t in enumerate(trees)])
+    return float(depth.double().sum())
+
+
+def _p1_redesign_holds(torch, gb, X_all):
+    """The holds of P1's configurations: 1 and 8 rows (one tree a slot),
+    group boundaries inside chunks (32 rows a block, 8 tree slots, chunks
+    of 3 iterations; through L1 and staged), and the bench trees' columns
+    spread over ``WIDE_F`` features at 1,024 rows (tiled) and 4,096 rows
+    (the wide configuration, X from global memory)."""
+    p = gb._packed()
+    T = p.num_trees
+    err = 0.0
+    for n in (1, 8):
+        err = max(err, _p1_hold(torch, f"rows_{n}", p, X_all[:n], T, T))
+    for stage in (0, 512):
+        err = max(err, _p1_hold(torch, f"group_in_chunk_stage{stage}", p,
+                                X_all[:20_000], T, 3, (32, True, stage)))
+    from lightgbm_tpu_torch.models.tree import pack_trees
+
+    rng = np.random.RandomState(181)
+    perm = rng.choice(WIDE_F, N_FEAT, replace=False)
+    to = torch.as_tensor(perm, dtype=torch.int32)
+    wide = [t.replace(split_feature_real=torch.where(
+        t.split_feature_real >= 0,
+        to.to(t.split_feature_real.device)[
+            t.split_feature_real.clamp(min=0).long()],
+        t.split_feature_real)) for t in gb.models]
+    pw = pack_trees(wide, 1, "cuda")
+    Xw = rng.randn(4096, WIDE_F).astype(np.float32)
+    Xw[:, perm] = X_all[:4096]
+    for n in (1024, 4096):
+        err = max(err, _p1_hold(torch, f"F{WIDE_F}_rows_{n}", pw, Xw[:n], T,
+                                T))
+    return err
+
+
+def _predict_stages(torch, bst, X1, want):
+    """Booster.predict's wall on ``X1`` split into its stages, each run
+    as predict runs it (timed only; the path is not changed): the input
+    to float64 (``basic._to_2d_float``), float64 -> float32 and the
+    host-to-device copy (``GBDT._device_rows``), P1, the copy back, and
+    the float64 cast and transform.  Median ms of 5 of each; the result is
+    held bitwise to ``want``."""
+    from lightgbm_tpu_torch.basic import _to_2d_float
+    from lightgbm_tpu_torch.models.gbdt import transform_scores
+    from lightgbm_tpu_torch.ops.predict import ensemble_sum
+
+    gb = bst._gbdt
+    names = ("input_to_f64", "f64_to_f32", "host_to_device", "p1",
+             "device_to_host", "f64_and_transform")
+    laps = {k: [] for k in names}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        X = _to_2d_float(X1)
+        t.append(time.perf_counter())
+        X32 = np.ascontiguousarray(X, np.float32)
+        t.append(time.perf_counter())
+        Xt = torch.from_numpy(X32).to(gb.device)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        acc = ensemble_sum(gb._packed(), Xt, gb._n_trees(-1),
+                           gb._iter_chunk(Xt.shape[0]))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        host = acc.cpu().numpy()
+        t.append(time.perf_counter())
+        out = transform_scores(host.astype(np.float64), gb.num_class,
+                               gb.sigmoid, gb.objective_name())
+        t.append(time.perf_counter())
+        for k, a, b in zip(names, t, t[1:]):
+            laps[k].append((b - a) * 1e3)
+    check(np.array_equal(out, want), "predict stages: another answer")
+    return {k: statistics.median(v) for k, v in laps.items()}
+
+
+def _p1_times(torch, gb, X1, Xc, visits_1m, leaves_1m):
+    """P1's device ms at 1M rows (sums and leaves) and at 1, 8, 128 and
+    1,024 rows (sums, one chunk, as a dispatch runs it): the CUDA-event ms
+    a call (as PR 13 timed it, the host's launch inside the window) and
+    the device ms a call of back-to-back launches (``queued_ms``), each
+    with the node visits a second and PR 13's time."""
+    from lightgbm_tpu_torch.ops import cuda_predict
+
+    p = gb._packed()
+    T = p.num_trees
+    chunk = gb._iter_chunk(X1.shape[0])
+    runs = [("sum", X1.shape[0], visits_1m,
+             lambda: cuda_predict.ensemble_sum_cuda(p, Xc, T, chunk)),
+            ("leaves", X1.shape[0], visits_1m,
+             lambda: cuda_predict.ensemble_leaves_cuda(p, Xc, T))]
+    for n in P1_BUCKETS:
+        Xn = Xc[:n].contiguous()
+        vis = _visits(torch, gb.models, leaves_1m[:, :n])
+        runs.append((n, n, vis, lambda Xn=Xn: cuda_predict.ensemble_sum_cuda(
+            p, Xn, T, T)))
+    out = {}
+    for key, n, vis, fn in runs:
+        small = n < X1.shape[0]
+        call = time_ms(torch, fn, reps=50 if small else 10)
+        dev = queued_ms(torch, fn, calls=50 if small else 5)
+        cfg = cuda_predict.p1_config(
+            n, X1.shape[1], T, 1,
+            torch.cuda.get_device_properties(0).multi_processor_count,
+            p.max_tree_nodes, key == "leaves")
+        out[key] = dict(ms=call, device_ms=dev, visits=vis)
+        label = f"{key} mode, {n} rows" if key in ("sum", "leaves") else \
+            f"sum mode, {n} rows (one chunk)"
+        say(f"[predict P1] {label}, config {cfg}: ms={call:.4f} a call, "
+            f"device ms={dev:.4f} a call queued, {vis / dev * 1e3:.4g} node "
+            f"visits/s ({vis:.4g} visits); PR 13: ms={PR13_P1_MS[key]:.4f} "
+            f"a call ({PR13_P1_MS[key] / call:.1f}x)")
+    return out
 
 
 def _serve_pool(rng, Xv, bst_by_id):
@@ -2530,22 +2713,32 @@ def phase_serving(torch, lt, bst, params, train_set, Xv):
           f"serving: {built} builds, reserved grew {grew} B")
     check(launches == dispatches > 0, f"serving: {launches} P1 launches "
           f"for {dispatches} dispatches")
-    # one dispatch's device ms (P1 alone) and host ms (pad, copies, sync)
+    # one dispatch's P1 (CUDA-event ms a call, and device ms a call of
+    # back-to-back launches) and host ms (pad, copies, sync), at the padded
+    # bucket the engine runs
     bucket_ms = {}
     for b in P1_BUCKETS:
         Xh = np.ascontiguousarray(reqs[-1][:b], np.float32)  # 1,024 rows
-        Xb = torch.from_numpy(Xh).cuda()
-        dev_ms = time_ms(torch, lambda: cuda_predict.ensemble_sum_cuda(
-            pm.packed, Xb, pm.num_trees, pm.num_trees), reps=50, warm=5)
+        Xp = np.zeros((eng.bucket_for(b), pm.num_features), np.float32)
+        Xp[:b] = Xh
+        Xb = torch.from_numpy(Xp).cuda()
+
+        def p1():
+            return cuda_predict.ensemble_sum_cuda(
+                pm.packed, Xb, pm.num_trees, pm.num_trees)
+
+        call_ms = time_ms(torch, p1, reps=50, warm=5)
+        kernel_ms = queued_ms(torch, p1)
         host = []
         for _ in range(50):
             t0 = time.perf_counter()
             eng._dispatch_rows(pm, Xh)
             host.append(time.perf_counter() - t0)
-        bucket_ms[b] = (dev_ms, statistics.median(host) * 1e3)
+        bucket_ms[b] = (call_ms, kernel_ms, statistics.median(host) * 1e3)
     say("[serve dispatch] " + ", ".join(
-        f"bucket {b}: P1 device ms={d:.4f}, whole dispatch host "
-        f"ms={h:.4f}" for b, (d, h) in bucket_ms.items()))
+        f"{b} rows (bucket {eng.bucket_for(b)}): P1 ms={c:.4f} a call, "
+        f"device ms={k:.4f} queued, whole dispatch host ms={h:.4f}"
+        for b, (c, k, h) in bucket_ms.items()))
 
     # (c) hot-swap under load to the 120-tree continuation
     res_c = []

@@ -55,6 +55,21 @@ def _common_params(params, train_set, fobj, init_model, feature_name,
     return params
 
 
+def _continue_from(booster: Booster, init_model, path: str) -> None:
+    """Put the init model (a Booster, or the model file ``path``) in front
+    of ``booster``'s trees.  ``train`` and ``cv`` call it after adding
+    their validation sets, so ``merge_from`` replays its trees into those
+    sets one at a time, as training added them: 10 + 10 trees give the
+    20-tree run's valid scores bitwise (ROADMAP C4).  A set added to a
+    model that already holds trees is replayed in the JAX package's
+    chunked order instead (``GBDT.add_valid_dataset``, C6)."""
+    if not isinstance(init_model, Booster):
+        if not path:
+            return
+        init_model = Booster(model_file=path, device=booster.device)
+    booster._gbdt.merge_from(init_model._gbdt, prepend=True)
+
+
 def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100,
           valid_sets: Optional[List[Dataset]] = None,
@@ -79,11 +94,9 @@ def train(params: Dict[str, Any], train_set: Dataset,
     merged.update(params)
     # the dataset keeps the merged parameters (its binning reads them),
     # but not this call's init model, which a later call must not inherit
-    train_set.params = {k: v for k, v in merged.items() if k != "input_model"}
+    init_path = merged.pop("input_model", "")
+    train_set.params = dict(merged)
     booster = Booster(params=merged, train_set=train_set, device=device)
-    if isinstance(init_model, Booster):
-        booster._gbdt.merge_from(init_model._gbdt, prepend=True)
-    init_iteration = booster._gbdt.num_init_iteration
 
     valid_names = valid_names or []
     is_valid_contain_train = False
@@ -96,6 +109,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
         if vs.reference is None:
             vs.reference = train_set
         booster.add_valid(vs, name)
+    _continue_from(booster, init_model, init_path)
+    init_iteration = booster._gbdt.num_init_iteration
 
     cbs = list(dict.fromkeys(callbacks or []))  # ordered dedupe
     if verbose_eval is True:
@@ -256,11 +271,11 @@ def cv(params: Dict[str, Any], train_set: Dataset,
         tparams = dict(params)
         if fpreproc is not None:
             tr, te, tparams = fpreproc(tr, te, tparams.copy())
+        init_path = tparams.pop("input_model", "")
         tr.params.update(tparams)
         bst = Booster(params=tparams, train_set=tr, device=device)
-        if isinstance(init_model, Booster):
-            bst._gbdt.merge_from(init_model._gbdt, prepend=True)
         bst.add_valid(te, "valid")
+        _continue_from(bst, init_model, init_path)
         cvfolds.append(bst)
 
     cbs = list(dict.fromkeys(callbacks or []))  # ordered dedupe

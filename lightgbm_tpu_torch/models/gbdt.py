@@ -194,10 +194,12 @@ class GBDT:
 
     def add_valid_dataset(self, valid_set: BinnedDataset) -> None:
         """GBDT::AddValidDataset (gbdt.cpp:124-140); replays the trees
-        already in the model onto the new set, one at a time in model
-        order.  Every tree in ``models`` is in this dataset's bins: trees
-        of a loaded model enter only through ``merge_from``, which
-        rebinds them."""
+        already in the model onto the new set in the JAX package's float
+        order (gbdt.py:478-489): each chunk of ``_iter_chunk`` iterations
+        is summed from zero in tree order, and the chunk sums are added in
+        order to the init scores.  Every tree in ``models`` is in this
+        dataset's bins: trees of a loaded model enter only through
+        ``merge_from``, which rebinds them."""
         if self.train_set is None or not self.train_set.check_align(valid_set):
             raise ValueError("validation set is not aligned with the "
                              "training set's bin mappers")
@@ -207,8 +209,16 @@ class GBDT:
         vb = torch.from_numpy(np.ascontiguousarray(valid_set.X_bin)) \
             .to(self.device).to(torch.int32)
         acc = self._init_scores(valid_set)
-        for i, tree in enumerate(self.models):
-            acc[i % self.num_class] += predict_binned(tree, vb)
+        K = self.num_class
+        n_iter = len(self.models) // K
+        step = self._iter_chunk(valid_set.num_data)
+        for lo in range(0, n_iter, step):
+            part = torch.zeros_like(acc)
+            for i in range(lo, min(lo + step, n_iter)):
+                for k in range(K):
+                    part[k] = part[k] + predict_binned(
+                        self.models[i * K + k], vb)
+            acc = acc + part
         self._valid_bins.append(vb)
         self._valid_scores.append(acc)
 

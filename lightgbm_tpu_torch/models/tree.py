@@ -87,6 +87,7 @@ def empty_tree(max_leaves: int, device="cpu") -> Tree:
 
 
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+CAT_BIT = 1 << 31  # a categorical node's flag in P1's record
 
 
 def f32_to_i32_xla(x: torch.Tensor) -> torch.Tensor:
@@ -149,7 +150,12 @@ class PackedTrees:
     internal child is its row in the node table, a leaf child ``~j`` with
     ``j`` its row in ``leaf_value``.  ``root[t]`` is tree t's first node
     (``~leaf_offset[t]`` for a one-leaf tree).  ``depth`` is the deepest
-    root-to-leaf path in internal nodes, the walk's step count."""
+    root-to-leaf path in internal nodes, the walk's step count.
+
+    ``node`` holds each internal node once more as one 16-byte record,
+    the layout kernel P1 reads with one load a visit: ``{split_feature |
+    categorical << 31, the threshold's float32 bits, left_child,
+    right_child}``; the plain versions read the separate arrays."""
 
     split_feature: torch.Tensor  # [nodes] int32, real column index
     threshold: torch.Tensor  # [nodes] f32, threshold_real
@@ -160,9 +166,12 @@ class PackedTrees:
     root: torch.Tensor  # [T] int32
     leaf_offset: torch.Tensor  # [T] int32
     num_leaves: torch.Tensor  # [T] int32
+    node: torch.Tensor  # [nodes, 4] int32, P1's record of each node
+    node_offset: torch.Tensor  # [T + 1] int32, tree t's first record
     num_class: int
     depth: int
     num_features: int  # 1 + the largest split feature (0 without splits)
+    max_tree_nodes: int  # the most internal nodes of one tree
 
     @property
     def num_trees(self) -> int:
@@ -171,9 +180,6 @@ class PackedTrees:
     def tensors(self) -> List[torch.Tensor]:
         return [getattr(self, f.name) for f in dataclasses.fields(self)
                 if isinstance(getattr(self, f.name), torch.Tensor)]
-
-    def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self.tensors())
 
 
 def _host(trees: List[Tree], field: str, counts: List[int]) -> np.ndarray:
@@ -241,12 +247,19 @@ def pack_trees(trees: List[Tree], num_class: int = 1,
     def dev(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
+    thr32 = np.ascontiguousarray(thr, np.float32)
+    node = np.stack([feat.astype(np.int64) | np.where(dt == 1, CAT_BIT, 0),
+                     thr32.view(np.int32), lc, rc], axis=1)
+    node = node.astype(np.int64).astype(np.uint32).view(np.int32)
+
     return PackedTrees(
         split_feature=dev(feat, np.int32), threshold=dev(thr, np.float32),
         decision_type=dev(dt, np.uint8), left_child=dev(lc, np.int32),
         right_child=dev(rc, np.int32), leaf_value=dev(lv, np.float32),
         root=dev(root, np.int32), leaf_offset=dev(leaf_off[:-1], np.int32),
-        num_leaves=dev(nl, np.int32), num_class=int(num_class), depth=depth,
+        num_leaves=dev(nl, np.int32), node=dev(node, np.int32),
+        node_offset=dev(node_off, np.int32), num_class=int(num_class),
+        depth=depth, max_tree_nodes=max(ni, default=0),
         num_features=int(feat.max()) + 1 if feat.size else 0)
 
 

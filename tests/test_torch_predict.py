@@ -327,16 +327,36 @@ def test_p1_matches_plain_on_card(models):
                                                      ensemble_sum_cuda)
 
     Q = np.ascontiguousarray(_queries(_data()[0]), np.float32)
+    # the queries' columns spread over 5,000 features, 4,096 rows: the wide
+    # configuration (X read from global memory)
+    rng = np.random.RandomState(14)
+    perm = rng.choice(5000, F, replace=False)
+    Qw = rng.randn(4096, 5000).astype(np.float32)
+    Qw[:, perm] = np.resize(Q, (4096, F))
+    to = torch.as_tensor(perm, dtype=torch.int32)
+
+    def spread(t):
+        sf = t.split_feature_real
+        return t.replace(split_feature_real=torch.where(
+            sf >= 0, to[sf.clamp(min=0).long()], sf))
+
     for kind in KINDS:
         gb = _port(models[kind])._gbdt
-        p = gb._packed()
-        T, K = p.num_trees, p.num_class
-        pc = port_tree.pack_trees(gb.models, K, "cuda")
-        Xc = torch.from_numpy(Q).cuda()
-        for chunk in (1, 3, T // K):
-            assert torch.equal(
-                ensemble_sum_cuda(pc, Xc, T, chunk).cpu(),
-                port_tree.ensemble_sum_raw(p, torch.from_numpy(Q), T, chunk))
-        assert torch.equal(ensemble_leaves_cuda(pc, Xc, T).cpu(),
-                           port_tree.ensemble_leaves_raw(
-                               p, torch.from_numpy(Q), T))
+        T, K = len(gb.models), gb.num_class
+        cases = [(gb.models, Q, None), (gb.models, Q[:1], None),
+                 (gb.models, Q[:8], None),
+                 # 8 tree slots a block, chunks of 3 iterations: group
+                 # boundaries inside chunks, records through L1 and staged
+                 (gb.models, Q, (32, True, 0)), (gb.models, Q, (32, True, 64)),
+                 ([spread(t) for t in gb.models], Qw, None)]
+        for trees, X, config in cases:
+            p = port_tree.pack_trees(trees, K, "cpu")
+            pc = port_tree.pack_trees(trees, K, "cuda")
+            Xc = torch.from_numpy(np.ascontiguousarray(X)).cuda()
+            Xh = torch.from_numpy(np.ascontiguousarray(X))
+            for chunk in (1, 3, T // K):
+                assert torch.equal(
+                    ensemble_sum_cuda(pc, Xc, T, chunk, config).cpu(),
+                    port_tree.ensemble_sum_raw(p, Xh, T, chunk))
+            assert torch.equal(ensemble_leaves_cuda(pc, Xc, T, config).cpu(),
+                               port_tree.ensemble_leaves_raw(p, Xh, T))
