@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
-``lightgbm_tpu_torch/csrc`` (one nvcc per source, started together), then:
+``lightgbm_tpu_torch/csrc`` (one nvcc per source, started together), then
+(the files it writes go under the git-ignored ``build/smoke_files``):
 
 1. prints the card (nvidia-smi name and power limit), the build times and
    each kernel's registers / shared memory (nvcc -Xptxas -v);
@@ -194,6 +195,38 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    the offline answer of the model its ``model_id`` names; (d) 100
    ``POST /v1/predict`` over HTTP, ``/v1/healthz`` and ``/metrics``.
 
+19. (run after phases 14-16) files, the CLI, the batch tier, ``task=serve``
+   and sklearn at the bench width: the bench data (1M + 200k rows x 28
+   features) written as ``%.17g`` CSV by a pool of processes (timed
+   apart); numpy's parse rate one-shot and streamed; ``cli.main``
+   training from a ``train.conf`` of the reference's keys (one-shot
+   load, ``use_two_round_loading`` writing the binary cache, then the
+   cache): each model text bitwise the in-memory model of phase 8's mega
+   route (the same data and parameters), with load and s/tree beside
+   phase 8's mega s/tree; ``task=predict`` and
+   ``pipelined_predict_file`` (its reader / P1 / writer stage times) equal
+   to ``format_block`` of ``Booster.predict``; ``task=serve`` answering
+   ``POST /v1/predict`` with the offline answers, then draining; an
+   ``LGBMClassifier`` (this machine has no scikit-learn) with the same
+   model text and ``predict_proba == predict``;
+20. sparse depthwise at Allstate's width (1M rows, cut from 13.18M; 4,228
+   one-hot columns in 33 categorical groups, 33 stored entries a row,
+   density 0.0078): 10 depthwise trees of 255 leaves through kernel S1
+   (``csrc/sparse_histogram.cu``), S1 held bitwise against its plain
+   version at every level of the first tree on the tree's own leaf ids,
+   on the 500k-row default-bin case (relative error under 2e-5 against
+   float64), on uint16 x 300 bins and on 64-entry segments (L·B above
+   1,536 keys: two sort passes), and timed at a wide-bin shape (1M rows x
+   1,000 features of 255 bins, 20 entries a row, at 16 and 128 leaves); a
+   100k-row LibSVM file of the same rows binned like the CSR ingest; the
+   dense K1'' route (``sparse_hist_density=0``) trained beside it for
+   DENSE_TREES trees, its train and valid AUC within 0.005 of the S1
+   route's at as many trees; the ms a level of S1 and of K1'' (on the 4.2
+   GB dense bins), the byte bound of S1 and the ms of ``index_add_`` over
+   the stored entries.
+
+The seconds each phase took are printed before the result.
+
 Every phase must pass or the script exits non-zero without a result.  The
 line before the last is the kernels' JSON record, the last line the
 device record.  Without a CUDA card, or without the package beside it, it
@@ -253,6 +286,17 @@ def say(msg: str) -> None:
     if CARD["name"] and TIMED.search(msg) and CARD["name"] not in msg:
         msg = f"{msg} [{CARD['name']}]"
     print(msg, flush=True)
+
+
+PHASE_S = {}  # seconds each phase took, in the order run
+
+
+def timed(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds kept in PHASE_S[name]."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_S[name] = round(time.perf_counter() - t0, 3)
+    return out
 
 
 def check(ok: bool, what: str) -> None:
@@ -1274,7 +1318,8 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
           and bool(((pv > 0) & (pv < 1)).all()), f"main {route}: predictions")
     return dict(counts=counts, s_per_tree=elapsed / TREES,
                 auc=(train_auc, valid_auc), syncs_per_tree=syncs / TREES,
-                peak=peak, leaves=leaves, recomputes=recomputes)
+                peak=peak, leaves=leaves, recomputes=recomputes,
+                text=booster.model_to_string())
 
 
 # --------------------------------------------------------------- phase 9
@@ -2805,6 +2850,566 @@ def phase_serving(torch, lt, bst, params, train_set, Xv):
                 http=(hp50, hp99), buckets=bucket_ms)
 
 
+# ----------------------------------------------------------------- phase 19
+FILES_DIR = os.path.join(ROOT, "build", "smoke_files")
+CSV_CHUNK_ROWS = 25_000  # rows a formatting worker writes at a time
+
+
+def _format_csv_rows(block):
+    """``%.17g`` CSV lines of ``block`` [m, 1 + F] (label first): a
+    process-pool worker's task."""
+    fmt = ",".join(["%.17g"] * block.shape[1]) + "\n"
+    return "".join(fmt % tuple(row) for row in block.tolist())
+
+
+def write_csv(path, y, X):
+    """The label and the features as ``%.17g`` CSV, formatted by a pool of
+    spawned processes (one per core) and written in row order; returns
+    the seconds it took."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    blocks = (np.column_stack([y[i:i + CSV_CHUNK_ROWS],
+                               X[i:i + CSV_CHUNK_ROWS]]).astype(np.float64)
+              for i in range(0, len(y), CSV_CHUNK_ROWS))
+    with cf.ProcessPoolExecutor(os.cpu_count() or 1,
+                                mp_context=mp.get_context("spawn")) as ex, \
+            open(path, "w") as fh:
+        for text in ex.map(_format_csv_rows, blocks):
+            fh.write(text)
+    return time.perf_counter() - t0
+
+
+def _run_cli(torch, cli, argv):
+    """``cli.main(argv, device="cuda")`` at verbose=1 with its log
+    captured: (loading seconds, seconds to the last iteration) as the
+    log reports them (None for a task without them)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["verbose=1"], device="cuda")
+    torch.cuda.synchronize()
+    log = buf.getvalue()
+    check(rc == 0, f"cli {argv[:1]}: exit code {rc}:\n{log[-2000:]}")
+    load = re.findall(r"Finish loading data, use ([0-9.]+) seconds", log)
+    train = re.findall(r"([0-9.]+) seconds elapsed, finished iteration",
+                       log)
+    return (float(load[-1]) if load else None,
+            float(train[-1]) if train else None)
+
+
+def phase_files(torch, lt, params, mega):
+    """Files, the CLI, the batch tier, ``task=serve`` and sklearn at the
+    bench width: the bench data as ``%.17g`` CSV (1M + 200k rows, label
+    in column 0); the CLI's model bitwise the in-memory model of phase 8's
+    mega route (``mega``: its text and s/tree; the same data, parameters
+    and trees), also from two-round loading and from the binary cache;
+    ``task=predict``
+    and ``pipelined_predict_file`` equal to ``Booster.predict`` formatted
+    by ``format_block``; a few ``POST /v1/predict`` to ``task=serve``; an
+    ``LGBMClassifier`` with the same model text."""
+    import http.client
+
+    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch import sklearn as lsk
+    from lightgbm_tpu_torch.io import parser
+    from lightgbm_tpu_torch.serving import batch
+    from lightgbm_tpu_torch.synthetic import bench_data
+
+    os.makedirs(FILES_DIR, exist_ok=True)
+    X, y, Xv, yv = bench_data(ROWS, seed=7, n_valid=VALID_ROWS)
+    train_csv = os.path.join(FILES_DIR, "train.csv")
+    valid_csv = os.path.join(FILES_DIR, "valid.csv")
+    write_s = write_csv(train_csv, y, X) + write_csv(valid_csv, yv, Xv)
+    mb = {p: os.path.getsize(p) / 1e6 for p in (train_csv, valid_csv)}
+    say(f"[files] wrote {ROWS}+{VALID_ROWS} rows x {N_FEAT} features as "
+        f"%.17g CSV ({mb[train_csv]:.1f} + {mb[valid_csv]:.1f} MB) in "
+        f"{write_s:.2f}s with {os.cpu_count()} processes")
+
+    # ---- parse rates, one-shot and streamed, on the valid file
+    t0 = time.perf_counter()
+    raw, _ = parser.parse_file(valid_csv)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    streamed = np.vstack(list(parser.parse_file_chunks(valid_csv)))
+    stream_s = time.perf_counter() - t0
+    check(np.array_equal(raw, streamed)
+          and np.array_equal(raw[:, 1:], Xv.astype(np.float64))
+          and np.array_equal(raw[:, 0], yv),
+          "files: the parsed valid file differs from the written floats")
+    say(f"[files] parse one-shot {mb[valid_csv] / one_s:.1f} MB/s "
+        f"{VALID_ROWS / one_s:.0f} rows/s ({one_s:.3f}s); streamed "
+        f"{mb[valid_csv] / stream_s:.1f} MB/s {VALID_ROWS / stream_s:.0f} "
+        f"rows/s ({stream_s:.3f}s); host CPUs {os.cpu_count()}")
+    del raw, streamed
+
+    ref_text, mega_s_per_tree = mega["text"], mega["s_per_tree"]
+
+    # ---- the CLI: one-shot load, two-round load (writing the binary
+    # cache), then the cache
+    conf = os.path.join(FILES_DIR, "train.conf")
+    with open(conf, "w") as fh:
+        fh.write("\n".join([
+            "task = train", "objective = binary", "metric = auc",
+            "metric_freq = 1", "is_training_metric = false",
+            f"max_bin = {NUM_BINS}", f"data = {train_csv}",
+            f"valid_data = {valid_csv}", f"num_trees = {TREES}",
+            f"learning_rate = {LEARNING_RATE}", f"num_leaves = {NUM_LEAVES}",
+            f"min_data_in_leaf = {MIN_DATA}"]) + "\n")
+    torch.cuda.reset_peak_memory_stats()
+    for name, extra in (
+            ("one-shot", ["enable_load_from_binary_file=false"]),
+            ("two-round", ["use_two_round_loading=true",
+                           "is_save_binary_file=true", "valid_data="]),
+            ("binary-cache", ["valid_data="])):
+        out = os.path.join(FILES_DIR, f"model-{name}.txt")
+        t0 = time.perf_counter()
+        load_s, train_s = _run_cli(
+            torch, cli, [f"config={conf}", f"output_model={out}", *extra])
+        wall = time.perf_counter() - t0
+        with open(out) as fh:
+            check(fh.read() == ref_text, f"files: the CLI's {name} model "
+                  "differs from the in-memory train model")
+        check(name != "two-round" or os.path.exists(train_csv + ".bin"),
+              "files: no binary cache")
+        say(f"[files cli {name}] wall {wall:.3f}s load_s={load_s:.3f} "
+            f"train_s={train_s:.3f} s/tree={train_s / TREES:.4f} (phase 8 "
+            f"mega s/tree={mega_s_per_tree:.4f}); model bitwise the "
+            "in-memory train model")
+    say(f"[files] CLI peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+
+    # ---- task=predict and the pipelined batch tier
+    model = os.path.join(FILES_DIR, "model-one-shot.txt")
+    bst = lt.Booster(model_file=model)
+    want = batch.format_block(bst.predict(Xv))
+    result = os.path.join(FILES_DIR, "predict.txt")
+    t0 = time.perf_counter()
+    _run_cli(torch, cli, ["task=predict", f"data={valid_csv}",
+                          f"input_model={model}", f"output_result={result}"])
+    predict_s = time.perf_counter() - t0
+    with open(result) as fh:
+        check(fh.read() == want,
+              "files: task=predict differs from Booster.predict")
+    piped = os.path.join(FILES_DIR, "pipelined.txt")
+    stats = batch.pipelined_predict_file(bst, valid_csv, piped,
+                                         stream_threshold=0,
+                                         chunk_rows=50_000)
+    with open(piped) as fh:
+        check(fh.read() == want, "files: pipelined_predict_file differs "
+              "from Booster.predict")
+    say(f"[files predict] task=predict {VALID_ROWS / predict_s:.0f} rows/s "
+        f"({predict_s:.3f}s wall, one-shot); pipelined "
+        f"{VALID_ROWS / stats['wall_s']:.0f} rows/s ({stats['wall_s']:.3f}s"
+        f", {stats['chunks']} chunks): reader {stats['read_s']:.3f}s, "
+        f"predict (P1) {stats['predict_s']:.3f}s, writer "
+        f"{stats['write_s']:.3f}s, waiting on the reader "
+        f"{stats['parse_wait_s']:.3f}s; both == format_block(predict)")
+
+    # ---- task=serve
+    cfg = lt.Config.from_dict(cli.load_parameters(
+        ["task=serve", f"input_model={model}", "serve_port=0"]))
+    server = cli.run_serve(cfg, device="cuda", block=False)
+    try:
+        conn = http.client.HTTPConnection(server.host, server.port,
+                                          timeout=60)
+        for lo, m in ((0, 1), (10, 7), (100, 64), (1000, 300)):
+            rows = Xv[lo:lo + m].astype(np.float64)
+            conn.request("POST", "/v1/predict",
+                         json.dumps({"rows": rows.tolist()}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            check(resp.status == 200 and np.asarray(
+                body["predictions"]).tobytes() == bst.predict(rows).tobytes(),
+                f"files: task=serve's answer for {m} rows differs")
+        conn.close()
+    finally:
+        server.queue.drain()
+        server.close()
+    say("[files serve] task=serve answered POST /v1/predict of 1, 7, 64 and "
+        "300 rows with the offline answers, then drained")
+
+    # ---- sklearn's classifier (this machine has no scikit-learn)
+    est = lt.LGBMClassifier(
+        n_estimators=TREES, num_leaves=NUM_LEAVES, max_bin=NUM_BINS,
+        learning_rate=LEARNING_RATE, min_child_samples=MIN_DATA,
+        min_child_weight=10.0, subsample_freq=0, device="cuda")
+    t0 = time.perf_counter()
+    est.fit(X, y.astype(int))
+    fit_s = time.perf_counter() - t0
+    check(est.booster_.model_to_string() == ref_text,
+          "files: LGBMClassifier's model differs from the train model")
+    proba = est.predict_proba(Xv)
+    check(np.array_equal(proba[:, 1], est.booster_.predict(Xv))
+          and np.array_equal(proba[:, 0], 1.0 - proba[:, 1]),
+          "files: predict_proba differs from predict")
+    say(f"[files sklearn] LGBMClassifier (base class "
+        f"{lsk._SKLBase.__module__}.{lsk._SKLBase.__name__}) fit "
+        f"{fit_s:.3f}s (binning the arrays in memory and {TREES} trees); "
+        "model bitwise the train model; predict_proba == predict")
+    for name in os.listdir(FILES_DIR):
+        os.remove(os.path.join(FILES_DIR, name))
+
+
+# ----------------------------------------------------------------- phase 20
+SPARSE_ROWS, SPARSE_VALID = 1_000_000, 200_000
+SPARSE_COLS, SPARSE_GROUPS = 4228, 33  # Allstate's one-hot width, ~33 a row
+LIBSVM_ROWS = 100_000
+DENSE_TREES = 3  # trees of the dense K1'' route compared with S1's
+
+
+def allstate_csr(n, seed):
+    """Allstate-shaped one-hot rows: SPARSE_GROUPS categorical columns of
+    seeded lognormal cardinalities (SPARSE_COLS one-hot columns in all),
+    Zipf-skewed categories, one stored 1.0 per group a row; a binary
+    label from a seeded linear function of 5 % of the columns plus noise.
+    The cardinalities and weights do not depend on ``n`` or ``seed``.
+    Returns (indptr, indices, values, label)."""
+    rng = np.random.RandomState(1234)
+    w = rng.lognormal(0, 1.2, SPARSE_GROUPS)
+    sizes = np.maximum(2, np.round(w / w.sum() * SPARSE_COLS)).astype(int)
+    sizes[-1] += SPARSE_COLS - sizes.sum()
+    off = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    coef = rng.randn(SPARSE_COLS) * (rng.rand(SPARSE_COLS) < 0.05)
+    rng = np.random.RandomState(seed)
+    cats = np.empty((n, SPARSE_GROUPS), np.int64)
+    for g in range(SPARSE_GROUPS):
+        p = 1.0 / np.arange(1, sizes[g] + 1) ** 1.1
+        cats[:, g] = rng.choice(sizes[g], n, p=p / p.sum())
+    idx = (cats + off).reshape(-1)
+    z = coef[idx].reshape(n, SPARSE_GROUPS).sum(1)
+    y = (z - z.mean()) / z.std() + 0.8 * rng.randn(n) > 0
+    indptr = np.arange(0, n * SPARSE_GROUPS + 1, SPARSE_GROUPS,
+                       dtype=np.int64)
+    return indptr, idx, np.ones(len(idx)), y.astype(np.float32)
+
+
+def _s1_holds(torch, cs, sh, what, cpu, gpu, lid, g, h, m, L, B):
+    """S1 on the card against its plain version on the CPU, bitwise, and
+    two launches against each other: (S1's output, the largest absolute
+    difference from the plain version)."""
+    got = cs.sparse_histogram_by_leaf_cuda(gpu, lid, g, h, m, L, B)
+    again = cs.sparse_histogram_by_leaf_cuda(gpu, lid, g, h, m, L, B)
+    want = sh.sparse_histogram_by_leaf_plain(cpu, lid.cpu(), g.cpu(),
+                                             h.cpu(), m.cpu(), L, B)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"S1 {what}: launches differ")
+    err = float((got.cpu() - want).abs().max())
+    check(torch.equal(got.cpu(), want),
+          f"S1 {what}: differs from its plain version (max {err})")
+    return got, err
+
+
+def _s1_random_case(torch, sh, cs, rng, what, n, F, per_row, nb, dtype, L,
+                    seg=None):
+    """S1 against its plain version on random CSR entries (``seg``
+    entries a segment, by default the dataset's choice for ``nb`` bins):
+    (the largest absolute difference, S1's inputs on the card)."""
+    nnz_row = rng.poisson(per_row, n)
+    indptr = np.concatenate([[0], np.cumsum(nnz_row)]).astype(np.int64)
+    col = rng.randint(0, F, int(indptr[-1])).astype(np.int32)
+    args = (indptr, col, rng.randint(0, nb, len(col)).astype(dtype),
+            rng.randint(0, nb, F).astype(np.int32), F)
+    seg = seg or sh.segment_entries(nb)
+    cpu, gpu = sh.csc_from_csr(*args, "cpu", seg), sh.csc_from_csr(
+        *args, "cuda", seg)
+
+    def dev(a):
+        return torch.from_numpy(a).cuda()
+
+    inputs = (dev(rng.randint(0, L, n).astype(np.int32)),
+              dev(rng.randn(n).astype(np.float32)),
+              dev(rng.rand(n).astype(np.float32)),
+              dev((rng.rand(n) < 0.8).astype(np.float32)))
+    _, err = _s1_holds(torch, cs, sh, what, cpu, gpu, *inputs, L, nb)
+    return err, (gpu, *inputs, L, nb)
+
+
+def _default_bin_case(torch, sh, cs):
+    """tests/test_sparse.py:293's case (500k rows, 2 leaves): S1 bitwise
+    its plain version, the default bins within 2e-5 relative of float64.
+    Returns (the worst relative error, the largest absolute difference
+    from the plain version)."""
+    rng = np.random.RandomState(11)
+    n, f, nb, L = 500_000, 4, 16, 2
+    indptr = np.concatenate(
+        [[0], np.cumsum(rng.binomial(f, 0.01, n))]).astype(np.int64)
+    col = rng.randint(0, f, int(indptr[-1])).astype(np.int32)
+    args = (indptr, col, rng.randint(1, nb, len(col)).astype(np.uint8),
+            np.zeros(f, np.int32), f)
+    lid = rng.randint(0, L, n).astype(np.int32)
+    g = (rng.rand(n) + 0.5).astype(np.float32)
+    h = (rng.rand(n) + 0.5).astype(np.float32)
+    got, err = _s1_holds(torch, cs, sh, "500k default bin",
+                         sh.csc_from_csr(*args, "cpu"),
+                         sh.csc_from_csr(*args, "cuda"),
+                         torch.from_numpy(lid).cuda(),
+                         torch.from_numpy(g).cuda(),
+                         torch.from_numpy(h).cuda(),
+                         torch.ones(n, device="cuda"), L, nb)
+    got = got.cpu().numpy()
+    erow = sh.entry_rows(indptr)
+    worst = 0.0
+    for lf in range(L):
+        tot = np.sum(g[lid == lf], dtype=np.float64)
+        for ff in range(f):
+            sel = (lid[erow] == lf) & (col == ff)
+            want = tot - np.sum(g[erow][sel], dtype=np.float64)
+            worst = max(worst, abs(float(got[lf, ff, 0, 0]) - want)
+                        / max(abs(want), 1.0))
+    check(worst < 2e-5, f"S1 default bin: relative error {worst}")
+    return worst, err
+
+
+def _libsvm_matches_csr(lt, params, indptr, idx, vals, y):
+    """The first LIBSVM_ROWS rows as a LibSVM file, loaded by
+    ``from_file``: the same SparseBins as the CSR ingest of those rows."""
+    from lightgbm_tpu_torch.io.dataset import BinnedDataset
+
+    path = os.path.join(FILES_DIR, "allstate.svm")
+    os.makedirs(FILES_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    end = int(indptr[LIBSVM_ROWS])
+    # every row stores SPARSE_GROUPS entries (allstate_csr)
+    check(end == LIBSVM_ROWS * SPARSE_GROUPS, "sparse: ragged rows")
+    fmt = "%d" + " %d:1" * SPARSE_GROUPS + "\n"
+    table = np.column_stack([y[:LIBSVM_ROWS].astype(np.int64),
+                             idx[:end].reshape(LIBSVM_ROWS, SPARSE_GROUPS)])
+    with open(path, "w") as fh:
+        fh.write("".join(fmt % tuple(r) for r in table.tolist()))
+    write_s = time.perf_counter() - t0
+    cfg = lt.Config.from_dict(params)
+    t0 = time.perf_counter()
+    loaded = BinnedDataset.from_file(path, cfg)
+    load_s = time.perf_counter() - t0
+    direct = BinnedDataset.from_csr(indptr[:LIBSVM_ROWS + 1], idx[:end],
+                                    vals[:end], SPARSE_COLS,
+                                    loaded.metadata, cfg)
+    check(loaded.is_sparse and all(
+        np.array_equal(getattr(loaded.X_bin, k), getattr(direct.X_bin, k))
+        for k in ("indptr", "col", "bin", "default_bins")),
+        "sparse: the LibSVM file's bins differ from the CSR ingest's")
+    os.remove(path)
+    say(f"[sparse libsvm] {LIBSVM_ROWS} rows written in {write_s:.2f}s, "
+        f"loaded by from_file in {load_s:.2f}s: bins == the CSR ingest's")
+
+
+def _train_timed(torch, booster, trees, pause_at=None, paused=None):
+    """``trees`` updates with every kernel count set to 0 just before: (s/tree,
+    launch counts read just after, depthwise levels grown, peak device
+    bytes, what ``paused()`` returned).  ``paused`` runs after update
+    ``pause_at`` with the clock stopped; it launches no counted kernel."""
+    from lightgbm_tpu_torch.learners import depthwise
+    from lightgbm_tpu_torch.ops import launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    elapsed, got = 0.0, None
+    t0 = time.perf_counter()
+    for i in range(1, trees + 1):
+        booster.update()
+        if i == pause_at:
+            torch.cuda.synchronize()
+            elapsed += time.perf_counter() - t0
+            got = paused()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    elapsed += time.perf_counter() - t0
+    return (elapsed / trees, launch_counts(), depthwise.LEVELS,
+            torch.cuda.max_memory_allocated(), got)
+
+
+def _s1_wide_times(torch, cs, sh, rng):
+    """S1 held and timed at a wide-bin shape: 1M rows x 1,000 features of
+    255 bins, 20 stored entries a row (L·B above 1,536 keys at both leaf
+    counts: two sort passes).  Returns {leaves: (ms, plain ms, index_add_ ms,
+    bound ms)} and the largest absolute difference."""
+    n, F, per_row, nb = 1_000_000, 1000, 20, 255
+    out, worst = {}, 0.0
+    for L in (16, 128):
+        err, (csc, lid, g, h, m, L, B) = _s1_random_case(
+            torch, sh, cs, rng, f"wide bins, {L} leaves", n, F, per_row, nb,
+            np.uint8, L)
+        worst = max(worst, err)
+        row = csc["row"].to(torch.int64)
+        feat = torch.repeat_interleave(torch.arange(F, device="cuda"),
+                                       torch.diff(csc["col_ptr"]))
+        keys = ((lid.to(torch.int64)[row] * F + feat) * B
+                + csc["bin"].to(torch.int64))
+        src = torch.stack([g * m, h * m, m], -1).index_select(0, row)
+        nnz = int(row.numel())
+        out[L] = (
+            time_ms(torch, lambda: cs.sparse_histogram_by_leaf_cuda(
+                csc, lid, g, h, m, L, B)),
+            time_ms(torch, lambda: sh.sparse_histogram_by_leaf_plain(
+                csc, lid, g, h, m, L, B), reps=3, warm=1),
+            time_ms(torch, lambda: torch.zeros(L * F * B, 3, device="cuda")
+                    .index_add_(0, keys, src)),
+            (nnz * 5 + 16 * n + L * F * B * 12) / HBM_BYTES_PER_S * 1e3)
+        del keys, src, row, feat
+    return out, worst
+
+
+def phase_sparse(torch, lt):
+    """Sparse depthwise at Allstate's width (module docstring, phase 20).
+    Returns (S1's kernel record, its launches on the main path)."""
+    import scipy.sparse as sps
+
+    from lightgbm_tpu_torch.metrics import auc
+    from lightgbm_tpu_torch.ops import cuda_histogram as ch
+    from lightgbm_tpu_torch.ops import cuda_sparse_hist as cs
+    from lightgbm_tpu_torch.ops import sparse_hist as sh
+
+    t0 = time.perf_counter()
+    indptr, idx, vals, y = allstate_csr(SPARSE_ROWS, seed=21)
+    vptr, vidx, vvals, yv = allstate_csr(SPARSE_VALID, seed=22)
+    X = sps.csr_matrix((vals, idx, indptr), shape=(SPARSE_ROWS, SPARSE_COLS))
+    Xv = sps.csr_matrix((vvals, vidx, vptr),
+                        shape=(SPARSE_VALID, SPARSE_COLS))
+    gen_s = time.perf_counter() - t0
+    params = {"objective": "binary", "num_leaves": NUM_LEAVES,
+              "max_bin": NUM_BINS, "learning_rate": LEARNING_RATE,
+              "min_data_in_leaf": MIN_DATA, "metric": "auc",
+              "tree_growth": "depthwise", "verbose": -1}
+    train_set = lt.Dataset(X, label=y, params=params)
+    inner = train_set.construct()
+    valid_set = train_set.create_valid(Xv, label=yv)
+    valid_set.construct()
+    bin_s = time.perf_counter() - t0 - gen_s
+    bins = inner.bins_T("cuda")
+    csc = inner.sparse_device("cuda")
+    F = inner.num_features
+    torch.cuda.synchronize()
+    say(f"[sparse] {SPARSE_ROWS} rows x {SPARSE_COLS} one-hot columns ({F} "
+        f"used, {inner.max_num_bin} bins), nnz={inner.X_bin.nnz} "
+        f"density={inner.density:.5f}; data {gen_s:.1f}s, binning (train "
+        f"and valid) {bin_s:.1f}s, the dense routing bins "
+        f"({bins.numel()} bytes) and the CSC copy on the card "
+        f"{time.perf_counter() - t0 - gen_s - bin_s:.1f}s")
+    check(inner.is_sparse and inner.density <= 0.05, "sparse: not sparse")
+
+    # ---- the sparse main path: TREES depthwise trees through S1, the
+    # first tree's levels recorded for the checks below, the train AUC
+    # after DENSE_TREES for the dense route's comparison
+    booster = lt.Booster(params=params, train_set=train_set)
+    gb = booster._gbdt
+    real = gb._level_hist_fn()
+    check(real.__qualname__.startswith("make_sparse_hist_fn"),
+          "sparse: the gate did not pick the sparse histogram")
+    levels = []
+
+    def recording(bins_T, leaf_id, grad, hess, mask, num_leaves):
+        if not gb.models:
+            levels.append((leaf_id.clone(), grad, hess, mask, num_leaves))
+        return real(bins_T, leaf_id, grad, hess, mask, num_leaves)
+
+    gb._level_hist_fn = lambda: recording
+    sparse_s, counts, n_levels, peak, train_auc_k = _train_timed(
+        torch, booster, TREES, DENSE_TREES,
+        lambda: booster.eval_train()[0][2])
+    check(counts["S1"] == n_levels >= len(levels) > 0
+          and counts[K1PP] == 0,
+          f"sparse: launches {counts} over {n_levels} levels")
+    booster.add_valid(valid_set, "valid")
+    sp_auc = (booster.eval_train()[0][2], booster.eval_valid()[0][2])
+    pv = booster.predict(Xv, raw_score=True)
+    check(np.isfinite(pv).all() and abs(auc(pv, yv) - sp_auc[1]) < 1e-6,
+          f"sparse: predict's valid AUC {auc(pv, yv)} vs {sp_auc[1]}")
+    sp_auc_k = (train_auc_k, auc(booster.predict(
+        Xv, raw_score=True, num_iteration=DENSE_TREES), yv))
+    B = gb._num_bins
+
+    # ---- S1 against its plain version at every level of the first tree
+    cpu = inner.sparse_device("cpu")
+    errs = [_s1_holds(torch, cs, sh, f"level {k} ({L} leaves)", cpu, csc,
+                      lid, g, h, m, L, B)[1]
+            for k, (lid, g, h, m, L) in enumerate(levels)]
+    s1_ms_levels = [time_ms(torch, lambda a=a: cs.sparse_histogram_by_leaf_cuda(
+        csc, a[0], a[1], a[2], a[3], a[4], B), reps=5, warm=1)
+        for a in levels]
+    lid, g, h, m, L = levels[-1]
+    s1_ms = time_ms(torch, lambda: cs.sparse_histogram_by_leaf_cuda(
+        csc, lid, g, h, m, L, B))
+    plain_ms = time_ms(torch, lambda: sh.sparse_histogram_by_leaf_plain(
+        csc, lid, g, h, m, L, B), reps=3, warm=1)
+    row = csc["row"].to(torch.int64)
+    feat = torch.repeat_interleave(torch.arange(F, device="cuda"),
+                                   torch.diff(csc["col_ptr"]))
+    keys = ((lid.to(torch.int64)[row] * F + feat) * B
+            + csc["bin"].to(torch.int64))
+    src = torch.stack([g * m, h * m, m], -1).index_select(0, row)
+
+    def library():
+        return torch.zeros(L * F * B, 3, device="cuda").index_add_(0, keys,
+                                                                   src)
+
+    lib_ms = time_ms(torch, library)
+    del keys, src, row, feat
+    k1_ms = time_ms(torch, lambda: ch.histogram_by_leaf_sorted_cuda(
+        bins, lid, g, h, m, B, L, "v1"), reps=5, warm=1)
+    nnz = int(csc["row"].numel())
+    nbytes = (nnz * (4 + csc["bin"].element_size()) + 16 * SPARSE_ROWS
+              + L * F * B * 12)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"[sparse S1] {len(levels)} levels of tree 1 bitwise == plain; at "
+        f"the last level ({L} leaves): S1 ms={s1_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (index_add_ of "
+        f"the stored entries, not deterministic) K1'' ms={k1_ms:.4f} on the "
+        f"dense bins ({bins.numel()} bytes) bound_ms={bound:.5f} "
+        f"({nbytes} bytes) share={bound / s1_ms:.4f}; S1 ms by level "
+        f"{[round(t, 4) for t in s1_ms_levels]}")
+
+    # ---- the 500k-row default-bin case, uint16 bins, short segments and
+    # the wide-bin shape (L·B above 1,536 keys: sorts of two passes)
+    worst, err = _default_bin_case(torch, sh, cs)
+    errs.append(err)
+    rng = np.random.RandomState(12)
+    errs.append(_s1_random_case(torch, sh, cs, rng, "uint16 x 300 bins",
+                                200_000, 50, 5, 300, np.uint16, 16)[0])
+    errs.append(_s1_random_case(torch, sh, cs, rng, "64-entry segments",
+                                50_000, 40, 4, 300, np.uint16, 9, seg=64)[0])
+    wide, err = _s1_wide_times(torch, cs, sh, rng)
+    errs.append(err)
+    say(f"[sparse S1] bitwise == plain on the 500k-row default-bin case "
+        f"(default bins within {worst:.2e} relative of float64), on uint16 "
+        "x 300 bins and on 64-entry segments")
+    for nl, (ms, p_ms, l_ms, b_ms) in wide.items():
+        say(f"[sparse S1 wide] 1M rows x 1000 features x 255 bins, 20M "
+            f"entries, {nl} leaves ({nl * 255} keys, "
+            f"{-(-(nl * 255 - 1).bit_length() // 8)} sort passes): "
+            f"bitwise == plain; S1 ms={ms:.4f} plain_ms={p_ms:.4f} "
+            f"library_ms={l_ms:.4f} bound_ms={b_ms:.5f} "
+            f"share={b_ms / ms:.4f}")
+    _libsvm_matches_csr(lt, params, indptr, idx, vals, y)
+
+    # ---- the dense K1'' route on the same data, DENSE_TREES trees
+    dense = lt.Booster(params=dict(params, sparse_hist_density=0.0),
+                       train_set=train_set)
+    check(not dense._gbdt._level_hist_fn().__qualname__.startswith(
+        "make_sparse_hist_fn"), "sparse: sparse_hist_density=0 kept S1")
+    dense_s, dense_counts, dense_levels, dense_peak, _ = _train_timed(
+        torch, dense, DENSE_TREES)
+    check(dense_counts[K1PP] == dense_levels > 0 and dense_counts["S1"] == 0,
+          f"sparse: the dense route launched {dense_counts}")
+    dense.add_valid(valid_set, "valid")
+    de_auc = (dense.eval_train()[0][2], dense.eval_valid()[0][2])
+    check(all(abs(a - b) <= AUC_TOL for a, b in zip(sp_auc_k, de_auc)),
+          f"sparse: AUC at {DENSE_TREES} trees {sp_auc_k} (S1) vs {de_auc} "
+          f"(K1'') beyond +-{AUC_TOL}")
+    say(f"[sparse main] S1 route s/tree={sparse_s:.4f} auc={sp_auc[0]:.6f}/"
+        f"{sp_auc[1]:.6f} ({sp_auc_k[0]:.6f}/{sp_auc_k[1]:.6f} at "
+        f"{DENSE_TREES} trees) launches={json.dumps(counts)} peak_mem_bytes="
+        f"{peak}; dense K1'' route ({DENSE_TREES} trees) s/tree={dense_s:.4f} "
+        f"auc={de_auc[0]:.6f}/{de_auc[1]:.6f} launches="
+        f"{json.dumps(dense_counts)} peak_mem_bytes={dense_peak}")
+    return dict(max_abs_err=max(errs), ms=s1_ms, plain_ms=plain_ms,
+                bound_ms=bound, library_ms=lib_ms), counts["S1"]
+
+
 def main() -> int:
     try:
         import torch
@@ -2825,18 +3430,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    card = phase_build(torch)
-    hist = phase_histogram(torch)
-    search = phase_search(torch)
-    hist_rec = phase_record_histogram(torch)
-    update = phase_search_update(torch)
-    compact, place = phase_partition(torch)
-    step = phase_split_step(torch)
-    data = make_bench_data(lt)
-    level, level_bsub = phase_level_histogram(torch, data[1])
-    pool_search = phase_pool_search(torch)
-    writeback = phase_writeback(torch)
-    routes = {r: phase_main_path(torch, lt, r, *data)
+    card = timed("build", phase_build, torch)
+    hist = timed("histogram", phase_histogram, torch)
+    search = timed("search", phase_search, torch)
+    hist_rec = timed("record_histogram", phase_record_histogram, torch)
+    update = timed("search_update", phase_search_update, torch)
+    compact, place = timed("partition", phase_partition, torch)
+    step = timed("split_step", phase_split_step, torch)
+    data = timed("bench_data", make_bench_data, lt)
+    level, level_bsub = timed("level_histogram", phase_level_histogram,
+                              torch, data[1])
+    pool_search = timed("pool_search", phase_pool_search, torch)
+    writeback = timed("writeback", phase_writeback, torch)
+    routes = {r: timed(f"main_{r}", phase_main_path, torch, lt, r, *data)
               for r in ("mega", "record", "order", "pooled", "depthwise",
                         "depthwise-bsub", "hybrid")}
     for r, m in routes.items():
@@ -2853,19 +3459,25 @@ def main() -> int:
           and main_dw["leaves"] == main_bsub["leaves"],
           f"depthwise under bsub and v1 differ: {main_bsub['auc']} vs "
           f"{main_dw['auc']}")
-    phase_api(torch, lt, *data)
+    timed("api", phase_api, torch, lt, *data)
     params, train_set, valid_set, Xv = data
     reset_counts()
-    served, one_call, p1 = phase_predict(torch, lt, params, train_set, valid_set, Xv)
-    serve = phase_serving(torch, lt, served, params, train_set, Xv)
+    served, one_call, p1 = timed("predict", phase_predict, torch, lt, params,
+                                 train_set, valid_set, Xv)
+    serve = timed("serving", phase_serving, torch, lt, served, params,
+                  train_set, Xv)
     del data, served, train_set, valid_set
-    phase_trees(torch, lt)
-    phase_wide(torch, lt)
+    timed("trees", phase_trees, torch, lt)
+    timed("wide", phase_wide, torch, lt)
     for kind in ("regression", "multiclass", "lambdarank"):
-        phase_objective(torch, lt, card, kind)
-    phase_objective(torch, lt, card, "multiclass", rows=MULTICLASS_BAND_ROWS)
+        timed(kind, phase_objective, torch, lt, card, kind)
+    timed("multiclass_300k", phase_objective, torch, lt, card, "multiclass",
+          rows=MULTICLASS_BAND_ROWS)
+    timed("files", phase_files, torch, lt, params, routes["mega"])
+    sparse, s1_launches = timed("sparse", phase_sparse, torch, lt)
     p1_launches = one_call + serve["launches"]  # one predict + served
     p1["max_abs_err"] = max(p1["max_abs_err"], serve["max_abs_err"])
+    say(f"[phase seconds] {json.dumps(PHASE_S)}")
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s "
         f"on {card}")
     src = "lightgbm_tpu_torch/csrc/"
@@ -2920,6 +3532,16 @@ def main() -> int:
              source=src + "predict.cu",
              replaces="lightgbm_tpu/models/tree.py:192", path="predict+serve",
              launches=p1_launches, **p1),
+        # no pallas_call: the JAX package's CSR level histogram is a jnp
+        # segment_sum (ops/sparse_hist.py:45); S1 is its kernels below
+        dict(name="sparse_histogram_by_leaf", route="cuda",
+             source=src + "sparse_histogram.cu",
+             replaces="lightgbm_tpu/ops/sparse_hist.py:45",
+             path="sparse-depthwise", launches=s1_launches,
+             bound_by="bytes",
+             entry_points=["s1_stored_kernel", "s1_fold_kernel",
+                           "s1_leaf_partial_kernel", "s1_leaf_total_kernel",
+                           "s1_remainder_kernel"], **sparse),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,17 @@
 """User-facing ``Dataset`` and ``Booster``.
 
-Counterpart of lightgbm_tpu/basic.py for the port's surface: lazy
-binning of an in-memory matrix (validation sets aligned to their
-reference) with labels, weights, query groups and init scores, and row
-subsets sharing the bins; ``Booster`` training updates (with a custom
-objective's gradients), rollback, parameter resets, continued training
-from an init model, prediction (``[n]``, ``[n, K]`` for multiclass, or
-leaf indices), evaluation (with a custom metric), the model text and
-JSON dump, importances, attributes and pickling.  Every object lives on
-one device, resolved by ``backend.resolve_device``: CUDA unless
-``device="cpu"`` is passed.
+Counterpart of lightgbm_tpu/basic.py for the port's surface.  A
+``Dataset`` is binned lazily from a matrix, a scipy sparse matrix (in
+O(nnz)) or a text file (or its binary cache), validation sets aligned to
+their reference, with labels, weights, query groups and init scores, and
+row subsets sharing the bins.  ``Booster`` does training updates (with a
+custom objective's gradients), rollback, parameter resets, continued
+training from an init model, prediction of a matrix, a sparse matrix or
+a text file (``[n]``, ``[n, K]`` for multiclass, or leaf indices),
+evaluation (with a custom metric), the model text and JSON dump,
+importances, attributes and pickling.  Every object lives on one device,
+resolved by ``backend.resolve_device``: CUDA unless ``device="cpu"`` is
+passed.
 """
 
 from __future__ import annotations
@@ -28,16 +30,20 @@ from .objectives import create_objective
 from .resilience.atomic import atomic_write
 
 
+# float64 values of one densified row chunk of a sparse matrix to predict
+# (the JAX package's 32M: ~256 MB)
+SPARSE_PREDICT_CHUNK_VALUES = 32 << 20
+
+
 class LightGBMError(Exception):
     """Error raised by the framework (reference basic.py:45)."""
 
 
 def _to_2d_float(data) -> np.ndarray:
-    if hasattr(data, "tocsr"):
-        raise NotImplementedError(
-            "sparse input is not ported to lightgbm_tpu_torch yet (ROADMAP "
-            "queue A6: file and sparse input)")
-    if hasattr(data, "values") and not isinstance(data, np.ndarray):
+    """numpy / pandas / scipy-sparse rows -> a float64 [n, F] matrix."""
+    if hasattr(data, "toarray"):  # scipy sparse
+        data = data.toarray()
+    elif hasattr(data, "values") and not isinstance(data, np.ndarray):
         data = data.values  # pandas
     arr = np.asarray(data, dtype=np.float64)
     if arr.ndim == 1:
@@ -71,36 +77,72 @@ class Dataset:
         self._inner: Optional[BinnedDataset] = None
 
     def construct(self) -> BinnedDataset:
+        """Bin lazily (basic.py:1014-1036): a text file path (or its
+        binary cache) through ``BinnedDataset.from_file``, a scipy sparse
+        matrix in O(nnz) through ``from_csr``, anything else as a dense
+        matrix; a reference's bin mappers when one is given."""
         if self._inner is not None:
             return self._inner
-        if isinstance(self.data, str):
-            raise NotImplementedError(
-                "file input is not ported to lightgbm_tpu_torch yet (ROADMAP "
-                "queue A6: file and sparse input)")
         params = key_alias_transform(dict(self.params))
         params.setdefault("max_bin", self.max_bin)
         cfg = Config.from_dict(params)
-        if self.label is None:
-            raise LightGBMError("label should not be None for training data")
-        meta = Metadata(label=np.asarray(self.label), weights=self.weight,
-                        init_score=self.init_score)
+        cats = self.categorical_feature
+        if any(isinstance(c, str) for c in cats):
+            if not self.feature_name:
+                raise LightGBMError("categorical_feature given by name "
+                                    "requires feature_name")
+            cats = [c if not isinstance(c, str)
+                    else self.feature_name.index(c) for c in cats]
+        meta = Metadata(
+            label=None if self.label is None else np.asarray(self.label),
+            weights=self.weight, init_score=self.init_score)
         if self.group is not None:
             meta.set_field("group", np.asarray(self.group))
+        ref = self.reference.construct() if self.reference is not None \
+            else None
+        if isinstance(self.data, str):
+            inner = BinnedDataset.from_file(self.data, config=cfg,
+                                            reference=ref,
+                                            categorical_features=cats or None)
+            # fields given here override the file's (basic.py:120-133)
+            if meta.label is not None:
+                inner.metadata.set_field("label", meta.label)
+            for field in ("weight", "init_score"):
+                v = meta.get_field(field)
+                if v is not None:
+                    inner.metadata.set_field(field, v)
+            if meta.query_boundaries is not None:
+                inner.metadata.query_boundaries = meta.query_boundaries
+                inner.metadata._finish()
+            self._inner = inner
+            return inner
+        if self.label is None:
+            raise LightGBMError("label should not be None for training data")
+        if hasattr(self.data, "tocsr"):
+            csr = self.data.tocsr()
+            indptr = np.asarray(csr.indptr, dtype=np.int64)
+            indices = np.asarray(csr.indices, dtype=np.int64)
+            values = np.asarray(csr.data, dtype=np.float64)
+            if ref is not None:
+                self._inner = ref.align_with_csr(indptr, indices, values, meta)
+            else:
+                self._inner = BinnedDataset.from_csr(
+                    indptr, indices, values, csr.shape[1], meta, config=cfg,
+                    categorical_features=cats,
+                    feature_names=self.feature_name)
+            return self._inner
         X = _to_2d_float(self.data)
-        if self.reference is not None:
-            self._inner = self.reference.construct().align_with(X, meta)
+        if ref is not None:
+            self._inner = ref.align_with(X, meta)
         else:
-            cats = self.categorical_feature
-            if any(isinstance(c, str) for c in cats):
-                if not self.feature_name:
-                    raise LightGBMError("categorical_feature given by name "
-                                        "requires feature_name")
-                cats = [c if not isinstance(c, str)
-                        else self.feature_name.index(c) for c in cats]
             self._inner = BinnedDataset.from_matrix(
                 X, meta, config=cfg, categorical_features=cats,
                 feature_names=self.feature_name)
         return self._inner
+
+    def save_binary(self, filename: str) -> None:
+        """The binned dataset as the JAX package's npz binary cache."""
+        self.construct().save_binary(filename)
 
     def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None, params=None) -> "Dataset":
@@ -414,18 +456,40 @@ class Booster:
 
     # --------------------------------------------------------------- predict
     def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
-                pred_leaf: bool = False):
-        """Raw-feature prediction of a dense matrix: ``[n]``, or ``[n, K]``
-        for multiclass (softmax probabilities; raw scores with
+                pred_leaf: bool = False, data_has_header: bool = False,
+                is_reshape: bool = True):
+        """Raw-feature prediction of a matrix, a scipy sparse matrix or a
+        text file (``data_has_header`` for its header line): ``[n]``, or
+        ``[n, K]`` for multiclass (softmax probabilities; raw scores with
         ``raw_score``); with ``pred_leaf`` each row's leaf in each tree,
         ``[n, trees]`` int32.  ``num_iteration`` <= 0 means
-        ``best_iteration`` when early stopping set one, else all."""
-        if isinstance(data, str):
-            raise NotImplementedError(
-                "file input is not ported to lightgbm_tpu_torch yet (ROADMAP "
-                "queue A6: file and sparse input)")
+        ``best_iteration`` when early stopping set one, else all.
+        ``is_reshape`` is accepted for the JAX package's signature; the
+        output is always shaped."""
         if self.best_iteration > 0 and num_iteration <= 0:
             num_iteration = self.best_iteration
+        if isinstance(data, str):
+            from .io.parser import parse_file
+
+            # strict whatever the training config: a skipped row would
+            # shift every later prediction onto the wrong input line
+            raw, _ = parse_file(data, has_header=data_has_header,
+                                strict=True)
+            if raw.shape[1] > self._gbdt.max_feature_idx + 1:
+                raw = np.delete(raw, self._gbdt.label_idx, axis=1)
+            data = raw
+        if hasattr(data, "tocsr"):
+            # densify one row chunk at a time, so peak memory is a chunk,
+            # not the matrix (basic.py:522-540)
+            n_rows, n_cols = data.shape
+            chunk_rows = max(1, SPARSE_PREDICT_CHUNK_VALUES // max(1, n_cols))
+            if n_rows > chunk_rows:
+                csr = data.tocsr()
+                return np.concatenate([
+                    self.predict(csr[i:i + chunk_rows].toarray(),
+                                 num_iteration=num_iteration,
+                                 raw_score=raw_score, pred_leaf=pred_leaf)
+                    for i in range(0, n_rows, chunk_rows)], axis=0)
         X = _to_2d_float(data)
         if pred_leaf:
             return self._gbdt.predict_leaf_index(X, num_iteration)

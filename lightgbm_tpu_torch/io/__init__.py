@@ -1,1 +1,1 @@
-"""Data ingest: binning and metadata."""
+"""Data ingest: text parsing, binning (dense and CSR), metadata."""

@@ -54,6 +54,7 @@ from ..objectives import ObjectiveFunction, objective_kind
 from ..ops.cuda_histogram import (hist_variant, histogram_record_window,
                                   histogram_single_leaf, make_level_hist_fn)
 from ..ops.predict import ensemble_leaves, ensemble_sum
+from ..ops.sparse_hist import make_sparse_hist_fn
 from .tree import (TREE_FIELDS, PackedTrees, Tree, empty_tree,
                    finalize_thresholds_device, pack_threshold_bounds,
                    pack_trees, predict_binned)
@@ -206,7 +207,7 @@ class GBDT:
         self.valid_sets.append(valid_set)
         self.valid_metrics.append(
             create_metrics(self.config, valid_set.metadata, valid_set.num_data))
-        vb = torch.from_numpy(np.ascontiguousarray(valid_set.X_bin)) \
+        vb = torch.from_numpy(np.ascontiguousarray(valid_set.dense_bins())) \
             .to(self.device).to(torch.int32)
         acc = self._init_scores(valid_set)
         K = self.num_class
@@ -316,9 +317,17 @@ class GBDT:
                                  num_bins=self._num_bins)
 
     def _level_hist_fn(self):
-        """The level histogram of depthwise growth (gbdt.py:434-457):
-        kernel 1'', or kernel 2 under ``bsub``, on the card; signature
-        ``(bins_T, leaf_id, grad, hess, mask, num_leaves)``."""
+        """The level histogram of depthwise growth and of hybrid's level
+        phase (gbdt.py:434-457), signature ``(bins_T, leaf_id, grad, hess,
+        mask, num_leaves)``: for a sparse dataset whose density is at most
+        ``sparse_hist_density`` (float32 histograms), the O(nnz) CSR
+        histogram (kernel S1 on the card, ops/sparse_hist.py); otherwise
+        kernel 1'', or kernel 2 under ``bsub``, on the card."""
+        ds = self.train_set
+        if (ds is not None and ds.is_sparse
+                and self.config.hist_dtype != "float64"
+                and ds.density <= self.config.sparse_hist_density):
+            return make_sparse_hist_fn(ds, self._num_bins, self.device)
         return make_level_hist_fn(self._num_bins)
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,

@@ -1,7 +1,8 @@
 """The port's ops: the CUDA kernels, their wrappers and their plain PyTorch
 versions (histogram, split search and the pooled split step, the packed
 record's partition and write-back, the mega route's split step, the level
-histogram of depthwise growth, ensemble prediction)."""
+histogram of depthwise growth, dense and sparse (kernel S1), ensemble
+prediction)."""
 
 import importlib
 from typing import Dict
@@ -20,6 +21,7 @@ KERNEL_COUNTERS = {
     "K2": ("cuda_histogram", "BSUB_LAUNCHES"),
     "K9": ("cuda_record", "WRITE_LAUNCHES"),
     "P1": ("cuda_predict", "LAUNCHES"),
+    "S1": ("cuda_sparse_hist", "LAUNCHES"),
 }
 
 

@@ -12,14 +12,16 @@ The port of the JAX package's ``serving/`` core over kernel P1
   under load: verify the ``.sha256`` sidecar, pack + prewarm off-path,
   atomic flip; corrupt candidates are refused loudly.
 * :mod:`server`  — stdlib HTTP/JSON front end plus the in-process
-  client the tests use, and ``serve_from_config``.
+  client the tests use, and ``serve_from_config`` (``task=serve``).
+* :mod:`batch`   — the batch tier: a data file streamed through reader,
+  P1 and writer threads into a result file (``task=predict``).
 
-Not ported yet: the batch tier (``pipelined_predict_file``; it needs the
-file parser, ROADMAP A6) and the fleet supervisor (``serve_fleet``; it
-needs ``resilience/retry``, ROADMAP A9).  Their names raise
+Not ported yet: the fleet supervisor (``serve_fleet``; it needs
+``resilience/retry``, ROADMAP A9).  Its names raise
 ``NotImplementedError`` naming the item.
 """
 
+from .batch import format_block, pipelined_predict_file, predict_chunk_stream
 from .engine import PackedModel, ServingEngine, power_of_two_buckets
 from .hotswap import adopt_model, load_packed_model
 from .queue import (DeadlineExpired, MicroBatchQueue, PredictionResult,
@@ -33,14 +35,12 @@ __all__ = [
     "MicroBatchQueue", "PredictionResult",
     "RequestShed", "QueueFull", "DeadlineExpired", "QueueDraining",
     "InProcessClient", "ServingServer", "serve_from_config",
-    "write_serving_manifest",
+    "write_serving_manifest", "format_block", "pipelined_predict_file",
+    "predict_chunk_stream",
 ]
 
 # the JAX package's serving names that are not ported, with their item
 DEFERRED = {
-    **dict.fromkeys(("format_block", "pipelined_predict_file",
-                     "predict_chunk_stream", "batch"),
-                    "A6: the batch tier needs io/parser"),
     **dict.fromkeys(("ReplicaSupervisor", "SubprocessReplica",
                      "ThreadReplica", "FleetFrontEnd", "FleetRequestFailed",
                      "FleetBudgetExhausted", "serve_fleet_from_config",

@@ -438,7 +438,7 @@ def write_serving_manifest(engine: ServingEngine, path: str,
 def serve_from_config(cfg, block: bool = True, device=None):
     """Build the serving stack from a ``Config`` (its ``serve_*`` keys)
     and run it on ``device`` (CUDA unless ``"cpu"``); the JAX package's
-    ``task=serve`` entry (its CLI is ROADMAP A6).  ``block=False``
+    ``task=serve`` entry (``cli.run_serve``).  ``block=False``
     returns the started server (the tier-1 path); ``block=True`` serves
     until SIGINT/SIGTERM, then
     DRAINS — healthz flips to ``draining`` (503), admission closes,

@@ -384,9 +384,19 @@ def test_pickle_keeps_the_device():
 
 
 def test_predict_refuses_files(tmp_path):
+    """A file predicts as its rows do (ROADMAP A6; the label column is
+    dropped when the file is wider than the model); a malformed file is
+    refused, strictly, whatever the training config."""
     X, y, _ = _data(300)
-    with pytest.raises(NotImplementedError, match="A6"):
-        _train(1, X, y).predict(str(tmp_path / "rows.csv"))
+    bst = _train(1, X, y)
+    path = tmp_path / "rows.csv"
+    np.savetxt(path, np.column_stack([y, X]), fmt="%.17g", delimiter=",")
+    np.testing.assert_array_equal(bst.predict(str(path)), bst.predict(X))
+    lines = path.read_text().splitlines()
+    lines[5] = "1,oops"
+    path.write_text("\n".join(lines) + "\n")
+    with pytest.raises(ValueError, match="strict_data"):
+        bst.predict(str(path))
 
 
 # --------------------------------------------------------------- Dataset

@@ -349,14 +349,18 @@ def test_swap_incompatible_shape_refused(served, engine_a, tmp_path):
 
 
 def test_deferred_serving_names_raise():
-    for name, item in (("pipelined_predict_file", "A6"),
-                       ("format_block", "A6"),
-                       ("ReplicaSupervisor", "A9"),
+    """The fleet names (A9) raise naming their item; the batch tier (A6)
+    is ported and importable."""
+    for name, item in (("ReplicaSupervisor", "A9"),
+                       ("FleetFrontEnd", "A9"),
                        ("serve_fleet_from_config", "A9")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
             getattr(serving, name)
-    with pytest.raises(NotImplementedError, match="A6"):
-        from lightgbm_tpu_torch.serving import batch  # noqa: F401
+    with pytest.raises(NotImplementedError, match="A9"):
+        from lightgbm_tpu_torch.serving import supervisor  # noqa: F401
+    from lightgbm_tpu_torch.serving import batch
+    assert serving.pipelined_predict_file is batch.pipelined_predict_file
+    assert serving.format_block is batch.format_block
     with pytest.raises(NotImplementedError, match="A9"):
         faults.set_fault("kill_after_tree:3")
 
