@@ -215,9 +215,13 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    (``csrc/sparse_histogram.cu``), S1 held bitwise against its plain
    version at every level of the first tree on the tree's own leaf ids,
    on the 500k-row default-bin case (relative error under 2e-5 against
-   float64), on uint16 x 300 bins and on 64-entry segments (L·B above
-   1,536 keys: two sort passes), and timed at a wide-bin shape (1M rows x
-   1,000 features of 255 bins, 20 entries a row, at 16 and 128 leaves); a
+   float64), on uint16 x 300 bins, on 64-entry segments, on 200 leaves x
+   300 uint16 bins in 512-entry segments (four leaf tiles, each folded),
+   on wide-bin features of two segments at 128 leaves (the fold adds the
+   remainder of each of two tiles) and on a level whose leaves are two
+   thirds empty, and timed at a wide-bin shape (1M rows x 1,000 features
+   of 255 bins, 20 entries a row, at 16 and 128 leaves: one and two leaf
+   tiles); a
    100k-row LibSVM file of the same rows binned like the CSR ingest; the
    dense K1'' route (``sparse_hist_density=0``) trained beside it for
    DENSE_TREES trees, its train and valid AUC within 0.005 of the S1
@@ -243,6 +247,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -3087,14 +3092,16 @@ def allstate_csr(n, seed):
     return indptr, idx, np.ones(len(idx)), y.astype(np.float32)
 
 
-def _s1_holds(torch, cs, sh, what, cpu, gpu, lid, g, h, m, L, B):
-    """S1 on the card against its plain version on the CPU, bitwise, and
-    two launches against each other: (S1's output, the largest absolute
-    difference from the plain version)."""
+def _s1_holds(torch, cs, sh, what, cpu, gpu, lid, g, h, m, L, B,
+              want=None):
+    """S1 on the card against its plain version on the CPU (``want``, or
+    computed here), bitwise, and two launches against each other: (S1's
+    output, the largest absolute difference from the plain version)."""
     got = cs.sparse_histogram_by_leaf_cuda(gpu, lid, g, h, m, L, B)
     again = cs.sparse_histogram_by_leaf_cuda(gpu, lid, g, h, m, L, B)
-    want = sh.sparse_histogram_by_leaf_plain(cpu, lid.cpu(), g.cpu(),
-                                             h.cpu(), m.cpu(), L, B)
+    if want is None:
+        want = sh.sparse_histogram_by_leaf_plain(cpu, lid.cpu(), g.cpu(),
+                                                 h.cpu(), m.cpu(), L, B)
     torch.cuda.synchronize()
     check(torch.equal(got, again), f"S1 {what}: launches differ")
     err = float((got.cpu() - want).abs().max())
@@ -3104,10 +3111,11 @@ def _s1_holds(torch, cs, sh, what, cpu, gpu, lid, g, h, m, L, B):
 
 
 def _s1_random_case(torch, sh, cs, rng, what, n, F, per_row, nb, dtype, L,
-                    seg=None):
+                    seg=None, leaves=None):
     """S1 against its plain version on random CSR entries (``seg``
-    entries a segment, by default the dataset's choice for ``nb`` bins):
-    (the largest absolute difference, S1's inputs on the card)."""
+    entries a segment, by default the dataset's choice for ``nb`` bins;
+    rows in ``leaves``, by default all L): (the largest absolute
+    difference, S1's inputs on the card)."""
     nnz_row = rng.poisson(per_row, n)
     indptr = np.concatenate([[0], np.cumsum(nnz_row)]).astype(np.int64)
     col = rng.randint(0, F, int(indptr[-1])).astype(np.int32)
@@ -3120,7 +3128,8 @@ def _s1_random_case(torch, sh, cs, rng, what, n, F, per_row, nb, dtype, L,
     def dev(a):
         return torch.from_numpy(a).cuda()
 
-    inputs = (dev(rng.randint(0, L, n).astype(np.int32)),
+    lid = rng.randint(0, L, n) if leaves is None else rng.choice(leaves, n)
+    inputs = (dev(lid.astype(np.int32)),
               dev(rng.randn(n).astype(np.float32)),
               dev(rng.rand(n).astype(np.float32)),
               dev((rng.rand(n) < 0.8).astype(np.float32)))
@@ -3225,9 +3234,9 @@ def _train_timed(torch, booster, trees, pause_at=None, paused=None):
 
 def _s1_wide_times(torch, cs, sh, rng):
     """S1 held and timed at a wide-bin shape: 1M rows x 1,000 features of
-    255 bins, 20 stored entries a row (L·B above 1,536 keys at both leaf
-    counts: two sort passes).  Returns {leaves: (ms, plain ms, index_add_ ms,
-    bound ms)} and the largest absolute difference."""
+    255 bins, 20 stored entries a row (one leaf tile at 16 leaves, two at
+    128).  Returns {leaves: (ms, plain ms, index_add_ ms, bound ms)} and
+    the largest absolute difference."""
     n, F, per_row, nb = 1_000_000, 1000, 20, 255
     out, worst = {}, 0.0
     for L in (16, 128):
@@ -3323,11 +3332,20 @@ def phase_sparse(torch, lt):
         Xv, raw_score=True, num_iteration=DENSE_TREES), yv))
     B = gb._num_bins
 
-    # ---- S1 against its plain version at every level of the first tree
+    # ---- S1 against its plain version at every level of the first tree;
+    # the levels' plain versions run on four host threads at once
     cpu = inner.sparse_device("cpu")
-    errs = [_s1_holds(torch, cs, sh, f"level {k} ({L} leaves)", cpu, csc,
-                      lid, g, h, m, L, B)[1]
-            for k, (lid, g, h, m, L) in enumerate(levels)]
+
+    def plain(level):
+        lid, g, h, m, L = level
+        return sh.sparse_histogram_by_leaf_plain(cpu, lid.cpu(), g.cpu(),
+                                                 h.cpu(), m.cpu(), L, B)
+
+    with ThreadPoolExecutor(4) as pool:
+        errs = [_s1_holds(torch, cs, sh, f"level {k} ({L} leaves)", cpu, csc,
+                          lid, g, h, m, L, B, want)[1]
+                for k, ((lid, g, h, m, L), want) in enumerate(
+                    zip(levels, pool.map(plain, levels)))]
     s1_ms_levels = [time_ms(torch, lambda a=a: cs.sparse_histogram_by_leaf_cuda(
         csc, a[0], a[1], a[2], a[3], a[4], B), reps=5, warm=1)
         for a in levels]
@@ -3363,25 +3381,37 @@ def phase_sparse(torch, lt):
         f"({nbytes} bytes) share={bound / s1_ms:.4f}; S1 ms by level "
         f"{[round(t, 4) for t in s1_ms_levels]}")
 
-    # ---- the 500k-row default-bin case, uint16 bins, short segments and
-    # the wide-bin shape (L·B above 1,536 keys: sorts of two passes)
+    # ---- the 500k-row default-bin case, uint16 bins, short segments,
+    # several leaf tiles, features of several segments over two tiles, a
+    # level of empty leaves and the wide-bin shape
     worst, err = _default_bin_case(torch, sh, cs)
     errs.append(err)
     rng = np.random.RandomState(12)
-    errs.append(_s1_random_case(torch, sh, cs, rng, "uint16 x 300 bins",
-                                200_000, 50, 5, 300, np.uint16, 16)[0])
-    errs.append(_s1_random_case(torch, sh, cs, rng, "64-entry segments",
-                                50_000, 40, 4, 300, np.uint16, 9, seg=64)[0])
+    for what, args, kw in (
+            ("uint16 x 300 bins", (200_000, 50, 5, 300, np.uint16, 16), {}),
+            ("64-entry segments", (50_000, 40, 4, 300, np.uint16, 9),
+             dict(seg=64)),
+            ("200 leaves x 300 uint16 bins, 512-entry segments",
+             (30_000, 40, 4, 300, np.uint16, 200), dict(seg=512)),
+            ("two-segment wide features, 128 leaves", (140_000, 2, 1, 255,
+                                                       np.uint8, 128), {}),
+            ("empty leaves", (100_000, 30, 3, 255, np.uint8, 40),
+             dict(leaves=np.arange(0, 40, 3)))):
+        errs.append(_s1_random_case(torch, sh, cs, rng, what, *args,
+                                    **kw)[0])
+    check(cs.leaf_tiles(200, 300)[1] == 4 and cs.leaf_tiles(128, 255)[1] == 2,
+          f"S1 plan: {cs.leaf_tiles(200, 300)}, {cs.leaf_tiles(128, 255)}")
     wide, err = _s1_wide_times(torch, cs, sh, rng)
     errs.append(err)
     say(f"[sparse S1] bitwise == plain on the 500k-row default-bin case "
         f"(default bins within {worst:.2e} relative of float64), on uint16 "
-        "x 300 bins and on 64-entry segments")
+        "x 300 bins, 64-entry segments, 200 leaves x 300 bins in 512-entry "
+        "segments (4 leaf tiles, each folded), two-segment wide features "
+        "at 128 leaves (2 tiles) and 26 of 40 leaves empty")
     for nl, (ms, p_ms, l_ms, b_ms) in wide.items():
         say(f"[sparse S1 wide] 1M rows x 1000 features x 255 bins, 20M "
-            f"entries, {nl} leaves ({nl * 255} keys, "
-            f"{-(-(nl * 255 - 1).bit_length() // 8)} sort passes): "
-            f"bitwise == plain; S1 ms={ms:.4f} plain_ms={p_ms:.4f} "
+            f"entries, {nl} leaves ({cs.leaf_tiles(nl, 255)[1]} leaf "
+            f"tiles): bitwise == plain; S1 ms={ms:.4f} plain_ms={p_ms:.4f} "
             f"library_ms={l_ms:.4f} bound_ms={b_ms:.5f} "
             f"share={b_ms / ms:.4f}")
     _libsvm_matches_csr(lt, params, indptr, idx, vals, y)
@@ -3539,9 +3569,8 @@ def main() -> int:
              replaces="lightgbm_tpu/ops/sparse_hist.py:45",
              path="sparse-depthwise", launches=s1_launches,
              bound_by="bytes",
-             entry_points=["s1_stored_kernel", "s1_fold_kernel",
-                           "s1_leaf_partial_kernel", "s1_leaf_total_kernel",
-                           "s1_remainder_kernel"], **sparse),
+             entry_points=["s1_rows_kernel", "s1_leaf_total_kernel",
+                           "s1_stored_kernel", "s1_fold_kernel"], **sparse),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

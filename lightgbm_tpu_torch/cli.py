@@ -7,8 +7,9 @@ merged over a config file (argv wins, application.cpp:46-104), then
 * ``task=train`` (application.cpp:187-239): load the data file and the
   ``valid_data`` files (io/dataset.py), continue ``input_model`` if given,
   train with the per-iteration log, metric output every ``metric_freq``
-  and early stopping, save the model (atomically, with its ``.sha256``
-  sidecar) and write a run manifest beside it;
+  and early stopping (under a ``torch.profiler`` trace into
+  ``profile_dir`` with ``profile=true``), save the model (atomically,
+  with its ``.sha256`` sidecar) and write a run manifest beside it;
 * ``task=predict`` (application.cpp:242-256): stream ``data`` through the
   batch tier (serving/batch.py) into ``output_result``;
 * ``task=serve``: the online service (serving/server.py
@@ -24,11 +25,14 @@ configurations ``models/gbdt.check_supported`` refuses (DART: A3).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
 import time
 from typing import Dict, List, Optional
+
+import torch
 
 from .backend import resolve_device
 from .config import (Config, key_alias_transform, parse_config_file,
@@ -151,7 +155,8 @@ def run_train(cfg: Config, device=None) -> GBDT:
         Log.info(f"Continued training from {cfg.input_model} "
                  f"({init._gbdt.num_trees} trees)")
     start = time.perf_counter()
-    stop_iter = _train_loop(cfg, booster, valid_names, start)
+    with _profiled(cfg, dev):
+        stop_iter = _train_loop(cfg, booster, valid_names, start)
     # slice counts iterations from the model start, so prepended init-model
     # trees are part of the budget (gbdt.cpp:589-592)
     num_iteration = (booster.num_init_iteration + stop_iter + 1
@@ -161,6 +166,30 @@ def run_train(cfg: Config, device=None) -> GBDT:
     Log.info(f"Finished training, saved model to {cfg.output_model}")
     _write_train_manifest(cfg, booster, time.perf_counter() - start)
     return booster
+
+
+@contextlib.contextmanager
+def _profiled(cfg: Config, dev):
+    """``profile=true``: a ``torch.profiler`` trace of the training loop
+    (host, and the card's kernels on CUDA) written into ``profile_dir``
+    as a Chrome trace (the JAX CLI's ``jax.profiler`` trace,
+    lightgbm_tpu/cli.py:218-226); no-op otherwise."""
+    if not cfg.profile:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(dev).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    Log.info("profile=true: the manifest's phase breakdown from the trace "
+             "is not ported (ROADMAP A10)")
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(cfg.profile_dir, exist_ok=True)
+    path = os.path.join(cfg.profile_dir, f"train.{os.getpid()}.trace.json")
+    prof.export_chrome_trace(path)
+    Log.info(f"Saved profiler trace to {path}")
 
 
 def _write_train_manifest(cfg: Config, booster: GBDT, train_s: float) -> None:

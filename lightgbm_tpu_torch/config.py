@@ -276,8 +276,9 @@ class Config:
     seed: int = 0
     num_threads: int = 0
 
-    # TPU extension (SURVEY 5.1): capture a jax.profiler trace of the
-    # training loop into profile_dir (viewable in TensorBoard/Perfetto).
+    # TPU extension (SURVEY 5.1), read by the CLI's task=train: a
+    # torch.profiler trace of the training loop (host and, on the card,
+    # CUDA kernels) into profile_dir as Chrome trace JSON (Perfetto).
     profile: bool = False
     profile_dir: str = "lightgbm_tpu_profile"
 

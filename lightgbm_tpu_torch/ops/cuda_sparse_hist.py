@@ -4,11 +4,17 @@ dataset on the card.
 ``sparse_histogram_by_leaf_cuda`` takes what ``ops/sparse_hist.csc_from_csr``
 built (the CSR entries regrouped by feature, with their segment table),
 checks every tensor, allocates the output and the scratch and launches
-S1's kernels from one C entry on the current stream (the stored sums,
-the fold, the leaf totals and the remainder).  It adds one to
-``LAUNCHES`` per call.  It raises on anything the kernel does not take;
-it never falls back to the plain version (ops/sparse_hist.py), which the
-CPU path and the checks on the card use.
+S1's kernels from one C entry on the current stream (the row records and
+leaf totals, the stored sums with each one-segment feature's remainder,
+the fold of the others).  It adds one to ``LAUNCHES`` per call.  It
+raises on anything the kernel does not take; it never falls back to the
+plain version (ops/sparse_hist.py), which the CPU path and the checks on
+the card use.
+
+``leaf_tiles`` is the host's plan of a call: a block of S1 holds the
+[Lt, B, 3] cells of Lt leaves in shared memory, so the leaves are cut
+into the fewest tiles whose cells fit (``tile_smem``, the C entry's own
+sum, which checks it again).
 """
 
 from __future__ import annotations
@@ -23,6 +29,36 @@ from .sparse_hist import ROW_CHUNK
 # calls since the last reset (chip_smoke.py reads and resets it)
 LAUNCHES = 0
 
+# csrc/sparse_histogram.cu: shared memory a block may use (227 KB on the
+# H100), entries bucketed a chunk and the threads (owners) of a block
+SMEM_MAX = 232_448
+_CHUNK, _THREADS = 1024, 256
+
+
+def tile_smem(tile_leaves: int, num_bins: int) -> int:
+    """Shared memory bytes of an S1 block over ``tile_leaves`` leaves:
+    the cells (padded to 16 bytes), the bucketed chunk (a key and three
+    stats an entry), the count table and the scan's warp totals."""
+    cells = (tile_leaves * num_bins * 3 + 3) // 4 * 4
+    warps = _THREADS // 32
+    return 4 * cells + 16 * _CHUNK + 4 * (warps * _THREADS + warps)
+
+
+def leaf_tiles(num_leaves: int, num_bins: int) -> tuple:
+    """(leaves a tile, tiles): the fewest tiles of equal size whose
+    blocks fit in SMEM_MAX bytes; tile t holds leaves [t·Lt, min(L, t·Lt
+    + Lt)).  Raises when one leaf's bins do not fit."""
+    L, B = int(num_leaves), int(num_bins)
+    most = (SMEM_MAX - tile_smem(0, B) - 12) // (12 * B)
+    if most < 1:
+        raise ValueError(f"S1 holds a leaf's {B} bins in shared memory: "
+                         f"at most {(SMEM_MAX - tile_smem(0, 1) - 12) // 12}"
+                         " bins")
+    tiles = -(-L // min(most, L))
+    lt = -(-L // tiles)
+    return lt, -(-L // lt)
+
+
 _VP, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 
@@ -32,7 +68,8 @@ def _lib():
         lib.lgbm_sparse_hist.restype = _I
         lib.lgbm_sparse_hist.argtypes = [
             _VP, _VP, _I, _VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP, _I, _VP,
-            _VP, _VP, _VP, _VP, _I64, _I, _I, _I, _VP, _VP, _VP, _VP, _VP]
+            _VP, _VP, _VP, _VP, _I64, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
+            _VP, _VP]
         lib._typed = True
     return lib
 
@@ -64,8 +101,10 @@ def sparse_histogram_by_leaf_cuda(csc: dict, leaf_id: torch.Tensor,
     L, B = int(num_leaves), int(num_bins)
     if L < 1 or B < 1 or L * B >= 1 << 31:
         raise ValueError(f"num_leaves={L} x num_bins={B} out of range")
+    lt = leaf_tiles(L, B)[0]
     lid = leaf_id.to(torch.int32).contiguous()
     out = torch.empty((L, F, B, 3), dtype=torch.float32, device=dev)
+    rec = torch.empty((max(n, 1), 4), dtype=torch.float32, device=dev)
     slabs = torch.empty((max(csc["num_slots"], 1), L, B, 3),
                         dtype=torch.float32, device=dev)
     part = torch.empty((max(1, -(-n // ROW_CHUNK)), L, 3),
@@ -81,8 +120,8 @@ def sparse_histogram_by_leaf_cuda(csc: dict, leaf_id: torch.Tensor,
             csc["fold_slot"].data_ptr(), csc["fold_nseg"].data_ptr(),
             csc["fold_feat"].shape[0], csc["default_bins"].data_ptr(),
             lid.data_ptr(), grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
-            n, L, F, B, slabs.data_ptr(), part.data_ptr(), tot.data_ptr(),
-            out.data_ptr(), stream)
+            n, L, F, B, lt, rec.data_ptr(), slabs.data_ptr(),
+            part.data_ptr(), tot.data_ptr(), out.data_ptr(), stream)
     _build.check(code, "sparse level histogram kernel (S1)")
     LAUNCHES += 1
     return out

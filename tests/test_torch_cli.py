@@ -12,8 +12,9 @@ file), for the reason tests/test_torch_engine_api.py gives.
 ``task=predict`` on a JAX-written model file writes the JAX CLI's result
 file byte for byte (normal, raw, leaf index, ``num_iteration``), and the
 streaming path writes the one-shot path's bytes.  Early stopping,
-``input_model`` continuation, ``load_parameters`` precedence,
-``task=serve`` over HTTP and the refused tasks are checked too.
+``input_model`` continuation, ``profile=true``'s trace,
+``load_parameters`` precedence, ``task=serve`` over HTTP and the refused
+tasks are checked too.
 """
 
 import http.client
@@ -214,6 +215,26 @@ def test_input_model_continues_training(tmp_path):
     a, b = _models(more), _models(whole)
     assert len(a) == len(b) == 6
     assert open(more).read() == open(whole).read()
+
+
+def test_profile_writes_a_trace(tmp_path):
+    """``profile=true`` (C8): a torch.profiler trace of the training loop
+    lands in ``profile_dir``, and the model is bitwise the one trained
+    without it."""
+    train, valid, keys = _problem(tmp_path, "binary", n=600, seed=6)
+    conf = _conf(tmp_path, train, valid, keys, trees=3)
+    plain, profiled = str(tmp_path / "plain.txt"), str(tmp_path / "prof.txt")
+    trace_dir = tmp_path / "trace"
+    assert tcli.main([f"config={conf}", f"output_model={plain}"],
+                     device="cpu") == 0
+    assert tcli.main([f"config={conf}", f"output_model={profiled}",
+                      "profile=true", f"profile_dir={trace_dir}"],
+                     device="cpu") == 0
+    traces = os.listdir(trace_dir)
+    assert len(traces) == 1 and traces[0].endswith(".trace.json")
+    events = json.load(open(trace_dir / traces[0]))["traceEvents"]
+    assert any(e.get("ph") == "X" for e in events)
+    assert open(profiled).read() == open(plain).read()
 
 
 def test_load_parameters_matches_jax(tmp_path):

@@ -281,22 +281,34 @@ def test_sparse_predict_chunked_matches_dense(monkeypatch):
 
 @pytest.mark.cuda
 def test_s1_matches_plain_on_card():
-    """Kernel S1 bitwise against its plain version on the CPU, on one and
-    on many segments a feature, on one window of keys (16 bins) and on
-    several (uint16 bins: 9 leaves x 300 bins)."""
+    """Kernel S1 bitwise against its plain version on the CPU, and two
+    launches against each other: on one and on many segments a feature,
+    16 and 300 (uint16) bins, one leaf tile (9 leaves) and several (200
+    leaves x 300 bins, cuda_sparse_hist.leaf_tiles), and a level whose
+    leaves are mostly empty (rows in every third of 200 leaves)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: S1 has no CPU build")
-    for seg, max_bin in ((sparse_hist.SEG_ENTRIES, 16), (64, 300)):
-        ds, lid, g, h, m = _hist_case(20_000, 40, 0.05, 9, seed=10,
+    from lightgbm_tpu_torch.ops.cuda_sparse_hist import leaf_tiles
+
+    for seg, max_bin, L, every in ((sparse_hist.SEG_ENTRIES, 16, 9, 1),
+                                   (64, 300, 9, 1),
+                                   (sparse_hist.SEG_ENTRIES, 300, 200, 1),
+                                   (64, 300, 200, 3)):
+        ds, lid, g, h, m = _hist_case(20_000, 40, 0.05, L, seed=10,
                                       max_bin=max_bin, distinct=400)
+        lid = lid - lid % every
         B = max(ds.max_num_bin, 2)
         assert (ds.X_bin.bin.dtype == np.uint16) == (max_bin > 255)
+        assert (leaf_tiles(L, B)[1] > 1) == (L == 200)
         sb = ds.X_bin
         args = (sb.indptr, sb.col, sb.bin, sb.default_bins, ds.num_features)
         cpu = sparse_hist.csc_from_csr(*args, "cpu", seg)
         gpu = sparse_hist.csc_from_csr(*args, "cuda", seg)
         t = [torch.from_numpy(a) for a in (lid, g, h, m)]
-        want = sparse_hist.sparse_histogram_by_leaf(cpu, *t, 9, B)
+        want = sparse_hist.sparse_histogram_by_leaf(cpu, *t, L, B)
         got = sparse_hist.sparse_histogram_by_leaf(
-            gpu, *(a.cuda() for a in t), 9, B)
+            gpu, *(a.cuda() for a in t), L, B)
+        again = sparse_hist.sparse_histogram_by_leaf(
+            gpu, *(a.cuda() for a in t), L, B)
         assert torch.equal(got.cpu(), want)
+        assert torch.equal(got, again)
