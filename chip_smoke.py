@@ -229,6 +229,29 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    GB dense bins), the byte bound of S1 and the ms of ``index_add_`` over
    the stored entries.
 
+21. (run after phase 17, on the bench data, on the default mega route)
+   DART and kernel P2 (``csrc/predict_binned.cu``, every binned walk of
+   training): DART with its default drop parameters for
+   ``synthetic.DART_ROUNDS`` (30) rounds with the valid set, its trees,
+   drop sets and scores bitwise the same run's with P2 swapped for its
+   plain version, P2 launched once a round (the new tree over the valid
+   rows) and three times more in a round with drops (the drop and the
+   renormalisation of the train scores, the valid adjustment), the
+   learner's host syncs unchanged (2 + splits a tree), every P2 call
+   (table build and launch) under ``torch.cuda.set_sync_debug_mode
+   ("error")``, train and valid AUC within +-0.005 of the JAX package's
+   DART (``tools/jax_growth_auc.py --boosting dart``), s/tree beside
+   phase 8's and peak memory; P2 held bitwise against its plain version
+   (two launches equal) on the 1M training rows, the 200k valid rows,
+   replay mode in chunks of 7 and 30 iterations, uint16 x 300 bins,
+   stumps and categorical nodes, K = 5 in both modes; P2's ms a call and
+   device ms beside its plain version's, the per-tree reference walk's
+   (``predict_binned``) and its byte bound; continued training from the
+   DART model file (the init model's replay, the valid replay, one
+   iteration and a rollback: five P2 launches) bitwise the plain
+   version's; and the three non-finite guards under ``nan_grads:1`` at
+   100k rows.
+
 The seconds each phase took are printed before the result.
 
 Every phase must pass or the script exits non-zero without a result.  The
@@ -2109,11 +2132,13 @@ def _timed_train(torch, fn):
             torch.cuda.max_memory_allocated(), launch_counts())
 
 
-def _mega_counts_ok(counts, trees) -> bool:
+def _mega_counts_ok(counts, trees, valid_sets=0) -> bool:
+    """The mega route's launches for ``trees``, and one P2 launch a tree
+    a valid set (the new tree's walk over its rows)."""
     splits = sum(t.num_leaves - 1 for t in trees)
     want = dict.fromkeys(counts, 0)
     want.update({"K1'": len(trees), "K3": len(trees), "K8": splits,
-                 "K7": splits})
+                 "K7": splits, "P2": len(trees) * valid_sets})
     return counts == want and splits > 0
 
 
@@ -2184,14 +2209,17 @@ def phase_api(torch, lt, params, train_set, valid_set, Xv):
         check(a_ok, "api (a): early stopping")
         # what an iteration of (a) adds to the bare run's: each set's
         # evaluation (a host copy of its scores, auc and binary_logloss
-        # on the host) and the new tree's walk over the valid rows
-        from lightgbm_tpu_torch.models.tree import predict_binned
+        # on the host) and the new tree's walk over the valid rows (P2)
+        from lightgbm_tpu_torch.models.tree import binned_table
+        from lightgbm_tpu_torch.ops.predict import ensemble_update_binned_
 
         cost = {}
         for name, fn in (("eval_train", run_a.eval_train),
                          ("eval_valid", run_a.eval_valid),
-                         ("valid_walk", lambda: predict_binned(
-                             a_trees[-1], run_a._gbdt._valid_bins[0]))):
+                         ("valid_walk", lambda: ensemble_update_binned_(
+                             run_a._gbdt._valid_scores[0].clone(),
+                             binned_table(a_trees[-1:]),
+                             run_a._gbdt._valid_bins[0], [0], [1.0]))):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
@@ -2199,7 +2227,7 @@ def phase_api(torch, lt, params, train_set, valid_set, Xv):
             cost[name] = round(time.perf_counter() - t0, 4)
         say(f"[api a] host s of one iteration's extra work: "
             f"{json.dumps(cost)}")
-        check(_mega_counts_ok(a_n, a_trees),
+        check(_mega_counts_ok(a_n, a_trees, valid_sets=1),
               f"api (a): launches {a_n} are not the mega route's")
         rows = {"a": (a_s / len(a_trees), a_syncs / len(a_trees), a_peak,
                       a_n),
@@ -2305,7 +2333,7 @@ def phase_api(torch, lt, params, train_set, valid_set, Xv):
             vals = [f[j][2] for f in per_fold]
             cv_ok &= hist[f"valid {metric}-mean"][-1] == float(np.mean(vals))
         cv_trees = [t for b in folds for t in b._gbdt.models]
-        cv_ok &= _mega_counts_ok(cv_n, cv_trees)
+        cv_ok &= _mega_counts_ok(cv_n, cv_trees, valid_sets=1)
         say(f"[api f] cv 3 folds x 5 rounds (stratified): "
             f"{json.dumps({k: v[-1] for k, v in hist.items()})}; means == "
             f"the fold boosters' eval_valid means: {cv_ok}; "
@@ -2316,6 +2344,345 @@ def phase_api(torch, lt, params, train_set, valid_set, Xv):
         del folds, seen
     return dict(a=rows["a"], plain=rows["plain"],
                 cv=(cv_s / len(cv_trees), cv_syncs / len(cv_trees), cv_peak))
+
+
+# ----------------------------------------------------------------- phase 21
+# DART's train/valid AUC of the JAX package on the same data and config
+# (synthetic.workload(boosting="dart"), DART_ROUNDS rounds), on the CPU:
+#   JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth leafwise \
+#       --boosting dart   (81.7 s on the CPU)
+DART_AUC = (0.876573, 0.865780)
+GUARD_ROWS, GUARD_LEAVES = 100_000, 63
+# the scales DART and rollback give P2: add, subtract, renormalise (k = 2
+# drops: keep = 2/3) and the valid sets' keep - 1
+P2_SCALES = (1.0, -1.0, 2.0 / 3.0, 2.0 / 3.0 - 1.0)
+
+
+@contextlib.contextmanager
+def p2_route(torch, plain=False, strict=False):
+    """Inside, the boosting layer's binned walks (the table build, P2's
+    update and replay as models/gbdt.py and models/dart.py bind them) run
+    P2's plain version on the card when ``plain``, and under
+    ``torch.cuda.set_sync_debug_mode("error")`` when ``strict`` (any host
+    sync raises).  Yields each kind's call count."""
+    from lightgbm_tpu_torch.models import dart, gbdt, tree
+
+    calls = {"table": 0, "update": 0, "replay": 0}
+    new = {(gbdt, "binned_table"): ("table", tree.binned_table),
+           (dart, "binned_table"): ("table", tree.binned_table),
+           (gbdt, "ensemble_update_binned_"): (
+               "update", tree.binned_update_ if plain
+               else gbdt.ensemble_update_binned_),
+           (gbdt, "ensemble_replay_binned_"): (
+               "replay", tree.binned_replay_ if plain
+               else gbdt.ensemble_replay_binned_)}
+    saved = {k: getattr(*k) for k in new}
+
+    def wrap(kind, fn):
+        def run(*a, **kw):
+            calls[kind] += 1
+            if not strict:
+                return fn(*a, **kw)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    for (mod, attr), (kind, fn) in new.items():
+        setattr(mod, attr, wrap(kind, fn))
+    try:
+        yield calls
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+
+
+def _p2_hold(torch, name, table, bins, K, classes=None, scales=None,
+             chunk=None):
+    """P2 against its plain version on the card, bitwise, from the same
+    random [K, n] scores: update mode (``classes``/``scales``) or replay
+    mode (``chunk``); two launches equal.  Returns the largest absolute
+    difference (0.0)."""
+    from lightgbm_tpu_torch.models import tree as pt
+    from lightgbm_tpu_torch.ops import cuda_predict_binned as P2
+
+    gen = torch.Generator(device="cuda").manual_seed(len(name))
+    init = torch.randn((K, bins.shape[1]), device="cuda", generator=gen)
+    if chunk is None:
+        plain = pt.binned_update_(init.clone(), table, bins, classes, scales)
+        runs = [P2.binned_update_cuda_(init.clone(), table, bins, classes,
+                                       scales) for _ in range(2)]
+    else:
+        plain = pt.binned_replay_(init.clone(), table, bins, K, chunk)
+        runs = [P2.binned_replay_cuda_(init.clone(), table, bins, K, chunk)
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    err = float((runs[0] - plain).abs().max())
+    ok = torch.equal(runs[0], runs[1]) and torch.equal(runs[0], plain)
+    say(f"[dart p2 hold] {name}: {table.num_trees} trees, K={K}, bins "
+        f"{tuple(bins.shape)} {str(bins.dtype)[6:]}, "
+        f"{'replay chunk ' + str(chunk) if chunk else 'update'}: bitwise "
+        f"the plain version and two launches equal: {ok}")
+    check(ok, f"dart: P2 differs from its plain version at {name}")
+    return err
+
+
+def _p2_holds(torch, gb):
+    """P2 at the bench shape and the edges, on the DART model's trees."""
+    from lightgbm_tpu_torch.models.tree import binned_table, empty_tree
+
+    trees = gb.models
+    T = len(trees)
+    table = binned_table(trees)
+    scales = [P2_SCALES[t % 4] for t in range(T)]
+    tr, va = gb._bins_T, gb._valid_bins[0]
+    err = _p2_hold(torch, "train_1M", table, tr, 1, [0] * T, scales)
+    err = max(err, _p2_hold(torch, "valid_200k", table, va, 1, [0] * T,
+                            scales))
+    for chunk in (7, T):
+        err = max(err, _p2_hold(torch, f"replay_valid_{chunk}", table, va, 1,
+                                chunk=chunk))
+    u16 = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 300, va.shape).astype(np.uint16)).cuda()
+    err = max(err, _p2_hold(torch, "u16_x300", table, u16, 1, [0] * T,
+                            scales))
+    stump = empty_tree(NUM_LEAVES, "cuda")
+    stump = stump.replace(leaf_value=stump.leaf_value + 0.37)
+    cat = []
+    for t in trees[:6]:
+        odd = torch.arange(t.decision_type.shape[0], device="cuda") % 2 == 1
+        cat.append(t.replace(decision_type=odd.to(torch.int32)))
+    edge = [stump] + cat + [stump]
+    err = max(err, _p2_hold(torch, "stumps_categorical", binned_table(edge),
+                            va, 1, [0] * len(edge),
+                            [P2_SCALES[t % 4] for t in range(len(edge))]))
+    err = max(err, _p2_hold(torch, "K5_update", table, va, 5,
+                            [t % 5 for t in range(T)], scales))
+    err = max(err, _p2_hold(torch, "K5_replay_chunk4", table, va, 5,
+                            chunk=4))
+    return err
+
+
+def _p2_times(torch, gb):
+    """P2's ms a call (CUDA events, median of 20 after 3) and device ms
+    (calls queued behind a spin) beside the plain version's and the
+    per-tree reference walk's (``predict_binned`` over an int32 copy of
+    the rows, the port's walk before P2) at its shapes."""
+    from lightgbm_tpu_torch.models.tree import (binned_table, binned_update_,
+                                                predict_binned)
+    from lightgbm_tpu_torch.ops.cuda_predict_binned import (
+        binned_replay_cuda_, binned_update_cuda_, launch_walk, walk_meta)
+
+    trees = gb.models
+    one, drop3 = binned_table(trees[-1:]), binned_table(trees[:3])
+    every = binned_table(trees)
+    out = {}
+    for name, bins in (("train_1M", gb._bins_T),
+                       ("valid_200k", gb._valid_bins[0])):
+        K, n = 1, bins.shape[1]
+        s = torch.zeros((K, n), device="cuda")
+        call = time_ms(torch, lambda: binned_update_cuda_(
+            s, one, bins, [0], [1.0]))
+        meta = walk_meta(one, [0], [1.0], "cuda")  # the kernel alone
+        dev = queued_ms(torch, lambda: launch_walk(s, one, bins, meta, False,
+                                                   1))
+        plain = time_ms(torch, lambda: binned_update_(s, one, bins, [0],
+                                                      [1.0]), reps=5, warm=1)
+        rows = bins.T.to(torch.int32)
+        ref = time_ms(torch, lambda: s[0].add_(predict_binned(trees[-1],
+                                                              rows)),
+                      reps=5, warm=1)
+        del rows
+        drop = time_ms(torch, lambda: binned_update_cuda_(
+            s, drop3, bins, [0] * 3, [-1.0] * 3))
+        replay = time_ms(torch, lambda: binned_replay_cuda_(
+            s, every, bins, 1, gb._iter_chunk(n)))
+        bound = (bins.numel() * bins.element_size() + 2 * 4 * K * n) \
+            / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(ms=call, device_ms=dev, plain_ms=plain,
+                         walk_ms=ref, drop3_ms=drop, replay_ms=replay,
+                         bound_ms=bound)
+        say(f"[dart p2 time] {name}: one tree P2 {call:.4f} ms a call, "
+            f"{dev:.4f} ms device; plain version {plain:.3f} ms; the "
+            f"per-tree reference walk (predict_binned, int32 rows) "
+            f"{ref:.3f} ms; 3 trees {drop:.4f} ms; replay of "
+            f"{len(trees)} trees {replay:.4f} ms; byte bound "
+            f"{bound:.4f} ms")
+    return out
+
+
+def _dart_run(torch, lt, params, train_set, valid_set, plain):
+    """DART_ROUNDS rounds on the mega route with the valid set, P2 (or its
+    plain version) for every binned walk, timed with every count set to
+    0 just before; P2's calls under sync-debug "error"."""
+    from lightgbm_tpu_torch import synthetic
+    from lightgbm_tpu_torch.learners import serial
+    from lightgbm_tpu_torch.ops import launch_counts
+
+    with p2_route(torch, plain=plain, strict=not plain):
+        bst = lt.Booster(dict(params), train_set)
+        bst.add_valid(valid_set, "valid")
+        gb = bst._gbdt
+        drops, orig = [], gb._select_drops
+        gb._select_drops = lambda: drops.append(orig()) or drops[-1]
+        per_iter = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(synthetic.DART_ROUNDS):
+            before = launch_counts()["P2"]
+            bst.update()
+            per_iter.append(launch_counts()["P2"] - before)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts, syncs = launch_counts(), serial.HOST_SYNCS
+        peak = torch.cuda.max_memory_allocated()
+    return dict(bst=bst, drops=drops, per_iter=per_iter, s=elapsed,
+                counts=counts, syncs=syncs, peak=peak)
+
+
+def _continued(torch, lt, params, train_set, valid_set, path, plain):
+    """From the DART model file: the init model's replay (merge_from),
+    the valid replay, one DART iteration and a rollback, P2's calls
+    under sync-debug "error" (or all on the plain version)."""
+    from lightgbm_tpu_torch.ops import launch_counts
+
+    reset_counts()
+    with p2_route(torch, plain=plain, strict=not plain) as calls:
+        cont = lt.Booster(dict(params, input_model=path), train_set)
+        cont.add_valid(valid_set, "valid")
+        cont.update()
+        cont.rollback_one_iter()
+        torch.cuda.synchronize()
+    gb = cont._gbdt
+    return (gb._scores.clone(), gb._valid_scores[0].clone(), dict(calls),
+            launch_counts()["P2"], len(gb.models))
+
+
+def _guard_holds(torch, lt, params, train_set):
+    """The three guards under ``nan_grads:1`` at GUARD_ROWS rows."""
+    from lightgbm_tpu_torch.obs import telemetry
+    from lightgbm_tpu_torch.resilience import faults
+    from lightgbm_tpu_torch.resilience.guards import NonFiniteError
+
+    sub = train_set.subset(np.arange(GUARD_ROWS))
+    tel = telemetry.get_telemetry()
+    out = {}
+    for policy in ("raise", "skip_tree", "clip"):
+        p = dict(params, num_leaves=GUARD_LEAVES, nonfinite_policy=policy)
+        b = lt.Booster(p, sub)
+        gb = b._gbdt
+        counter = {"raise": "nonfinite_grad_events",
+                   "skip_tree": "nonfinite_skipped_trees",
+                   "clip": "nonfinite_values_clipped"}[policy]
+        c0 = tel.counter(counter)
+        b.update()
+        before = gb._scores.clone()
+        faults.set_fault("nan_grads:1")
+        try:
+            raised = False
+            try:
+                b.update()
+            except NonFiniteError:
+                raised = True
+            restored = torch.equal(gb._scores, before)
+            b.update()
+            gb.finalize_guards()
+        finally:
+            faults.clear_faults()
+        finite = bool(torch.isfinite(gb._scores).all()) and all(
+            bool(torch.isfinite(t.leaf_value).all()) for t in gb.models)
+        moved = tel.counter(counter) - c0
+        want_trees = {"raise": 2, "skip_tree": 2, "clip": 3}[policy]
+        ok = (finite and gb.num_trees == want_trees and moved > 0
+              and raised == (policy == "raise")
+              and (restored or policy != "raise"))
+        out[policy] = ok
+        say(f"[dart guards] {policy} under nan_grads:1 at {GUARD_ROWS} rows: "
+            f"raised {raised}, scores restored bitwise {restored}, "
+            f"{gb.num_trees} trees, finite {finite}, {counter} +{moved}: "
+            f"{ok}")
+        check(ok, f"dart: the {policy} guard")
+    return out
+
+
+def phase_dart(torch, lt, params, train_set, valid_set, Xv,
+               mega_s_per_tree):
+    """DART and P2 on the bench data, mega route (see item 21)."""
+    import tempfile
+
+    dparams = dict(params, boosting_type="dart", tree_growth="leafwise",
+                   histogram_pool_size=0.0, metric="auc")
+    with route_env("mega"):
+        run = _dart_run(torch, lt, dparams, train_set, valid_set, False)
+        plain = _dart_run(torch, lt, dparams, train_set, valid_set, True)
+        bst, gb = run["bst"], run["bst"]._gbdt
+        trees = gb.models
+        n, splits = len(trees), sum(t.num_leaves - 1 for t in trees)
+        want = [1 + 3 * bool(d) for d in run["drops"]]
+        growth = dict(run["counts"], P2=0)
+        same = (_same_trees_bitwise(torch, trees, plain["bst"]._gbdt.models)
+                and run["drops"] == plain["drops"]
+                and torch.equal(gb._scores, plain["bst"]._gbdt._scores)
+                and torch.equal(gb._valid_scores[0],
+                                plain["bst"]._gbdt._valid_scores[0]))
+        del plain
+        train_auc = bst.eval_train()[0][2]
+        valid_auc = bst.eval_valid()[0][2]
+        pv = bst.predict(Xv, raw_score=True)
+        say(f"[dart] {n} trees {run['s']:.3f}s s/tree={run['s'] / n:.4f} "
+            f"(phase 8 mega s/tree={mega_s_per_tree:.4f}); drops a round "
+            f"{[len(d) for d in run['drops']]}; P2 launches a round "
+            f"{run['per_iter']} (1 + (2 + 1 valid set) with drops); "
+            f"learner host_syncs_per_tree={run['syncs'] / n:.1f} "
+            f"(2 + splits: {2 + splits / n:.1f}); peak_mem_bytes="
+            f"{run['peak']}; train_auc={train_auc:.6f} valid_auc="
+            f"{valid_auc:.6f} (JAX DART {DART_AUC[0]}/{DART_AUC[1]}); "
+            f"trees, drops and scores bitwise the plain walk's: {same}")
+        check(same, "dart: P2 and its plain version train other models")
+        check(run["per_iter"] == want and sum(want) == run["counts"]["P2"]
+              and any(run["drops"]),
+              f"dart: P2 launches {run['per_iter']}, expected {want}")
+        check(_mega_counts_ok(growth, trees),
+              f"dart: launches {run['counts']} are not the mega route's")
+        check(run["syncs"] == 2 * n + splits,
+              f"dart: {run['syncs']} learner host syncs, expected "
+              f"{2 * n + splits}")
+        check(abs(train_auc - DART_AUC[0]) <= AUC_TOL
+              and abs(valid_auc - DART_AUC[1]) <= AUC_TOL,
+              f"dart: AUC {train_auc}/{valid_auc} outside {DART_AUC}"
+              f"+-{AUC_TOL}")
+        check(abs(_auc(valid_set.label, pv) - valid_auc) <= 1e-6,
+              "dart: predict's valid AUC is not the one training reported")
+        err = _p2_holds(torch, gb)
+        times = _p2_times(torch, gb)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "dart.txt")
+            bst.save_model(path)
+            k = _continued(torch, lt, dparams, train_set, valid_set, path,
+                           False)
+            p = _continued(torch, lt, dparams, train_set, valid_set, path,
+                           True)
+        cont_ok = (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+                   and k[4] == n and k[3] == 5 and p[3] == 0
+                   and k[2]["replay"] == 1 and k[2]["update"] == 4)
+        say(f"[dart continued] init-model replay, valid replay, one "
+            f"iteration and a rollback with P2's calls under "
+            f"sync_debug_mode=error: calls {json.dumps(k[2])}, P2 launches "
+            f"{k[3]} (1 + 1 + 1 + 2); scores bitwise the plain version's: "
+            f"{cont_ok}; train "
+            f"scores within {float((k[0] - gb._scores).abs().max()):.3g} "
+            f"of the trained model's")
+        check(cont_ok, "dart: continued training on P2")
+        guards = _guard_holds(torch, lt, dict(dparams, boosting_type="gbdt"),
+                              train_set)
+    t = times["train_1M"]
+    return dict(launches=run["counts"]["P2"], max_abs_err=err, ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                library_ms=None, s_per_tree=run["s"] / n, guards=guards)
 
 
 # ----------------------------------------------------------------- phase 18
@@ -3490,6 +3857,8 @@ def main() -> int:
           f"depthwise under bsub and v1 differ: {main_bsub['auc']} vs "
           f"{main_dw['auc']}")
     timed("api", phase_api, torch, lt, *data)
+    dart = timed("dart", phase_dart, torch, lt, *data,
+                 routes["mega"]["s_per_tree"])
     params, train_set, valid_set, Xv = data
     reset_counts()
     served, one_call, p1 = timed("predict", phase_predict, torch, lt, params,
@@ -3571,6 +3940,15 @@ def main() -> int:
              bound_by="bytes",
              entry_points=["s1_rows_kernel", "s1_leaf_total_kernel",
                            "s1_stored_kernel", "s1_fold_kernel"], **sparse),
+        # no pallas_call: the JAX package walks binned rows in jnp
+        # (predict_binned, ensemble_sum_binned: models/tree.py:114, :211);
+        # its time and bound at one tree over the 1M training rows
+        dict(name="ensemble_walk_binned", route="cuda",
+             source=src + "predict_binned.cu",
+             replaces="lightgbm_tpu/models/tree.py:114", path="dart",
+             bound_by="bytes", launches=dart["launches"],
+             **{k: dart[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "library_ms")}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

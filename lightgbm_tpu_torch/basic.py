@@ -25,6 +25,7 @@ from .backend import resolve_device
 from .config import Config, key_alias_transform
 from .io.dataset import BinnedDataset
 from .io.metadata import Metadata
+from .models.dart import boosting_for_model, create_boosting
 from .models.gbdt import GBDT, check_supported
 from .objectives import create_objective
 from .resilience.atomic import atomic_write
@@ -283,7 +284,8 @@ class Booster:
             if cfg.objective != "none":
                 objective = create_objective(cfg, inner.metadata,
                                              inner.num_data, self.device)
-            self._gbdt = GBDT(cfg, inner, objective, device=self.device)
+            self._gbdt = create_boosting(cfg, inner, objective,
+                                         device=self.device)
             self._train_dataset = train_set
             if cfg.input_model:
                 init = Booster(model_file=cfg.input_model, device=self.device)
@@ -292,7 +294,8 @@ class Booster:
             if model_file is not None:
                 with open(model_file, "r") as fh:
                     model_str = fh.read()
-            self._gbdt = GBDT(cfg, device=self.device)
+            # a first line of "dart" loads a DART (boosting.cpp:7-16)
+            self._gbdt = boosting_for_model(model_str, cfg, self.device)
             self._gbdt.load_model_from_string(model_str)
         else:
             raise LightGBMError(

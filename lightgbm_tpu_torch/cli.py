@@ -17,10 +17,14 @@ merged over a config file (argv wins, application.cpp:46-104), then
 
 Reference ``train.conf`` files parse unchanged.  Every task runs on the
 ``device`` argument of :func:`main` (CUDA unless ``"cpu"``); no config
-key selects it.  Refused, naming their ROADMAP item: ``task=train_many``
-(A7), ``task=serve_fleet`` (A9), ``task=train_fleet`` (A8/A9),
-checkpoints and ``resume`` (A9), ``num_machines > 1`` (A8) and the
-configurations ``models/gbdt.check_supported`` refuses (DART: A3).
+key selects it.  ``boosting_type=dart`` trains DART (models/dart.py) and
+``nonfinite_policy`` guards the gradients (resilience/guards.py; the
+guard's parked counts drain before the model is saved).  Refused,
+naming their ROADMAP item: ``task=train_many`` (A7), ``task=serve_fleet``
+(A9), ``task=train_fleet`` (A8/A9), checkpoints and ``resume`` (A9),
+``num_machines > 1`` (A8) and the configurations
+``models/gbdt.check_supported`` refuses (float64 histograms: A5;
+parallel learners: A8).
 """
 
 from __future__ import annotations
@@ -39,7 +43,10 @@ from .config import (Config, key_alias_transform, parse_config_file,
                      parse_line_params)
 from .io.dataset import BinnedDataset
 from .log import Log
+from .models.dart import create_boosting
 from .models.gbdt import GBDT, check_supported
+from .obs import flightrec
+from .resilience.guards import NonFiniteError
 from .obs import RunManifest, manifest_path, telemetry
 from .objectives import create_objective
 from .resilience.atomic import atomic_write
@@ -141,7 +148,7 @@ def run_train(cfg: Config, device=None) -> GBDT:
              "seconds")
     objective = (create_objective(cfg, train.metadata, train.num_data, dev)
                  if cfg.objective != "none" else None)
-    booster = GBDT(cfg, train, objective, device=dev)
+    booster = create_boosting(cfg, train, objective, device=dev)
     valid_names: List[str] = []
     for path in cfg.valid_data:
         booster.add_valid_dataset(
@@ -157,6 +164,9 @@ def run_train(cfg: Config, device=None) -> GBDT:
     start = time.perf_counter()
     with _profiled(cfg, dev):
         stop_iter = _train_loop(cfg, booster, valid_names, start)
+    # the guard's parked counts drain before the save and the manifest
+    # (a short clip run would report no clipped values otherwise)
+    booster.finalize_guards()
     # slice counts iterations from the model start, so prepended init-model
     # trees are part of the budget (gbdt.cpp:589-592)
     num_iteration = (booster.num_init_iteration + stop_iter + 1
@@ -310,6 +320,10 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     except NotImplementedError:
         raise
     except Exception as ex:  # noqa: BLE001 — the CLI's error boundary
+        if isinstance(ex, NonFiniteError):
+            # the guard recorded its trip; the dump's tail names the abort
+            flightrec.record("nonfinite_abort", error=str(ex)[:400])
+            flightrec.dump(reason="nonfinite")
         print(f"Met Exceptions:\n{ex}", file=sys.stderr)
         return 1
     return 0

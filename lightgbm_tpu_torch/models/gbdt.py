@@ -12,7 +12,9 @@ K classes, re-draws the bagging mask (query by query for ranking data)
 and the K feature samples, in class order before any tree grows (numpy
 RandomState, draw for draw the JAX package's), then grows one tree per
 class, applies shrinkage and updates row k of the train scores through
-the final row -> leaf map and of the valid scores through a binned walk.
+the final row -> leaf map and of the valid scores through a binned walk
+(kernel P2, ``ops/predict.ensemble_update_binned_``: one launch a tree a
+valid set, over the valid set's ``[F, n]`` bins in their stored dtype).
 ``models`` is flat and iteration-major: tree i*K + k is class k's tree of
 iteration i.  Model text save/load is the reference format,
 byte-compatible with the JAX package's.
@@ -22,15 +24,20 @@ custom objective (``objective=none``), ``rollback_one_iter``, exact
 ``snapshot_state`` / ``restore_state``, and continued training
 (``merge_from``), which rebinds a loaded model's trees into this
 dataset's bins (``_rebind_tree``, exact where the JAX package's is not:
-ROADMAP C4) and replays them tree by tree into the scores.
+ROADMAP C4) and replays them tree by tree into the scores.  Every
+binned walk of training (the valid updates and replay, rollback, the
+init model's replay, DART's in models/dart.py) is one P2 launch a score
+set on the card, and none of them reads the card back.
+
+The non-finite guards (``nonfinite_policy``, resilience/guards.py) hook
+into ``train_one_iter`` where the JAX package's do (gbdt.py:703-717,
+:750-753, :846-849), with its ``nan_grads`` fault before them.
 
 Not ported yet (ROADMAP queue A), and refused with NotImplementedError
-rather than ignored: DART (A3), hist_dtype=float64 (A5), parallel
-learners (A8), the non-finite guards (nonfinite_policy other than
-"off", A9).  Depthwise and hybrid growth ignore histogram_pool_size with
-the JAX package's warning.  Forest batching, the lagged stop check
-(the port's stop check is eager), checkpoints and telemetry are not
-carried.
+rather than ignored: hist_dtype=float64 (A5) and parallel learners (A8).
+Depthwise and hybrid growth ignore histogram_pool_size with the JAX
+package's warning.  Forest batching, the lagged stop check (the port's
+stop check is eager), checkpoints and telemetry are not carried.
 """
 
 from __future__ import annotations
@@ -53,11 +60,14 @@ from ..metrics import Metric, create_metrics
 from ..objectives import ObjectiveFunction, objective_kind
 from ..ops.cuda_histogram import (hist_variant, histogram_record_window,
                                   histogram_single_leaf, make_level_hist_fn)
-from ..ops.predict import ensemble_leaves, ensemble_sum
+from ..ops.predict import (ensemble_leaves, ensemble_replay_binned_,
+                           ensemble_sum, ensemble_update_binned_)
 from ..ops.sparse_hist import make_sparse_hist_fn
-from .tree import (TREE_FIELDS, PackedTrees, Tree, empty_tree,
-                   finalize_thresholds_device, pack_threshold_bounds,
-                   pack_trees, predict_binned)
+from ..resilience import faults
+from ..resilience.guards import make_guard
+from .tree import (TREE_FIELDS, BinnedTrees, PackedTrees, Tree, binned_table,
+                   empty_tree, finalize_thresholds_device,
+                   pack_threshold_bounds, pack_trees)
 
 # leaf_count/internal_count ride the float32 histogram count channel,
 # integer-exact only up to 2**24 rows (lightgbm_tpu/learners/serial.py:78)
@@ -87,12 +97,8 @@ def check_supported(config: Config) -> None:
 
     if config.tree_learner != "serial":
         no(f"tree_learner={config.tree_learner}", "A8: parallel")
-    if config.boosting_type != "gbdt":
-        no(f"boosting_type={config.boosting_type}", "A3: DART")
     if config.hist_dtype != "float32":
         no("hist_dtype=float64", "A5: float64 histograms")
-    if config.nonfinite_policy != "off":
-        no(f"nonfinite_policy={config.nonfinite_policy}", "A9: resilience")
     if config.objective == "none":  # a custom objective: any num_class
         return
     kind = objective_kind(config.objective)
@@ -152,6 +158,8 @@ class GBDT:
         self._valid_scores: List[torch.Tensor] = []
         self._bag_rng = np.random.RandomState(config.bagging_seed)
         self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
+        # the non-finite guard (resilience/guards.py); None under "off"
+        self._nf_guard = make_guard(config.nonfinite_policy)
         if train_set is not None:
             self.reset_training_data(train_set, objective)
 
@@ -198,7 +206,9 @@ class GBDT:
         already in the model onto the new set in the JAX package's float
         order (gbdt.py:478-489): each chunk of ``_iter_chunk`` iterations
         is summed from zero in tree order, and the chunk sums are added in
-        order to the init scores.  Every tree in ``models`` is in this
+        order to the init scores: one P2 launch in replay mode over the
+        set's ``[F, n]`` bins (``bins_T``: stored dtype, filled on the
+        device for sparse storage).  Every tree in ``models`` is in this
         dataset's bins: trees of a loaded model enter only through
         ``merge_from``, which rebinds them."""
         if self.train_set is None or not self.train_set.check_align(valid_set):
@@ -207,19 +217,14 @@ class GBDT:
         self.valid_sets.append(valid_set)
         self.valid_metrics.append(
             create_metrics(self.config, valid_set.metadata, valid_set.num_data))
-        vb = torch.from_numpy(np.ascontiguousarray(valid_set.dense_bins())) \
-            .to(self.device).to(torch.int32)
+        vb = valid_set.bins_T(self.device)
         acc = self._init_scores(valid_set)
         K = self.num_class
-        n_iter = len(self.models) // K
-        step = self._iter_chunk(valid_set.num_data)
-        for lo in range(0, n_iter, step):
-            part = torch.zeros_like(acc)
-            for i in range(lo, min(lo + step, n_iter)):
-                for k in range(K):
-                    part[k] = part[k] + predict_binned(
-                        self.models[i * K + k], vb)
-            acc = acc + part
+        n_trees = len(self.models) // K * K
+        if n_trees:
+            ensemble_replay_binned_(
+                acc, binned_table(self.models[:n_trees], self.device), vb, K,
+                self._iter_chunk(valid_set.num_data))
         self._valid_bins.append(vb)
         self._valid_scores.append(acc)
 
@@ -354,7 +359,8 @@ class GBDT:
         """One boosting iteration (gbdt.cpp:217-252): one tree per class.
         ``grad`` / ``hess`` are a custom objective's gradients, ``[K·n]``
         class-major (gbdt.py:695-701); without them the objective's.
-        Returns True when no tree could be grown (training should stop)."""
+        Returns True when no tree could be grown (training should stop);
+        False also when the ``skip_tree`` guard skipped the iteration."""
         K = self.num_class
         if grad is not None and hess is not None:
             grad, hess = (torch.as_tensor(np.asarray(a, np.float32))
@@ -371,6 +377,19 @@ class GBDT:
                 self._scores if K > 1 else self._scores[0])
             if K == 1:
                 grad, hess = grad[None], hess[None]
+        # chaos hook (LGBM_TPU_FAULT=nan_grads:J): poisoned gradients, so
+        # the guard below is exercised by tests, not trusted
+        grad, hess = faults.poison_grads(grad, hess, self.iter_)
+        guard, nf_snap = self._nf_guard, None
+        if guard is not None:
+            if guard.policy == "raise":
+                # once NaN reaches the scores only an exact restore undoes
+                # it (NonFiniteGuard.raise_if_poisoned): a copy of the
+                # score buffers an iteration, the opt-in policy's cost
+                nf_snap = self.snapshot_state()
+            grad, hess, skip = guard.check_gradients(grad, hess)
+            if skip:
+                return False
         self._update_bagging()
         # the K feature samples in class order before any tree grows: the
         # JAX package's _feat_rng draws (gbdt.py:719-724)
@@ -379,24 +398,51 @@ class GBDT:
         for k in range(K):
             tree, leaf_id = self.grow(grad[k].contiguous(),
                                       hess[k].contiguous(), fmasks[k])
+            if guard is not None:
+                # the leaf-output guard; it never drops a tree, so models
+                # stays iteration-major
+                tree = guard.check_tree(tree)
             # shrinkage + train-score update through the row -> leaf map
             # + threshold finalization (gbdt.cpp:229-247)
             tree = tree.shrink(self.learning_rate)
             self._scores[k] += tree.leaf_value[leaf_id.to(torch.int64)]
             tree = finalize_thresholds_device(tree, self._bounds_mat,
                                               self._real_feat_dev)
-            for vi, vb in enumerate(self._valid_bins):
-                self._valid_scores[vi][k] += predict_binned(tree, vb)
+            if self._valid_bins:
+                self._walk_into(binned_table([tree], self.device), [k],
+                                None, 1.0)
             self.models.append(tree)
             could_split |= tree.num_leaves > 1
         self._models_changed()
         self.iter_ += 1
+        if guard is not None:
+            # policy=raise reads its parked counts here, restoring nf_snap
+            # before it raises
+            guard.raise_if_poisoned(self, nf_snap)
         return not could_split
 
-    def _train_rows(self) -> torch.Tensor:
-        """The training bins row-major ``[n, F]`` int32, for a binned walk
-        of the training rows."""
-        return self._bins_T.T.to(torch.int32)
+    def _walk_into(self, table: BinnedTrees, classes: List[int],
+                   train_scale: Optional[float],
+                   valid_scale: Optional[float]) -> None:
+        """Each tree of ``table`` walked over the training rows (unless
+        ``train_scale`` is None) and every valid set, ``f32(scale) *
+        leaf`` added to its class's scores in table order: one P2 launch a
+        score set."""
+        n = table.num_trees
+        if train_scale is not None:
+            ensemble_update_binned_(self._scores, table, self._bins_T,
+                                    classes, [train_scale] * n)
+        if valid_scale is not None:
+            for vi, vb in enumerate(self._valid_bins):
+                ensemble_update_binned_(self._valid_scores[vi], table, vb,
+                                        classes, [valid_scale] * n)
+
+    def finalize_guards(self) -> None:
+        """End-of-training drain of the non-finite guard's parked counts
+        (gbdt.py:868-875): a short clip run reports its clipped values,
+        and under policy=raise a poisoned last iteration raises here."""
+        if self._nf_guard is not None:
+            self._nf_guard.finalize()
 
     def snapshot_state(self) -> tuple:
         """Every per-iteration mutable of the training state, for an exact
@@ -430,11 +476,9 @@ class GBDT:
         if self.iter_ <= 0:
             return
         K = self.num_class
-        rows = self._train_rows()
-        for k, tree in enumerate(self.models[-K:]):
-            self._scores[k] -= predict_binned(tree, rows)
-            for vi, vb in enumerate(self._valid_bins):
-                self._valid_scores[vi][k] -= predict_binned(tree, vb)
+        # scale -1: s + (-d) is the JAX package's .at[k].add(-delta)
+        self._walk_into(binned_table(self.models[-K:], self.device),
+                        list(range(K)), -1.0, -1.0)
         del self.models[-K:]
         self._models_changed()
         self.iter_ -= 1
@@ -444,8 +488,8 @@ class GBDT:
         ``prepend`` puts them first (continued training from an init
         model, gbdt.cpp:589-592) and replays them into the train and
         valid scores one tree at a time in model order, in float32, as
-        the training loop adds its trees, so the scores equal the init
-        model's own training scores bitwise."""
+        the training loop adds its trees (one P2 launch a score set), so
+        the scores equal the init model's own training scores bitwise."""
         if other.num_class != self.num_class:
             raise ValueError("cannot merge models with different num_class")
         K = self.num_class
@@ -457,12 +501,9 @@ class GBDT:
             self.models = incoming + self.models
             self.num_init_iteration = len(incoming) // K
             if self.train_set is not None and incoming:
-                rows = self._train_rows()
-                for i, tree in enumerate(incoming):
-                    self._scores[i % K] += predict_binned(tree, rows)
-                    for vi, vb in enumerate(self._valid_bins):
-                        self._valid_scores[vi][i % K] += predict_binned(
-                            tree, vb)
+                self._walk_into(binned_table(incoming, self.device),
+                                [i % K for i in range(len(incoming))],
+                                1.0, 1.0)
         else:
             self.models = self.models + incoming
         self._models_changed()

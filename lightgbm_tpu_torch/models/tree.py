@@ -11,7 +11,7 @@ budget.  ``num_leaves`` is the used leaf count, kept as a Python int
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -137,7 +137,151 @@ def predict_leaf_binned(tree: Tree, X_bin: torch.Tensor) -> torch.Tensor:
 
 
 def predict_binned(tree: Tree, X_bin: torch.Tensor) -> torch.Tensor:
+    """One tree's output per row of a BINNED row-major matrix ``[n, F]``:
+    the reference walk (the JAX package's ``predict_binned``), one host
+    sync a level.  Training walks its trees with kernel P2 and its plain
+    version (``binned_update_`` / ``binned_replay_`` below)."""
     return tree.leaf_value[predict_leaf_binned(tree, X_bin)]
+
+
+# ------------------------------------------------------- binned ensembles
+@dataclasses.dataclass
+class BinnedTrees:
+    """Trees as one flat node table in BIN space, the table kernel P2
+    (csrc/predict_binned.cu) walks: the used internal nodes of every tree
+    one after the other, each one 16-byte record ``{split_feature |
+    categorical << 31, threshold_bin, left_child, right_child}``, with
+    global child pointers (an internal child is its row, a leaf ``~j``
+    with ``j`` its row in ``leaf_value``).  ``root[t]`` is tree t's first
+    record (``~leaf_offset[t]`` for a one-leaf tree).  The offsets are
+    host ints: every tree's ``num_leaves`` is one, so ``binned_table``
+    builds the table on the trees' device with no read back."""
+
+    node: torch.Tensor  # [nodes, 4] int32 records
+    leaf_value: torch.Tensor  # [leaves] f32
+    root: List[int]  # [T] host
+    max_steps: int  # the most internal nodes of one tree: a walk's bound
+
+    @property
+    def num_trees(self) -> int:
+        return len(self.root)
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``.  To a card through pinned memory and a
+    copy that does not block the host (a pageable copy waits for the
+    stream: a sync on every call)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def binned_table(trees: List[Tree], device=None) -> BinnedTrees:
+    """The ``BinnedTrees`` of ``trees`` on ``device`` (the trees' own by
+    default): each field's used slices concatenated on the device and the
+    child pointers moved to global rows there; the per-node offsets go up
+    in one copy from pinned memory.  A split feature < 0 reads column 0,
+    as the JAX walk's ``maximum(f, 0)``."""
+    if device is None:
+        device = trees[0].leaf_value.device if trees else "cpu"
+    nl = [max(int(t.num_leaves), 1) for t in trees]
+    ni = [n - 1 for n in nl]
+    node_off = np.concatenate([[0], np.cumsum(ni)]).astype(np.int64)
+    leaf_off = np.concatenate([[0], np.cumsum(nl)]).astype(np.int64)
+    if leaf_off[-1] >= _I32_MAX:
+        raise ValueError("the ensemble has too many nodes for int32")
+    root = [int(node_off[t]) if ni[t] else ~int(leaf_off[t])
+            for t in range(len(trees))]
+    lv = (torch.cat([t.leaf_value[:c].to(device) for t, c in zip(trees, nl)])
+          if trees else torch.zeros(0, dtype=torch.float32, device=device))
+    if not sum(ni):
+        node = torch.zeros((0, 4), dtype=torch.int32, device=device)
+        return BinnedTrees(node, lv, root, 0)
+
+    def cat(field):
+        return torch.cat([getattr(t, field)[:c].to(device, torch.int64)
+                          for t, c in zip(trees, ni) if c])
+
+    off = upload(np.stack([np.repeat(node_off[:-1], ni),
+                           np.repeat(leaf_off[:-1], ni)]), device)
+    lc, rc = cat("left_child"), cat("right_child")
+    lc = torch.where(lc >= 0, lc + off[0], lc - off[1])  # ~(~c + L) == c - L
+    rc = torch.where(rc >= 0, rc + off[0], rc - off[1])
+    feat = cat("split_feature").clamp(min=0)
+    feat = feat - (cat("decision_type") == 1).to(torch.int64) * CAT_BIT
+    node = torch.stack([feat, cat("threshold_bin"), lc, rc], dim=1)
+    return BinnedTrees(node.to(torch.int32).contiguous(), lv, root, max(ni))
+
+
+def _bin_at(X_binT: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
+    """``X_binT[feat[j], j]`` as int32 for every row j of ``[F, n]`` bins
+    in their stored dtype: uint8, or uint16 gathered through an int16 view
+    of the same bits (torch gathers no uint16)."""
+    if X_binT.dtype == torch.uint16:
+        v = X_binT.view(torch.int16).gather(0, feat[None])[0]
+        return v.to(torch.int32) & 0xFFFF
+    return X_binT.gather(0, feat[None])[0].to(torch.int32)
+
+
+def binned_leaves(table: BinnedTrees, t: int,
+                  X_binT: torch.Tensor) -> torch.Tensor:
+    """Global leaf row of every row of ``[F, n]`` bins in tree ``t``: a
+    lockstep walk (Tree::GetLeaf, tree.cpp:98-122), numerical nodes
+    sending ``bin <= threshold_bin`` left, categorical ``bin ==
+    threshold_bin``, until every row is at a leaf."""
+    n = X_binT.shape[1]
+    node = torch.full((n,), table.root[t], dtype=torch.int64,
+                      device=X_binT.device)
+    if table.root[t] < 0:
+        return ~node
+    rec = table.node.to(torch.int64)
+    for _ in range(table.max_steps):
+        active = node >= 0
+        if not bool(active.any()):
+            break
+        r = rec[node.clamp(min=0)]
+        b = _bin_at(X_binT, r[:, 0] & 0x7FFFFFFF)
+        left = torch.where(r[:, 0] < 0, b == r[:, 1], b <= r[:, 1])
+        node = torch.where(active, torch.where(left, r[:, 2], r[:, 3]), node)
+    return ~node
+
+
+def binned_update_(scores: torch.Tensor, table: BinnedTrees,
+                   X_binT: torch.Tensor, classes: Sequence[int],
+                   scales: Sequence[float]) -> torch.Tensor:
+    """Kernel P2's update mode, plain: for each tree t of ``table`` in
+    order, ``scores[classes[t]] += f32(scales[t]) * leaf_t(row)`` on the
+    ``[K, n]`` f32 scores, in place, every product and every add a float32
+    rounding of its own (the JAX package's eager ``s.at[c].add(f32(scale)
+    * predict_binned(tree, X))``; scale 1 adds the leaf value, -1
+    subtracts it)."""
+    sc = upload(np.asarray(scales, np.float32), scores.device)
+    for t, c in enumerate(classes):
+        vals = table.leaf_value[binned_leaves(table, t, X_binT)]
+        scores[int(c)] += vals * sc[t]
+    return scores
+
+
+def binned_replay_(scores: torch.Tensor, table: BinnedTrees,
+                   X_binT: torch.Tensor, num_class: int,
+                   chunk_iters: int) -> torch.Tensor:
+    """Kernel P2's replay mode, plain: the table's trees (iteration-major,
+    tree i*K + k is class k's) added to the ``[K, n]`` scores in place in
+    ``add_valid_dataset``'s float order (gbdt.py:478-489): each chunk of
+    ``chunk_iters`` iterations summed from zero in tree order, and the
+    chunk sums added in order."""
+    K = int(num_class)
+    n_iter = table.num_trees // K
+    step = max(int(chunk_iters), 1)
+    for lo in range(0, n_iter, step):
+        part = torch.zeros_like(scores)
+        for i in range(lo, min(lo + step, n_iter)):
+            for k in range(K):
+                part[k] = part[k] + table.leaf_value[
+                    binned_leaves(table, i * K + k, X_binT)]
+        scores += part
+    return scores
 
 
 # ------------------------------------------------------------- ensembles

@@ -2,7 +2,7 @@
 versions (histogram, split search and the pooled split step, the packed
 record's partition and write-back, the mega route's split step, the level
 histogram of depthwise growth, dense and sparse (kernel S1), ensemble
-prediction)."""
+prediction (P1) and the binned ensemble walk of training (P2))."""
 
 import importlib
 from typing import Dict
@@ -22,6 +22,7 @@ KERNEL_COUNTERS = {
     "K9": ("cuda_record", "WRITE_LAUNCHES"),
     "P1": ("cuda_predict", "LAUNCHES"),
     "S1": ("cuda_sparse_hist", "LAUNCHES"),
+    "P2": ("cuda_predict_binned", "LAUNCHES"),
 }
 
 

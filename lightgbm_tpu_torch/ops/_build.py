@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("histogram", "search", "record", "split_step", "level_histogram",
-           "predict", "sparse_histogram")
+           "predict", "sparse_histogram", "predict_binned")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no contracted multiply-adds: the kernels' f32 arithmetic must be the

@@ -1,5 +1,6 @@
-"""Ensemble prediction on raw features: kernel P1 on a CUDA tensor, its
-plain version (``models/tree.py``) on a CPU tensor.
+"""Ensemble walks: on raw features (prediction) kernel P1, on binned rows
+(training's score updates) kernel P2, each on a CUDA tensor, and their
+plain versions (``models/tree.py``) on a CPU tensor.
 
 Counterpart of the JAX package's device prediction
 (lightgbm_tpu/models/tree.py ``ensemble_sum_raw`` / ``ensemble_leaves_raw``
@@ -8,15 +9,21 @@ and ops/predict_matmul.py).  The path-incidence tables of
 walks the packed node table (csrc/predict.cu), and the port reads neither
 ``LGBM_TPU_PREDICT_MATMUL`` nor ``LGBM_TPU_PREDICT_ROW_CHUNK``.  A failed
 build or launch raises; a CUDA tensor never falls back to the plain
-version.
+version.  The binned walks replace the JAX package's jnp
+``predict_binned`` / ``ensemble_sum_binned`` (models/tree.py:114, :211).
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
-from ..models.tree import PackedTrees, ensemble_leaves_raw, ensemble_sum_raw
+from ..models.tree import (BinnedTrees, PackedTrees, binned_replay_,
+                           binned_update_, ensemble_leaves_raw,
+                           ensemble_sum_raw)
 from .cuda_predict import ensemble_leaves_cuda, ensemble_sum_cuda
+from .cuda_predict_binned import binned_replay_cuda_, binned_update_cuda_
 
 
 def ensemble_sum(p: PackedTrees, X: torch.Tensor, n_trees: int,
@@ -34,3 +41,24 @@ def ensemble_leaves(p: PackedTrees, X: torch.Tensor,
     if X.device.type == "cuda":
         return ensemble_leaves_cuda(p, X, n_trees)
     return ensemble_leaves_raw(p, X, n_trees)
+
+
+def ensemble_update_binned_(scores: torch.Tensor, table: BinnedTrees,
+                            X_binT: torch.Tensor, classes: Sequence[int],
+                            scales: Sequence[float]) -> torch.Tensor:
+    """``scores[classes[t]] += f32(scales[t]) * leaf_t`` over ``[F, n]``
+    bins for each tree t of ``table`` in order, in place."""
+    if X_binT.device.type == "cuda":
+        return binned_update_cuda_(scores, table, X_binT, classes, scales)
+    return binned_update_(scores, table, X_binT, classes, scales)
+
+
+def ensemble_replay_binned_(scores: torch.Tensor, table: BinnedTrees,
+                            X_binT: torch.Tensor, num_class: int,
+                            chunk_iters: int) -> torch.Tensor:
+    """The table's iteration-major trees added to ``scores`` in chunks of
+    ``chunk_iters`` iterations, in place."""
+    if X_binT.device.type == "cuda":
+        return binned_replay_cuda_(scores, table, X_binT, num_class,
+                                   chunk_iters)
+    return binned_replay_(scores, table, X_binT, num_class, chunk_iters)

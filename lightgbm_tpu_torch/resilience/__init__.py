@@ -1,4 +1,4 @@
-"""Fault tolerance: the parts serving needs.
+"""Fault tolerance: the parts serving and the training loop need.
 
 Copies of the JAX package's stdlib-only modules:
 
@@ -6,11 +6,13 @@ Copies of the JAX package's stdlib-only modules:
   writes (tmp file + fsync + rename, optional sha256 sidecar); the
   hot-swap verifies a model file's sidecar before adopting it.
 * :mod:`~lightgbm_tpu_torch.resilience.faults` — deterministic fault
-  injection (``LGBM_TPU_FAULT``) at the atomic write, the hot-swap and
-  the serve dispatch.
+  injection (``LGBM_TPU_FAULT``) at the atomic write, the hot-swap, the
+  serve dispatch and the training gradients (``nan_grads``).
+* :mod:`~lightgbm_tpu_torch.resilience.guards` — the non-finite guards
+  of ``nonfinite_policy`` (raise, skip_tree, clip), in PyTorch.
 
-Checkpoints, the non-finite guards, retry and the gang supervisor are
-ROADMAP A9 and not ported yet.
+Checkpoints, retry and the gang supervisor are ROADMAP A9's later steps
+and not ported yet.
 """
 
 from .atomic import (  # noqa: F401
@@ -27,6 +29,7 @@ from .faults import (  # noqa: F401
     fault_active,
     set_fault,
 )
+from .guards import NonFiniteError, NonFiniteGuard, make_guard  # noqa: F401
 
 EXIT_PREEMPTED = 75
 """Exit status for "preempted, retry": the sysexits EX_TEMPFAIL

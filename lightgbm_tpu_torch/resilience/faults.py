@@ -1,5 +1,6 @@
 """Deterministic fault injection for the paths the port has: the atomic
-write, the serving hot-swap and the serving dispatch.
+write, the serving hot-swap, the serving dispatch and the gradients of
+the training loop.
 
 A copy of the JAX package's ``resilience/faults.py`` (stdlib only) cut
 to the hooks those paths call.  ``LGBM_TPU_FAULT`` holds a
@@ -18,11 +19,15 @@ spec                        injection point
                             ``RESOURCE_EXHAUSTED`` (self-consuming) —
                             exercises the OOM classifier + flight
                             recorder post-mortem (obs/memory.py)
+``nan_grads:J``             at boosting iteration J, the first gradient of
+                            every class becomes NaN and its hessian +inf
+                            (models/gbdt.py) — exercises the non-finite
+                            guards (resilience/guards.py)
 ==========================  ====================================================
 
 The JAX package's other kinds (the training loop's kill and hang, the
-checkpoint, gradient and collective faults) belong to modules not ported
-yet and raise ``NotImplementedError`` naming ROADMAP A9.  The env var is
+checkpoint and collective faults) belong to modules not ported yet and
+raise ``NotImplementedError`` naming ROADMAP A9.  The env var is
 read once at import; tests inject in-process via :func:`set_fault` /
 :func:`clear_faults`.  ``*_once`` faults self-consume.
 """
@@ -32,11 +37,10 @@ from __future__ import annotations
 import os
 from typing import Dict, Optional
 
-_VALID = ("fail_write_once", "corrupt_model", "oom_dispatch")
+_VALID = ("fail_write_once", "corrupt_model", "oom_dispatch", "nan_grads")
 # the JAX package's kinds whose injection points are not ported yet
 _NOT_PORTED = ("kill_after_tree", "hang_after_tree", "corrupt_checkpoint",
-               "nan_grads", "fail_collective_once", "delay_collective",
-               "desync_step")
+               "fail_collective_once", "delay_collective", "desync_step")
 
 
 class InjectedFault(Exception):
@@ -161,3 +165,20 @@ def maybe_corrupt_model(path: str) -> bool:
     _overwrite_mid_file(path)
     _note("corrupt_model", path=path)
     return True
+
+
+def poison_grads(grad, hess, iteration: int):
+    """models/gbdt.py hook: at boosting iteration J, the first entry of
+    every class's gradient row becomes NaN and of its hessian row +inf,
+    so both operands are exercised (the JAX package's
+    ``poison_grads``).  Fires once; returns poisoned copies of the
+    ``[K, n]`` tensors."""
+    p = fault_active("nan_grads")
+    if p is None or iteration != int(p or 0):
+        return grad, hess
+    _consume("nan_grads")
+    _note("nan_grads", iteration=iteration)
+    grad, hess = grad.clone(), hess.clone()
+    grad[..., 0] = float("nan")
+    hess[..., 0] = float("inf")
+    return grad, hess

@@ -27,6 +27,8 @@ RANK_QUERIES = 10_000
 # rounds of each objective's main path (multiclass: 4 x 5 classes = 20
 # trees)
 ROUNDS = {"binary": 10, "regression": 10, "multiclass": 4, "lambdarank": 10}
+# rounds of the DART main path (binary, DART's default drop parameters)
+DART_ROUNDS = 30
 
 
 def bench_data(n: int, seed: int = 7, n_valid: int = 0):
@@ -101,7 +103,8 @@ def rank_data(nq: int, seed: int = 29):
 
 
 def workload(objective: str, rows: int = ROWS, n_valid: int = 0,
-             growth: str = "leafwise", pool_mb: float = 0.0):
+             growth: str = "leafwise", pool_mb: float = 0.0,
+             boosting: str = "gbdt"):
     """chip_smoke.py's main path for ``objective``: (params, (X, y, query
     sizes or None), (X_valid, y_valid) or None).
 
@@ -111,12 +114,14 @@ def workload(objective: str, rows: int = ROWS, n_valid: int = 0,
     (``multiclass_labels``, multi_logloss and multi_error), ``n_valid``
     valid rows from the same generator; LambdaRank on
     ``rank_data(RANK_QUERIES)`` with tools/bench_lambdarank.py's 31
-    leaves and min_data_in_leaf 50 (no valid rows).  ``growth`` and
-    ``pool_mb`` set tree_growth and histogram_pool_size."""
+    leaves and min_data_in_leaf 50 (no valid rows).  ``growth``,
+    ``pool_mb`` and ``boosting`` set tree_growth, histogram_pool_size and
+    boosting_type (DART with its default drop_rate 0.1, skip_drop 0.5,
+    max_drop 50 and drop_seed 4)."""
     params = {"objective": objective, "num_leaves": 255, "max_bin": 255,
               "learning_rate": 0.1, "min_data_in_leaf": 100,
               "tree_growth": growth, "histogram_pool_size": pool_mb,
-              "verbose": -1}
+              "boosting_type": boosting, "verbose": -1}
     if objective == "lambdarank":
         params.update(num_leaves=31, min_data_in_leaf=50,
                       ndcg_eval_at=[1, 3, 5])

@@ -90,7 +90,7 @@ def test_replay_order_is_not_tree_by_tree(monkeypatch):
     """Adding each tree straight into the init scores is another float
     order: on this set it gives other scores than the replay."""
     want, got, gb = _replayed(1, 4, None, monkeypatch)
-    vb = gb._valid_bins[-1]
+    vb = gb._valid_bins[-1].T  # [F, n] stored bins -> rows
     init = _data(4, 1)[4]
     acc = torch.from_numpy(init.astype(np.float32).reshape(1, NV))
     for i, tree in enumerate(gb.models):

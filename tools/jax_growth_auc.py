@@ -10,6 +10,8 @@
         --objective multiclass [--rows 300000]
     JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth leafwise \
         --objective lambdarank
+    JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth leafwise \
+        --boosting dart
 
 Trains ``lightgbm_tpu`` on the data and config ``chip_smoke.py`` trains
 the port on (both from ``lightgbm_tpu_torch.synthetic.workload``, with its
@@ -32,6 +34,9 @@ the port's within a band of:
   features in 10,000 queries), tools/bench_lambdarank.py's config (31
   leaves, 255 bins, learning_rate 0.1, min_data_in_leaf 50): train
   NDCG@1/3/5.
+
+``--boosting dart`` trains DART (its default drop_rate, skip_drop,
+max_drop and drop_seed) for ``synthetic.DART_ROUNDS`` rounds instead.
 
 Multiclass trains with ``forest_batching="off"`` (the JAX package's forest
 lanes, bitwise equal to it, fail under JAX 0.9).  It runs the JAX package
@@ -59,6 +64,7 @@ def main(argv=None) -> int:
     ap.add_argument("--growth", default="depthwise",
                     choices=("leafwise", "depthwise", "hybrid"))
     ap.add_argument("--histogram-pool-size", type=float, default=0.0)
+    ap.add_argument("--boosting", default="gbdt", choices=("gbdt", "dart"))
     ap.add_argument("--rows", type=int, default=None,
                     help="training rows of the bench data (default "
                     "synthetic.ROWS; valid rows a fifth of them)")
@@ -78,9 +84,12 @@ def main(argv=None) -> int:
     params, (X, y, group), valid = synthetic.workload(
         args.objective, rows,
         n_valid=0 if args.objective == "lambdarank" else rows // 5,
-        growth=args.growth, pool_mb=args.histogram_pool_size)
-    rounds = synthetic.ROUNDS[args.objective]
-    out = {"objective": args.objective, "growth": args.growth}
+        growth=args.growth, pool_mb=args.histogram_pool_size,
+        boosting=args.boosting)
+    rounds = (synthetic.DART_ROUNDS if args.boosting == "dart"
+              else synthetic.ROUNDS[args.objective])
+    out = {"objective": args.objective, "growth": args.growth,
+           "boosting": args.boosting}
     if args.objective == "multiclass":
         params["forest_batching"] = "off"
     train_set = lgb.Dataset(X, label=y, group=group,
