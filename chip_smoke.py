@@ -183,7 +183,11 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    to float64, float32, host-to-device copy, P1, copy back, float64 and
    transform); P1's ms a call and kernel device ms (profiler), node visits
    a second and PR 13's time at 1M rows (sums and leaves) and at 1, 8,
-   128 and 1,024 rows;
+   128 and 1,024 rows; the same 100 trees walked by kernel P2 over the
+   binned rows, update mode over the 1M training rows (an init model's
+   replay) and replay mode over the 200k valid rows, each held bitwise
+   against its plain version and timed (ms a call, device ms, visits a
+   second) beside P1 on the same trees;
    (b) the model saved with its ``.sha256`` sidecar, loaded into a
    ``ServingEngine`` (buckets 8 ... 1024) behind a ``MicroBatchQueue``:
    8 client threads x 250 requests of 1, 7, 64, 300 and 1,024 rows,
@@ -239,14 +243,30 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    renormalisation of the train scores, the valid adjustment), the
    learner's host syncs unchanged (2 + splits a tree), every P2 call
    (table build and launch) under ``torch.cuda.set_sync_debug_mode
-   ("error")``, train and valid AUC within +-0.005 of the JAX package's
+   ("error")`` and counted (a table build a new tree and one a round
+   with drops, an update call a launch), train and valid AUC within +-0.005 of the JAX package's
    DART (``tools/jax_growth_auc.py --boosting dart``), s/tree beside
    phase 8's and peak memory; P2 held bitwise against its plain version
    (two launches equal) on the 1M training rows, the 200k valid rows,
    replay mode in chunks of 7 and 30 iterations, uint16 x 300 bins,
-   stumps and categorical nodes, K = 5 in both modes; P2's ms a call and
-   device ms beside its plain version's, the per-tree reference walk's
-   (``predict_binned``) and its byte bound; continued training from the
+   stumps and categorical nodes, K = 5 in both modes (class offsets 0, 2
+   and 4), every scale DART and rollback give, and in every kind of
+   configuration ``p2_config`` picks, each reached by its shape: 256
+   rows one a thread with the records staged (the bench rows) or through
+   L1 (the trees' columns spread over 136 uint8 features), tree slots
+   over 1, 255, 257 and 3,000 rows and at 128 rows (136 uint16 features),
+   the bins from global memory at 2,000 features (one tree at 256 rows,
+   a quarter of the list with tree slots);
+   P2's ms a call and device ms beside its byte bound, P2's before its
+   redesign, its plain version's and the per-tree reference walk's
+   (``predict_binned``); the table build of a new tree (ms, device
+   events); one P2 call traced with ``torch.profiler``, a spin kernel
+   before and after it to tell a complete trace from a short one (in a
+   fresh process, ``chip_smoke.py --p2-trace``, when none of ten here is
+   complete): one P2 kernel and no host-to-device copy; P2 calls with
+   every host upload
+   (pinned memory, ``models/tree.upload``, ``Tensor.to`` / ``copy_``)
+   made to raise; continued training from the
    DART model file (the init model's replay, the valid replay, one
    iteration and a rollback: five P2 launches) bitwise the plain
    version's; and the three non-finite guards under ``nan_grads:1`` at
@@ -2219,7 +2239,7 @@ def phase_api(torch, lt, params, train_set, valid_set, Xv):
                          ("valid_walk", lambda: ensemble_update_binned_(
                              run_a._gbdt._valid_scores[0].clone(),
                              binned_table(a_trees[-1:]),
-                             run_a._gbdt._valid_bins[0], [0], [1.0]))):
+                             run_a._gbdt._valid_bins[0], 0, 1.0))):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
@@ -2356,6 +2376,13 @@ GUARD_ROWS, GUARD_LEAVES = 100_000, 63
 # the scales DART and rollback give P2: add, subtract, renormalise (k = 2
 # drops: keep = 2/3) and the valid sets' keep - 1
 P2_SCALES = (1.0, -1.0, 2.0 / 3.0, 2.0 / 3.0 - 1.0)
+P2_WIDE_F = 2000  # P2's wide configuration: 2,000 uint8 bins a row
+P2_NARROW_F = 136  # LambdaRank's width: records through L1, or 128 rows
+# P2 before its redesign (NVIDIA H100 80GB HBM3, 700.00 W; the final
+# run, PERF.md section 6): one tree's ms a call and device ms, 3 trees and
+# the replay of 30 trees, a call
+P2_BEFORE_MS = {"train_1M": (0.1064, 0.0292, 0.1170, None),
+                "valid_200k": (0.0596, 0.0092, None, 0.2150)}
 
 
 @contextlib.contextmanager
@@ -2399,55 +2426,96 @@ def p2_route(torch, plain=False, strict=False):
             setattr(mod, attr, fn)
 
 
-def _p2_hold(torch, name, table, bins, K, classes=None, scales=None,
-             chunk=None):
+def _p2_hold(torch, name, bins, K, calls):
     """P2 against its plain version on the card, bitwise, from the same
-    random [K, n] scores: update mode (``classes``/``scales``) or replay
-    mode (``chunk``); two launches equal.  Returns the largest absolute
-    difference (0.0)."""
+    random [K, n] scores, through ``calls`` in turn: ``(table, c0,
+    scale)`` in update mode, ``(table, None, chunk)`` in replay mode; two
+    launches equal.  Each call runs in the configuration p2_config picks
+    for its shape.  Returns (the largest absolute difference, 0.0; the
+    configurations the calls ran in)."""
     from lightgbm_tpu_torch.models import tree as pt
     from lightgbm_tpu_torch.ops import cuda_predict_binned as P2
 
     gen = torch.Generator(device="cuda").manual_seed(len(name))
     init = torch.randn((K, bins.shape[1]), device="cuda", generator=gen)
-    if chunk is None:
-        plain = pt.binned_update_(init.clone(), table, bins, classes, scales)
-        runs = [P2.binned_update_cuda_(init.clone(), table, bins, classes,
-                                       scales) for _ in range(2)]
-    else:
-        plain = pt.binned_replay_(init.clone(), table, bins, K, chunk)
-        runs = [P2.binned_replay_cuda_(init.clone(), table, bins, K, chunk)
-                for _ in range(2)]
+    plain = init.clone()
+    runs = [init.clone(), init.clone()]
+    F, n = bins.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    configs = set()
+    for table, c0, x in calls:
+        if c0 is None:
+            pt.binned_replay_(plain, table, bins, K, x)
+        else:
+            pt.binned_update_(plain, table, bins, c0, x)
+        for r in runs:
+            if c0 is None:
+                P2.binned_replay_cuda_(r, table, bins, K, x)
+            else:
+                P2.binned_update_cuda_(r, table, bins, c0, x)
+        configs.add(P2.p2_config(n, F, bins.element_size(), table.num_trees,
+                                 K, sms, table.max_steps, c0 is None))
     torch.cuda.synchronize()
     err = float((runs[0] - plain).abs().max())
     ok = torch.equal(runs[0], runs[1]) and torch.equal(runs[0], plain)
-    say(f"[dart p2 hold] {name}: {table.num_trees} trees, K={K}, bins "
-        f"{tuple(bins.shape)} {str(bins.dtype)[6:]}, "
-        f"{'replay chunk ' + str(chunk) if chunk else 'update'}: bitwise "
-        f"the plain version and two launches equal: {ok}")
+    mode = ("replay chunk " + str(calls[0][2]) if calls[0][1] is None
+            else "update " + ", ".join(f"c0={c} x{sc:.4g}"
+                                       for _, c, sc in calls))
+    say(f"[dart p2 hold] {name}: {sum(c[0].num_trees for c in calls)} "
+        f"trees, K={K}, bins {tuple(bins.shape)} {str(bins.dtype)[6:]}, "
+        f"{mode}, configs {sorted(configs)}: bitwise the plain version and "
+        f"two launches equal: {ok}")
     check(ok, f"dart: P2 differs from its plain version at {name}")
-    return err
+    return err, configs
+
+
+def _scaled(trees, c0=0):
+    """A list of trees as four update calls, one a quarter of the list,
+    each with one of P2_SCALES: every scale DART and rollback give."""
+    from lightgbm_tpu_torch.models.tree import binned_table
+
+    q = -(-len(trees) // 4)
+    return [(binned_table(trees[i * q:(i + 1) * q]), c0, P2_SCALES[i])
+            for i in range(4) if trees[i * q:(i + 1) * q]]
+
+
+def _spread(torch, trees, bins, F, dtype, seed):
+    """The trees' columns spread over ``F`` features of ``dtype`` (the
+    others random bins below 255): wider rows over the same walks."""
+    rng = np.random.RandomState(seed)
+    perm = rng.choice(F, bins.shape[0], replace=False)
+    pdev = torch.from_numpy(perm.astype(np.int32)).cuda()
+    out = [t.replace(split_feature=torch.where(
+        t.split_feature >= 0, pdev[t.split_feature.clamp(min=0).long()],
+        t.split_feature)) for t in trees]
+    wb = rng.randint(0, 255, (F, bins.shape[1])).astype(
+        np.uint16 if dtype == torch.uint16 else np.uint8)
+    wb[perm] = bins.cpu().numpy()
+    return out, torch.from_numpy(wb).cuda()
 
 
 def _p2_holds(torch, gb):
-    """P2 at the bench shape and the edges, on the DART model's trees."""
+    """P2 at the bench shape and the edges, on the DART model's trees, in
+    every kind of configuration p2_config picks, each reached by its
+    shape: 256 rows one a thread with the records staged (the bench rows),
+    through L1 (136 uint8 features: the tile and the staged records
+    overflow 48 KB together) or the bins from global memory (2,000
+    features, one tree); fewer rows with tree slots, the bins tiled (a
+    list over few rows; 136 uint16 features, cut to 128 rows) or from
+    global memory (2,000 features, a quarter of the list)."""
     from lightgbm_tpu_torch.models.tree import binned_table, empty_tree
 
     trees = gb.models
     T = len(trees)
     table = binned_table(trees)
-    scales = [P2_SCALES[t % 4] for t in range(T)]
     tr, va = gb._bins_T, gb._valid_bins[0]
-    err = _p2_hold(torch, "train_1M", table, tr, 1, [0] * T, scales)
-    err = max(err, _p2_hold(torch, "valid_200k", table, va, 1, [0] * T,
-                            scales))
-    for chunk in (7, T):
-        err = max(err, _p2_hold(torch, f"replay_valid_{chunk}", table, va, 1,
-                                chunk=chunk))
+    holds = [("train_1M", tr, 1, _scaled(trees)),
+             ("valid_200k", va, 1, _scaled(trees)),
+             ("replay_valid_7", va, 1, [(table, None, 7)]),
+             (f"replay_valid_{T}", va, 1, [(table, None, T)])]
     u16 = torch.from_numpy(np.random.RandomState(3).randint(
         0, 300, va.shape).astype(np.uint16)).cuda()
-    err = max(err, _p2_hold(torch, "u16_x300", table, u16, 1, [0] * T,
-                            scales))
+    holds.append(("u16_x300", u16, 1, _scaled(trees)))
     stump = empty_tree(NUM_LEAVES, "cuda")
     stump = stump.replace(leaf_value=stump.leaf_value + 0.37)
     cat = []
@@ -2455,25 +2523,157 @@ def _p2_holds(torch, gb):
         odd = torch.arange(t.decision_type.shape[0], device="cuda") % 2 == 1
         cat.append(t.replace(decision_type=odd.to(torch.int32)))
     edge = [stump] + cat + [stump]
-    err = max(err, _p2_hold(torch, "stumps_categorical", binned_table(edge),
-                            va, 1, [0] * len(edge),
-                            [P2_SCALES[t % 4] for t in range(len(edge))]))
-    err = max(err, _p2_hold(torch, "K5_update", table, va, 5,
-                            [t % 5 for t in range(T)], scales))
-    err = max(err, _p2_hold(torch, "K5_replay_chunk4", table, va, 5,
-                            chunk=4))
+    holds += [("stumps_categorical", va, 1, _scaled(edge)),
+              ("K5_update", va, 5, _scaled(trees)
+               + [(binned_table(trees[-1:]), 4, 1.0)]),
+              ("K5_replay_chunk4", va, 5, [(table, None, 4)])]
+    # few rows: tree slots, and n = 1, 255, 257 (partial tiles, no 16-byte
+    # tile loads)
+    for n in (1, 255, 257, 3000):
+        sub = va[:, :n].contiguous()
+        holds += [(f"rows_{n}", sub, 1, [(table, 0, P2_SCALES[2])]),
+                  (f"rows_{n}_replay", sub, 1, [(table, None, 7)]),
+                  (f"rows_{n}_K5", sub, 5, [(table, 2, P2_SCALES[3])])]
+    # wider rows: the trees' 28 columns spread over P2_NARROW_F features
+    # (uint8 and uint16, the valid rows) and P2_WIDE_F uint8 features
+    for F, dtype, n in ((P2_NARROW_F, torch.uint8, va.shape[1]),
+                        (P2_NARROW_F, torch.uint16, va.shape[1]),
+                        (P2_WIDE_F, torch.uint8, 20_000)):
+        spread, wb = _spread(torch, trees, va[:, :n], F, dtype, 182)
+        name = f"F{F}_{str(dtype)[6:]}"
+        holds += [(name, wb, 1, _scaled(spread)
+                   + [(binned_table(spread[-1:]), 0, 1.0)]),
+                  (f"{name}_replay", wb, 1,
+                   [(binned_table(spread), None, 7)])]
+    err, seen = 0.0, set()
+    for name, bins, K, calls in holds:
+        e, configs = _p2_hold(torch, name, bins, K, calls)
+        err, seen = max(err, e), seen | configs
+    kinds = {("staged" if c[3] else "tiled" if c[1] else "global",
+              c[0] == 256) for c in seen}
+    say(f"[dart p2 hold] configurations held: {sorted(seen)}")
+    check(kinds == {("staged", True), ("tiled", True), ("global", True),
+                    ("tiled", False), ("global", False)},
+          f"dart: the P2 holds missed a kind of configuration: {kinds}")
     return err
+
+
+def _p2_profile(torch, fn, calls=3, traces=10):
+    """``calls`` calls of ``fn`` in one torch.profiler trace, each between
+    two spin kernels (``torch.cuda._sleep``): (HtoD memcpy events, P2
+    kernel events, the other device events) a call, from the first of
+    ``traces`` traces that holds all its spin kernels (None if none
+    does), and how many of the traces did.  A torch.profiler trace can
+    come back short of device events; the spins before and after each
+    call tell a complete trace from a short one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    got, complete = None, 0
+    for _ in range(traces):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                torch.cuda._sleep(1000)
+                fn()
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        dev = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        rest = [d for d in dev if "spin_kernel" not in d]
+        if len(dev) - len(rest) != 2 * calls:
+            continue
+        complete += 1
+        if got is None:
+            got = (sum("HtoD" in d for d in rest) / calls,
+                   sum("p2_rows_kernel" in d or "p2_slots_kernel" in d
+                       for d in rest) / calls, len(rest) / calls)
+    return got, complete
+
+
+def _p2_trace_in_child(torch, table, bins):
+    """One P2 update call of ``table`` over ``bins`` traced by
+    ``_p2_profile`` in a fresh process (``chip_smoke.py --p2-trace``),
+    whose profiler no earlier trace has used: (the trace, complete traces
+    of 10)."""
+    import dataclasses
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "call.pt")
+        fields = {f.name: getattr(table, f.name)
+                  for f in dataclasses.fields(table)}
+        torch.save({"bins": bins.cpu(), "table": {
+            k: v.cpu() if torch.is_tensor(v) else v
+            for k, v in fields.items()}}, path)
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--p2-trace", path], capture_output=True,
+                             text=True, timeout=300)
+    check(out.returncode == 0,
+          f"dart: the P2 trace's process failed: {out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    return (tuple(res["trace"]) if res["trace"] else None), res["complete"]
+
+
+def _p2_trace_child(torch, path) -> int:
+    """``--p2-trace PATH``: the P2 call saved at PATH traced here; prints
+    ``{"trace": ..., "complete": ...}``."""
+    from lightgbm_tpu_torch.models.tree import BinnedTrees
+    from lightgbm_tpu_torch.ops.cuda_predict_binned import binned_update_cuda_
+
+    d = torch.load(path)
+    table = BinnedTrees(**{k: v.cuda() if torch.is_tensor(v) else v
+                           for k, v in d["table"].items()})
+    bins = d["bins"].cuda()
+    s = torch.zeros((1, bins.shape[1]), device="cuda")
+    binned_update_cuda_(s, table, bins, 0, 1.0)
+    torch.cuda.synchronize()
+    got, complete = _p2_profile(
+        torch, lambda: binned_update_cuda_(s, table, bins, 0, 1.0))
+    print(json.dumps({"trace": got, "complete": complete}))
+    return 0
+
+
+@contextlib.contextmanager
+def _uploads_raise(torch):
+    """Inside, every way the port sends host data to the card raises:
+    pinned memory, ``models/tree.upload``, ``Tensor.to`` / ``.cuda`` /
+    ``.copy_`` and new tensors from host data."""
+    from lightgbm_tpu_torch.models import tree
+
+    def refuse(name):
+        def run(*a, **kw):
+            raise AssertionError(f"{name} called inside a P2 call")
+        return run
+
+    swaps = [(torch.Tensor, "pin_memory"), (torch.Tensor, "to"),
+             (torch.Tensor, "cuda"), (torch.Tensor, "copy_"),
+             (torch, "tensor"), (torch, "as_tensor"), (torch, "from_numpy"),
+             (tree, "upload")]
+    own = [vars(obj).get(attr) for obj, attr in swaps]  # None: inherited
+    for obj, attr in swaps:
+        setattr(obj, attr, refuse(attr))
+    try:
+        yield
+    finally:
+        for (obj, attr), fn in zip(swaps, own):
+            if fn is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, fn)
 
 
 def _p2_times(torch, gb):
     """P2's ms a call (CUDA events, median of 20 after 3) and device ms
-    (calls queued behind a spin) beside the plain version's and the
-    per-tree reference walk's (``predict_binned`` over an int32 copy of
-    the rows, the port's walk before P2) at its shapes."""
+    (calls queued behind a spin) beside the plain version's, the per-tree
+    reference walk's (``predict_binned`` over an int32 copy of the rows,
+    the port's walk before P2) and P2's before its redesign at its
+    shapes; the table
+    build of a new tree (ms a call and device events); one call's trace
+    (no host-to-device copy)."""
     from lightgbm_tpu_torch.models.tree import (binned_table, binned_update_,
                                                 predict_binned)
     from lightgbm_tpu_torch.ops.cuda_predict_binned import (
-        binned_replay_cuda_, binned_update_cuda_, launch_walk, walk_meta)
+        binned_replay_cuda_, binned_update_cuda_)
 
     trees = gb.models
     one, drop3 = binned_table(trees[-1:]), binned_table(trees[:3])
@@ -2483,20 +2683,19 @@ def _p2_times(torch, gb):
                        ("valid_200k", gb._valid_bins[0])):
         K, n = 1, bins.shape[1]
         s = torch.zeros((K, n), device="cuda")
-        call = time_ms(torch, lambda: binned_update_cuda_(
-            s, one, bins, [0], [1.0]))
-        meta = walk_meta(one, [0], [1.0], "cuda")  # the kernel alone
-        dev = queued_ms(torch, lambda: launch_walk(s, one, bins, meta, False,
-                                                   1))
-        plain = time_ms(torch, lambda: binned_update_(s, one, bins, [0],
-                                                      [1.0]), reps=5, warm=1)
+        call = time_ms(torch, lambda: binned_update_cuda_(s, one, bins, 0,
+                                                          1.0))
+        dev = queued_ms(torch, lambda: binned_update_cuda_(s, one, bins, 0,
+                                                           1.0))
+        plain = time_ms(torch, lambda: binned_update_(s, one, bins, 0, 1.0),
+                        reps=5, warm=1)
         rows = bins.T.to(torch.int32)
         ref = time_ms(torch, lambda: s[0].add_(predict_binned(trees[-1],
                                                               rows)),
                       reps=5, warm=1)
         del rows
         drop = time_ms(torch, lambda: binned_update_cuda_(
-            s, drop3, bins, [0] * 3, [-1.0] * 3))
+            s, drop3, bins, 0, -1.0))
         replay = time_ms(torch, lambda: binned_replay_cuda_(
             s, every, bins, 1, gb._iter_chunk(n)))
         bound = (bins.numel() * bins.element_size() + 2 * 4 * K * n) \
@@ -2504,12 +2703,48 @@ def _p2_times(torch, gb):
         out[name] = dict(ms=call, device_ms=dev, plain_ms=plain,
                          walk_ms=ref, drop3_ms=drop, replay_ms=replay,
                          bound_ms=bound)
+        was = P2_BEFORE_MS[name]
         say(f"[dart p2 time] {name}: one tree P2 {call:.4f} ms a call, "
-            f"{dev:.4f} ms device; plain version {plain:.3f} ms; the "
-            f"per-tree reference walk (predict_binned, int32 rows) "
-            f"{ref:.3f} ms; 3 trees {drop:.4f} ms; replay of "
-            f"{len(trees)} trees {replay:.4f} ms; byte bound "
-            f"{bound:.4f} ms")
+            f"{dev:.4f} ms device (before: {was[0]:.4f}, {was[1]:.4f}); byte "
+            f"bound {bound:.5f} ms: {100 * bound / call:.1f} % a call, "
+            f"{100 * bound / dev:.1f} % device; plain version {plain:.3f} "
+            f"ms; the per-tree reference walk (predict_binned, int32 rows) "
+            f"{ref:.3f} ms; 3 trees {drop:.4f} ms (before: {was[2] or '-'}); "
+            f"replay of {len(trees)} trees {replay:.4f} ms (before: "
+            f"{was[3] or '-'}) [{CARD['name']}]")
+    table_ms = time_ms(torch, lambda: binned_table(trees[-1:]))
+    table_trace, t_complete = _p2_profile(
+        torch, lambda: binned_table(trees[-1:]))
+    tr, va = gb._bins_T, gb._valid_bins[0]
+    s = torch.zeros((1, tr.shape[1]), device="cuda")
+    sv = torch.zeros((1, va.shape[1]), device="cuda")
+    trace, complete = _p2_profile(
+        torch, lambda: binned_update_cuda_(s, one, tr, 0, 1.0))
+    where = ""
+    if trace is None:  # the profiler gives short traces in this process
+        trace, child = _p2_trace_in_child(torch, one, tr)
+        where = f"; in a fresh process {child} of 10"
+    t_htod, _, t_events = table_trace or (None,) * 3
+    htod, p2, events = trace or (None,) * 3
+    say(f"[dart p2 time] table build of a new tree (binned_table([tree])): "
+        f"{table_ms:.4f} ms a call, {t_events} device events a call "
+        f"({t_htod} host-to-device copy); a P2 call's trace (3 calls): "
+        f"{events} device events, {p2} P2 kernel, {htod} host-to-device "
+        f"copies a call; complete traces (every spin kernel there): "
+        f"{t_complete} and {complete} of 10{where} [{CARD['name']}]")
+    check(trace is not None and p2 == 1 and events == 1 and htod == 0,
+          f"dart: a P2 call's trace is {trace}, not one P2 kernel and no "
+          f"host-to-device copy")
+    with _uploads_raise(torch):  # raises if a call sends anything up
+        for _ in range(3):
+            binned_update_cuda_(s, one, tr, 0, 1.0)
+            binned_update_cuda_(s, drop3, tr, 0, -1.0)
+            binned_replay_cuda_(sv, every, va, 1, gb._iter_chunk(va.shape[1]))
+    torch.cuda.synchronize()
+    say("[dart p2 time] P2 calls (update of 1 and 3 trees, replay) with "
+        "every host upload made to raise: none raised")
+    out["table_ms"], out["table_events"] = table_ms, t_events
+    out["trace_complete"] = (t_complete, complete)
     return out
 
 
@@ -2521,7 +2756,7 @@ def _dart_run(torch, lt, params, train_set, valid_set, plain):
     from lightgbm_tpu_torch.learners import serial
     from lightgbm_tpu_torch.ops import launch_counts
 
-    with p2_route(torch, plain=plain, strict=not plain):
+    with p2_route(torch, plain=plain, strict=not plain) as calls:
         bst = lt.Booster(dict(params), train_set)
         bst.add_valid(valid_set, "valid")
         gb = bst._gbdt
@@ -2531,6 +2766,7 @@ def _dart_run(torch, lt, params, train_set, valid_set, plain):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        before_calls = dict(calls)
         t0 = time.perf_counter()
         for _ in range(synthetic.DART_ROUNDS):
             before = launch_counts()["P2"]
@@ -2541,7 +2777,8 @@ def _dart_run(torch, lt, params, train_set, valid_set, plain):
         counts, syncs = launch_counts(), serial.HOST_SYNCS
         peak = torch.cuda.max_memory_allocated()
     return dict(bst=bst, drops=drops, per_iter=per_iter, s=elapsed,
-                counts=counts, syncs=syncs, peak=peak)
+                counts=counts, syncs=syncs, peak=peak,
+                calls={k: calls[k] - before_calls[k] for k in calls})
 
 
 def _continued(torch, lt, params, train_set, valid_set, path, plain):
@@ -2629,6 +2866,7 @@ def phase_dart(torch, lt, params, train_set, valid_set, Xv,
                 and torch.equal(gb._scores, plain["bst"]._gbdt._scores)
                 and torch.equal(gb._valid_scores[0],
                                 plain["bst"]._gbdt._valid_scores[0]))
+        plain_calls = plain["calls"]
         del plain
         train_auc = bst.eval_train()[0][2]
         valid_auc = bst.eval_valid()[0][2]
@@ -2646,6 +2884,17 @@ def phase_dart(torch, lt, params, train_set, valid_set, Xv,
         check(run["per_iter"] == want and sum(want) == run["counts"]["P2"]
               and any(run["drops"]),
               f"dart: P2 launches {run['per_iter']}, expected {want}")
+        # a table a new tree (its valid walk) and one a round with drops
+        # (models/dart.py's own binding), each built under sync-debug
+        # "error"; an update call a P2 launch
+        want_calls = {"table": n + sum(map(bool, run["drops"])),
+                      "update": sum(want), "replay": 0}
+        say(f"[dart] binned walk calls in {len(run['per_iter'])} rounds: "
+            f"{json.dumps(run['calls'])} on P2, {json.dumps(plain_calls)} "
+            f"on the plain version (expected {json.dumps(want_calls)})")
+        check(run["calls"] == want_calls and plain_calls == want_calls,
+              f"dart: binned walk calls {run['calls']} / {plain_calls}, "
+              f"expected {want_calls}")
         check(_mega_counts_ok(growth, trees),
               f"dart: launches {run['counts']} are not the mega route's")
         check(run["syncs"] == 2 * n + splits,
@@ -2885,10 +3134,51 @@ def phase_predict(torch, lt, params, train_set, valid_set, Xv):
         + f"; sum {sum(stages.values()):.2f} of the wall {wall * 1e3:.2f}")
     p1_ms = _p1_times(torch, gb, X1, Xc, visits, leaves)
     del Xc, leaves
+    _p2_bench(torch, gb, X_all[ROWS:], visits, p1_ms["sum"])
     return bst, one_call, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, library_ms=None,
                                max_abs_err=err, predict_wall_ms=wall * 1e3,
                                p1_ms=p1_ms, stages=stages)
+
+
+def _p2_bench(torch, gb, Xv, visits_1m, p1):
+    """The served model's trees walked by P2: update mode over the 1M
+    training rows (``merge_from``'s replay of an init model) and replay
+    mode over the valid rows (``add_valid_dataset``), each held bitwise
+    against the plain version and timed (ms a call, device ms, node
+    visits a second) beside P1 over the same trees and the raw 1M rows
+    in this run."""
+    from lightgbm_tpu_torch.models.tree import binned_table
+    from lightgbm_tpu_torch.ops import cuda_predict
+    from lightgbm_tpu_torch.ops.cuda_predict_binned import (
+        binned_replay_cuda_, binned_update_cuda_)
+
+    trees = gb.models
+    T = len(trees)
+    table = binned_table(trees)
+    tr, va = gb._bins_T, gb._valid_bins[0]
+    chunk = gb._iter_chunk(va.shape[1])
+    _p2_hold(torch, f"bench_{T}_update_1M", tr, 1, [(table, 0, 1.0)])
+    _p2_hold(torch, f"bench_{T}_replay_valid", va, 1, [(table, None, chunk)])
+    Xvc = torch.from_numpy(np.ascontiguousarray(Xv, np.float32)).cuda()
+    visits_v = _visits(torch, trees, cuda_predict.ensemble_leaves_cuda(
+        gb._packed(), Xvc, T))
+    del Xvc
+    s = torch.zeros((1, tr.shape[1]), device="cuda")
+    sv = torch.zeros((1, va.shape[1]), device="cuda")
+    runs = (("update, 1M training rows", visits_1m,
+             lambda: binned_update_cuda_(s, table, tr, 0, 1.0)),
+            (f"replay, {va.shape[1]} valid rows", visits_v,
+             lambda: binned_replay_cuda_(sv, table, va, 1, chunk)))
+    for label, vis, fn in runs:
+        call = time_ms(torch, fn, reps=10, warm=2)
+        dev = queued_ms(torch, fn, calls=5)
+        say(f"[predict P2] {T} trees, {label}: ms={call:.4f} a call, "
+            f"device ms={dev:.4f} a call queued, {vis / dev * 1e3:.4g} node "
+            f"visits/s; P1 over the same trees and the raw 1M rows in this "
+            f"run: ms={p1['ms']:.4f}, device ms={p1['device_ms']:.4f}, "
+            f"{p1['visits'] / p1['device_ms'] * 1e3:.4g} visits/s "
+            f"[{CARD['name']}]")
 
 
 def _visits(torch, trees, leaves):
@@ -3822,6 +4112,9 @@ def main() -> int:
               "beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if "--p2-trace" in sys.argv:  # phase 21's trace in a fresh process
+        return _p2_trace_child(torch, sys.argv[sys.argv.index("--p2-trace")
+                                                + 1])
     import lightgbm_tpu_torch as lt
 
     torch.backends.cuda.matmul.allow_tf32 = False

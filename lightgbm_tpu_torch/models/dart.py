@@ -75,11 +75,10 @@ class DART(GBDT):
         drops = self._select_drops()
         k = float(len(drops))
         idx = [i * K + c for i in drops for c in range(K)]
-        classes = [c for _ in drops for c in range(K)]
         table = None
         if drops:  # the dropped trees out of the training scores
             table = binned_table([self.models[j] for j in idx], self.device)
-            self._walk_into(table, classes, -1.0, None)
+            self._walk_into(table, 0, -1.0, None)
 
         # shrinkage for the new trees (dart.hpp:124-132)
         if not cfg.xgboost_dart_mode:
@@ -99,7 +98,7 @@ class DART(GBDT):
         keep = (k / (k + 1.0) if not cfg.xgboost_dart_mode
                 else k / (k + cfg.learning_rate))
         if drops:
-            self._walk_into(table, classes, keep, keep - 1.0)
+            self._walk_into(table, 0, keep, keep - 1.0)
             for j in idx:
                 self.models[j] = self.models[j].shrink(keep)
             self._models_changed()

@@ -409,8 +409,8 @@ class GBDT:
             tree = finalize_thresholds_device(tree, self._bounds_mat,
                                               self._real_feat_dev)
             if self._valid_bins:
-                self._walk_into(binned_table([tree], self.device), [k],
-                                None, 1.0)
+                self._walk_into(binned_table([tree], self.device), k, None,
+                                1.0)
             self.models.append(tree)
             could_split |= tree.num_leaves > 1
         self._models_changed()
@@ -421,21 +421,20 @@ class GBDT:
             guard.raise_if_poisoned(self, nf_snap)
         return not could_split
 
-    def _walk_into(self, table: BinnedTrees, classes: List[int],
+    def _walk_into(self, table: BinnedTrees, c0: int,
                    train_scale: Optional[float],
                    valid_scale: Optional[float]) -> None:
         """Each tree of ``table`` walked over the training rows (unless
         ``train_scale`` is None) and every valid set, ``f32(scale) *
-        leaf`` added to its class's scores in table order: one P2 launch a
-        score set."""
-        n = table.num_trees
+        leaf`` added in table order to the scores of its class (listed
+        tree t is class ``(c0 + t) % K``): one P2 launch a score set."""
         if train_scale is not None:
-            ensemble_update_binned_(self._scores, table, self._bins_T,
-                                    classes, [train_scale] * n)
+            ensemble_update_binned_(self._scores, table, self._bins_T, c0,
+                                    train_scale)
         if valid_scale is not None:
             for vi, vb in enumerate(self._valid_bins):
                 ensemble_update_binned_(self._valid_scores[vi], table, vb,
-                                        classes, [valid_scale] * n)
+                                        c0, valid_scale)
 
     def finalize_guards(self) -> None:
         """End-of-training drain of the non-finite guard's parked counts
@@ -477,8 +476,8 @@ class GBDT:
             return
         K = self.num_class
         # scale -1: s + (-d) is the JAX package's .at[k].add(-delta)
-        self._walk_into(binned_table(self.models[-K:], self.device),
-                        list(range(K)), -1.0, -1.0)
+        self._walk_into(binned_table(self.models[-K:], self.device), 0,
+                        -1.0, -1.0)
         del self.models[-K:]
         self._models_changed()
         self.iter_ -= 1
@@ -501,8 +500,7 @@ class GBDT:
             self.models = incoming + self.models
             self.num_init_iteration = len(incoming) // K
             if self.train_set is not None and incoming:
-                self._walk_into(binned_table(incoming, self.device),
-                                [i % K for i in range(len(incoming))],
+                self._walk_into(binned_table(incoming, self.device), 0,
                                 1.0, 1.0)
         else:
             self.models = self.models + incoming

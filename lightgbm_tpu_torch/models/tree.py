@@ -11,7 +11,7 @@ budget.  ``num_leaves`` is the used leaf count, kept as a Python int
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List
 
 import numpy as np
 import torch
@@ -153,14 +153,20 @@ class BinnedTrees:
     categorical << 31, threshold_bin, left_child, right_child}``, with
     global child pointers (an internal child is its row, a leaf ``~j``
     with ``j`` its row in ``leaf_value``).  ``root[t]`` is tree t's first
-    record (``~leaf_offset[t]`` for a one-leaf tree).  The offsets are
-    host ints: every tree's ``num_leaves`` is one, so ``binned_table``
-    builds the table on the trees' device with no read back."""
+    record (``~leaf_offset[t]`` for a one-leaf tree): a host list for the
+    plain walk, and ``root_dev`` the same on the table's device for P2,
+    beside each tree's first record and first leaf (``node_offset``,
+    ``leaf_offset``, ``[T + 1]``).  The offsets are host ints: every
+    tree's ``num_leaves`` is one, so ``binned_table`` builds the table on
+    the trees' device with no read back."""
 
     node: torch.Tensor  # [nodes, 4] int32 records
     leaf_value: torch.Tensor  # [leaves] f32
     root: List[int]  # [T] host
     max_steps: int  # the most internal nodes of one tree: a walk's bound
+    root_dev: torch.Tensor  # [T] int32, ``root`` on the device
+    node_offset: torch.Tensor  # [T + 1] int32, tree t's first record
+    leaf_offset: torch.Tensor  # [T + 1] int32, tree t's first leaf
 
     @property
     def num_trees(self) -> int:
@@ -177,14 +183,24 @@ def upload(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
+# the int fields of a node record, in one torch.cat: feature, threshold,
+# left, right, then the decision type that sets the feature's top bit
+_RECORD_FIELDS = ("split_feature", "threshold_bin", "left_child",
+                  "right_child", "decision_type")
+
+
 def binned_table(trees: List[Tree], device=None) -> BinnedTrees:
     """The ``BinnedTrees`` of ``trees`` on ``device`` (the trees' own by
-    default): each field's used slices concatenated on the device and the
-    child pointers moved to global rows there; the per-node offsets go up
-    in one copy from pinned memory.  A split feature < 0 reads column 0,
-    as the JAX walk's ``maximum(f, 0)``."""
+    default): the five int fields' used slices of every tree gathered in
+    one concatenation on the device and the records made there, the child
+    pointers moved to global rows; the per-node offsets, the roots and
+    the per-tree offsets go up in one copy from pinned memory.  A single
+    tree (each new tree's walk over the valid sets) needs no child
+    offsets, and its leaf values are its own.  A split feature < 0 reads
+    column 0, as the JAX walk's ``maximum(f, 0)``."""
     if device is None:
         device = trees[0].leaf_value.device if trees else "cpu"
+    T = len(trees)
     nl = [max(int(t.num_leaves), 1) for t in trees]
     ni = [n - 1 for n in nl]
     node_off = np.concatenate([[0], np.cumsum(ni)]).astype(np.int64)
@@ -192,26 +208,35 @@ def binned_table(trees: List[Tree], device=None) -> BinnedTrees:
     if leaf_off[-1] >= _I32_MAX:
         raise ValueError("the ensemble has too many nodes for int32")
     root = [int(node_off[t]) if ni[t] else ~int(leaf_off[t])
-            for t in range(len(trees))]
-    lv = (torch.cat([t.leaf_value[:c].to(device) for t, c in zip(trees, nl)])
-          if trees else torch.zeros(0, dtype=torch.float32, device=device))
-    if not sum(ni):
+            for t in range(T)]
+    nodes = int(node_off[-1])
+    moved = nodes if T > 1 else 0  # nodes whose children move
+    # one int32 upload: each moved node's child offsets (an internal child
+    # moves by its tree's first record, a leaf ~j by minus its first
+    # leaf), the roots, the first records and the first leaves
+    host = np.concatenate([np.repeat(node_off[:-1], ni)[:moved],
+                           -np.repeat(leaf_off[:-1], ni)[:moved], root,
+                           node_off, leaf_off]).astype(np.int32)
+    meta = upload(host, device)
+    tail = meta[2 * moved:]
+    parts = [t.leaf_value[:c].to(device) for t, c in zip(trees, nl)]
+    lv = (parts[0] if T == 1 else torch.cat(parts) if parts
+          else torch.zeros(0, dtype=torch.float32, device=device))
+    if nodes:
+        f = torch.cat([getattr(t, field)[:c].to(device, torch.int32)
+                       for field in _RECORD_FIELDS
+                       for t, c in zip(trees, ni) if c]).view(5, nodes)
+        ch = f[2:4]
+        if moved:
+            off = meta[:2 * moved].view(2, moved)
+            ch = ch + torch.where(ch >= 0, off[0], off[1])  # ~(~c+L) == c-L
+        feat = f[0].clamp(min=0)
+        feat = torch.where(f[4] == 1, feat | _I32_MIN, feat)
+        node = torch.stack([feat, f[1], ch[0], ch[1]], dim=1)
+    else:
         node = torch.zeros((0, 4), dtype=torch.int32, device=device)
-        return BinnedTrees(node, lv, root, 0)
-
-    def cat(field):
-        return torch.cat([getattr(t, field)[:c].to(device, torch.int64)
-                          for t, c in zip(trees, ni) if c])
-
-    off = upload(np.stack([np.repeat(node_off[:-1], ni),
-                           np.repeat(leaf_off[:-1], ni)]), device)
-    lc, rc = cat("left_child"), cat("right_child")
-    lc = torch.where(lc >= 0, lc + off[0], lc - off[1])  # ~(~c + L) == c - L
-    rc = torch.where(rc >= 0, rc + off[0], rc - off[1])
-    feat = cat("split_feature").clamp(min=0)
-    feat = feat - (cat("decision_type") == 1).to(torch.int64) * CAT_BIT
-    node = torch.stack([feat, cat("threshold_bin"), lc, rc], dim=1)
-    return BinnedTrees(node.to(torch.int32).contiguous(), lv, root, max(ni))
+    return BinnedTrees(node, lv, root, max(ni, default=0), tail[:T],
+                       tail[T:2 * T + 1], tail[2 * T + 1:])
 
 
 def _bin_at(X_binT: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
@@ -248,18 +273,21 @@ def binned_leaves(table: BinnedTrees, t: int,
 
 
 def binned_update_(scores: torch.Tensor, table: BinnedTrees,
-                   X_binT: torch.Tensor, classes: Sequence[int],
-                   scales: Sequence[float]) -> torch.Tensor:
+                   X_binT: torch.Tensor, c0: int,
+                   scale: float) -> torch.Tensor:
     """Kernel P2's update mode, plain: for each tree t of ``table`` in
-    order, ``scores[classes[t]] += f32(scales[t]) * leaf_t(row)`` on the
+    order, ``scores[(c0 + t) % K] += f32(scale) * leaf_t(row)`` on the
     ``[K, n]`` f32 scores, in place, every product and every add a float32
     rounding of its own (the JAX package's eager ``s.at[c].add(f32(scale)
     * predict_binned(tree, X))``; scale 1 adds the leaf value, -1
-    subtracts it)."""
-    sc = upload(np.asarray(scales, np.float32), scores.device)
-    for t, c in enumerate(classes):
+    subtracts it).  The scale is a float32 0-d tensor on the host, so the
+    product is the float32 one on either device, as P2's float argument
+    gives it."""
+    K = scores.shape[0]
+    sc = torch.tensor(scale, dtype=torch.float32)
+    for t in range(table.num_trees):
         vals = table.leaf_value[binned_leaves(table, t, X_binT)]
-        scores[int(c)] += vals * sc[t]
+        scores[(int(c0) + t) % K] += vals * sc
     return scores
 
 

@@ -15,8 +15,6 @@ version.  The binned walks replace the JAX package's jnp
 
 from __future__ import annotations
 
-from typing import Sequence
-
 import torch
 
 from ..models.tree import (BinnedTrees, PackedTrees, binned_replay_,
@@ -44,13 +42,13 @@ def ensemble_leaves(p: PackedTrees, X: torch.Tensor,
 
 
 def ensemble_update_binned_(scores: torch.Tensor, table: BinnedTrees,
-                            X_binT: torch.Tensor, classes: Sequence[int],
-                            scales: Sequence[float]) -> torch.Tensor:
-    """``scores[classes[t]] += f32(scales[t]) * leaf_t`` over ``[F, n]``
-    bins for each tree t of ``table`` in order, in place."""
+                            X_binT: torch.Tensor, c0: int,
+                            scale: float) -> torch.Tensor:
+    """``scores[(c0 + t) % K] += f32(scale) * leaf_t`` over ``[F, n]`` bins
+    for each tree t of ``table`` in order, in place."""
     if X_binT.device.type == "cuda":
-        return binned_update_cuda_(scores, table, X_binT, classes, scales)
-    return binned_update_(scores, table, X_binT, classes, scales)
+        return binned_update_cuda_(scores, table, X_binT, c0, scale)
+    return binned_update_(scores, table, X_binT, c0, scale)
 
 
 def ensemble_replay_binned_(scores: torch.Tensor, table: BinnedTrees,

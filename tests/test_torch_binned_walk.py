@@ -124,6 +124,24 @@ def test_table_matches_tree_arrays(boosters, kind):
 
 
 @pytest.mark.parametrize("kind", KINDS)
+def test_device_roots_and_offsets_match_the_host(boosters, kind):
+    """``root_dev`` is the host ``root``; ``node_offset`` / ``leaf_offset``
+    are each tree's first record and first leaf, for a table of the
+    model's trees and for one of a single tree."""
+    trees = _port_trees(boosters[kind][0])
+    for part in (trees, trees[-1:], trees[1:3]):
+        table = pt.binned_table(part)
+        assert table.root_dev.dtype == torch.int32
+        assert table.root_dev.tolist() == table.root
+        ni = [max(t.num_leaves, 1) - 1 for t in part]
+        nl = [max(t.num_leaves, 1) for t in part]
+        assert table.node_offset.tolist() == list(np.cumsum([0] + ni))
+        assert table.leaf_offset.tolist() == list(np.cumsum([0] + nl))
+        for t in table.root_dev, table.node_offset, table.leaf_offset:
+            assert t.is_contiguous() and t.dtype == torch.int32
+
+
+@pytest.mark.parametrize("kind", KINDS)
 def test_leaves_match_the_reference_walk(boosters, kind):
     """The table walk's leaf (local) is the per-tree walk's, row by row."""
     jb, bins, _ = boosters[kind]
@@ -147,32 +165,88 @@ def _jax_chain(jb, bins, init, order, classes, scales):
     return np.asarray(s)
 
 
+def _calls(T, K, scale):
+    """The ``(first tree, trees, c0, scale)`` calls of
+    test_update_matches_jax_chain: the whole list at c0 = 0 with one scale
+    (or, "mixed", tree by tree with the scales cycling), then for K > 1
+    the list again at c0 = 1."""
+    cycle = [1.0, -1.0, KEEP, KEEP - 1.0]
+    calls = ([(t, 1, t % K, cycle[t % 4]) for t in range(T)]
+             if scale == "mixed" else [(0, T, 0, scale)])
+    if K > 1:
+        calls.append((0, T, 1, 1.0 if scale == "mixed" else scale))
+    return calls
+
+
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("scale", [1.0, -1.0, KEEP, KEEP - 1.0, "mixed"])
 def test_update_matches_jax_chain(boosters, kind, scale):
     """binned_update_ == ``s.at[c].add(scale * predict_binned(t, X))`` in
-    list order, bitwise: each tree to its own class, then (for K > 1) the
-    list again in reverse with every tree on class 0."""
+    list order, bitwise: listed tree t to class ``(c0 + t) % K``, one
+    scale a call; chained calls (tree by tree with the scales cycling, and
+    for K > 1 the list again shifted by one class) chain the same adds."""
     jb, bins, K = boosters[kind]
     trees = _port_trees(jb)
     T = len(trees)
-    order = list(range(T)) + (list(range(T))[::-1] if K > 1 else [])
-    classes = [t % K for t in range(T)] + ([0] * T if K > 1 else [])
-    cycle = [1.0, -1.0, KEEP, KEEP - 1.0]
-    scales = ([cycle[i % 4] for i in range(len(order))] if scale == "mixed"
-              else [scale] * len(order))
+    order, classes, scales = [], [], []
+    for t0, cnt, c0, sc in _calls(T, K, scale):
+        order += list(range(t0, t0 + cnt))
+        classes += [(c0 + i) % K for i in range(cnt)]
+        scales += [sc] * cnt
     init = _init(K)
     want = _jax_chain(jb, bins, init, order, classes, scales)
-    table = pt.binned_table([trees[t] for t in order])
     got = torch.from_numpy(init.copy())
-    out = pt.binned_update_(got, table, _bins_T(bins), classes, scales)
-    assert out is got
-    np.testing.assert_array_equal(got.numpy(), want)
-    # the dispatcher takes the plain version for a CPU tensor
     again = torch.from_numpy(init.copy())
-    ops_predict.ensemble_update_binned_(again, table, _bins_T(bins), classes,
-                                        scales)
+    for t0, cnt, c0, sc in _calls(T, K, scale):
+        table = pt.binned_table(trees[t0:t0 + cnt])
+        out = pt.binned_update_(got, table, _bins_T(bins), c0, sc)
+        assert out is got
+        # the dispatcher takes the plain version for a CPU tensor
+        ops_predict.ensemble_update_binned_(again, table, _bins_T(bins), c0,
+                                            sc)
+    np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(again.numpy(), want)
+
+
+# each caller's P2 call and the per-tree classes and scales it passed
+# before the class offset and the one scale were kernel arguments:
+# (name, K, listed trees as indices into the model, c0, the old classes,
+# the train scale)
+def _caller_cases():
+    cases = []
+    for K in (1, 3):
+        for k in range(K):  # train_one_iter: the new tree of class k
+            cases.append((f"new_tree_K{K}_class{k}", K, [k], k, [k], 1.0))
+        cases.append((f"rollback_K{K}", K, list(range(K)), 0, list(range(K)),
+                      -1.0))
+        n = 2 * K  # merge_from: the init model's trees, i % K
+        cases.append((f"merge_K{K}", K, list(range(n)), 0,
+                      [i % K for i in range(n)], 1.0))
+        for sc in (-1.0, KEEP, KEEP - 1.0):  # DART: drops 0 and 1
+            drops = [0, 1]
+            cases.append((f"dart_K{K}_scale{sc:.3f}", K,
+                          [i * K + c for i in drops for c in range(K)], 0,
+                          [c for _ in drops for c in range(K)], sc))
+    return cases
+
+
+@pytest.mark.parametrize("case", _caller_cases(), ids=lambda c: c[0])
+def test_callers_match_their_per_tree_lists(boosters, case):
+    """Every caller's ``(c0, scale)`` call == the JAX chain over the
+    per-tree class and scale lists the caller used to pass: the new tree
+    of class k, rollback over ``range(K)``, ``merge_from``'s ``i % K``,
+    DART's drops (subtract, renormalise, the valid sets' keep - 1)."""
+    _, K, idx, c0, classes, sc = case
+    jb, bins, k_model = boosters["binary" if K == 1 else "multiclass"]
+    assert k_model == K
+    trees = _port_trees(jb)
+    init = _init(K, seed=13)
+    want = _jax_chain(jb, bins, init, idx, classes, [sc] * len(idx))
+    got = pt.binned_update_(torch.from_numpy(init.copy()),
+                            pt.binned_table([trees[i] for i in idx]),
+                            _bins_T(bins), c0, sc)
+    assert [(c0 + t) % K for t in range(len(idx))] == classes
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_products_round_apart_from_the_sum(boosters):
@@ -182,14 +256,27 @@ def test_products_round_apart_from_the_sum(boosters):
     trees = _port_trees(jb)
     init = _init(1, seed=9)
     got = pt.binned_update_(torch.from_numpy(init.copy()),
-                            pt.binned_table(trees), _bins_T(bins),
-                            [0] * len(trees), [KEEP] * len(trees)).numpy()
+                            pt.binned_table(trees), _bins_T(bins), 0,
+                            KEEP).numpy()
     fused = init.astype(np.float64)
     for t in jb._gbdt.models:
         d = np.asarray(predict_binned(t, jnp.asarray(bins)), np.float64)
         fused = (fused + np.float64(np.float32(KEEP)) * d).astype(np.float32) \
             .astype(np.float64)
     assert (got != fused.astype(np.float32)).any()
+
+
+@pytest.mark.parametrize("scale", [KEEP, KEEP - 1.0, 0.1, 1.0 / 3.0])
+def test_a_python_scale_rounds_as_a_float32_tensor(scale):
+    """The plain version's 0-d float32 scale gives the float32 product of
+    f32(scale) and the value, the product P2 takes as a float argument;
+    a Python float scale would give the same on the CPU."""
+    v = torch.from_numpy(np.random.RandomState(2).randn(1000)
+                         .astype(np.float32))
+    want = (v.numpy() * np.float32(scale)).astype(np.float32)
+    np.testing.assert_array_equal(
+        (v * torch.tensor(scale, dtype=torch.float32)).numpy(), want)
+    np.testing.assert_array_equal((v * scale).numpy(), want)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -207,13 +294,12 @@ def test_replay_matches_jax_chunk_sums(boosters, kind, chunk):
     for lo in range(0, n_iter, chunk):
         part = jax.tree.map(lambda a: a[lo:lo + chunk], stacked)
         acc = acc + ensemble_sum_binned(part, jnp.asarray(bins))
+    table = pt.binned_table(_port_trees(jb))
     got = torch.from_numpy(init.copy())
-    pt.binned_replay_(got, pt.binned_table(_port_trees(jb)), _bins_T(bins),
-                      K, chunk)
+    pt.binned_replay_(got, table, _bins_T(bins), K, chunk)
     np.testing.assert_array_equal(got.numpy(), np.asarray(acc))
     again = torch.from_numpy(init.copy())
-    ops_predict.ensemble_replay_binned_(
-        again, pt.binned_table(_port_trees(jb)), _bins_T(bins), K, chunk)
+    ops_predict.ensemble_replay_binned_(again, table, _bins_T(bins), K, chunk)
     np.testing.assert_array_equal(again.numpy(), np.asarray(acc))
 
 
@@ -221,6 +307,6 @@ def test_empty_table_changes_nothing():
     table = pt.binned_table([])
     assert table.num_trees == 0 and table.node.shape == (0, 4)
     s = torch.ones(1, 5)
-    pt.binned_update_(s, table, torch.zeros(2, 5, dtype=torch.uint8), [], [])
+    pt.binned_update_(s, table, torch.zeros(2, 5, dtype=torch.uint8), 0, 1.0)
     pt.binned_replay_(s, table, torch.zeros(2, 5, dtype=torch.uint8), 1, 4)
     assert torch.equal(s, torch.ones(1, 5))
