@@ -272,6 +272,36 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    version's; and the three non-finite guards under ``nan_grads:1`` at
    100k rows.
 
+22. (run after phase 21, on the bench data) float64 histograms
+   (``hist_dtype=float64``) and their kernels K1-f64, K1''-f64 and K3-f64
+   (``csrc/histogram.cu``, ``level_histogram.cu``, ``search.cu``): K1-f64
+   bitwise its plain version on the CPU (two launches equal, every
+   feature's counts summing to the rows) at the 1M-row root of the bench
+   bins, 0, 1, 2,049 and 130,001 rows, u16 x 5000 bins and F = 5 / 29;
+   K1''-f64 on a real level's leaf ids in 255 leaf slots, two thirds of
+   40 leaves empty and u16 x 5000 bins; K3-f64's float64 rows torch.equal
+   to ``search2_rows``'s on the CPU on phase 3's cases; each timed (ms a
+   call, device ms, byte bound and share) beside its plain version, its
+   float32 kernel and, for the histograms, one float64 ``index_add_``;
+   then the bench model with ``hist_dtype=float64`` leaf-wise (10 trees:
+   K1-f64 = K3-f64 = trees + splits, no other kernel, 2 + 2 * splits host
+   syncs a tree, AUC within +-0.005 of the JAX package's float64 run) and
+   depthwise (10 trees: K1''-f64 once a level, AUC within +-0.005 of the
+   float32 depthwise reference at 10 trees; the JAX package's float64
+   depthwise grower raises, ROADMAP C9), with the plain versions made to
+   raise; then
+   2**24 + 2**20 = 17,825,792 bench-shaped rows drawn on the card: float32
+   refused naming hist_dtype=float64, float64 trains 3 leaf-wise and 2
+   depthwise trees on the float64 kernels only, every leaf count equal to
+   the rows reaching it (exact, and its float32 rounding), K1-f64's root
+   counts summing to the rows for every feature and its sums equal to
+   ``np.bincount`` in float64 within rtol 1e-12; P1's walk of the raw
+   rows agreeing row for row with training's leaves once each threshold
+   that float32 rounded above its float64 bin bound is lowered to the
+   float32 below it (ROADMAP C10; the model's own walk differs on the
+   rows equal to such a threshold, printed); s/tree, peak memory and
+   K1-f64's root ms there.
+
 The seconds each phase took are printed before the result.
 
 Every phase must pass or the script exits non-zero without a result.  The
@@ -309,10 +339,14 @@ ROWS, VALID_ROWS, TREES = 1_000_000, 200_000, 10
 #   JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth leafwise \
 #       --histogram-pool-size 4
 AUC_TRAIN, AUC_VALID, AUC_TOL = 0.8571, 0.8477, 0.005
+# and leaf-wise growth under hist_dtype=float64 (44 s on the CPU),
+#   JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth leafwise \
+#       --hist-dtype float64
 AUC_REF = {"leafwise": (AUC_TRAIN, AUC_VALID),
            "depthwise": (0.842062, 0.833879),
            "hybrid": (0.852152, 0.843580),
-           "pooled": (0.853401, 0.844557)}
+           "pooled": (0.853401, 0.844557),
+           "f64-leafwise": (0.853378, 0.844567)}
 K1PP = "K1″"  # the level histogram's launch counter (ops.KERNEL_COUNTERS)
 POOL_MB = 4.0  # the pooled main path's histogram_pool_size: 48 slots
 RANK_FEAT = 136  # the LambdaRank main path's width (MSLR-WEB10K)
@@ -1210,11 +1244,14 @@ ROUTE_ENV = {"mega": _V1,
              "pooled": _V1,
              "depthwise": _V1,
              "depthwise-bsub": dict(_V1, LGBM_TPU_HIST_KERNEL="bsub"),
-             "hybrid": _V1}
+             "hybrid": _V1, "f64-leafwise": _V1, "f64-depthwise": _V1}
 GROWTH = {"depthwise": "depthwise", "depthwise-bsub": "depthwise",
-          "hybrid": "hybrid"}  # every other run grows leaf-wise
+          "hybrid": "hybrid",
+          "f64-depthwise": "depthwise"}  # every other run grows leaf-wise
 # parameters a route adds to the bench config
-ROUTE_PARAMS = {"pooled": {"histogram_pool_size": POOL_MB}}
+ROUTE_PARAMS = {"pooled": {"histogram_pool_size": POOL_MB},
+                "f64-leafwise": {"hist_dtype": "float64"},
+                "f64-depthwise": {"hist_dtype": "float64"}}
 
 
 @contextlib.contextmanager
@@ -1274,6 +1311,12 @@ def _expected(route, trees, levels, level_splits, recomputes):
     n = len(trees)
     counts = dict.fromkeys(KERNEL_COUNTERS, 0)
     growth = GROWTH.get(route, "leafwise")
+    if route.startswith("f64"):  # the float64 kernels only
+        if growth == "depthwise":
+            counts["K1″-f64"] = levels
+            return counts, levels
+        counts.update({"K1-f64": n + splits, "K3-f64": n + splits})
+        return counts, 2 * n + 2 * splits
     if growth == "depthwise":
         counts["K2" if route.endswith("bsub") else K1PP] = levels
         return counts, levels
@@ -2934,6 +2977,512 @@ def phase_dart(torch, lt, params, train_set, valid_set, Xv,
                 library_ms=None, s_per_tree=run["s"] / n, guards=guards)
 
 
+# ----------------------------------------------------------------- phase 22
+# the JAX package's float64 leaf-wise train/valid AUC on the same data and
+# config (synthetic.workload(hist_dtype="float64")), on the CPU:
+#   JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth leafwise \
+#       --hist-dtype float64   (44 s on the CPU)
+# Its float64 depthwise grower raises (ROADMAP C9): the port's float64
+# depthwise AUC is held to AUC_REF["depthwise"], the float32 reference at
+# as many trees.
+ENVELOPE_ROWS = (1 << 24) + (1 << 20)  # past the float32 count envelope
+ENVELOPE_TREES = {"leafwise": 3, "depthwise": 2}
+ENVELOPE_BLOCK = 1 << 20  # rows drawn at a time
+F64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores
+
+
+@contextlib.contextmanager
+def plain_versions_raise():
+    """The plain versions of K1-f64, K1''-f64 and K3-f64 replaced by a
+    function that raises, inside: a float64 route on the card must reach
+    only the kernels (the depthwise level search is plain PyTorch ops on
+    every device, H3, and stays)."""
+    from lightgbm_tpu_torch.ops import cuda_histogram, histogram, split
+
+    def raises(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's float64 "
+                             "route")
+
+    slots = [(cuda_histogram, "histogram_feature_major"),
+             (histogram, "histogram_feature_major"),
+             (histogram, "histogram_by_leaf_sorted_plain"),
+             (split, "search2_rows")]
+    saved = [getattr(mod, name) for mod, name in slots]
+    for mod, name in slots:
+        setattr(mod, name, raises)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(slots, saved):
+            setattr(mod, name, fn)
+
+
+def _stats64(torch, rng, n):
+    """float32 g, h and a 0/1 mask (80 % ones) on the card."""
+    return (torch.from_numpy(rng.randn(n).astype(np.float32)).cuda(),
+            torch.from_numpy(np.abs(rng.randn(n)).astype(np.float32)).cuda(),
+            torch.from_numpy((rng.rand(n) < 0.8).astype(np.float32)).cuda())
+
+
+def _f64_histogram_holds(torch, bins, nb):
+    """K1-f64 bitwise its plain version on the CPU, two launches equal, at
+    the 1M-row root of the bench bins and the edge cases; its times at the
+    root beside K1's, the plain version's and float64 ``index_add_``'s."""
+    from lightgbm_tpu_torch.ops import cuda_histogram as ch
+    from lightgbm_tpu_torch.ops.histogram import histogram_feature_major
+
+    f64 = torch.float64
+    rng = np.random.RandomState(22)
+    F, n = bins.shape
+
+    def rand_bins(Fr, m, B, dt):
+        return torch.from_numpy(rng.randint(0, B, (Fr, m)).astype(dt)).cuda()
+
+    cases = [("root", bins, nb), ("rows-0", bins[:, :0], nb),
+             ("rows-1", bins[:, :1].contiguous(), nb),
+             ("rows-2049", bins[:, :2049].contiguous(), nb),
+             ("rows-130001", bins[:, :130_001].contiguous(), nb),
+             ("u16x5000", rand_bins(4, 100_000, 5000, np.uint16), 5000),
+             ("F5", rand_bins(5, 70_001, 37, np.uint8), 37),
+             ("F29", rand_bins(29, 70_001, NUM_BINS, np.uint8), NUM_BINS)]
+    for name, b, B in cases:
+        g, h, m = _stats64(torch, rng, b.shape[1])
+        k = ch.histogram_single_leaf_f64_cuda(b, g, h, m, B)
+        k2 = ch.histogram_single_leaf_f64_cuda(b, g, h, m, B)
+        torch.cuda.synchronize()
+        check(k.dtype == f64 and torch.equal(k, k2),
+              f"K1-f64 {name}: launches not bitwise equal")
+        cpu = histogram_feature_major(b.cpu(), g.cpu(), h.cpu(), m.cpu(), B,
+                                      f64)
+        check(torch.equal(k.cpu(), cpu),
+              f"K1-f64 {name}: differs from its plain version on the CPU")
+        check(torch.equal(k[..., 2].sum(1).cpu(),
+                          torch.full((b.shape[0],), float(m.sum().item()),
+                                     dtype=f64)),
+              f"K1-f64 {name}: a feature's counts do not sum to the rows")
+        say(f"[f64 K1] {name} F={b.shape[0]} rows={b.shape[1]} B={B} "
+            "bitwise: launches, == plain (CPU); counts sum to the rows")
+        if name != "root":
+            continue
+
+        def kernel():
+            return ch.histogram_single_leaf_f64_cuda(b, g, h, m, B)
+
+        keys = (b.to(torch.int64) + torch.arange(F, device="cuda")[:, None]
+                * B).reshape(-1)
+        md = m.double()
+        src = torch.stack([g.double() * md, h.double() * md, md],
+                          -1).repeat(F, 1)
+        ms = time_ms(torch, kernel)
+        dev_ms = queued_ms(torch, kernel, calls=20, reps=3)
+        plain_ms = time_ms(torch, lambda: histogram_feature_major(
+            b, g, h, m, B, f64), reps=5, warm=1)
+        f32_ms = time_ms(torch, lambda: ch.histogram_single_leaf_cuda(
+            b, g, h, m, B))
+        lib_ms = time_ms(torch, lambda: torch.zeros(
+            F * B, 3, dtype=f64, device="cuda").index_add_(0, keys, src))
+        nbytes = F * n * b.element_size() + 12 * n + F * B * 24
+        bound = max(nbytes / HBM_BYTES_PER_S, 3 * F * n / F64_FLOPS) * 1e3
+        p1, p2 = _passes_ms(torch, kernel)
+        partial_mb = -(-n // 2048) * F * B * 24 / 1e6
+        say(f"[f64 K1 times] root F={F} rows={n}: ms={ms:.4f} "
+            f"device_ms={dev_ms:.4f} (pass1_ms={p1:.4f} pass2_ms={p2:.4f}) "
+            f"bound_ms={bound:.5f} ({nbytes} bytes) share={bound / ms:.4f} "
+            f"device share={bound / dev_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"K1 (float32) ms={f32_ms:.4f} library_ms={lib_ms:.4f} "
+            f"(float64 index_add_, not deterministic) "
+            f"partials={partial_mb:.1f} MB")
+        record = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound, library_ms=lib_ms)
+        del keys, src
+    return record
+
+
+def _f64_level_holds(torch, bins, nb, nbpf):
+    """K1''-f64 bitwise its plain version on the CPU, two launches equal:
+    the 1M bench rows in 255 leaf slots on a real level's leaf ids (most
+    of them empty), leaves two thirds empty, and u16 x 5000 bins; its times
+    on the real level beside K1'''s, the plain version's and float64
+    ``index_add_``'s on leaf-bin keys."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.learners.depthwise import grow_tree_depthwise
+    from lightgbm_tpu_torch.learners.serial import TreeLearnerParams
+    from lightgbm_tpu_torch.ops import cuda_histogram as ch
+    from lightgbm_tpu_torch.ops.histogram import (
+        histogram_by_leaf_sorted_plain)
+
+    f64 = torch.float64
+    rng = np.random.RandomState(23)
+    F, n = bins.shape
+    g, h, m = _stats64(torch, rng, n)
+    prm = TreeLearnerParams.from_config(Config(min_data_in_leaf=MIN_DATA,
+                                               max_depth=6))
+    _, lid6 = grow_tree_depthwise(
+        bins, g, h, torch.ones_like(g),
+        torch.ones(F, dtype=torch.bool, device="cuda"), nbpf,
+        torch.zeros(F, dtype=torch.bool, device="cuda"), prm, nb,
+        NUM_LEAVES)
+    sparse = torch.from_numpy(3 * rng.randint(0, 14, n).astype(
+        np.int32)).cuda()
+    many = torch.from_numpy(rng.randint(0, 5000, (4, 100_000)).astype(
+        np.uint16)).cuda()
+    cases = [("level-6", bins, lid6, nb, NUM_LEAVES),
+             ("empty-leaves", bins, sparse, nb, 40),
+             ("u16x5000", many, torch.from_numpy(rng.randint(
+                 0, 64, 100_000).astype(np.int32)).cuda(), 5000, 64)]
+    for name, b, lid, B, L in cases:
+        if b.shape[1] != n:
+            g, h, m = _stats64(torch, rng, b.shape[1])
+        a = ch.histogram_by_leaf_sorted_f64_cuda(b, lid, g, h, m, B, L)
+        a2 = ch.histogram_by_leaf_sorted_f64_cuda(b, lid, g, h, m, B, L)
+        torch.cuda.synchronize()
+        check(a.dtype == f64 and torch.equal(a, a2),
+              f"K1''-f64 {name}: launches not bitwise equal")
+        cpu = histogram_by_leaf_sorted_plain(b.cpu(), lid.cpu(), g.cpu(),
+                                             h.cpu(), m.cpu(), B, L, f64)
+        check(torch.equal(a.cpu(), cpu),
+              f"K1''-f64 {name}: differs from its plain version on the CPU")
+        live = int((a[:, 0, :, 2].sum(1) > 0).sum())
+        say(f"[f64 K1''] {name} F={b.shape[0]} rows={b.shape[1]} B={B} "
+            f"L={L} non-empty leaves={live} bitwise: launches, == plain "
+            "(CPU)")
+        if name != "level-6":
+            continue
+
+        def kernel():
+            return ch.histogram_by_leaf_sorted_f64_cuda(b, lid, g, h, m, B,
+                                                        L)
+
+        keys = ((lid.to(torch.int64)[None, :] * F
+                 + torch.arange(F, device="cuda")[:, None]) * B
+                + b.to(torch.int64)).reshape(-1)
+        md = m.double()
+        src = torch.stack([g.double() * md, h.double() * md, md],
+                          -1).repeat(F, 1)
+        ms = time_ms(torch, kernel)
+        dev_ms = queued_ms(torch, kernel, calls=20, reps=3)
+        plain_ms = time_ms(torch, lambda: histogram_by_leaf_sorted_plain(
+            b, lid, g, h, m, B, L, f64), reps=5, warm=1)
+        f32_ms = time_ms(torch, lambda: ch.histogram_by_leaf_sorted_cuda(
+            b, lid, g, h, m, B, L, "v1"))
+        lib_ms = time_ms(torch, lambda: torch.zeros(
+            L * F * B, 3, dtype=f64, device="cuda").index_add_(0, keys, src))
+        nbytes = F * n * b.element_size() + 16 * n + L * F * B * 24
+        bound = max(nbytes / HBM_BYTES_PER_S, 3 * F * n / F64_FLOPS) * 1e3
+        say(f"[f64 K1'' times] level-6 ({L} leaf slots, {live} non-empty): "
+            f"ms={ms:.4f} device_ms={dev_ms:.4f} bound_ms={bound:.5f} "
+            f"({nbytes} bytes) share={bound / ms:.4f} device "
+            f"share={bound / dev_ms:.4f} plain_ms={plain_ms:.4f} K1'' "
+            f"(float32) ms={f32_ms:.4f} library_ms={lib_ms:.4f} (float64 "
+            "index_add_, not deterministic)")
+        record = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound, library_ms=lib_ms)
+        del keys, src
+    del lid6, sparse, many
+    return record
+
+
+def _f64_search_holds(torch):
+    """K3-f64's [2, 16] float64 rows torch.equal to ``search2_rows``'s on
+    the CPU on phase 3's cases in float64 (100 random cases and the
+    crafted tie at the bench shape, B = 7 / 300 / 600 / 5000, F = 136 /
+    5000); its times at the bench shape beside K3's and the plain
+    version's."""
+    from lightgbm_tpu_torch.ops import cuda_search
+    from lightgbm_tpu_torch.ops.split import search2_rows
+
+    rng = np.random.RandomState(1)
+    n = 0
+    for F, B, count in _search_shapes():
+        for hs, fmask, nbpf, iscat, consts in _search_cases(rng, F, B,
+                                                            count):
+            case64 = ([x.astype(np.float64) for x in hs], fmask, nbpf,
+                      iscat, consts)
+            hl, hr, meta, scal = _case_tensors(torch, case64)
+            k = cuda_search._search2_rows_cuda(hl, hr, scal, meta)
+            p = search2_rows(hl.cpu(), hr.cpu(), scal, meta.cpu())
+            check(k.dtype == torch.float64 and torch.equal(k.cpu(), p),
+                  f"K3-f64 F={F} B={B}: rows differ from the plain "
+                  f"version's:\n{k.tolist()}\n{p.tolist()}")
+            n += 1
+        _check_tie(k.cpu(), B, f"K3-f64 F={F} B={B}")
+        if (F, B) == (N_FEAT, NUM_BINS):
+            def kernel(hl=hl, hr=hr, scal=scal, meta=meta):
+                return cuda_search._search2_rows_cuda(hl, hr, scal, meta)
+
+            ms = time_ms(torch, kernel)
+            dev_ms = queued_ms(torch, kernel)
+            plain_ms = time_ms(torch, lambda: search2_rows(hl, hr, scal,
+                                                           meta))
+            hl32, hr32 = hl.float(), hr.float()
+            f32_ms = time_ms(torch, lambda: cuda_search._search2_rows_cuda(
+                hl32, hr32, scal, meta))
+    F, B = N_FEAT, NUM_BINS
+    nbytes = 2 * F * B * 24 + F * 16 + 2 * 16 * 8
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"[f64 K3] cases={n} float64 rows torch.equal plain (CPU) "
+        f"(F=28 x B=255, B={'/'.join(map(str, SCAN_BINS))}, "
+        f"F={RANK_FEAT}/{WIDE_F}); at F=28 x B=255: ms={ms:.4f} "
+        f"device_ms={dev_ms:.4f} bound_ms={bound:.6f} ({nbytes} bytes) "
+        f"plain_ms={plain_ms:.4f} K3 (float32) ms={f32_ms:.4f}")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                library_ms=None)
+
+
+def _envelope_data(torch, n, seed=19):
+    """Bench-shaped rows (bench_data's features and decision boundary)
+    drawn on the card from ``torch.Generator(seed)``, ENVELOPE_BLOCK rows
+    at a time; returns the float32 matrix on the card and the labels on
+    the host."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w1, w2 = (torch.randn(N_FEAT, device="cuda", generator=gen)
+              for _ in range(2))
+    X = torch.empty((n, N_FEAT), device="cuda")
+    z = torch.empty(n, device="cuda")
+    for r0 in range(0, n, ENVELOPE_BLOCK):
+        Xb = X[r0:r0 + ENVELOPE_BLOCK]
+        Xb.normal_(generator=gen)
+        z[r0:r0 + len(Xb)] = (Xb @ w1 + 0.5 * (Xb ** 2 - 1.0) @ w2
+                              + 0.8 * Xb[:, 0] * Xb[:, 1])
+    z = (z - z.mean()) / z.std()
+    noise = torch.randn(n, device="cuda", generator=gen)
+    y = ((z + 0.5 * noise) > 0).float().cpu().numpy()
+    return X, y
+
+
+@contextlib.contextmanager
+def _leaf_ids(torch, gb):
+    """Inside, the row -> leaf map of every tree ``gb`` grows (the
+    grower's own ``leaf_id``) goes into the list it yields."""
+    grow, ids = gb.grow, []
+
+    def kept(*args, **kwargs):
+        tree, leaf_id = grow(*args, **kwargs)
+        ids.append(leaf_id.clone())
+        return tree, leaf_id
+
+    gb.grow = kept
+    try:
+        yield ids
+    finally:
+        del gb.grow
+
+
+def _leaf_counts_exact(torch, gb, ids, n, what):
+    """Every leaf's count of every tree equals the rows its leaf ids put
+    there, exactly, and its float32 rounding; the root's internal count is
+    the row count."""
+    for t, (tree, lid) in enumerate(zip(gb.models, ids)):
+        lc = tree.leaf_count.cpu().numpy()
+        count = torch.bincount(lid.to(torch.int64),
+                               minlength=tree.num_leaves).cpu().numpy()
+        check(len(count) == tree.num_leaves
+              and np.array_equal(lc, count.astype(np.float32))
+              and np.array_equal(lc.astype(np.int64), count),
+              f"{what}: tree {t}'s leaf counts differ from its rows")
+        check(tree.num_leaves == 1 or float(tree.internal_count[0]) == n,
+              f"{what}: tree {t}'s root count {tree.internal_count[0]}")
+
+
+def _raw_walks(torch, gb, ids, X):
+    """P1's walks of the raw rows ``X`` (on the card) against training's
+    row -> leaf maps ``ids``.  Training bins a value x by x <= its bin's
+    float64 upper bound; the model keeps that bound rounded to float32
+    (``threshold_real``), which lies above the bound where it rounded up,
+    and a float32 value equal to it then goes left where training sent
+    it right.  Returns (rows the model's walk puts in another leaf, the
+    thresholds that rounded up, of how many, rows in another leaf when
+    each numerical threshold is the largest float32 at or below its
+    bound): no float32 value lies between the two rules in that last walk,
+    so it must agree row for row."""
+    from lightgbm_tpu_torch.models.tree import pack_trees
+    from lightgbm_tpu_torch.ops.predict import ensemble_leaves
+
+    bounds = gb.train_set.bin_thresholds_real()
+    lowered, up, total = [], 0, 0
+    for tree in gb.models:
+        ni = tree.num_leaves - 1
+        sf = tree.split_feature.cpu().numpy()
+        tb = tree.threshold_bin.cpu().numpy()
+        dt = tree.decision_type.cpu().numpy()
+        thr = tree.threshold_real.cpu().numpy().copy()
+        for i in range(ni):
+            if dt[i] == 1:  # categorical: a category, not a bound
+                continue
+            ub = bounds[sf[i]][tb[i]]
+            if not np.isfinite(ub):
+                continue
+            t32 = np.float32(ub)
+            check(t32 == thr[i], f"threshold {thr[i]} is not the float32 "
+                  f"rounding of its bin bound {ub!r}")
+            if t32 > ub:
+                t32 = np.nextafter(t32, np.float32(-np.inf))
+                up += 1
+            thr[i] = t32
+            total += 1
+        lowered.append(tree.replace(threshold_real=torch.from_numpy(thr).to(
+            tree.threshold_real.device)))
+    gaps = []
+    for trees in (gb.models, lowered):
+        leaves = ensemble_leaves(pack_trees(trees, 1, X.device), X,
+                                 len(trees))
+        gaps.append(sum(int((leaves[t] != lid).sum())
+                        for t, lid in enumerate(ids)))
+        del leaves
+    return gaps[0], up, total, gaps[1]
+
+
+def _envelope(torch, lt, params):
+    """2**24 + 2**20 bench-shaped rows: float32 refused naming
+    hist_dtype=float64; float64 trains 3 leaf-wise and 2 depthwise trees,
+    only on the float64 kernels, with every count exact; K1-f64's root
+    counts and sums against host float64 sums."""
+    from lightgbm_tpu_torch.learners import depthwise, serial
+    from lightgbm_tpu_torch.ops import cuda_histogram as ch
+    from lightgbm_tpu_torch.ops import launch_counts
+
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True)
+    say(f"[f64 envelope] host memory before the data (free -g):\n"
+        f"{free.stdout.rstrip()}")
+    t0 = time.perf_counter()
+    X_dev, y = _envelope_data(torch, ENVELOPE_ROWS)
+    X = X_dev.cpu().numpy()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_set = lt.Dataset(X, label=y, max_bin=NUM_BINS, params=params)
+    inner = train_set.construct()
+    bin_s = time.perf_counter() - t0
+    n = inner.num_data
+    check(n == ENVELOPE_ROWS > 1 << 24, f"envelope rows {n}")
+    try:
+        lt.Booster(params=dict(params, hist_dtype="float32"),
+                   train_set=train_set)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("hist_dtype=float64" in refused,
+          f"envelope: float32 at {n} rows was not refused naming "
+          f"hist_dtype=float64 ({refused!r})")
+    say(f"[f64 envelope] {n} rows x {N_FEAT}: data {gen_s:.1f}s, binning "
+        f"{bin_s:.1f}s; float32 refused: {refused}")
+    out = {}
+    for growth, trees in ENVELOPE_TREES.items():
+        p64 = dict(params, hist_dtype="float64", tree_growth=growth)
+        with route_env("mega"), plain_versions_raise():
+            bst = lt.Booster(params=p64, train_set=train_set)
+            gb = bst._gbdt
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with _leaf_ids(torch, gb) as ids:
+                reset_counts()
+                t0 = time.perf_counter()
+                for _ in range(trees):
+                    bst.update()
+                torch.cuda.synchronize()
+                s_tree = (time.perf_counter() - t0) / trees
+                counts = {k: v for k, v in launch_counts().items() if v}
+                syncs, levels = serial.HOST_SYNCS, depthwise.LEVELS
+                peak = torch.cuda.max_memory_allocated()
+        splits = sum(t.num_leaves - 1 for t in gb.models)
+        want = ({"K1″-f64": levels} if growth == "depthwise" else
+                {"K1-f64": trees + splits, "K3-f64": trees + splits})
+        check(counts == want, f"envelope {growth}: launches {counts} != "
+              f"{want}")
+        _leaf_counts_exact(torch, gb, ids, n, f"envelope {growth}")
+        gap, up, nthr, gap_lowered = _raw_walks(torch, gb, ids, X_dev)
+        del ids
+        check(gap_lowered == 0 and (gap == 0 or up > 0),
+              f"envelope {growth}: P1's walk of the raw rows puts {gap} "
+              f"rows in another leaf than training ({gap_lowered} with the "
+              "thresholds lowered to their float64 bounds)")
+        say(f"[f64 envelope {growth}] {trees} trees s/tree={s_tree:.4f} "
+            f"leaves={[t.num_leaves for t in gb.models]} "
+            f"launches={json.dumps(counts)} host_syncs_per_tree="
+            f"{syncs / trees:.1f} peak_mem_bytes={peak} (the raw rows, "
+            f"{X_dev.nbytes} bytes, and the leaf ids stay on the card for "
+            "the walk); every leaf count "
+            f"== its rows (exact, == its float32 rounding); P1's walk of "
+            f"the raw rows puts {gap} rows in another leaf than training: "
+            f"{up} of {nthr} thresholds are float32 roundings above their "
+            "float64 bin bound (ROADMAP C10), and with each lowered to the "
+            "float32 at or below it the walk agrees row for row (held)")
+        out[growth] = dict(s_per_tree=s_tree, peak=peak)
+        if growth == "leafwise":
+            # the root histogram of K1-f64 over every row, all rows in
+            rng = np.random.RandomState(24)
+            g = rng.randn(n).astype(np.float32)
+            h = np.abs(rng.randn(n)).astype(np.float32)
+            bins = gb._bins_T
+            gd, hd = torch.from_numpy(g).cuda(), torch.from_numpy(h).cuda()
+            ones = torch.ones(n, dtype=torch.float32, device="cuda")
+            nb = gb._num_bins
+            hist = ch.histogram_single_leaf_f64_cuda(bins, gd, hd, ones, nb)
+            torch.cuda.synchronize()
+            cnt = hist[..., 2].sum(1).cpu()
+            check(torch.equal(cnt, torch.full_like(cnt, float(n))),
+                  f"envelope: K1-f64's root counts {cnt.tolist()} != {n}")
+            hb = hist.cpu().numpy()
+            bins_h = bins.cpu().numpy()
+            rel = 0.0
+            for f in range(N_FEAT):
+                for c, w in ((0, g), (1, h)):
+                    ref = np.bincount(bins_h[f], weights=w.astype(np.float64),
+                                      minlength=nb)
+                    gap = np.abs(hb[f, :, c] - ref)
+                    rel = max(rel, float((gap / np.maximum(np.abs(ref),
+                                                           1e-300)).max()))
+                    check(bool((gap <= 1e-12 * np.abs(ref)).all()),
+                          f"envelope: K1-f64 feature {f} channel {c} beyond "
+                          "rtol 1e-12 of np.bincount")
+            root_ms = time_ms(torch, lambda: ch.histogram_single_leaf_f64_cuda(
+                bins, gd, hd, ones, nb), reps=5, warm=1)
+            partial_gb = -(-n // 2048) * N_FEAT * nb * 24 / 1e9
+            say(f"[f64 envelope K1] root over {n} rows: every feature's "
+                f"counts sum to {n}; g/h == np.bincount float64 within "
+                f"rtol 1e-12 (largest {rel:.3g}); ms={root_ms:.4f} "
+                f"partials={partial_gb:.3f} GB")
+            out["root_ms"] = root_ms
+            del hist, gd, hd, ones, bins_h, hb
+        del bst, gb
+    del train_set, inner, X, X_dev
+    return out
+
+
+def phase_f64(torch, lt, params, train_set, valid_set, Xv, order):
+    """Float64 histograms (hist_dtype=float64, see item 22): the three
+    kernels' holds and times, the leaf-wise and depthwise main paths on
+    the bench data with the plain versions made to raise, then the
+    2**24 + 2**20-row envelope."""
+    inner = train_set.construct()
+    bins = inner.bins_T("cuda")
+    nb = max(int(inner.max_num_bin), 2)
+    nbpf = torch.as_tensor(inner.num_bins_per_feature).cuda()
+    rec = {"K1-f64": _f64_histogram_holds(torch, bins, nb),
+           "K1″-f64": _f64_level_holds(torch, bins, nb, nbpf),
+           "K3-f64": _f64_search_holds(torch)}
+    del bins
+    with plain_versions_raise():
+        lw = phase_main_path(torch, lt, "f64-leafwise", params, train_set,
+                             valid_set, Xv)
+        dw = phase_main_path(torch, lt, "f64-depthwise", params, train_set,
+                             valid_set, Xv)
+    say(f"[f64 main] leaf-wise float64 s/tree={lw['s_per_tree']:.4f} auc="
+        f"{lw['auc'][0]:.6f}/{lw['auc'][1]:.6f} (the JAX package's float64 "
+        f"{AUC_REF['f64-leafwise'][0]:.6f}/{AUC_REF['f64-leafwise'][1]:.6f};"
+        f" phase 8's float32 order route {order['auc'][0]:.6f}/"
+        f"{order['auc'][1]:.6f}, s/tree={order['s_per_tree']:.4f}) "
+        f"peak_mem_bytes={lw['peak']}; depthwise float64 "
+        f"s/tree={dw['s_per_tree']:.4f} "
+        f"auc={dw['auc'][0]:.6f}/{dw['auc'][1]:.6f} peak_mem_bytes="
+        f"{dw['peak']}")
+    env = _envelope(torch, lt, params)
+    for k, n in (("K1-f64", lw["counts"]["K1-f64"]),
+                 ("K3-f64", lw["counts"]["K3-f64"]),
+                 ("K1″-f64", dw["counts"]["K1″-f64"])):
+        rec[k]["launches"] = n
+    return rec, env
+
+
 # ----------------------------------------------------------------- phase 18
 PREDICT_TREES, SWAP_TREES = 100, 20  # the served model, its continuation
 SERVE_SIZES = (1, 7, 64, 300, 1024)
@@ -4152,6 +4701,7 @@ def main() -> int:
     timed("api", phase_api, torch, lt, *data)
     dart = timed("dart", phase_dart, torch, lt, *data,
                  routes["mega"]["s_per_tree"])
+    f64, _ = timed("f64", phase_f64, torch, lt, *data, routes["order"])
     params, train_set, valid_set, Xv = data
     reset_counts()
     served, one_call, p1 = timed("predict", phase_predict, torch, lt, params,
@@ -4242,6 +4792,20 @@ def main() -> int:
              bound_by="bytes", launches=dart["launches"],
              **{k: dart[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "library_ms")}),
+        # no pallas_call: under hist_dtype=float64 the JAX package sums
+        # with jnp segment_sum and searches with jnp (ops/histogram.py:29,
+        # :49; ops/split.py:69); K1-f64, K1''-f64 and K3-f64 replace them
+        dict(name="histogram_single_leaf_f64", route="cuda",
+             source=src + "histogram.cu",
+             replaces="lightgbm_tpu/ops/histogram.py:29", path="f64-leafwise",
+             bound_by="bytes", **f64["K1-f64"]),
+        dict(name="histogram_by_leaf_sorted_f64", route="cuda",
+             source=src + "level_histogram.cu",
+             replaces="lightgbm_tpu/ops/histogram.py:49",
+             path="f64-depthwise", bound_by="bytes", **f64["K1″-f64"]),
+        dict(name="search2_f64", route="cuda", source=src + "search.cu",
+             replaces="lightgbm_tpu/ops/split.py:69", path="f64-leafwise",
+             bound_by="bytes", **f64["K3-f64"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -48,6 +48,17 @@
 // (chunk, group) item at a time, over a reader of its own (LeftWindowRows:
 // the record window with each column's mask times its go flag), on the
 // single-leaf layout from the window's begin.
+//
+// The float64 variants (hist_dtype=float64: K1-f64 in histogram.cu, K1''-f64
+// in level_histogram.cu) are the same code with Acc = double: the rows are
+// staged as float32, as in K1, but unmasked (Rows::stage<G, kThreads,
+// true>), so shared memory and row bytes are K1's; each bin's run adds
+// (double)g * (double)m, (double)h * (double)m and (double)m in row order
+// from 0.0 (every product of two floats is exact in double), and the
+// partials, their chunk-order sum and the output are double.  The plain
+// versions (ops/histogram.py, acc_dtype=float64) widen the row stats before
+// the product and sum in the same order, so they agree bitwise.  Acc =
+// float instantiates exactly the float32 code.
 
 #pragma once
 
@@ -113,10 +124,11 @@ __device__ inline void scan_table(int* cnt, int S, int stride, int nb,
 }
 
 // The staging of hist_sorted: s_g/s_h/s_m[r] = the masked stats of
-// position row0+r and s_bin[fl * kChunk + r] = its bin of feature f0+fl
-// (fl < nf), r < nrows; every load of a thread is issued before its
-// stores.  Gathered: position p is row rows.row(p).
-template <typename BinT, int G, int kThreads, typename Rows>
+// position row0+r (kRaw: g and h unmasked, for the float64 sums) and
+// s_bin[fl * kChunk + r] = its bin of feature f0+fl (fl < nf), r < nrows;
+// every load of a thread is issued before its stores.  Gathered: position
+// p is row rows.row(p).
+template <typename BinT, int G, int kThreads, bool kRaw, typename Rows>
 __device__ inline void stage_gathered(const Rows& rows, int64_t row0,
                                       int nrows, int f0, int nf, float* s_g,
                                       float* s_h, float* s_m, BinT* s_bin) {
@@ -145,8 +157,13 @@ __device__ inline void stage_gathered(const Rows& rows, int64_t row0,
   for (int k = 0; k < kPer; ++k) {
     const int r = tid + k * kThreads;
     if (r < nrows) {
-      s_g[r] = g[k] * m[k];
-      s_h[r] = h[k] * m[k];
+      if constexpr (kRaw) {
+        s_g[r] = g[k];
+        s_h[r] = h[k];
+      } else {
+        s_g[r] = g[k] * m[k];
+        s_h[r] = h[k] * m[k];
+      }
       s_m[r] = m[k];
 #pragma unroll
       for (int fl = 0; fl < G; ++fl)
@@ -160,7 +177,7 @@ __device__ inline void stage_gathered(const Rows& rows, int64_t row0,
 // (kPack bins) a load, 2-9 % faster in K1 than a bin a load
 // (tools/single_hist_variants.py, byte_stage).  A feature's first and last
 // words may hold bins of the rows around the chunk, which are not staged.
-template <typename BinT, int G, int kThreads>
+template <typename BinT, int G, int kThreads, bool kRaw>
 __device__ inline void stage_contiguous(const BinT* bins, const float* grad,
                                         const float* hess, const float* mask,
                                         int64_t n, int64_t row0, int nrows,
@@ -202,8 +219,13 @@ __device__ inline void stage_contiguous(const BinT* bins, const float* grad,
   for (int k = 0; k < kPer; ++k) {
     const int r = tid + k * kThreads;
     if (r < nrows) {
-      s_g[r] = g[k] * m[k];
-      s_h[r] = h[k] * m[k];
+      if constexpr (kRaw) {
+        s_g[r] = g[k];
+        s_h[r] = h[k];
+      } else {
+        s_g[r] = g[k] * m[k];
+        s_h[r] = h[k] * m[k];
+      }
       s_m[r] = m[k];
     }
   }
@@ -242,11 +264,11 @@ struct SortedRows {
   __device__ float g(int64_t row) const { return grad[row]; }
   __device__ float h(int64_t row) const { return hess[row]; }
   __device__ float m(int64_t row) const { return mask[row]; }
-  template <int G, int kThreads>
+  template <int G, int kThreads, bool kRaw = false>
   __device__ void stage(int64_t row0, int nrows, int f0, int nf, float* s_g,
                         float* s_h, float* s_m, BinT* s_bin) const {
-    stage_gathered<BinT, G, kThreads>(*this, row0, nrows, f0, nf, s_g, s_h,
-                                      s_m, s_bin);
+    stage_gathered<BinT, G, kThreads, kRaw>(*this, row0, nrows, f0, nf, s_g,
+                                            s_h, s_m, s_bin);
   }
 };
 
@@ -258,11 +280,12 @@ struct MatrixRows {
   const float* hess;
   const float* mask;
   int64_t n;
-  template <int G, int kThreads>
+  template <int G, int kThreads, bool kRaw = false>
   __device__ void stage(int64_t row0, int nrows, int f0, int nf, float* s_g,
                         float* s_h, float* s_m, BinT* s_bin) const {
-    stage_contiguous<BinT, G, kThreads>(bins, grad, hess, mask, n, row0,
-                                        nrows, f0, nf, s_g, s_h, s_m, s_bin);
+    stage_contiguous<BinT, G, kThreads, kRaw>(bins, grad, hess, mask, n,
+                                              row0, nrows, f0, nf, s_g, s_h,
+                                              s_m, s_bin);
   }
 };
 
@@ -330,13 +353,15 @@ struct WindowRows {
 // over sorted positions row0 .. row0+nrows-1 (nrows <= kChunk); `smem`
 // holds hist_sorted_smem<BinT, G>() bytes; blockDim.x == kThreads.  Rows
 // stages the rows (Rows::stage<G, kThreads>: s_g, s_h, s_m the masked
-// stats and s_bin [G, kChunk] the bins, in row order).  Every thread of
-// the block must call it.
-template <typename BinT, int G, int kThreads, typename Rows>
+// stats and s_bin [G, kChunk] the bins, in row order).  Acc = double sums
+// in float64 from unmasked staged stats (Rows::stage<G, kThreads, true>).
+// Every thread of the block must call it.
+template <typename BinT, int G, int kThreads, typename Rows, typename Acc>
 __device__ inline void hist_sorted(const Rows& rows, int64_t row0,
                                    int nrows, int f0, int nf, int num_bins,
-                                   float* __restrict__ out,
+                                   Acc* __restrict__ out,
                                    unsigned char* smem) {
+  constexpr bool kF64 = sizeof(Acc) == sizeof(double);
   constexpr int kWarps = kThreads / 32;
   static_assert(kChunk % kThreads == 0, "kThreads must divide kChunk");
   float* s_g = reinterpret_cast<float*>(smem);  // staged, in row order
@@ -353,15 +378,19 @@ __device__ inline void hist_sorted(const Rows& rows, int64_t row0,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   if (nrows == 0) {
-    for (int i = tid; i < nf * num_bins * 3; i += kThreads) out[i] = 0.f;
+    for (int i = tid; i < nf * num_bins * 3; i += kThreads) out[i] = Acc(0);
     return;
   }
   const int S = max(1, min(kWarps, kTable / num_bins));
   const int R = min(num_bins, kTable / S);
   const int seg = (nrows + 32 * S - 1) / (32 * S) * 32;  // rows a segment
 
-  rows.template stage<G, kThreads>(row0, nrows, f0, nf, s_g, s_h, s_m,
-                                   s_bin);
+  if constexpr (kF64)
+    rows.template stage<G, kThreads, true>(row0, nrows, f0, nf, s_g, s_h,
+                                           s_m, s_bin);
+  else
+    rows.template stage<G, kThreads>(row0, nrows, f0, nf, s_g, s_h, s_m,
+                                     s_bin);
   for (int i = tid; i < S * R; i += kThreads) cnt[i] = 0;
   __syncthreads();
 
@@ -415,13 +444,20 @@ __device__ inline void hist_sorted(const Rows& rows, int64_t row0,
       __syncthreads();
       for (int b = tid; b < nb; b += kThreads) {  // sum each bin's run
         const int i1 = incl[b];
-        float g = 0.f, h = 0.f, c = 0.f;
+        Acc g = Acc(0), h = Acc(0), c = Acc(0);
         for (int i = b ? incl[b - 1] : 0; i < i1; ++i) {
-          g += o_g[i];
-          h += o_h[i];
-          c += o_m[i];
+          if constexpr (kF64) {  // exact products, summed in double
+            const double m = o_m[i];
+            g += (double)o_g[i] * m;
+            h += (double)o_h[i] * m;
+            c += m;
+          } else {
+            g += o_g[i];
+            h += o_h[i];
+            c += o_m[i];
+          }
         }
-        float* o = out + ((int64_t)fl * num_bins + b0 + b) * 3;
+        Acc* o = out + ((int64_t)fl * num_bins + b0 + b) * 3;
         o[0] = g;
         o[1] = h;
         o[2] = c;
@@ -435,18 +471,19 @@ __device__ inline void hist_sorted(const Rows& rows, int64_t row0,
 constexpr int kReduceLoads = 16;  // partials reduce_chunks loads at once
 
 // Cell i of the histogram: the sum of its nchunks partials in chunk order,
-// (0.f + p_0) + p_1 + ..., with kReduceLoads loads issued before their
-// adds.  The loads go through L2 only (__ldcg): K8 reads partials that
-// other blocks wrote earlier in the same launch (after a grid barrier),
-// where the read-only path (__ldg) is not coherent.
-__device__ __forceinline__ float reduce_chunks(const float* partial,
-                                               int nchunks, int64_t per_chunk,
-                                               int64_t i) {
-  const float* p = partial + i;
-  float s = 0.f;
+// (0 + p_0) + p_1 + ..., in Acc (float, or double for the float64
+// variants), with kReduceLoads loads issued before their adds.  The loads
+// go through L2 only (__ldcg): K8 reads partials that other blocks wrote
+// earlier in the same launch (after a grid barrier), where the read-only
+// path (__ldg) is not coherent.
+template <typename Acc>
+__device__ __forceinline__ Acc reduce_chunks(const Acc* partial, int nchunks,
+                                             int64_t per_chunk, int64_t i) {
+  const Acc* p = partial + i;
+  Acc s = Acc(0);
   int c = 0;
   for (; c + kReduceLoads <= nchunks; c += kReduceLoads) {
-    float v[kReduceLoads];
+    Acc v[kReduceLoads];
 #pragma unroll
     for (int j = 0; j < kReduceLoads; ++j)
       v[j] = __ldcg(p + (int64_t)(c + j) * per_chunk);
@@ -475,12 +512,13 @@ struct Chunks {
   }
 };
 
-// Pass 1 of K1, K1', K1'' and K2: block (c, g) writes the partials
-// [c, G*g .. G*g+G-1, B, 3] of [nchunks, F, B, 3].
-template <typename BinT, int G, int kThreads, typename Rows>
+// Pass 1 of K1, K1', K1'' and K2 (Acc = float) and of K1-f64 and K1''-f64
+// (Acc = double): block (c, g) writes the partials [c, G*g .. G*g+G-1, B,
+// 3] of [nchunks, F, B, 3].
+template <typename BinT, int G, int kThreads, typename Rows, typename Acc>
 __global__ void __launch_bounds__(kThreads)
     sorted_partial_kernel(Rows rows, Chunks chunks, int F, int num_bins,
-                          float* __restrict__ partial) {
+                          Acc* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int c = blockIdx.x, f0 = blockIdx.y * G;
   const int nf = (F - f0 < G) ? F - f0 : G;
@@ -494,18 +532,18 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launches pass 1 over `nchunks` chunks (> 0) of F features (> 0) on `s`;
 // returns 0 or a CUDA error.
-template <typename BinT, int G, int kThreads, typename Rows>
+template <typename BinT, int G, int kThreads, typename Rows, typename Acc>
 inline int launch_sorted_partial(const Rows& rows, const Chunks& chunks, int F,
-                          int nchunks, int num_bins, float* partial,
+                          int nchunks, int num_bins, Acc* partial,
                           cudaStream_t s) {
   const int groups = (F + G - 1) / G;
   if (groups > 65535) return (int)cudaErrorInvalidValue;
   const int smem = hist_sorted_smem<BinT, G>();
   const cudaError_t e = cudaFuncSetAttribute(
-      sorted_partial_kernel<BinT, G, kThreads, Rows>,
+      sorted_partial_kernel<BinT, G, kThreads, Rows, Acc>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  sorted_partial_kernel<BinT, G, kThreads, Rows>
+  sorted_partial_kernel<BinT, G, kThreads, Rows, Acc>
       <<<dim3(nchunks, groups), kThreads, smem, s>>>(rows, chunks, F,
                                                      num_bins, partial);
   return (int)cudaGetLastError();

@@ -55,6 +55,21 @@
 //  2.4-2.5 % of the 0.012 ms byte bound.  A 2,048-row set takes 0.0077 ms
 //  of device time (0.039 before), so the call's host side sets its time.
 //
+// K1-f64 (lgbm_hist_single_leaf_f64) is K1 for hist_dtype=float64: the
+// same passes over the same float32 rows, with double sums (hist_chunk.cuh:
+// the staged rows unmasked, each bin's run adding the exact products
+// (double)g * (double)m in row order, the partials and pass 2 in double).
+// It replaces no pallas_call: under float64 the JAX package runs no Pallas
+// kernel and sums with jnp segment_sum (lightgbm_tpu/ops/histogram.py:29
+// histogram_feature_major, the order route's root and smaller-child
+// histograms, learners/serial.py:252-264).  index_add_ on the card is
+// unordered float atomics, which the port's determinism rule excludes,
+// hence a kernel.  Its plain version is ops/histogram.py
+// histogram_feature_major with acc_dtype=float64, bitwise.  Bound: K1's
+// bytes in, F*B*24 out (the rows stay float32); the partials double, to
+// ceil(cap/2048) * F*B*24 bytes of scratch (1.49 GB at 17,825,792 rows x
+// 28 x 255 bins), written and read once.
+//
 // The kernels run on the caller's stream and allocate nothing; the
 // PyTorch wrapper (ops/cuda_histogram.py) allocates the output and the
 // [nchunks, F, B, 3] scratch.  Each C entry returns cudaGetLastError().
@@ -75,18 +90,19 @@ constexpr int kWindowThreads = 512;  // threads per K1' block
 constexpr int kReduceBatch = 16;     // partials a pass-2 thread loads at once
 constexpr int kReduceThreads = 256;
 
-// Cell i of [F, B, 3]: reduce_chunks' sum, (0.f + p_0) + p_1 + ..., with
-// the loads of kReduceBatch partials issued before their adds.
+// Cell i of [F, B, 3]: reduce_chunks' sum, (0 + p_0) + p_1 + ..., in Acc,
+// with the loads of kReduceBatch partials issued before their adds.
+template <typename Acc>
 __global__ void __launch_bounds__(kReduceThreads)
-    hist_reduce_kernel(const float* __restrict__ partial, int nchunks,
-                       int64_t per_chunk, float* __restrict__ out) {
+    hist_reduce_kernel(const Acc* __restrict__ partial, int nchunks,
+                       int64_t per_chunk, Acc* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= per_chunk) return;
-  const float* p = partial + i;
-  float s = 0.f;
+  const Acc* p = partial + i;
+  Acc s = Acc(0);
   int c = 0;
   for (; c + kReduceBatch <= nchunks; c += kReduceBatch) {
-    float v[kReduceBatch];
+    Acc v[kReduceBatch];
 #pragma unroll
     for (int j = 0; j < kReduceBatch; ++j)
       v[j] = __ldg(p + (int64_t)(c + j) * per_chunk);
@@ -100,9 +116,9 @@ __global__ void __launch_bounds__(kReduceThreads)
 // Both passes over the single-leaf chunks of `cap` rows: partial
 // [ceil(cap / kChunk), F, B, 3] scratch, out [F, B, 3].  cap = 0 launches
 // no pass 1 and pass 2 writes zeros.
-template <typename BinT, int G, int kThreads, typename Rows>
+template <typename BinT, int G, int kThreads, typename Rows, typename Acc>
 int launch(const Rows& rows, int F, int64_t cap, int num_bins,
-           float* partial, float* out, cudaStream_t s) {
+           Acc* partial, Acc* out, cudaStream_t s) {
   const int nchunks = (int)((cap + kChunk - 1) / kChunk);
   if (nchunks > 0 && F > 0) {
     const int e = launch_sorted_partial<BinT, G, kThreads>(
@@ -114,16 +130,16 @@ int launch(const Rows& rows, int F, int64_t cap, int num_bins,
   if (per_chunk > 0) {
     const int blocks = (int)((per_chunk + kReduceThreads - 1)
                              / kReduceThreads);
-    hist_reduce_kernel<<<blocks, kReduceThreads, 0, s>>>(partial, nchunks,
-                                                         per_chunk, out);
+    hist_reduce_kernel<Acc><<<blocks, kReduceThreads, 0, s>>>(
+        partial, nchunks, per_chunk, out);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename BinT>
+template <typename BinT, typename Acc>
 int single_leaf(const void* bins, const float* grad, const float* hess,
                 const float* mask, int F, int64_t cap, int num_bins,
-                float* partial, float* out, cudaStream_t s) {
+                Acc* partial, Acc* out, cudaStream_t s) {
   const MatrixRows<BinT> rows{static_cast<const BinT*>(bins), grad, hess,
                               mask, cap};
   return launch<BinT, kSingleGroup, kSingleThreads>(rows, F, cap, num_bins,
@@ -154,6 +170,23 @@ int lgbm_hist_single_leaf(const void* bins, int bin_bytes, const float* grad,
                           const float* hess, const float* mask, int F,
                           int64_t cap, int num_bins, float* partial,
                           float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bin_bytes == 1)
+    return single_leaf<uint8_t>(bins, grad, hess, mask, F, cap, num_bins,
+                                partial, out, s);
+  if (bin_bytes == 2)
+    return single_leaf<uint16_t>(bins, grad, hess, mask, F, cap, num_bins,
+                                 partial, out, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1-f64: lgbm_hist_single_leaf's rows and arguments with double partial
+// [ceil(cap / chunk_rows), F, num_bins, 3] and out [F, num_bins, 3].
+int lgbm_hist_single_leaf_f64(const void* bins, int bin_bytes,
+                              const float* grad, const float* hess,
+                              const float* mask, int F, int64_t cap,
+                              int num_bins, double* partial, double* out,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bin_bytes == 1)
     return single_leaf<uint8_t>(bins, grad, hess, mask, F, cap, num_bins,

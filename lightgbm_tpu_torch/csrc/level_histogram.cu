@@ -61,6 +61,19 @@
 //  sector per (row, feature) for the bins and per (row, group) for each of
 //  the three stats (PERF.md has how far it runs from that).
 //
+// K1''-f64 (lgbm_level_hist_f64) is K1'' for hist_dtype=float64: the same
+// sort, chunk table and pass 1 over the same float32 rows, with double
+// sums (hist_chunk.cuh: each bin's run adds the exact products (double)g
+// * (double)m in row order; the partials, pass 2 and the output double).
+// It replaces no pallas_call: under float64 the JAX package runs no Pallas
+// kernel and builds every level with jnp segment_sum
+// (lightgbm_tpu/ops/histogram.py:49 histogram_by_leaf: depthwise levels,
+// hybrid's level phase and its resume pass).  Its plain version is
+// ops/histogram.py histogram_by_leaf_sorted_plain with acc_dtype=float64,
+// bitwise.  Bound: K1'''s bytes in, L*F*B*24 out (43.7 MB at the bench
+// level of 255 leaves).  There is no float64 K2: the JAX package never
+// reaches its bsub kernel under float64.
+//
 // The kernels run on the caller's stream and allocate nothing; the
 // PyTorch wrapper (ops/cuda_histogram.py) allocates the output and the
 // [chunks, F, B, 3] scratch.  Each C entry returns cudaGetLastError().
@@ -152,10 +165,11 @@ __global__ void __launch_bounds__(kLayoutThreads)
 
 // Cell i of leaf l: its chunks chunk_start[l] .. chunk_start[l+1]-1 (all
 // nchunks for the single-leaf layout, chunk_start null) in chunk order.
-__global__ void level_reduce_kernel(const float* __restrict__ partial,
+template <typename Acc>
+__global__ void level_reduce_kernel(const Acc* __restrict__ partial,
                                     const int64_t* __restrict__ chunk_start,
                                     int nchunks, int L, int64_t per_chunk,
-                                    float* __restrict__ out) {
+                                    Acc* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)L * per_chunk) return;
   const int l = (int)(i / per_chunk);
@@ -165,37 +179,40 @@ __global__ void level_reduce_kernel(const float* __restrict__ partial,
                          i - (int64_t)l * per_chunk);
 }
 
-template <typename BinT>
+template <typename BinT, typename Acc>
 int launch(const SortedRows<BinT>& rows, const Chunks& chunks,
            const int64_t* chunk_start, int F, int nchunks, int L,
-           int num_bins, int variant, float* partial, float* out,
+           int num_bins, int variant, Acc* partial, Acc* out,
            cudaStream_t s) {
   if (nchunks > 0 && F > 0) {
-    const int e =
-        variant == 0
-            ? launch_sorted_partial<BinT, kLevelGroup, kLevelThreads>(
-                  rows, chunks, F, nchunks, num_bins, partial, s)
-            : launch_sorted_partial<BinT, kGroup, kGroupThreads>(
-                  rows, chunks, F, nchunks, num_bins, partial, s);
+    int e;
+    if (variant == 0)
+      e = launch_sorted_partial<BinT, kLevelGroup, kLevelThreads>(
+          rows, chunks, F, nchunks, num_bins, partial, s);
+    else if constexpr (sizeof(Acc) == sizeof(float))
+      e = launch_sorted_partial<BinT, kGroup, kGroupThreads>(
+          rows, chunks, F, nchunks, num_bins, partial, s);
+    else
+      e = (int)cudaErrorInvalidValue;  // no float64 K2
     if (e != 0) return e;
   }
   const int64_t per_chunk = (int64_t)F * num_bins * 3;
   const int64_t total = per_chunk * L;
   if (total > 0) {
     const int threads = 256;
-    level_reduce_kernel<<<(int)((total + threads - 1) / threads), threads, 0,
-                          s>>>(partial, chunk_start, nchunks, L, per_chunk,
-                               out);
+    level_reduce_kernel<Acc><<<(int)((total + threads - 1) / threads),
+                               threads, 0, s>>>(partial, chunk_start, nchunks,
+                                                L, per_chunk, out);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename BinT>
+template <typename BinT, typename Acc>
 int dispatch(const void* bins, const float* grad, const float* hess,
              const float* mask, const int64_t* order, int64_t n, int F,
              const int64_t* chunk_row0, const int64_t* chunk_rows,
              const int64_t* chunk_start, int nchunks, int L, int num_bins,
-             int variant, float* partial, float* out, void* stream) {
+             int variant, Acc* partial, Acc* out, void* stream) {
   const SortedRows<BinT> rows{static_cast<const BinT*>(bins), grad, hess,
                               mask, order, n};
   const Chunks chunks{chunk_row0, chunk_rows, n};
@@ -214,6 +231,36 @@ int launch_layout(const void* sorted_leaf, int64_t n, int L, int cap,
       static_cast<const IdT*>(sorted_leaf), n, L, cap, row_start,
       chunk_start, row0, row0 + cap, row0 + 2 * (int64_t)cap);
   return (int)cudaGetLastError();
+}
+
+template <typename Acc>
+int level_hist(const void* bins, int bin_bytes, const float* grad,
+               const float* hess, const float* mask, const int64_t* order,
+               const void* sorted_leaf, int id_bytes, int64_t n, int F, int L,
+               int num_bins, int variant, int64_t* table, Acc* partial,
+               Acc* out, void* stream) {
+  if (order == nullptr || sorted_leaf == nullptr || table == nullptr
+      || L < 1)
+    return (int)cudaErrorInvalidValue;
+  const int cap = (int)((n + kChunk - 1) / kChunk) + L;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = id_bytes == 4
+                    ? launch_layout<int32_t>(sorted_leaf, n, L, cap, table, s)
+                : id_bytes == 8
+                    ? launch_layout<int64_t>(sorted_leaf, n, L, cap, table, s)
+                    : (int)cudaErrorInvalidValue;
+  if (e != 0) return e;
+  const int64_t* chunk_start = table + (L + 1);
+  const int64_t* row0 = chunk_start + (L + 1);
+  if (bin_bytes == 1)
+    return dispatch<uint8_t>(bins, grad, hess, mask, order, n, F, row0,
+                             row0 + cap, chunk_start, cap, L, num_bins,
+                             variant, partial, out, stream);
+  if (bin_bytes == 2)
+    return dispatch<uint16_t>(bins, grad, hess, mask, order, n, F, row0,
+                              row0 + cap, chunk_start, cap, L, num_bins,
+                              variant, partial, out, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -241,28 +288,22 @@ int lgbm_level_hist(const void* bins, int bin_bytes, const float* grad,
                     int variant, int64_t* table, float* partial, float* out,
                     void* stream) {
   if (variant != 0 && variant != 1) return (int)cudaErrorInvalidValue;
-  if (order == nullptr || sorted_leaf == nullptr || table == nullptr
-      || L < 1)
-    return (int)cudaErrorInvalidValue;
-  const int cap = (int)((n + kChunk - 1) / kChunk) + L;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e = id_bytes == 4
-                    ? launch_layout<int32_t>(sorted_leaf, n, L, cap, table, s)
-                : id_bytes == 8
-                    ? launch_layout<int64_t>(sorted_leaf, n, L, cap, table, s)
-                    : (int)cudaErrorInvalidValue;
-  if (e != 0) return e;
-  const int64_t* chunk_start = table + (L + 1);
-  const int64_t* row0 = chunk_start + (L + 1);
-  if (bin_bytes == 1)
-    return dispatch<uint8_t>(bins, grad, hess, mask, order, n, F, row0,
-                             row0 + cap, chunk_start, cap, L, num_bins,
-                             variant, partial, out, stream);
-  if (bin_bytes == 2)
-    return dispatch<uint16_t>(bins, grad, hess, mask, order, n, F, row0,
-                              row0 + cap, chunk_start, cap, L, num_bins,
-                              variant, partial, out, stream);
-  return (int)cudaErrorInvalidValue;
+  return level_hist(bins, bin_bytes, grad, hess, mask, order, sorted_leaf,
+                    id_bytes, n, F, L, num_bins, variant, table, partial, out,
+                    stream);
+}
+
+// K1''-f64: lgbm_level_hist's K1'' (variant 0) with double partial
+// [cap, F, B, 3] and out [L, F, B, 3].
+int lgbm_level_hist_f64(const void* bins, int bin_bytes, const float* grad,
+                        const float* hess, const float* mask,
+                        const int64_t* order, const void* sorted_leaf,
+                        int id_bytes, int64_t n, int F, int L, int num_bins,
+                        int64_t* table, double* partial, double* out,
+                        void* stream) {
+  return level_hist(bins, bin_bytes, grad, hess, mask, order, sorted_leaf,
+                    id_bytes, n, F, L, num_bins, 0, table, partial, out,
+                    stream);
 }
 
 // K2 over one row set (the leaf-wise single-leaf histogram under bsub):

@@ -75,6 +75,18 @@
 // with lane shuffles and a warp-uniform carry across segments, and the
 // winner needs a fenced last-block ticket; neither fits Triton's block
 // model, where the order of a scan or a reduction is the compiler's.
+//
+// K3-f64 (lgbm_search2_f64) is K3 for hist_dtype=float64: the same grid,
+// warp scan, gains and pick over [F, B, 3] double histograms, with double
+// totals and constraints, a double scratch [2, F, kPerFeature] and double
+// [2, 16] rows (search_step.cuh with T = double).  It replaces no
+// pallas_call: search2_pallas refuses float64 (pallas_search.py:235-238)
+// and the JAX package searches with jnp (lightgbm_tpu/ops/split.py:69
+// find_best_split, :171 find_best_split_leaves, learners/serial.py:
+// 457-468) on the order route, the pooled route and hybrid's resume.  Its
+// plain version is ops/split.py search2_rows on float64 histograms,
+// bitwise.  Bound: 2*F*B*24 bytes read (342,720 B at F = 28, B = 255:
+// 0.10 us at 3.35 TB/s); like K3 it is bound by latency.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,7 +111,8 @@ int grid_for(int warps) {
 
 // (g, f) beats (bg, bf): the larger gain, the smaller feature among equal
 // gains.  A feature with no valid split carries (-inf, -1) and never wins.
-__device__ __forceinline__ bool beats(float g, int f, float bg, int bf) {
+template <typename T>
+__device__ __forceinline__ bool beats(T g, int f, T bg, int bf) {
   return g > bg || (g == bg && f < bf);
 }
 
@@ -107,11 +120,12 @@ __device__ __forceinline__ bool beats(float g, int f, float bg, int bf) {
 // block of the grid to get here picks both children's winners into out
 // [2, 16].  hist[c] is child c's [F, B, 3] row.  Every thread of every
 // block must call it.
-__device__ void finish_search(const float* const hist[2], const int* meta,
-                              int F, int B, const Scal& p, const float* best,
-                              int* ticket, float* out) {
+template <typename T>
+__device__ void finish_search(const T* const hist[2], const int* meta, int F,
+                              int B, const ScalT<T>& p, const T* best,
+                              int* ticket, T* out) {
   __shared__ int s_last;
-  __shared__ float s_gain[2][kWarps];
+  __shared__ T s_gain[2][kWarps];
   __shared__ int s_feat[2][kWarps];
   __threadfence();  // this block's bests and rows, before its ticket
   __syncthreads();
@@ -122,12 +136,12 @@ __device__ void finish_search(const float* const hist[2], const int* meta,
   if (threadIdx.x == 0) *ticket = 0;  // every block has taken its ticket
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int c = 0; c < 2; ++c) {
-    const float* bc = best + (int64_t)c * F * kPerFeature;
-    float g = -INFINITY;
+    const T* bc = best + (int64_t)c * F * kPerFeature;
+    T g = -INFINITY;
     int fb = -1;
     // each thread walks its features in ascending order with a strict ">"
     for (int f0 = threadIdx.x; f0 < F; f0 += kThreads * kPickLoads) {
-      float v[kPickLoads];
+      T v[kPickLoads];
 #pragma unroll
       for (int j = 0; j < kPickLoads; ++j) {
         const int f = f0 + j * kThreads;
@@ -143,7 +157,7 @@ __device__ void finish_search(const float* const hist[2], const int* meta,
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
-      const float og = __shfl_xor_sync(kAll, g, o);
+      const T og = __shfl_xor_sync(kAll, g, o);
       const int of = __shfl_xor_sync(kAll, fb, o);
       if (beats(og, of, g, fb)) {
         g = og;
@@ -158,7 +172,7 @@ __device__ void finish_search(const float* const hist[2], const int* meta,
   __syncthreads();
   if (threadIdx.x < 2) {
     const int c = threadIdx.x;
-    float g = -INFINITY;
+    T g = -INFINITY;
     int fb = -1;
     for (int w = 0; w < kWarps; ++w) {
       if (beats(s_gain[c][w], s_feat[c][w], g, fb)) {
@@ -172,15 +186,17 @@ __device__ void finish_search(const float* const hist[2], const int* meta,
   }
 }
 
-// Kernel 3: warp i of the grid scans (child i / F, feature i % F).
+// Kernel 3 (T = float) and K3-f64 (T = double): warp i of the grid scans
+// (child i / F, feature i % F).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    search2_kernel(const float* __restrict__ hist_l,  // [F, B, 3]
-                   const float* __restrict__ hist_r,
+    search2_kernel(const T* __restrict__ hist_l,  // [F, B, 3]
+                   const T* __restrict__ hist_r,
                    const int* __restrict__ meta,  // [F, 4]
-                   int F, int B, Scal p,
-                   float* __restrict__ best,  // [2, F, kPerFeature]
-                   int* ticket, float* __restrict__ out) {  // [2, 16]
-  const float* const hist[2] = {hist_l, hist_r};
+                   int F, int B, ScalT<T> p,
+                   T* __restrict__ best,  // [2, F, kPerFeature]
+                   int* ticket, T* __restrict__ out) {  // [2, 16]
+  const T* const hist[2] = {hist_l, hist_r};
   const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (i < 2 * F) {
     const int c = i / F;
@@ -252,8 +268,24 @@ int lgbm_search2(const float* hist_l, const float* hist_r, const int* meta,
                  float* best, int* ticket, float* out, void* stream) {
   const Scal p = make_scal(can_l, lsg, lsh, lc, can_r, rsg, rsh, rc, min_data,
                            min_hess, l1, l2, min_gain);
-  search2_kernel<<<grid_for(2 * F), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  search2_kernel<float><<<grid_for(2 * F), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      hist_l, hist_r, meta, F, B, p, best, ticket, out);
+  return (int)cudaGetLastError();
+}
+
+// K3-f64: lgbm_search2 over double histograms, totals and constraints;
+// best holds at least 2 * F * kPerFeature doubles, out [2, 16] double.
+int lgbm_search2_f64(const double* hist_l, const double* hist_r,
+                     const int* meta, int F, int B, double can_l, double lsg,
+                     double lsh, double lc, double can_r, double rsg,
+                     double rsh, double rc, double min_data, double min_hess,
+                     double l1, double l2, double min_gain, double* best,
+                     int* ticket, double* out, void* stream) {
+  const ScalT<double> p = make_scal(can_l, lsg, lsh, lc, can_r, rsg, rsh, rc,
+                                    min_data, min_hess, l1, l2, min_gain);
+  search2_kernel<double><<<grid_for(2 * F), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
       hist_l, hist_r, meta, F, B, p, best, ticket, out);
   return (int)cudaGetLastError();
 }

@@ -32,6 +32,13 @@ sizes a level's histogram and search by its ``K`` live leaves (leaf ids
 order, so the live leaves' rows, their ranks and the selection are the
 JAX package's.
 
+Float64 histograms (hist_dtype=float64): the level histogram is float64
+(kernel 1''-f64 on the card), and so are the totals, the search and the
+level's read, so the gain ranking and ``lc + rc`` are taken in float64, as
+the JAX package's level state is; the tree tables round each value once
+to float32, as its float32 tree arrays do.  The JAX package's own float64
+depthwise grower does not run (ROADMAP C9).
+
 Host syncs: one per level.  The host-to-device copies of a level (the
 partition's per-leaf table after the read; the per-leaf ``can_split``
 when ``max_depth`` > 0) are not counted: they follow a read, when the
@@ -88,7 +95,8 @@ def grow_tree_depthwise(bins_T: torch.Tensor, grad: torch.Tensor,
 
     Arguments as ``serial.grow_tree``'s.  ``hist_fn(bins_T, leaf_id, grad,
     hess, mask, num_leaves) -> [num_leaves, F, B, 3]`` is the level
-    histogram (default: ``histogram_by_leaf_sorted``).
+    histogram (default: ``histogram_by_leaf_sorted``); its dtype is the
+    level's (float64 under hist_dtype=float64).
     ``stop_before_budget`` (hybrid growth's first phase) stops once
     ``factor * num_leaves > max_leaves``.  The tree's tensors go to
     ``tree_device`` (default: ``bins_T``'s device); the hybrid learner
@@ -127,10 +135,10 @@ def grow_tree_depthwise(bins_T: torch.Tensor, grad: torch.Tensor,
         best = find_best_split_leaves(
             hist, tot[:, 0], tot[:, 1], tot[:, 2], feature_mask,
             num_bins_per_feature, is_cat, *consts, can)
+        dt = hist.dtype
         del hist  # the next level's histogram must not wait for it
         cat = is_cat[best.feature.clamp(min=0).to(torch.int64)]
-        res = _host(torch.stack([a.to(torch.float32) for a in best]
-                                + [cat.to(torch.float32)]))
+        res = _host(torch.stack([a.to(dt) for a in best] + [cat.to(dt)]))
         LEVELS += 1
 
         # ---- budget selection: top-gain splits, at most L - K

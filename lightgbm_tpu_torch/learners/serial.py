@@ -61,6 +61,17 @@ the best-first growth of SerialTreeLearner
   them fills the best-split table, one host read brings its rows and the
   leaves' row counts, and the loop numbers nodes from K0 - 1 on.
 
+Float64 histograms (``hist_dtype=float64``; the JAX package's x64 route,
+gbdt.py:818-830) run on the order route, pooled or not, and in the
+resume, given float64 histogram functions (kernels 1-f64 and 1''-f64 on
+the card, over the float32 rows): everything follows the histograms'
+dtype (serial.py:597-602): the root sums are summed in float64 in row
+order, the searches return float64 rows (kernel 3-f64) and the
+best-split table is float64; the node table rounds the gain, the
+internal value and ``lc + rc`` once to float32 (serial.py:1089-1091),
+and the leaf rows are rounded when the tree is built.  The record, mega
+and raw pooled routes are float32 only.
+
 PyTorch runs eagerly with dynamic shapes, so the JAX version's static
 capacity tiers and masked no-op steps are not ported: each split slices
 the exact range, and the loop stops at the first step without a positive
@@ -174,18 +185,26 @@ def host_tree(num_leaves: int, tree_i: np.ndarray, tree_f: np.ndarray,
     )
 
 
-def _root_sums(gm: torch.Tensor, hm: torch.Tensor,
-               m: torch.Tensor) -> np.ndarray:
-    """Root (Σ g·m, Σ h·m, Σ m), each summed in row order in float32 —
-    the order of the JAX package's one-segment segment_sum on the CPU.
-    The leaf outputs and gains take differences of these totals, so
-    their rounding carries into every split; a row-order sum on the
-    host gives the same totals on any device.  One device-to-host copy
-    of 12 bytes per row, and the tree's first host sync."""
-    x = _host(torch.stack([gm, hm, m]))
+def _root_sums(grad: torch.Tensor, hess: torch.Tensor, m: torch.Tensor,
+               acc_dtype: torch.dtype = torch.float32) -> np.ndarray:
+    """Root (Σ g·m, Σ h·m, Σ m), each summed in row order in
+    ``acc_dtype`` — the order of the JAX package's one-segment segment_sum
+    on the CPU (serial.py:585-589).  The leaf outputs and gains take
+    differences of these totals, so their rounding carries into every
+    split; a row-order sum on the host gives the same totals on any
+    device.  One device-to-host copy of 12 bytes per row, and the tree's
+    first host sync.  Float32 multiplies on the device; float64 widens the
+    float32 rows on the host first (each product exact) and sums there,
+    so the count is exact above 2**24 rows."""
+    if acc_dtype == torch.float64:
+        x = _host(torch.stack([grad, hess, m])).astype(np.float64)
+        x[:2] *= x[2]
+    else:
+        x = _host(torch.stack([grad * m, hess * m, m]))
+    dt = x.dtype
     if x.shape[1] == 0:
-        return np.zeros(3, np.float32)
-    return np.cumsum(x, axis=1, dtype=np.float32)[:, -1]
+        return np.zeros(3, dt)
+    return np.cumsum(x, axis=1, dtype=dt)[:, -1]
 
 
 def _partition(order: torch.Tensor, frow: torch.Tensor, thr: int,
@@ -208,10 +227,11 @@ def _partition(order: torch.Tensor, frow: torch.Tensor, thr: int,
     return nleft_t
 
 
-def _empty_best(L: int) -> np.ndarray:
-    """The [16, L] best-split table before any search: gain -inf, feature
-    -1, parent -1 (empty_tree's leaf_parent), everything else 0."""
-    best = np.zeros((_BROWS, L), np.float32)
+def _empty_best(L: int, dtype=np.float32) -> np.ndarray:
+    """The [16, L] best-split table before any search, in the histograms'
+    dtype: gain -inf, feature -1, parent -1 (empty_tree's leaf_parent),
+    everything else 0."""
+    best = np.zeros((_BROWS, L), dtype)
     best[_BG] = -np.inf
     best[_BF] = -1.0
     best[_BLPAR] = -1.0
@@ -248,7 +268,7 @@ def _resume(bins_T, grad, hess, bag_mask, feature_mask, num_bins_per_feature,
     got = _host(torch.stack([a.to(torch.float64) for a in res]
                             + [(row_start[1:] - row_start[:-1]).double()]))
 
-    best = _empty_best(L)
+    best = _empty_best(L, _np_dtype(fused.dtype))
     best[:11, :K0] = got[:11]
     for row, field in ((_BLV, "leaf_value"), (_BLCNT, "leaf_count"),
                        (_BLPAR, "leaf_parent"), (_BLDEP, "leaf_depth")):
@@ -269,6 +289,10 @@ def _resume(bins_T, grad, hess, bag_mask, feature_mask, num_bins_per_feature,
                                "internal_count")):
         tree_f[i, :li] = getattr(init_tree, field).cpu().numpy()
     return order, hists, best, begin, count, tree_i, tree_f, K0
+
+
+def _np_dtype(dt: torch.dtype):
+    return np.float64 if dt == torch.float64 else np.float32
 
 
 def _pool_slots(slot_of: np.ndarray, slot_last: np.ndarray, leaf: int,
@@ -323,7 +347,11 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     on the order route; a given ``hist_fn_raw`` then selects the pooled
     step of kernel 5 instead of the record route, and is not called (the
     port has no raw layout; every histogram comes from ``hist_fn``).  The
-    pool does not combine with ``init_tree`` (serial.py:606)."""
+    pool does not combine with ``init_tree`` (serial.py:606).
+
+    The root sums, the search rows and the best-split table take the
+    histograms' dtype: float64 ``hist_fn`` / ``init_hist_fn`` grow a
+    hist_dtype=float64 tree."""
     pooled = 0 < hist_pool < max_leaves
     if pooled and init_tree is not None:
         raise ValueError("a resumed tree grows unpooled")
@@ -361,12 +389,12 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         else:
             order = torch.arange(n, dtype=torch.int64, device=dev)
             hist0 = hist_fn(bins_T, grad, hess, bag_mask)
-        sg0, sh0, c0 = (float(v) for v in _root_sums(
-            grad * bag_mask, hess * bag_mask, bag_mask))
+        sg0, sh0, c0 = (float(v) for v in _root_sums(grad, hess, bag_mask,
+                                                      hist0.dtype))
         rows = search2_rows(hist0, hist0, [float(params.can_split(0)),
                                            sg0, sh0, c0, sg0, sh0, c0]
                             + consts, meta)
-        best = _empty_best(L)
+        best = _empty_best(L, _np_dtype(hist0.dtype))
         best[:11, 0] = _host(rows)[0, :11]
 
         P = max(hist_pool, 2) if pooled else L
@@ -478,7 +506,7 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
         # ---- best-split table + ranges: the left child takes the
         # parent's column, the right child the new leaf's
-        tail = np.array([0.0, 0.0, node, depth_child, 0.0], np.float32)
+        tail = np.array([0.0, 0.0, node, depth_child, 0.0], best.dtype)
         best[:11, best_leaf] = res[0, :11]
         best[11:, best_leaf] = tail
         best[_BLV, best_leaf], best[_BLCNT, best_leaf] = bcol[_BLO], lc
@@ -494,6 +522,7 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             side = 3 if tree_i[3, parent] == ~best_leaf else 4
             tree_i[side, parent] = node
         tree_i[:, node] = [f, thr, int(is_cat), ~best_leaf, ~new_leaf]
+        # lc + rc in the table's dtype, rounded once to float32
         tree_f[:, node] = [bcol[_BG], bcol[_BLV], np.float32(lc + rc)]
         nleaves += 1
 

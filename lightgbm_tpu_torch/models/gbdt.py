@@ -33,8 +33,17 @@ The non-finite guards (``nonfinite_policy``, resilience/guards.py) hook
 into ``train_one_iter`` where the JAX package's do (gbdt.py:703-717,
 :750-753, :846-849), with its ``nan_grads`` fault before them.
 
+``hist_dtype=float64`` (the reference's double accumulation; the JAX
+package's x64 route, gbdt.py:818-830) grows every tree with float64
+histograms, totals and searches over the objective's float32 gradients
+(``_acc_dtype``): on the order route (pooled or not) and in depthwise and
+hybrid growth, with kernels 1-f64, 1''-f64 and 3-f64 on the card and never
+a float32 histogram or search kernel; the finished tree is float32.  Its
+count channel is exact past 2**24 rows, so the envelope check
+(``check_count_envelope``) refuses only float32 beyond it.
+
 Not ported yet (ROADMAP queue A), and refused with NotImplementedError
-rather than ignored: hist_dtype=float64 (A5) and parallel learners (A8).
+rather than ignored: parallel learners (A8).
 Depthwise and hybrid growth ignore histogram_pool_size with the JAX
 package's warning.  Forest batching, the lagged stop check (the port's
 stop check is eager), checkpoints and telemetry are not carried.
@@ -74,6 +83,19 @@ from .tree import (TREE_FIELDS, BinnedTrees, PackedTrees, Tree, binned_table,
 F32_COUNT_EXACT_ROWS = 1 << 24
 
 
+def check_count_envelope(num_rows: int, hist_dtype: str) -> None:
+    """Refuse a float32 dataset whose row count can overflow the float32
+    integer-exact range of the count channel (the JAX package's rule and
+    message, learners/serial.py:81-90); float64 counts are exact."""
+    if hist_dtype == "float32" and num_rows > F32_COUNT_EXACT_ROWS:
+        raise ValueError(
+            f"num_data={num_rows} exceeds the float32 integer-exact "
+            f"envelope ({F32_COUNT_EXACT_ROWS} = 2**24) for the "
+            "histogram count channel: leaf_count/internal_count could "
+            "round silently.  Set hist_dtype=float64 (the reference's "
+            "double accumulation) for datasets this large.")
+
+
 def fuse_hist_fits(F: int, num_bins: int) -> bool:
     """The JAX package's gate on its mega route under its default
     ``prefix`` routing (serial.py:520-536): round_up(F, 8) *
@@ -97,8 +119,6 @@ def check_supported(config: Config) -> None:
 
     if config.tree_learner != "serial":
         no(f"tree_learner={config.tree_learner}", "A8: parallel")
-    if config.hist_dtype != "float32":
-        no("hist_dtype=float64", "A5: float64 histograms")
     if config.objective == "none":  # a custom objective: any num_class
         return
     kind = objective_kind(config.objective)
@@ -176,10 +196,7 @@ class GBDT:
                 f"{self.config.tree_growth} (depthwise levels build "
                 "transient histograms; the hybrid resume runs unpooled)")
         n = train_set.num_data
-        if n > F32_COUNT_EXACT_ROWS:
-            raise ValueError(
-                f"num_data={n} exceeds the float32 integer-exact envelope "
-                f"({F32_COUNT_EXACT_ROWS}) of the histogram count channel")
+        check_count_envelope(n, self.config.hist_dtype)
         self.train_set = train_set
         self.objective = objective
         self.num_data = n
@@ -297,29 +314,39 @@ class GBDT:
         return (os.environ.get("LGBM_TPU_FUSE_HIST", "1") != "0"
                 and fuse_hist_fits(self._bins_T.shape[0], self._num_bins))
 
+    @property
+    def _acc_dtype(self) -> torch.dtype:
+        """The histograms' accumulation dtype (``hist_dtype``)."""
+        return (torch.float64 if self.config.hist_dtype == "float64"
+                else torch.float32)
+
     def _hist_pool_slots(self) -> int:
         """``histogram_pool_size`` (MB) -> the pool's slot count, the JAX
         package's rule (gbdt.py:354-387, the reference's
         serial_tree_learner.cpp:25-37): ``max(2, min(int(MB * 2**20 /
         per_leaf), num_leaves))``, 0 (every leaf resident) when MB <= 0 or
         growth is not leaf-wise.  ``per_leaf`` is the port's slot, ``F *
-        num_bins * 3 * 4`` bytes on every device: the JAX package's rule
-        off the TPU (gbdt.py:384-385), so CPU trees match its trees slot
-        for slot.  Its TPU build sizes a slot by the padded raw layout
-        ``[Fp, 4, Bp]`` instead (gbdt.py:375-383), a layout the port does
-        not have."""
+        num_bins * 3 * itemsize`` bytes on every device (4, or 8 under
+        hist_dtype=float64): the JAX package's rule off the TPU
+        (gbdt.py:373, :384-385), so CPU trees match its trees slot for
+        slot.  Its TPU build sizes a slot by the padded raw layout ``[Fp,
+        4, Bp]`` instead (gbdt.py:375-383), a layout the port does not
+        have."""
         mb = float(self.config.histogram_pool_size)
         if mb <= 0 or self.config.tree_growth != "leafwise":
             return 0
-        per_leaf = self._bins_T.shape[0] * self._num_bins * 3 * 4
+        itemsize = 8 if self._acc_dtype == torch.float64 else 4
+        per_leaf = self._bins_T.shape[0] * self._num_bins * 3 * itemsize
         slots = int(mb * 1024 * 1024 / max(per_leaf, 1))
         return max(2, min(slots, self.max_leaves))
 
     def _leafwise_hist_fn(self):
         """The single-row-set histogram of leaf-wise growth (kernel 1, or
-        kernel 2 under ``bsub``, on the card)."""
+        kernel 2 under ``bsub``, on the card; kernel 1-f64 under
+        hist_dtype=float64)."""
         return functools.partial(histogram_single_leaf,
-                                 num_bins=self._num_bins)
+                                 num_bins=self._num_bins,
+                                 acc_dtype=self._acc_dtype)
 
     def _level_hist_fn(self):
         """The level histogram of depthwise growth and of hybrid's level
@@ -327,13 +354,15 @@ class GBDT:
         mask, num_leaves)``: for a sparse dataset whose density is at most
         ``sparse_hist_density`` (float32 histograms), the O(nnz) CSR
         histogram (kernel S1 on the card, ops/sparse_hist.py); otherwise
-        kernel 1'', or kernel 2 under ``bsub``, on the card."""
+        kernel 1'', or kernel 2 under ``bsub``, on the card (kernel
+        1''-f64 under hist_dtype=float64, sparse sets included, as the
+        JAX package's gate at gbdt.py:445-446)."""
         ds = self.train_set
         if (ds is not None and ds.is_sparse
                 and self.config.hist_dtype != "float64"
                 and ds.density <= self.config.sparse_hist_density):
             return make_sparse_hist_fn(ds, self._num_bins, self.device)
-        return make_level_hist_fn(self._num_bins)
+        return make_level_hist_fn(self._num_bins, self._acc_dtype)
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              feature_mask: torch.Tensor):
@@ -343,6 +372,8 @@ class GBDT:
                 self._nbpf, self._is_cat, self._params, self._num_bins,
                 self.max_leaves)
         growth = self.config.tree_growth
+        # every grower sums in the dtype of the histogram functions handed
+        # to it
         if growth == "depthwise":
             return grow_tree_depthwise(*args, hist_fn=self._level_hist_fn())
         if growth == "hybrid":
@@ -351,7 +382,8 @@ class GBDT:
         # under the pool grow_tree takes the order route; the raw
         # histogram then selects kernel 5's step (serial.py:404, :427)
         raw = self._leafwise_hist_fn_raw()
-        return grow_tree(*args, hist_fn_raw=raw,
+        return grow_tree(*args, hist_fn=self._leafwise_hist_fn(),
+                         hist_fn_raw=raw,
                          fuse_hist=raw is not None and self._fuse_hist(),
                          hist_pool=self._hist_pool_slots())
 

@@ -2,7 +2,9 @@
 versions (histogram, split search and the pooled split step, the packed
 record's partition and write-back, the mega route's split step, the level
 histogram of depthwise growth, dense and sparse (kernel S1), ensemble
-prediction (P1) and the binned ensemble walk of training (P2))."""
+prediction (P1), the binned ensemble walk of training (P2), and the
+float64 histograms and search of hist_dtype=float64 (K1-f64, K1''-f64,
+K3-f64))."""
 
 import importlib
 from typing import Dict
@@ -23,6 +25,9 @@ KERNEL_COUNTERS = {
     "P1": ("cuda_predict", "LAUNCHES"),
     "S1": ("cuda_sparse_hist", "LAUNCHES"),
     "P2": ("cuda_predict_binned", "LAUNCHES"),
+    "K1-f64": ("cuda_histogram", "F64_LAUNCHES"),
+    "K1″-f64": ("cuda_histogram", "LEVEL_F64_LAUNCHES"),
+    "K3-f64": ("cuda_search", "F64_LAUNCHES"),
 }
 
 

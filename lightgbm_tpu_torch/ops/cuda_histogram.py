@@ -29,6 +29,13 @@ package's knob, read per call) unless the caller names it; under
 ``bsub`` ``histogram_single_leaf`` launches kernel 2 with one leaf.  The
 plain versions of kernels 1'' and 2 are one function: the kernels sum in
 the same order.
+
+``acc_dtype=torch.float64`` (``hist_dtype=float64``) takes the same float32
+rows and returns float64 sums: kernel 1-f64 (``histogram_single_leaf``,
+counted in ``F64_LAUNCHES``) and kernel 1''-f64 (``histogram_by_leaf_sorted``,
+``LEVEL_F64_LAUNCHES``) on the card, the plain versions with
+``acc_dtype=float64`` on the CPU.  Under float64 the variant is not read:
+the JAX package reaches no kernel there, so there is no float64 kernel 2.
 """
 
 from __future__ import annotations
@@ -49,6 +56,10 @@ LAUNCHES = 0  # kernel 1
 RECORD_LAUNCHES = 0  # kernel 1'
 LEVEL_LAUNCHES = 0  # kernel 1''
 BSUB_LAUNCHES = 0  # kernel 2
+F64_LAUNCHES = 0  # kernel 1-f64
+LEVEL_F64_LAUNCHES = 0  # kernel 1''-f64
+
+ACC_DTYPES = (torch.float32, torch.float64)
 
 VARIANTS = ("v1", "bsub")
 # features per kernel-2 block; must equal kGroup in csrc/level_histogram.cu
@@ -56,6 +67,15 @@ VARIANTS = ("v1", "bsub")
 BSUB_GROUP = 16
 
 _VP, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+def _acc(acc_dtype: torch.dtype) -> bool:
+    """True for float64 accumulation; raises on anything but float32 /
+    float64."""
+    if acc_dtype not in ACC_DTYPES:
+        raise TypeError(f"acc_dtype must be float32 or float64, got "
+                        f"{acc_dtype}")
+    return acc_dtype == torch.float64
 
 
 def hist_variant(variant: Optional[str] = None) -> str:
@@ -77,6 +97,9 @@ def _lib():
         lib.lgbm_hist_record_window.restype = _I
         lib.lgbm_hist_record_window.argtypes = [
             _VP, _I64, _I64, _I64, _I, _I, _I, _VP, _VP, _VP]
+        lib.lgbm_hist_single_leaf_f64.restype = _I
+        lib.lgbm_hist_single_leaf_f64.argtypes = [
+            _VP, _I, _VP, _VP, _VP, _I, _I64, _I, _VP, _VP, _VP]
         lib.lgbm_hist_chunk_rows.restype = _I
         lib.lgbm_hist_chunk_rows.argtypes = []
         if lib.lgbm_hist_chunk_rows() != CHUNK_ROWS:
@@ -93,6 +116,10 @@ def _level_lib():
         lib.lgbm_level_hist.argtypes = [
             _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I64, _I, _I, _I, _I, _VP,
             _VP, _VP, _VP]
+        lib.lgbm_level_hist_f64.restype = _I
+        lib.lgbm_level_hist_f64.argtypes = [
+            _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I64, _I, _I, _I, _VP, _VP,
+            _VP, _VP]
         lib.lgbm_hist_single_leaf_bsub.restype = _I
         lib.lgbm_hist_single_leaf_bsub.argtypes = [
             _VP, _I, _VP, _VP, _VP, _I, _I64, _I, _VP, _VP, _VP]
@@ -109,14 +136,21 @@ def _level_lib():
 
 def histogram_single_leaf(bins_T: torch.Tensor, grad: torch.Tensor,
                           hess: torch.Tensor, mask: torch.Tensor,
-                          num_bins: int,
-                          variant: Optional[str] = None) -> torch.Tensor:
+                          num_bins: int, variant: Optional[str] = None,
+                          acc_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
     """``bins_T`` [F, cap] uint8/uint16; ``grad``/``hess``/``mask`` [cap]
-    float32.  Returns [F, num_bins, 3] float32: kernel 1, or kernel 2 with
-    one leaf under the ``bsub`` variant (``hist_variant``)."""
-    v = hist_variant(variant)
+    float32.  Returns [F, num_bins, 3] in ``acc_dtype``: kernel 1, or
+    kernel 2 with one leaf under the ``bsub`` variant (``hist_variant``);
+    kernel 1-f64 for float64."""
+    f64 = _acc(acc_dtype)
+    v = "v1" if f64 else hist_variant(variant)
     if bins_T.device.type == "cpu":
-        return histogram_feature_major(bins_T, grad, hess, mask, num_bins)
+        return histogram_feature_major(bins_T, grad, hess, mask, num_bins,
+                                       acc_dtype)
+    if f64:
+        return histogram_single_leaf_f64_cuda(bins_T, grad, hess, mask,
+                                              num_bins)
     if v == "bsub":
         return histogram_single_leaf_bsub_cuda(bins_T, grad, hess, mask,
                                                num_bins)
@@ -165,6 +199,20 @@ def histogram_single_leaf_cuda(bins_T, grad, hess, mask, num_bins):
     return out
 
 
+def histogram_single_leaf_f64_cuda(bins_T, grad, hess, mask, num_bins):
+    """Kernel 1-f64 on the card (raises on anything it does not take):
+    kernel 1's passes over the same float32 rows, summed in float64; the
+    [ceil(cap / 2048), F, num_bins, 3] float64 partials are scratch."""
+    global F64_LAUNCHES
+    F, cap, bin_bytes = _check_rows(bins_T, grad, hess, mask, num_bins)
+    out = _launch(_lib().lgbm_hist_single_leaf_f64, "float64 histogram "
+                  "kernel", bins_T.device, F, cap, num_bins, bins_T.data_ptr(),
+                  bin_bytes, grad.data_ptr(), hess.data_ptr(),
+                  mask.data_ptr(), F, cap, num_bins, dtype=torch.float64)
+    F64_LAUNCHES += 1
+    return out
+
+
 def histogram_single_leaf_bsub_cuda(bins_T, grad, hess, mask, num_bins):
     """Kernel 2 with one leaf on the card: kernel 1's function and sums,
     built 16 features per block (raises on anything it does not take)."""
@@ -181,27 +229,35 @@ def histogram_single_leaf_bsub_cuda(bins_T, grad, hess, mask, num_bins):
 def histogram_by_leaf_sorted(bins_T: torch.Tensor, leaf_id: torch.Tensor,
                              grad: torch.Tensor, hess: torch.Tensor,
                              mask: torch.Tensor, num_bins: int,
-                             num_leaves: int,
-                             variant: Optional[str] = None) -> torch.Tensor:
+                             num_leaves: int, variant: Optional[str] = None,
+                             acc_dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
     """``bins_T`` [F, n] uint8/uint16; ``leaf_id`` [n] int32/int64, every
     id in [0, num_leaves); ``grad``/``hess``/``mask`` [n] float32.  Returns
-    [num_leaves, F, num_bins, 3] float32 (an empty leaf's rows are
-    zero)."""
-    v = hist_variant(variant)
+    [num_leaves, F, num_bins, 3] in ``acc_dtype`` (an empty leaf's rows are
+    zero): kernel 1'' or 2, or kernel 1''-f64 for float64."""
+    f64 = _acc(acc_dtype)
+    v = "v1" if f64 else hist_variant(variant)
     if bins_T.device.type == "cpu":
         return plain.histogram_by_leaf_sorted_plain(
-            bins_T, leaf_id, grad, hess, mask, num_bins, num_leaves)
+            bins_T, leaf_id, grad, hess, mask, num_bins, num_leaves,
+            acc_dtype)
+    if f64:
+        return histogram_by_leaf_sorted_f64_cuda(bins_T, leaf_id, grad, hess,
+                                                 mask, num_bins, num_leaves)
     return histogram_by_leaf_sorted_cuda(bins_T, leaf_id, grad, hess, mask,
                                          num_bins, num_leaves, v)
 
 
-def make_level_hist_fn(num_bins: int):
+def make_level_hist_fn(num_bins: int,
+                       acc_dtype: torch.dtype = torch.float32):
     """The level growers' ``hist_fn(bins_T, leaf_id, grad, hess, mask,
     num_leaves)`` over ``histogram_by_leaf_sorted`` (pallas_histogram.py
-    ``make_sorted_hist_fn``)."""
+    ``make_sorted_hist_fn``), summing in ``acc_dtype``."""
     def hist_fn(bins_T, leaf_id, grad, hess, mask, num_leaves):
         return histogram_by_leaf_sorted(bins_T, leaf_id, grad, hess, mask,
-                                        num_bins, num_leaves)
+                                        num_bins, num_leaves,
+                                        acc_dtype=acc_dtype)
     return hist_fn
 
 
@@ -211,6 +267,35 @@ def histogram_by_leaf_sorted_cuda(bins_T, leaf_id, grad, hess, mask,
     (raises on anything it does not take)."""
     global LEVEL_LAUNCHES, BSUB_LAUNCHES
     v = hist_variant(variant)
+    out = _level_launch("lgbm_level_hist", v, bins_T, leaf_id,
+                        grad, hess, mask, num_bins, num_leaves,
+                        0 if v == "v1" else 1)
+    if v == "v1":
+        LEVEL_LAUNCHES += 1
+    else:
+        BSUB_LAUNCHES += 1
+    return out
+
+
+def histogram_by_leaf_sorted_f64_cuda(bins_T, leaf_id, grad, hess, mask,
+                                      num_bins, num_leaves):
+    """Kernel 1''-f64 on the card (raises on anything it does not take):
+    kernel 1'''s sort, chunk table and passes over the same float32 rows,
+    summed in float64."""
+    global LEVEL_F64_LAUNCHES
+    out = _level_launch("lgbm_level_hist_f64", "float64", bins_T,
+                        leaf_id, grad, hess, mask, num_bins, num_leaves,
+                        dtype=torch.float64)
+    LEVEL_F64_LAUNCHES += 1
+    return out
+
+
+def _level_launch(entry, what, bins_T, leaf_id, grad, hess, mask,
+                  num_bins, num_leaves, *variant, dtype=torch.float32):
+    """Checks, scratch in ``dtype`` and the launch of the level library's
+    C entry named ``entry`` (``lgbm_level_hist`` with its ``variant``
+    flag: kernel 1'' or 2; ``lgbm_level_hist_f64``: kernel 1''-f64);
+    returns the [num_leaves, F, num_bins, 3] output."""
     F, n, bin_bytes = _check_rows(bins_T, grad, hess, mask, num_bins)
     dev = bins_T.device
     if leaf_id.device != dev or leaf_id.shape != (n,) \
@@ -225,33 +310,29 @@ def histogram_by_leaf_sorted_cuda(bins_T, leaf_id, grad, hess, mask,
     nchunks = (n + CHUNK_ROWS - 1) // CHUNK_ROWS + num_leaves
     table = torch.empty(2 * (num_leaves + 1) + 3 * nchunks,
                         dtype=torch.int64, device=dev)
-    out = torch.empty((num_leaves, F, num_bins, 3), dtype=torch.float32,
-                      device=dev)
-    partial = torch.empty((nchunks, F, num_bins, 3), dtype=torch.float32,
+    out = torch.empty((num_leaves, F, num_bins, 3), dtype=dtype, device=dev)
+    partial = torch.empty((nchunks, F, num_bins, 3), dtype=dtype,
                           device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = _level_lib().lgbm_level_hist(
+        code = getattr(_level_lib(), entry)(
             bins_T.data_ptr(), bin_bytes, grad.data_ptr(), hess.data_ptr(),
             mask.data_ptr(), order.data_ptr(), sorted_leaf.data_ptr(),
             sorted_leaf.element_size(), n, F, num_leaves, num_bins,
-            0 if v == "v1" else 1, table.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), stream)
-    _build.check(code, f"level histogram kernel ({v})")
-    if v == "v1":
-        LEVEL_LAUNCHES += 1
-    else:
-        BSUB_LAUNCHES += 1
+            *variant, table.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            stream)
+    _build.check(code, f"level histogram kernel ({what})")
     return out
 
 
-def _launch(entry, what, dev, F, cnt, num_bins, *args):
-    """Allocate the output and the per-chunk scratch, call the C entry on
-    the current stream (``args`` then the two buffers and the stream) and
-    raise on a launch error.  Returns the [F, num_bins, 3] output."""
+def _launch(entry, what, dev, F, cnt, num_bins, *args, dtype=torch.float32):
+    """Allocate the output and the per-chunk scratch in ``dtype``, call
+    the C entry on the current stream (``args`` then the two buffers and
+    the stream) and raise on a launch error.  Returns the [F, num_bins, 3]
+    output."""
     nchunks = (cnt + CHUNK_ROWS - 1) // CHUNK_ROWS
-    out = torch.empty((F, num_bins, 3), dtype=torch.float32, device=dev)
-    partial = torch.empty((nchunks, F, num_bins, 3), dtype=torch.float32,
+    out = torch.empty((F, num_bins, 3), dtype=dtype, device=dev)
+    partial = torch.empty((nchunks, F, num_bins, 3), dtype=dtype,
                           device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -18,11 +18,17 @@ writes around it: the same over a ``[P, F, B, 3]`` histogram pool, the
 children written to slots ``s1`` and ``s2`` and the parent read from a
 slot or from a recomputed row; kernel 5 on the card (``POOL_LAUNCHES``).
 
-The three kernels write each (child, feature)'s best to a scratch of
-``2 * F * 8`` floats and pick the winners in the last block behind an
-integer ticket; both live in ``_WORK``, allocated once per device (the
-scratch grown when a wider F comes) and shared by every launch there, so
-one stream at a time may search on a device.
+On float64 histograms (``hist_dtype=float64``) ``search2_rows`` launches
+kernel 3-f64, K3's search in double (``F64_LAUNCHES``), and returns float64
+rows; its CPU path is the plain search in float64.  Kernels 4 and 5 take
+float32 only: the float64 routes subtract in PyTorch and search with
+kernel 3-f64, as the JAX package's canonical routes do.
+
+The kernels write each (child, feature)'s best to a scratch of ``2 * F *
+8`` values of the histogram's dtype and pick the winners in the last
+block behind an integer ticket; both live in ``_WORK``, allocated once per
+device and dtype (the scratch grown when a wider F comes) and shared by
+every launch there, so one stream at a time may search on a device.
 """
 
 from __future__ import annotations
@@ -40,12 +46,14 @@ from .split import SplitResult
 LAUNCHES = 0  # kernel 3
 UPDATE_LAUNCHES = 0  # kernel 4
 POOL_LAUNCHES = 0  # kernel 5
+F64_LAUNCHES = 0  # kernel 3-f64
 
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_PER_FEATURE = 8  # floats of one (child, feature) best (csrc kPerFeature)
+_VP, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_double
+_PER_FEATURE = 8  # values of one (child, feature) best (csrc kPerFeature)
 
-# device index -> (ticket int32 [1], bests float32 [>= 2 * F * 8])
-_WORK: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+# (device index, dtype) -> (ticket int32 [1], bests [>= 2 * F * 8])
+_WORK: Dict[Tuple[int, torch.dtype], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _lib():
@@ -55,6 +63,9 @@ def _lib():
         # ... best, ticket, out, stream
         lib.lgbm_search2.argtypes = [_VP, _VP, _VP, _I, _I] + [_F] * 13 + [
             _VP] * 4
+        lib.lgbm_search2_f64.restype = _I
+        lib.lgbm_search2_f64.argtypes = [_VP, _VP, _VP, _I, _I] + [
+            _D] * 13 + [_VP] * 4
         lib.lgbm_search2_update.restype = _I
         lib.lgbm_search2_update.argtypes = [_VP, _VP, _I, _I, _I, _VP, _I,
                                             _I] + [_F] * 12 + [_VP] * 4
@@ -81,7 +92,8 @@ def pack_meta(feature_mask, num_bins_per_feature, is_categorical,
 
 def search2_rows(h_left: torch.Tensor, h_right: torch.Tensor,
                  scal: Sequence[float], meta: torch.Tensor) -> torch.Tensor:
-    """Both children's best splits as a [2, 16] float32 tensor.
+    """Both children's best splits as a [2, 16] tensor of the
+    histograms' dtype (kernel 3, or 3-f64 for float64 histograms).
 
     ``scal`` = (can, lsg, lsh, lc, rsg, rsh, rc, min_data, min_hess, l1,
     l2, min_gain) as Python floats; ``meta`` is ``pack_meta``'s [F, 4]."""
@@ -90,23 +102,27 @@ def search2_rows(h_left: torch.Tensor, h_right: torch.Tensor,
     return _search2_rows_cuda(h_left, h_right, scal, meta)
 
 
-def _workspace(dev: torch.device, F: int) -> Tuple[int, int]:
+def _workspace(dev: torch.device, F: int,
+               dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """Pointers to the device's ticket (zero between launches) and bests
-    scratch, the scratch grown to ``2 * F`` bests if it is smaller."""
-    work = _WORK.get(dev.index)
+    scratch in ``dtype``, the scratch grown to ``2 * F`` bests if it is
+    smaller."""
+    key = (dev.index, dtype)
+    work = _WORK.get(key)
     if work is None or work[1].numel() < 2 * F * _PER_FEATURE:
         ticket = (torch.zeros(1, dtype=torch.int32, device=dev)
                   if work is None else work[0])
-        work = _WORK[dev.index] = (ticket, torch.empty(
-            2 * F * _PER_FEATURE, dtype=torch.float32, device=dev))
+        work = _WORK[key] = (ticket, torch.empty(
+            2 * F * _PER_FEATURE, dtype=dtype, device=dev))
     return work[1].data_ptr(), work[0].data_ptr()
 
 
-def _check_search(hists, meta, scal, F):
-    """Shared argument checks of kernels 3, 4 and 5."""
+def _check_search(hists, meta, scal, F, dtype=torch.float32):
+    """Shared argument checks of kernels 3, 4, 5 (float32) and 3-f64
+    (float64)."""
     for name, t in hists:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device.type != "cuda" or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous CUDA tensor")
     dev = hists[0][1].device
@@ -119,8 +135,9 @@ def _check_search(hists, meta, scal, F):
 
 
 def _search2_rows_cuda(h_left, h_right, scal, meta):
-    """Kernel 3 on the card (raises on anything it does not take)."""
-    global LAUNCHES
+    """Kernel 3, or kernel 3-f64 on float64 histograms, on the card
+    (raises on anything it does not take)."""
+    global LAUNCHES, F64_LAUNCHES
     F, B, three = h_left.shape
     dev = h_left.device
     if three != 3 or h_right.shape != h_left.shape:
@@ -129,19 +146,27 @@ def _search2_rows_cuda(h_left, h_right, scal, meta):
             f"and {tuple(h_right.shape)}")
     if h_right.device != dev:
         raise ValueError(f"h_right is on {h_right.device}, h_left on {dev}")
-    _check_search([("h_left", h_left), ("h_right", h_right)], meta, scal, F)
+    dt = h_left.dtype
+    f64 = dt == torch.float64
+    _check_search([("h_left", h_left), ("h_right", h_right)], meta, scal, F,
+                  torch.float64 if f64 else torch.float32)
     lib = _lib()
     can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = (
         float(v) for v in scal)
-    out = torch.empty((2, 16), dtype=torch.float32, device=dev)
+    out = torch.empty((2, 16), dtype=dt, device=dev)
+    entry = lib.lgbm_search2_f64 if f64 else lib.lgbm_search2
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.lgbm_search2(
+        code = entry(
             h_left.data_ptr(), h_right.data_ptr(), meta.data_ptr(), F, B,
             can, lsg, lsh, lc, can, rsg, rsh, rc, md, mh, l1, l2, mg,
-            *_workspace(dev, F), out.data_ptr(), stream)
-    _build.check(code, "search kernel")
-    LAUNCHES += 1
+            *_workspace(dev, F, dt), out.data_ptr(), stream)
+    if f64:
+        _build.check(code, "float64 search kernel")
+        F64_LAUNCHES += 1
+    else:
+        _build.check(code, "search kernel")
+        LAUNCHES += 1
     return out
 
 

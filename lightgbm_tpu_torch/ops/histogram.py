@@ -26,6 +26,14 @@ cell in row order); it is a test oracle and follows no kernel.
 ``leaf_totals`` takes the per-leaf sums from feature 0's bins in XLA's
 CPU reduction order (``xla_sum``, which the LambdaRank gradients use
 too).
+
+``acc_dtype=torch.float64`` (``hist_dtype=float64``, the reference's
+double accumulation) sums the same rows in the same order in float64:
+the float32 row stats are widened first, so each product g·m and h·m of
+two float32 values is exact, and at most ``CHUNK_ROWS`` rows a leaf the
+sums are the JAX package's float64 ``segment_sum`` bitwise (each bin's
+rows in row order from 0).  It is the plain version of the float64
+kernels 1-f64 and 1''-f64.
 """
 
 from __future__ import annotations
@@ -53,14 +61,25 @@ def take_bins(bins: torch.Tensor, dim: int, idx: torch.Tensor
     return bins.index_select(dim, idx)
 
 
+def _row_stats(grad: torch.Tensor, hess: torch.Tensor, mask: torch.Tensor,
+               dt: torch.dtype) -> torch.Tensor:
+    """[n, 3] (g·m, h·m, m) in ``dt``, each row stat widened to ``dt``
+    before the product."""
+    m = mask.to(dt)
+    return torch.stack([grad.to(dt) * m, hess.to(dt) * m, m], dim=-1)
+
+
 def histogram_feature_major(bins_T: torch.Tensor, grad: torch.Tensor,
                             hess: torch.Tensor, mask: torch.Tensor,
-                            num_bins: int) -> torch.Tensor:
+                            num_bins: int,
+                            acc_dtype: Optional[torch.dtype] = None
+                            ) -> torch.Tensor:
     """``bins_T`` [F, n] integer bins (feature-major); ``grad``/``hess``/
-    ``mask`` [n].  Returns [F, num_bins, 3] in ``grad``'s dtype."""
+    ``mask`` [n].  Returns [F, num_bins, 3] in ``acc_dtype`` (default:
+    ``grad``'s dtype)."""
     F, n = bins_T.shape
-    dev, dt = grad.device, grad.dtype
-    stats = torch.stack([grad * mask, hess * mask, mask.to(dt)], dim=-1)
+    dev, dt = grad.device, acc_dtype or grad.dtype
+    stats = _row_stats(grad, hess, mask, dt)
     offs = torch.arange(F, device=dev)[:, None] * num_bins
     out = torch.zeros(F * num_bins, 3, dtype=dt, device=dev)
     for r0 in range(0, n, CHUNK_ROWS):
@@ -140,17 +159,19 @@ def level_layout(leaf_id: torch.Tensor, num_leaves: int) -> LevelLayout:
 def histogram_by_leaf_sorted_plain(bins_T: torch.Tensor,
                                    leaf_id: torch.Tensor, grad: torch.Tensor,
                                    hess: torch.Tensor, mask: torch.Tensor,
-                                   num_bins: int,
-                                   num_leaves: int) -> torch.Tensor:
-    """The plain version of kernels 1'' and 2: ``bins_T`` [F, n] integer
-    bins; ``leaf_id`` [n]; ``grad``/``hess``/``mask`` [n].  Returns [L, F,
-    num_bins, 3] in ``grad``'s dtype, summed in ``level_layout``'s chunk
-    order (``index_add_`` adds each source row in order on the CPU)."""
+                                   num_bins: int, num_leaves: int,
+                                   acc_dtype: Optional[torch.dtype] = None
+                                   ) -> torch.Tensor:
+    """The plain version of kernels 1'', 2 and 1''-f64: ``bins_T`` [F, n]
+    integer bins; ``leaf_id`` [n]; ``grad``/``hess``/``mask`` [n].
+    Returns [L, F, num_bins, 3] in ``acc_dtype`` (default: ``grad``'s
+    dtype), summed in ``level_layout``'s chunk order (``index_add_`` adds
+    each source row in order on the CPU)."""
     F, n = bins_T.shape
     L = num_leaves
     lay = level_layout(leaf_id, L)
-    dev, dt = grad.device, grad.dtype
-    stats = torch.stack([grad * mask, hess * mask, mask.to(dt)], dim=-1)
+    dev, dt = grad.device, acc_dtype or grad.dtype
+    stats = _row_stats(grad, hess, mask, dt)
     stats = stats.index_select(0, lay.order)  # [n, 3] in sorted order
     sl = lay.sorted_leaf.to(torch.int64)
     pos = torch.arange(n, device=dev)

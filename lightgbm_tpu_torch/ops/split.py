@@ -176,10 +176,12 @@ def find_best_split(hist, sum_grad, sum_hess, num_data, feature_mask,
 
 def search2_rows(h_left: torch.Tensor, h_right: torch.Tensor,
                  scal: Sequence[float], meta: torch.Tensor) -> torch.Tensor:
-    """Both children's best splits as the [2, 16] float32 rows of
-    pallas_search._unpack.  ``scal`` = (can, lsg, lsh, lc, rsg, rsh, rc,
-    min_data, min_hess, l1, l2, min_gain); ``meta`` [F, 4] int32 =
-    (feature_mask, num_bins, is_categorical, 0)."""
+    """Both children's best splits as the [2, 16] rows of
+    pallas_search._unpack, in the histograms' dtype (float32, or float64
+    under hist_dtype=float64, as the JAX package's ``_sr_row(..., acc_dt)``).
+    ``scal`` = (can, lsg, lsh, lc, rsg, rsh, rc, min_data, min_hess, l1,
+    l2, min_gain); ``meta`` [F, 4] int32 = (feature_mask, num_bins,
+    is_categorical, 0)."""
     can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = scal
     dt, dev = h_left.dtype, h_left.device
     res = find_best_split_leaves(
@@ -189,8 +191,8 @@ def search2_rows(h_left: torch.Tensor, h_right: torch.Tensor,
         torch.tensor([lc, rc], dtype=dt, device=dev),
         meta[:, 0] > 0, meta[:, 1], meta[:, 2] > 0, md, mh, l1, l2, mg,
         torch.tensor([bool(can), bool(can)], device=dev))
-    out = torch.zeros((2, 16), dtype=torch.float32, device=dev)
-    out[:, :11] = torch.stack([a.to(torch.float32) for a in res], dim=1)
+    out = torch.zeros((2, 16), dtype=dt, device=dev)
+    out[:, :11] = torch.stack([a.to(dt) for a in res], dim=1)
     return out
 
 

@@ -104,7 +104,7 @@ def rank_data(nq: int, seed: int = 29):
 
 def workload(objective: str, rows: int = ROWS, n_valid: int = 0,
              growth: str = "leafwise", pool_mb: float = 0.0,
-             boosting: str = "gbdt"):
+             boosting: str = "gbdt", hist_dtype: str = "float32"):
     """chip_smoke.py's main path for ``objective``: (params, (X, y, query
     sizes or None), (X_valid, y_valid) or None).
 
@@ -115,13 +115,14 @@ def workload(objective: str, rows: int = ROWS, n_valid: int = 0,
     valid rows from the same generator; LambdaRank on
     ``rank_data(RANK_QUERIES)`` with tools/bench_lambdarank.py's 31
     leaves and min_data_in_leaf 50 (no valid rows).  ``growth``,
-    ``pool_mb`` and ``boosting`` set tree_growth, histogram_pool_size and
-    boosting_type (DART with its default drop_rate 0.1, skip_drop 0.5,
-    max_drop 50 and drop_seed 4)."""
+    ``pool_mb``, ``boosting`` and ``hist_dtype`` set tree_growth,
+    histogram_pool_size, boosting_type (DART with its default drop_rate
+    0.1, skip_drop 0.5, max_drop 50 and drop_seed 4) and hist_dtype."""
     params = {"objective": objective, "num_leaves": 255, "max_bin": 255,
               "learning_rate": 0.1, "min_data_in_leaf": 100,
               "tree_growth": growth, "histogram_pool_size": pool_mb,
-              "boosting_type": boosting, "verbose": -1}
+              "boosting_type": boosting, "hist_dtype": hist_dtype,
+              "verbose": -1}
     if objective == "lambdarank":
         params.update(num_leaves=31, min_data_in_leaf=50,
                       ndcg_eval_at=[1, 3, 5])

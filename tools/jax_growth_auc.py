@@ -12,6 +12,8 @@
         --objective lambdarank
     JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth leafwise \
         --boosting dart
+    JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth leafwise \
+        --hist-dtype float64
 
 Trains ``lightgbm_tpu`` on the data and config ``chip_smoke.py`` trains
 the port on (both from ``lightgbm_tpu_torch.synthetic.workload``, with its
@@ -37,6 +39,10 @@ the port's within a band of:
 
 ``--boosting dart`` trains DART (its default drop_rate, skip_drop,
 max_drop and drop_seed) for ``synthetic.DART_ROUNDS`` rounds instead.
+``--hist-dtype float64`` accumulates histograms and split statistics in
+float64 (``hist_dtype=float64``: the JAX package's segment-sum route
+under x64, no Pallas kernel).  Its depthwise and hybrid growers raise
+under float64 (ROADMAP C9), so only leaf-wise growth takes it.
 
 Multiclass trains with ``forest_batching="off"`` (the JAX package's forest
 lanes, bitwise equal to it, fail under JAX 0.9).  It runs the JAX package
@@ -65,6 +71,8 @@ def main(argv=None) -> int:
                     choices=("leafwise", "depthwise", "hybrid"))
     ap.add_argument("--histogram-pool-size", type=float, default=0.0)
     ap.add_argument("--boosting", default="gbdt", choices=("gbdt", "dart"))
+    ap.add_argument("--hist-dtype", default="float32",
+                    choices=("float32", "float64"))
     ap.add_argument("--rows", type=int, default=None,
                     help="training rows of the bench data (default "
                     "synthetic.ROWS; valid rows a fifth of them)")
@@ -85,11 +93,11 @@ def main(argv=None) -> int:
         args.objective, rows,
         n_valid=0 if args.objective == "lambdarank" else rows // 5,
         growth=args.growth, pool_mb=args.histogram_pool_size,
-        boosting=args.boosting)
+        boosting=args.boosting, hist_dtype=args.hist_dtype)
     rounds = (synthetic.DART_ROUNDS if args.boosting == "dart"
               else synthetic.ROUNDS[args.objective])
     out = {"objective": args.objective, "growth": args.growth,
-           "boosting": args.boosting}
+           "boosting": args.boosting, "hist_dtype": args.hist_dtype}
     if args.objective == "multiclass":
         params["forest_batching"] = "off"
     train_set = lgb.Dataset(X, label=y, group=group,
