@@ -277,12 +277,21 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    (``csrc/histogram.cu``, ``level_histogram.cu``, ``search.cu``): K1-f64
    bitwise its plain version on the CPU (two launches equal, every
    feature's counts summing to the rows) at the 1M-row root of the bench
-   bins, 0, 1, 2,049 and 130,001 rows, u16 x 5000 bins and F = 5 / 29;
-   K1''-f64 on a real level's leaf ids in 255 leaf slots, two thirds of
-   40 leaves empty and u16 x 5000 bins; K3-f64's float64 rows torch.equal
-   to ``search2_rows``'s on the CPU on phase 3's cases; each timed (ms a
-   call, device ms, byte bound and share) beside its plain version, its
-   float32 kernel and, for the histograms, one float64 ``index_add_``;
+   bins, 0, 1, 2,049, 16,384 (one group of chunks), 18,433 and 130,001
+   rows, ~90 % of every feature's rows in one bin (its pass 1 timed),
+   u16 x 5000 bins (100,000 rows, the bin sort's bin-range passes, and
+   140,000 rows, the walk's) and F = 5 / 29 (70,001 rows, and F = 29 again
+   at 140,001; the bin sort below 131,072 rows, the walk from there, each
+   reached); K1''-f64 on a real level's leaf ids
+   in 255 leaf slots, two thirds of 40 leaves empty, leaves of 8, 9 and 17
+   chunks (and of one chunk, one row and none) and u16 x 5000 bins, its
+   chunk and group tables ``level_layout``'s; K3-f64's float64 rows
+   torch.equal to ``search2_rows``'s on the CPU on phase 3's cases; each
+   timed (ms a call, device ms, byte bound and share) beside its plain
+   version, its float32 kernel and, for the histograms, one float64
+   ``index_add_``, with PR 19's sorted design's numbers from PERF.md
+   printed beside for reference (K1-f64 with its passes and its scratch
+   bytes, the wrapper's allocation);
    then the bench model with ``hist_dtype=float64`` leaf-wise (10 trees:
    K1-f64 = K3-f64 = trees + splits, no other kernel, 2 + 2 * splits host
    syncs a tree, AUC within +-0.005 of the JAX package's float64 run) and
@@ -300,7 +309,8 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    that float32 rounded above its float64 bin bound is lowered to the
    float32 below it (ROADMAP C10; the model's own walk differs on the
    rows equal to such a threshold, printed); s/tree, peak memory and
-   K1-f64's root ms there.
+   K1-f64's root ms there, the scratch its wrapper allocates held to at
+   most 1/8 of a partial a chunk (PR 19's design).
 
 The seconds each phase took are printed before the result.
 
@@ -314,6 +324,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -472,13 +483,14 @@ def _index_add_fn(torch, bins, g, h, m, B):
         0, keys, src)
 
 
-def _passes_ms(torch, fn):
-    """Device ms per call of K1/K1''s pass 1 and pass 2 (profiler)."""
+def _passes_ms(torch, fn, pass1="sorted_partial", pass2="hist_reduce"):
+    """Device ms per call of K1/K1''s pass 1 and pass 2 (profiler; K1-f64's
+    pass 1 is ``walk_partial``)."""
     from lightgbm_tpu_torch.profile_slice import device_ms_by_kernel
 
     dev = device_ms_by_kernel(torch, fn)
-    return (sum(v for k, v in dev.items() if "sorted_partial" in k),
-            sum(v for k, v in dev.items() if "hist_reduce" in k))
+    return (sum(v for k, v in dev.items() if pass1 in k),
+            sum(v for k, v in dev.items() if pass2 in k))
 
 
 def phase_histogram(torch):
@@ -1548,31 +1560,6 @@ def phase_trees(torch, lt):
 
 
 # -------------------------------------------------------------- phase 10
-def level_table(torch, ch, bins, lid, g, h, m, num_bins, L):
-    """The chunk table of K1'' from a call of its C entry with a scratch
-    table of our own: (row_start, chunk_start, chunk_row0, chunk_rows,
-    chunk_leaf), the arrays ops/histogram.level_layout builds after its
-    sort."""
-    from lightgbm_tpu_torch.ops.histogram import CHUNK_ROWS
-
-    F, n = bins.shape
-    sorted_leaf, order = torch.sort(lid, stable=True)
-    cap = -(-n // CHUNK_ROWS) + L
-    table = torch.empty(2 * (L + 1) + 3 * cap, dtype=torch.int64,
-                        device="cuda")
-    out = torch.empty((L, F, num_bins, 3), device="cuda")
-    part = torch.empty((cap, F, num_bins, 3), device="cuda")
-    code = ch._level_lib().lgbm_level_hist(
-        bins.data_ptr(), bins.element_size(), g.data_ptr(), h.data_ptr(),
-        m.data_ptr(), order.data_ptr(), sorted_leaf.data_ptr(),
-        sorted_leaf.element_size(), n, F, L, num_bins, 0, table.data_ptr(),
-        part.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    check(code == 0, f"level histogram entry: CUDA error {code}")
-    torch.cuda.synchronize()
-    return table.split([L + 1, L + 1, cap, cap, cap])
-
-
 def phase_level_histogram(torch, train_set):
     """K1'' and K2 against their plain version and each other, at the
     bench shape with a real level's leaf ids, with one leaf, with u16 x
@@ -1632,7 +1619,8 @@ def phase_level_histogram(torch, train_set):
         g, h, m = stats(b.shape[1])
         F = b.shape[0]
         lay = level_layout(lid, L)
-        table = level_table(torch, ch, b, lid, g, h, m, nb, L)
+        _, table = ch._level_launch("lgbm_level_hist", "v1", b, lid, g, h,
+                                    m, nb, L, 0, tables=True)
         check(all(torch.equal(t, x) for t, x in zip(table, lay[2:])),
               f"K1'' {name}: its chunk table differs from level_layout's")
         a = ch.histogram_by_leaf_sorted_cuda(b, lid, g, h, m, nb, L, "v1")
@@ -2989,6 +2977,14 @@ ENVELOPE_ROWS = (1 << 24) + (1 << 20)  # past the float32 count envelope
 ENVELOPE_TREES = {"leafwise": 3, "depthwise": 2}
 ENVELOPE_BLOCK = 1 << 20  # rows drawn at a time
 F64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores
+# the float64 histograms' sorted design, before the walk, as an earlier
+# run of phase 22 measured it (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# section 6), printed for reference and compared with nothing measured
+# here: device ms at the 1M-row root and at 1M rows in 255 leaf slots, the
+# 17,825,792-row root's ms a call, and its partials' bytes there (one a
+# chunk)
+SORTED_F64 = {"K1-f64": 0.4720, "K1″-f64": 0.6673, "envelope_ms": 8.3498,
+            "envelope_partials": 1_491_517_440}
 
 
 @contextlib.contextmanager
@@ -3026,8 +3022,12 @@ def _stats64(torch, rng, n):
 
 def _f64_histogram_holds(torch, bins, nb):
     """K1-f64 bitwise its plain version on the CPU, two launches equal, at
-    the 1M-row root of the bench bins and the edge cases; its times at the
-    root beside K1's, the plain version's and float64 ``index_add_``'s."""
+    the 1M-row root of the bench bins and the edge cases, on both of its
+    pass-1 branches: the bin sort below the library's walk_min_chunks
+    (64) chunks (rows-2049/16384/18433, u16x5000 with its bin-range
+    passes, F5, F29), the walk from there (root, rows-130001, dominant,
+    u16x5000-walk, F29-walk); its times at the root beside K1's, the plain
+    version's and float64 ``index_add_``'s."""
     from lightgbm_tpu_torch.ops import cuda_histogram as ch
     from lightgbm_tpu_torch.ops.histogram import histogram_feature_major
 
@@ -3038,13 +3038,22 @@ def _f64_histogram_holds(torch, bins, nb):
     def rand_bins(Fr, m, B, dt):
         return torch.from_numpy(rng.randint(0, B, (Fr, m)).astype(dt)).cuda()
 
+    dominant = bins[:, :300_000].clone()  # ~90 % of each feature in a bin
+    dominant[torch.from_numpy(rng.rand(F, 300_000) < 0.9).cuda()] = nb // 3
     cases = [("root", bins, nb), ("rows-0", bins[:, :0], nb),
              ("rows-1", bins[:, :1].contiguous(), nb),
              ("rows-2049", bins[:, :2049].contiguous(), nb),
+             ("rows-16384", bins[:, :16_384].contiguous(), nb),
+             ("rows-18433", bins[:, :18_433].contiguous(), nb),
              ("rows-130001", bins[:, :130_001].contiguous(), nb),
+             ("dominant", dominant, nb),
              ("u16x5000", rand_bins(4, 100_000, 5000, np.uint16), 5000),
+             ("u16x5000-walk", rand_bins(4, 140_000, 5000, np.uint16),
+              5000),
              ("F5", rand_bins(5, 70_001, 37, np.uint8), 37),
-             ("F29", rand_bins(29, 70_001, NUM_BINS, np.uint8), NUM_BINS)]
+             ("F29", rand_bins(29, 70_001, NUM_BINS, np.uint8), NUM_BINS),
+             ("F29-walk", rand_bins(29, 140_001, NUM_BINS, np.uint8),
+              NUM_BINS)]
     for name, b, B in cases:
         g, h, m = _stats64(torch, rng, b.shape[1])
         k = ch.histogram_single_leaf_f64_cuda(b, g, h, m, B)
@@ -3060,8 +3069,15 @@ def _f64_histogram_holds(torch, bins, nb):
                           torch.full((b.shape[0],), float(m.sum().item()),
                                      dtype=f64)),
               f"K1-f64 {name}: a feature's counts do not sum to the rows")
+        walk = ch.f64_group_chunks(b.shape[1]) > 1
         say(f"[f64 K1] {name} F={b.shape[0]} rows={b.shape[1]} B={B} "
-            "bitwise: launches, == plain (CPU); counts sum to the rows")
+            f"pass 1={'walk' if walk else 'bin sort'} bitwise: launches, "
+            "== plain (CPU); counts sum to the rows")
+        if name == "dominant":
+            p1, _ = _passes_ms(torch, lambda: ch.histogram_single_leaf_f64_cuda(
+                b, g, h, m, B), "walk_partial")
+            say(f"[f64 K1 times] dominant (~90 % of each feature in one "
+                f"bin) rows={b.shape[1]}: pass1_ms={p1:.4f}")
         if name != "root":
             continue
 
@@ -3083,33 +3099,42 @@ def _f64_histogram_holds(torch, bins, nb):
             F * B, 3, dtype=f64, device="cuda").index_add_(0, keys, src))
         nbytes = F * n * b.element_size() + 12 * n + F * B * 24
         bound = max(nbytes / HBM_BYTES_PER_S, 3 * F * n / F64_FLOPS) * 1e3
-        p1, p2 = _passes_ms(torch, kernel)
-        partial_mb = -(-n // 2048) * F * B * 24 / 1e6
+        p1, p2 = _passes_ms(torch, kernel, "walk_partial")
+        partials = 8 * math.prod(ch.scratch_shape(F, n, B,
+                                                  ch.f64_group_chunks(n)))
         say(f"[f64 K1 times] root F={F} rows={n}: ms={ms:.4f} "
-            f"device_ms={dev_ms:.4f} (pass1_ms={p1:.4f} pass2_ms={p2:.4f}) "
+            f"device_ms={dev_ms:.4f} (pass1_ms={p1:.4f} pass2_ms={p2:.4f}; "
+            f"PR 19's run, PERF.md: {SORTED_F64['K1-f64']:.4f}) "
             f"bound_ms={bound:.5f} ({nbytes} bytes) share={bound / ms:.4f} "
             f"device share={bound / dev_ms:.4f} plain_ms={plain_ms:.4f} "
             f"K1 (float32) ms={f32_ms:.4f} library_ms={lib_ms:.4f} "
             f"(float64 index_add_, not deterministic) "
-            f"partials={partial_mb:.1f} MB")
+            f"group partials={partials} bytes")
         record = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                       bound_ms=bound, library_ms=lib_ms)
         del keys, src
     return record
 
 
+# rows a leaf of phase 22's chunked level: 8, 9 and 17 chunks, one chunk,
+# one row and empty leaves
+CHUNKED_LEAVES = (8 * 2048, 0, 9 * 2048, 17 * 2048, 0, 2048, 1, 0)
+
+
 def _f64_level_holds(torch, bins, nb, nbpf):
-    """K1''-f64 bitwise its plain version on the CPU, two launches equal:
-    the 1M bench rows in 255 leaf slots on a real level's leaf ids (most
-    of them empty), leaves two thirds empty, and u16 x 5000 bins; its times
-    on the real level beside K1'''s, the plain version's and float64
-    ``index_add_``'s on leaf-bin keys."""
+    """K1''-f64 bitwise its plain version on the CPU, two launches equal,
+    its chunk and group tables level_layout's: the 1M bench rows in 255
+    leaf slots on a real level's leaf ids (most of them empty), leaves
+    two thirds empty, leaves of 8, 9 and 17 chunks (and of one chunk, one
+    row, none) and u16 x 5000 bins; its times on the real level beside
+    K1'''s, the plain version's and float64 ``index_add_``'s on leaf-bin
+    keys."""
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.learners.depthwise import grow_tree_depthwise
     from lightgbm_tpu_torch.learners.serial import TreeLearnerParams
     from lightgbm_tpu_torch.ops import cuda_histogram as ch
     from lightgbm_tpu_torch.ops.histogram import (
-        histogram_by_leaf_sorted_plain)
+        histogram_by_leaf_sorted_plain, level_layout)
 
     f64 = torch.float64
     rng = np.random.RandomState(23)
@@ -3126,8 +3151,13 @@ def _f64_level_holds(torch, bins, nb, nbpf):
         np.int32)).cuda()
     many = torch.from_numpy(rng.randint(0, 5000, (4, 100_000)).astype(
         np.uint16)).cuda()
+    chunked = torch.from_numpy(rng.permutation(np.repeat(
+        np.arange(len(CHUNKED_LEAVES)), CHUNKED_LEAVES)).astype(
+            np.int32)).cuda()
     cases = [("level-6", bins, lid6, nb, NUM_LEAVES),
              ("empty-leaves", bins, sparse, nb, 40),
+             ("8-9-17-chunks", bins[:, :chunked.shape[0]].contiguous(),
+              chunked, nb, len(CHUNKED_LEAVES)),
              ("u16x5000", many, torch.from_numpy(rng.randint(
                  0, 64, 100_000).astype(np.int32)).cuda(), 5000, 64)]
     for name, b, lid, B, L in cases:
@@ -3142,10 +3172,18 @@ def _f64_level_holds(torch, bins, nb, nbpf):
                                              h.cpu(), m.cpu(), B, L, f64)
         check(torch.equal(a.cpu(), cpu),
               f"K1''-f64 {name}: differs from its plain version on the CPU")
+        _, table = ch._level_launch("lgbm_level_hist_f64", "float64", b, lid,
+                                    g, h, m, B, L, dtype=f64, tables=True)
+        check(all(torch.equal(t, x) for t, x in zip(
+            table, level_layout(lid, L)[2:])),
+              f"K1''-f64 {name}: its chunk and group tables differ from "
+              "level_layout's")
         live = int((a[:, 0, :, 2].sum(1) > 0).sum())
+        groups = [int(v) for v in table[5].diff().tolist()]
         say(f"[f64 K1''] {name} F={b.shape[0]} rows={b.shape[1]} B={B} "
-            f"L={L} non-empty leaves={live} bitwise: launches, == plain "
-            "(CPU)")
+            f"L={L} non-empty leaves={live} groups a leaf (max)="
+            f"{max(groups)} bitwise: launches, == plain (CPU); tables == "
+            "level_layout's")
         if name != "level-6":
             continue
 
@@ -3170,7 +3208,8 @@ def _f64_level_holds(torch, bins, nb, nbpf):
         nbytes = F * n * b.element_size() + 16 * n + L * F * B * 24
         bound = max(nbytes / HBM_BYTES_PER_S, 3 * F * n / F64_FLOPS) * 1e3
         say(f"[f64 K1'' times] level-6 ({L} leaf slots, {live} non-empty): "
-            f"ms={ms:.4f} device_ms={dev_ms:.4f} bound_ms={bound:.5f} "
+            f"ms={ms:.4f} device_ms={dev_ms:.4f} (PR 19's run, PERF.md: "
+            f"{SORTED_F64['K1″-f64']:.4f}) bound_ms={bound:.5f} "
             f"({nbytes} bytes) share={bound / ms:.4f} device "
             f"share={bound / dev_ms:.4f} plain_ms={plain_ms:.4f} K1'' "
             f"(float32) ms={f32_ms:.4f} library_ms={lib_ms:.4f} (float64 "
@@ -3178,7 +3217,7 @@ def _f64_level_holds(torch, bins, nb, nbpf):
         record = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                       bound_ms=bound, library_ms=lib_ms)
         del keys, src
-    del lid6, sparse, many
+    del lid6, sparse, many, chunked
     return record
 
 
@@ -3436,11 +3475,20 @@ def _envelope(torch, lt, params):
                           "rtol 1e-12 of np.bincount")
             root_ms = time_ms(torch, lambda: ch.histogram_single_leaf_f64_cuda(
                 bins, gd, hd, ones, nb), reps=5, warm=1)
-            partial_gb = -(-n // 2048) * N_FEAT * nb * 24 / 1e9
+            # the scratch the wrapper allocates, against one a chunk
+            partials = 8 * math.prod(ch.scratch_shape(
+                N_FEAT, n, nb, ch.f64_group_chunks(n)))
+            chunked = 8 * math.prod(ch.scratch_shape(N_FEAT, n, nb))
+            check(8 * partials <= chunked,
+                  f"envelope: K1-f64's {partials} bytes of scratch are more "
+                  f"than 1/8 of a partial a chunk's {chunked}")
             say(f"[f64 envelope K1] root over {n} rows: every feature's "
                 f"counts sum to {n}; g/h == np.bincount float64 within "
-                f"rtol 1e-12 (largest {rel:.3g}); ms={root_ms:.4f} "
-                f"partials={partial_gb:.3f} GB")
+                f"rtol 1e-12 (largest {rel:.3g}); ms={root_ms:.4f} (PR 19's "
+                f"run, PERF.md: {SORTED_F64['envelope_ms']:.4f}) scratch="
+                f"{partials} bytes of group partials (<= 1/8 of a partial a "
+                f"chunk's {chunked}; PR 19's run, PERF.md: "
+                f"{SORTED_F64['envelope_partials']})")
             out["root_ms"] = root_ms
             del hist, gd, hd, ones, bins_h, hb
         del bst, gb

@@ -50,15 +50,34 @@
 // single-leaf layout from the window's begin.
 //
 // The float64 variants (hist_dtype=float64: K1-f64 in histogram.cu, K1''-f64
-// in level_histogram.cu) are the same code with Acc = double: the rows are
-// staged as float32, as in K1, but unmasked (Rows::stage<G, kThreads,
-// true>), so shared memory and row bytes are K1's; each bin's run adds
-// (double)g * (double)m, (double)h * (double)m and (double)m in row order
-// from 0.0 (every product of two floats is exact in double), and the
-// partials, their chunk-order sum and the output are double.  The plain
-// versions (ops/histogram.py, acc_dtype=float64) widen the row stats before
-// the product and sum in the same order, so they agree bitwise.  Acc =
-// float instantiates exactly the float32 code.
+// in level_histogram.cu) sum the same float32 rows, staged unmasked, in
+// double: each bin's rows in row order from 0.0, adding the exact products
+// (double)g * (double)m, (double)h * (double)m and (double)m, in two
+// levels: a chunk's partial, then groups of up to kGroupChunks consecutive
+// chunks of a set (a leaf, for K1''-f64) from 0.0 in chunk order, then a
+// set's groups from 0.0 in group order.  At most kGroupChunks chunks
+// (16,384 rows) a set that is the float32 kernels' chunk order; above it
+// the float64 sums change in their last bits.  Two pass-1 kernels keep it:
+//  * hist_sorted with Acc = double (K1-f64 below kWalkMinChunks chunks,
+//    histogram.cu): the bin sort above, each bin's run summed in double,
+//    a partial a chunk, and the groups formed in pass 2;
+//  * walk_partial_kernel, below (K1-f64 from kWalkMinChunks chunks,
+//    K1''-f64): block (f, g) builds group g's partial of feature f.  Each
+//    warp walks one chunk's rows 32 at a time in row order (kWalkAhead
+//    batches loaded ahead); the lanes of equal bin are found with
+//    __match_any_sync, and the lowest of them adds its own row, then the
+//    others' in lane order, to the warp's own [R, 3] accumulator in
+//    shared memory: no sort, no count table and no block barrier inside
+//    the walk.  The block then adds its chunks' accumulators in chunk
+//    order from 0.0 and writes one group partial, or the output itself
+//    when the group is its leaf's only one; pass 2 adds a set's group
+//    partials in group order.  R = min(B, kWalkBins) bins a pass: more
+//    bins walk the chunk once per bin range.  The scratch is
+//    ceil(rows / (kGroupChunks * kChunk)) group partials, an eighth of
+//    one a chunk.
+// The plain versions (ops/histogram.py, acc_dtype=float64, GROUP_CHUNKS)
+// sum in the same two-level order, so they agree bitwise.  Acc = float
+// instantiates exactly the float32 code.
 
 #pragma once
 
@@ -512,9 +531,9 @@ struct Chunks {
   }
 };
 
-// Pass 1 of K1, K1', K1'' and K2 (Acc = float) and of K1-f64 and K1''-f64
-// (Acc = double): block (c, g) writes the partials [c, G*g .. G*g+G-1, B,
-// 3] of [nchunks, F, B, 3].
+// Pass 1 of K1, K1', K1'' and K2 (Acc = float) and of K1-f64 below
+// kWalkMinChunks chunks (Acc = double, histogram.cu): block (c, g) writes
+// the partials [c, G*g .. G*g+G-1, B, 3] of [nchunks, F, B, 3].
 template <typename BinT, int G, int kThreads, typename Rows, typename Acc>
 __global__ void __launch_bounds__(kThreads)
     sorted_partial_kernel(Rows rows, Chunks chunks, int F, int num_bins,
@@ -546,6 +565,255 @@ inline int launch_sorted_partial(const Rows& rows, const Chunks& chunks, int F,
   sorted_partial_kernel<BinT, G, kThreads, Rows, Acc>
       <<<dim3(nchunks, groups), kThreads, smem, s>>>(rows, chunks, F,
                                                      num_bins, partial);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// The float64 pass 1 (K1-f64, K1''-f64): ordered warp walks, a group of
+// chunks a block (the header comment above).
+
+constexpr int kGroupChunks = 8;    // chunks a group partial sums (K)
+constexpr int kWalkThreads = 32 * kGroupChunks;  // one warp a chunk
+constexpr int kWalkBins = 1024;    // bins a warp's accumulator holds
+constexpr int kWalkAhead = 4;      // batches a lane loads ahead (float stats)
+
+// Dynamic shared memory of a walk block over R bins a pass: each warp's
+// [R, 3] accumulator and its [3, 32] batch of products.
+template <typename Acc>
+constexpr int walk_smem(int R) {
+  return kGroupChunks * (R * 3 + 3 * 32) * (int)sizeof(Acc);
+}
+
+// The rows of a walk.  WalkMatrix (K1-f64): feature-major bins [F, n]
+// and float32 g, h, m of row p, read in place, whose products the walk
+// takes.  WalkSorted (K1''-f64): the bins of row order[p] and, at sorted
+// position p, the products g*m, h*m, m themselves (sorted_products_kernel
+// in level_histogram.cu gathers them once for every feature).
+template <typename BinT>
+struct WalkMatrix {
+  using Stat = float;
+  const BinT* bins;
+  int64_t n;
+  const float* g;
+  const float* h;
+  const float* m;
+  __device__ int64_t row(int64_t p) const { return p; }
+};
+
+template <typename BinT>
+struct WalkSorted {
+  using Stat = double;
+  const BinT* bins;
+  int64_t n;
+  const double* g;
+  const double* h;
+  const double* m;
+  const int64_t* order;
+  __device__ int64_t row(int64_t p) const { return order[p]; }
+};
+
+// The groups of a walk: group g is sorted positions [row0, row0 + rows),
+// rows <= kGroupChunks * kChunk, of leaf `leaf`.  From a level's group
+// table (ops/histogram.level_layout; group_start [L+1] each leaf's first
+// group) or, without one, the single-leaf layout of n rows (ngroups groups
+// of leaf 0).  A leaf of one group takes its partial as its output.
+struct WalkGroups {
+  const int64_t* row0;
+  const int64_t* rows;
+  const int64_t* leaf;
+  const int64_t* group_start;
+  int64_t n;
+  int ngroups;
+  __device__ void get(int g, int64_t* r0, int* nr) const {
+    constexpr int64_t kSpan = (int64_t)kGroupChunks * kChunk;
+    if (row0 != nullptr) {
+      *r0 = row0[g];
+      *nr = (int)rows[g];
+    } else {
+      *r0 = (int64_t)g * kSpan;
+      *nr = (int)(n - *r0 < kSpan ? n - *r0 : kSpan);
+    }
+  }
+  // (the group's leaf, whether it is the leaf's only group) of a group
+  // that holds rows
+  __device__ void dest(int g, int64_t* l, bool* only) const {
+    if (row0 != nullptr) {
+      *l = leaf[g];
+      *only = group_start[*l + 1] - group_start[*l] == 1;
+    } else {
+      *l = 0;
+      *only = ngroups == 1;
+    }
+  }
+};
+
+// The lanes of the warp whose key equals this lane's (key in [-1, nb)).
+__device__ __forceinline__ unsigned walk_peers(int key) {
+  return __match_any_sync(0xffffffffu, key);
+}
+
+// Lane `lane`'s row of batch j of a chunk of cr rows from sorted position
+// c0: its bin of feature f (-1 past the chunk) and stats.
+template <typename Rows, typename Stat>
+__device__ __forceinline__ void walk_fetch(const Rows& rows, int64_t c0,
+                                           int cr, int f, int j, int lane,
+                                           int* bin, Stat* g, Stat* h,
+                                           Stat* m) {
+  const int r = j * 32 + lane;
+  if (r < cr) {
+    const int64_t p = c0 + r;
+    *bin = (int)rows.bins[(int64_t)f * rows.n + rows.row(p)];
+    *g = rows.g[p];
+    *h = rows.h[p];
+    *m = rows.m[p];
+  } else {
+    *bin = -1;
+    *g = *h = *m = Stat(0);
+  }
+}
+
+// One warp: bins [b0, b0+nb) of feature f over the chunk of cr rows from
+// sorted position c0, added to acc [nb, 3] (zeroed by the caller): each
+// batch of 32 rows in row order; the lowest lane of each bin adds its own
+// row, then the others' from `st` (the warp's [3, 32] staging, written by
+// those lanes) in lane order, four loads at a time (a missing one adds
+// +0.0, which leaves a sum from 0 unchanged: such a sum is never -0.0).
+// A lane loads its rows kAhead batches ahead.
+template <typename Rows, typename Acc>
+__device__ inline void walk_chunk(const Rows& rows, int64_t c0, int cr,
+                                  int f, int b0, int nb,
+                                  Acc* __restrict__ acc, Acc* st) {
+  using Stat = typename Rows::Stat;
+  constexpr int kAhead = kWalkAhead * 4 / (int)sizeof(Stat);
+  const int lane = threadIdx.x & 31;
+  const int nbatch = (cr + 31) / 32;
+  int kb[kAhead];
+  Stat kg[kAhead], kh[kAhead], km[kAhead];
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a)
+    walk_fetch(rows, c0, cr, f, a, lane, &kb[a], &kg[a], &kh[a], &km[a]);
+  for (int j0 = 0; j0 < nbatch; j0 += kAhead) {
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) {
+      if (j0 + a >= nbatch) break;  // the same for every lane
+      const int b = kb[a] - b0;
+      const int key = b >= 0 && b < nb ? b : -1;
+      Acc vg, vh, vm;
+      if constexpr (sizeof(Stat) == sizeof(float)) {  // exact in double
+        vg = (Acc)kg[a] * (Acc)km[a];
+        vh = (Acc)kh[a] * (Acc)km[a];
+        vm = (Acc)km[a];
+      } else {
+        vg = kg[a];
+        vh = kh[a];
+        vm = km[a];
+      }
+      walk_fetch(rows, c0, cr, f, j0 + a + kAhead, lane, &kb[a], &kg[a],
+                 &kh[a], &km[a]);
+      const unsigned peers = walk_peers(key);
+      const int leader = __ffs(peers) - 1;
+      if (key >= 0 && lane != leader) {
+        st[lane] = vg;
+        st[32 + lane] = vh;
+        st[64 + lane] = vm;
+      }
+      __syncwarp();
+      if (key >= 0 && lane == leader) {
+        Acc* a3 = acc + key * 3;
+        Acc sg = a3[0] + vg, sh = a3[1] + vh, sm = a3[2] + vm;
+        for (unsigned p = peers & (peers - 1); p != 0;) {
+          int i[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            i[k] = p ? __ffs(p) - 1 : -1;
+            p &= p - 1;
+          }
+          Acc xg[4], xh[4], xm[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            xg[k] = i[k] >= 0 ? st[i[k]] : Acc(0);
+            xh[k] = i[k] >= 0 ? st[32 + i[k]] : Acc(0);
+            xm[k] = i[k] >= 0 ? st[64 + i[k]] : Acc(0);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            sg += xg[k];
+            sh += xh[k];
+            sm += xm[k];
+          }
+        }
+        a3[0] = sg;
+        a3[1] = sh;
+        a3[2] = sm;
+      }
+      __syncwarp();  // the adds before the next batch's staging
+    }
+  }
+}
+
+// Pass 1 of K1-f64 and K1''-f64: block (f, g) writes group g's [B, 3]
+// partial of feature f (row g of [ngroups, F, B, 3] `partial`, or its
+// leaf's row of [L, F, B, 3] `out` when the group is the leaf's only one):
+// warp w walks the group's chunk w into its own accumulator, then the
+// block adds the chunks' accumulators in chunk order from 0.  A group of
+// no rows (an empty leaf's, the table's unused tail) writes nothing.  R
+// bins a pass (R <= kWalkBins).
+template <typename Rows, typename Acc>
+__global__ void __launch_bounds__(kWalkThreads)
+    walk_partial_kernel(Rows rows, WalkGroups groups, int F,
+                        int num_bins, int R, Acc* __restrict__ partial,
+                        Acc* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int f = blockIdx.x, g = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  int64_t row0;
+  int nrows;
+  groups.get(g, &row0, &nrows);
+  if (nrows == 0) return;
+  int64_t leaf;
+  bool only;
+  groups.dest(g, &leaf, &only);
+  Acc* dst = (only ? out + leaf * F * (int64_t)num_bins * 3
+                   : partial + (int64_t)g * F * num_bins * 3)
+             + (int64_t)f * num_bins * 3;
+  Acc* acc = reinterpret_cast<Acc*>(smem);  // [kGroupChunks, R, 3]
+  Acc* mine = acc + warp * R * 3;
+  Acc* st = acc + kGroupChunks * R * 3 + warp * 96;
+  const int nch = (nrows + kChunk - 1) / kChunk;
+  const int cr = warp < nch ? min(kChunk, nrows - warp * kChunk) : 0;
+  for (int b0 = 0; b0 < num_bins; b0 += R) {
+    const int nb = min(R, num_bins - b0);
+    for (int i = tid & 31; i < nb * 3; i += 32) mine[i] = Acc(0);
+    __syncwarp();
+    if (cr > 0)
+      walk_chunk(rows, row0 + (int64_t)warp * kChunk, cr, f, b0, nb, mine,
+                 st);
+    __syncthreads();
+    for (int i = tid; i < nb * 3; i += kWalkThreads) {
+      Acc s = Acc(0);
+      for (int w = 0; w < nch; ++w) s += acc[w * R * 3 + i];
+      dst[b0 * 3 + i] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// Launches the walk over `ngroups` groups (> 0) of F features (> 0) on `s`;
+// returns 0 or a CUDA error.
+template <typename Rows, typename Acc>
+inline int launch_walk(const Rows& rows, const WalkGroups& groups, int F,
+                       int ngroups, int num_bins, Acc* partial, Acc* out,
+                       cudaStream_t s) {
+  if (ngroups > 65535) return (int)cudaErrorInvalidValue;
+  const int R = num_bins < kWalkBins ? num_bins : kWalkBins;
+  const int smem = walk_smem<Acc>(R);
+  const cudaError_t e = cudaFuncSetAttribute(
+      walk_partial_kernel<Rows, Acc>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  walk_partial_kernel<Rows, Acc>
+      <<<dim3(F, ngroups), kWalkThreads, smem, s>>>(rows, groups, F,
+                                                    num_bins, R, partial, out);
   return (int)cudaGetLastError();
 }
 

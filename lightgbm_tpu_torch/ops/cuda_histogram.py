@@ -34,8 +34,13 @@ the same order.
 rows and returns float64 sums: kernel 1-f64 (``histogram_single_leaf``,
 counted in ``F64_LAUNCHES``) and kernel 1''-f64 (``histogram_by_leaf_sorted``,
 ``LEVEL_F64_LAUNCHES``) on the card, the plain versions with
-``acc_dtype=float64`` on the CPU.  Under float64 the variant is not read:
-the JAX package reaches no kernel there, so there is no float64 kernel 2.
+``acc_dtype=float64`` on the CPU, in the plain versions' two-level order
+(a partial a chunk, summed in groups of ``GROUP_CHUNKS``).  Kernel 1''-f64,
+and kernel 1-f64 on sets of many chunks, walk each chunk's rows in row
+order with one warp and write one partial a group (csrc/hist_chunk.cuh);
+kernel 1-f64 on a smaller set keeps kernel 1's bin sort.
+Under float64 the variant is not read: the JAX package reaches no kernel
+there, so there is no float64 kernel 2.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ import torch
 
 from . import _build
 from . import histogram as plain
-from .histogram import CHUNK_ROWS, histogram_feature_major
+from .histogram import CHUNK_ROWS, GROUP_CHUNKS, histogram_feature_major
 from .record import rec_height
 
 # kernel launches since the last reset (chip_smoke.py reads and resets them)
@@ -100,11 +105,16 @@ def _lib():
         lib.lgbm_hist_single_leaf_f64.restype = _I
         lib.lgbm_hist_single_leaf_f64.argtypes = [
             _VP, _I, _VP, _VP, _VP, _I, _I64, _I, _VP, _VP, _VP]
-        lib.lgbm_hist_chunk_rows.restype = _I
-        lib.lgbm_hist_chunk_rows.argtypes = []
-        if lib.lgbm_hist_chunk_rows() != CHUNK_ROWS:
-            raise RuntimeError("csrc/histogram.cu kChunk differs from "
-                               "ops/histogram.py CHUNK_ROWS")
+        for fn in (lib.lgbm_hist_chunk_rows, lib.lgbm_hist_group_chunks,
+                   lib.lgbm_hist_walk_min_chunks):
+            fn.restype = _I
+            fn.argtypes = []
+        if (lib.lgbm_hist_chunk_rows() != CHUNK_ROWS
+                or lib.lgbm_hist_group_chunks() != GROUP_CHUNKS):
+            raise RuntimeError("csrc/histogram.cu kChunk/kGroupChunks differ "
+                               "from ops/histogram.py CHUNK_ROWS/"
+                               "GROUP_CHUNKS")
+        lib.walk_min_chunks = lib.lgbm_hist_walk_min_chunks()
         lib._typed = True
     return lib
 
@@ -119,17 +129,20 @@ def _level_lib():
         lib.lgbm_level_hist_f64.restype = _I
         lib.lgbm_level_hist_f64.argtypes = [
             _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I64, _I, _I, _I, _VP, _VP,
-            _VP, _VP]
+            _VP, _VP, _VP]
         lib.lgbm_hist_single_leaf_bsub.restype = _I
         lib.lgbm_hist_single_leaf_bsub.argtypes = [
             _VP, _I, _VP, _VP, _VP, _I, _I64, _I, _VP, _VP, _VP]
-        for fn in (lib.lgbm_level_hist_chunk_rows, lib.lgbm_level_hist_group):
+        for fn in (lib.lgbm_level_hist_chunk_rows, lib.lgbm_level_hist_group,
+                   lib.lgbm_level_hist_group_chunks):
             fn.restype = _I
             fn.argtypes = []
         if (lib.lgbm_level_hist_chunk_rows() != CHUNK_ROWS
-                or lib.lgbm_level_hist_group() != BSUB_GROUP):
-            raise RuntimeError("csrc/level_histogram.cu kChunk/kGroup differ "
-                               "from CHUNK_ROWS/BSUB_GROUP")
+                or lib.lgbm_level_hist_group() != BSUB_GROUP
+                or lib.lgbm_level_hist_group_chunks() != GROUP_CHUNKS):
+            raise RuntimeError("csrc/level_histogram.cu kChunk/kGroup/"
+                               "kGroupChunks differ from CHUNK_ROWS/"
+                               "BSUB_GROUP/GROUP_CHUNKS")
         lib._typed = True
     return lib
 
@@ -201,16 +214,33 @@ def histogram_single_leaf_cuda(bins_T, grad, hess, mask, num_bins):
 
 def histogram_single_leaf_f64_cuda(bins_T, grad, hess, mask, num_bins):
     """Kernel 1-f64 on the card (raises on anything it does not take):
-    kernel 1's passes over the same float32 rows, summed in float64; the
-    [ceil(cap / 2048), F, num_bins, 3] float64 partials are scratch."""
+    the same float32 rows summed in float64; the float64 partials are
+    scratch, [ceil(cap / 2048), F, num_bins, 3] below the library's
+    ``walk_min_chunks`` chunks (kernel 1's bin sort), else a partial a
+    group of ``GROUP_CHUNKS`` chunks (the walk)."""
     global F64_LAUNCHES
     F, cap, bin_bytes = _check_rows(bins_T, grad, hess, mask, num_bins)
     out = _launch(_lib().lgbm_hist_single_leaf_f64, "float64 histogram "
                   "kernel", bins_T.device, F, cap, num_bins, bins_T.data_ptr(),
                   bin_bytes, grad.data_ptr(), hess.data_ptr(),
-                  mask.data_ptr(), F, cap, num_bins, dtype=torch.float64)
+                  mask.data_ptr(), F, cap, num_bins, dtype=torch.float64,
+                  group=f64_group_chunks(cap))
     F64_LAUNCHES += 1
     return out
+
+
+def f64_group_chunks(cnt):
+    """The chunks kernel 1-f64 sums into each scratch partial over ``cnt``
+    rows: 1 below the library's ``walk_min_chunks`` chunks (the bin sort),
+    else ``GROUP_CHUNKS`` (the walk)."""
+    walk = -(-cnt // CHUNK_ROWS) >= _lib().walk_min_chunks
+    return GROUP_CHUNKS if walk else 1
+
+
+def scratch_shape(F, cnt, num_bins, group=1):
+    """The [parts, F, num_bins, 3] scratch of a single-leaf histogram over
+    ``cnt`` rows: a partial for each ``group`` chunks."""
+    return (-(-cnt // (CHUNK_ROWS * group)), F, num_bins, 3)
 
 
 def histogram_single_leaf_bsub_cuda(bins_T, grad, hess, mask, num_bins):
@@ -280,8 +310,8 @@ def histogram_by_leaf_sorted_cuda(bins_T, leaf_id, grad, hess, mask,
 def histogram_by_leaf_sorted_f64_cuda(bins_T, leaf_id, grad, hess, mask,
                                       num_bins, num_leaves):
     """Kernel 1''-f64 on the card (raises on anything it does not take):
-    kernel 1'''s sort, chunk table and passes over the same float32 rows,
-    summed in float64."""
+    kernel 1'''s sort and chunk table, with each leaf's chunks in groups,
+    and the same float32 rows summed in float64 a group a block."""
     global LEVEL_F64_LAUNCHES
     out = _level_launch("lgbm_level_hist_f64", "float64", bins_T,
                         leaf_id, grad, hess, mask, num_bins, num_leaves,
@@ -291,11 +321,18 @@ def histogram_by_leaf_sorted_f64_cuda(bins_T, leaf_id, grad, hess, mask,
 
 
 def _level_launch(entry, what, bins_T, leaf_id, grad, hess, mask,
-                  num_bins, num_leaves, *variant, dtype=torch.float32):
+                  num_bins, num_leaves, *variant, dtype=torch.float32,
+                  tables=False):
     """Checks, scratch in ``dtype`` and the launch of the level library's
     C entry named ``entry`` (``lgbm_level_hist`` with its ``variant``
-    flag: kernel 1'' or 2; ``lgbm_level_hist_f64``: kernel 1''-f64);
-    returns the [num_leaves, F, num_bins, 3] output."""
+    flag: kernel 1'' or 2, the chunk table and a partial a chunk;
+    ``lgbm_level_hist_f64``: kernel 1''-f64, the group table after the
+    chunk table, the rows' [3, n] products in sorted order and a partial
+    a group); returns the [num_leaves, F, num_bins, 3] output, and with
+    ``tables`` also the kernel's tables as it left them: (row_start,
+    chunk_start, chunk_row0, chunk_rows, chunk_leaf[, group_start,
+    group_row0, group_rows, group_leaf]), level_layout's arrays after its
+    sort."""
     F, n, bin_bytes = _check_rows(bins_T, grad, hess, mask, num_bins)
     dev = bins_T.device
     if leaf_id.device != dev or leaf_id.shape != (n,) \
@@ -307,11 +344,16 @@ def _level_launch(entry, what, bins_T, leaf_id, grad, hess, mask,
     # the prep of ops/histogram.level_layout: the stable sort here, the
     # chunk table (level_layout's other arrays) in the kernel's scratch
     sorted_leaf, order = torch.sort(leaf_id, stable=True)
-    nchunks = (n + CHUNK_ROWS - 1) // CHUNK_ROWS + num_leaves
-    table = torch.empty(2 * (num_leaves + 1) + 3 * nchunks,
-                        dtype=torch.int64, device=dev)
+    nparts = (n + CHUNK_ROWS - 1) // CHUNK_ROWS + num_leaves  # chunks
+    parts = [num_leaves + 1] * 2 + [nparts] * 3
+    products = []
+    if dtype == torch.float64:
+        nparts = -(-n // (CHUNK_ROWS * GROUP_CHUNKS)) + num_leaves  # groups
+        parts += [num_leaves + 1] + [nparts] * 3
+        products = [torch.empty((3, n), dtype=dtype, device=dev)]
+    table = torch.empty(sum(parts), dtype=torch.int64, device=dev)
     out = torch.empty((num_leaves, F, num_bins, 3), dtype=dtype, device=dev)
-    partial = torch.empty((nchunks, F, num_bins, 3), dtype=dtype,
+    partial = torch.empty((nparts, F, num_bins, 3), dtype=dtype,
                           device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -319,21 +361,21 @@ def _level_launch(entry, what, bins_T, leaf_id, grad, hess, mask,
             bins_T.data_ptr(), bin_bytes, grad.data_ptr(), hess.data_ptr(),
             mask.data_ptr(), order.data_ptr(), sorted_leaf.data_ptr(),
             sorted_leaf.element_size(), n, F, num_leaves, num_bins,
-            *variant, table.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            stream)
+            *variant, table.data_ptr(), *[t.data_ptr() for t in products],
+            partial.data_ptr(), out.data_ptr(), stream)
     _build.check(code, f"level histogram kernel ({what})")
-    return out
+    return (out, table.split(parts)) if tables else out
 
 
-def _launch(entry, what, dev, F, cnt, num_bins, *args, dtype=torch.float32):
-    """Allocate the output and the per-chunk scratch in ``dtype``, call
-    the C entry on the current stream (``args`` then the two buffers and
-    the stream) and raise on a launch error.  Returns the [F, num_bins, 3]
-    output."""
-    nchunks = (cnt + CHUNK_ROWS - 1) // CHUNK_ROWS
+def _launch(entry, what, dev, F, cnt, num_bins, *args, dtype=torch.float32,
+            group=1):
+    """Allocate the output and the scratch in ``dtype`` (a partial for
+    each ``group`` chunks), call the C entry on the current stream
+    (``args`` then the two buffers and the stream) and raise on a launch
+    error.  Returns the [F, num_bins, 3] output."""
     out = torch.empty((F, num_bins, 3), dtype=dtype, device=dev)
-    partial = torch.empty((nchunks, F, num_bins, 3), dtype=dtype,
-                          device=dev)
+    partial = torch.empty(scratch_shape(F, cnt, num_bins, group),
+                          dtype=dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = entry(*args, partial.data_ptr(), out.data_ptr(), stream)

@@ -28,12 +28,17 @@ CPU reduction order (``xla_sum``, which the LambdaRank gradients use
 too).
 
 ``acc_dtype=torch.float64`` (``hist_dtype=float64``, the reference's
-double accumulation) sums the same rows in the same order in float64:
-the float32 row stats are widened first, so each product g·m and h·m of
-two float32 values is exact, and at most ``CHUNK_ROWS`` rows a leaf the
-sums are the JAX package's float64 ``segment_sum`` bitwise (each bin's
-rows in row order from 0).  It is the plain version of the float64
-kernels 1-f64 and 1''-f64.
+double accumulation) sums the same rows in float64: the float32 row
+stats are widened first, so each product g·m and h·m of two float32
+values is exact.  Each block is summed as above, then the blocks in
+groups of ``GROUP_CHUNKS`` consecutive blocks of a set (a leaf), each
+group from 0 in block order, then a set's group sums in group order
+(the float64 kernels' two-level order: one partial a group, not a
+block).  At most ``CHUNK_ROWS`` rows a leaf the sums are the JAX
+package's float64 ``segment_sum`` bitwise (each bin's rows in row order
+from 0), and at most ``GROUP_CHUNKS`` blocks a leaf they are the
+float32 order's.  It is the plain version of the float64 kernels 1-f64
+and 1''-f64.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ from .record import unpack_window
 
 # rows per block; must equal kChunk in csrc/hist_chunk.cuh
 CHUNK_ROWS = 2048
+# blocks a float64 group sums; must equal kGroupChunks in csrc/hist_chunk.cuh
+GROUP_CHUNKS = 8
 # XLA's CPU tree-reduction window (the order of ``xla_sum``)
 REDUCE_WINDOW = 32
 
@@ -76,18 +83,22 @@ def histogram_feature_major(bins_T: torch.Tensor, grad: torch.Tensor,
                             ) -> torch.Tensor:
     """``bins_T`` [F, n] integer bins (feature-major); ``grad``/``hess``/
     ``mask`` [n].  Returns [F, num_bins, 3] in ``acc_dtype`` (default:
-    ``grad``'s dtype)."""
+    ``grad``'s dtype); float64 in groups of ``GROUP_CHUNKS`` blocks."""
     F, n = bins_T.shape
     dev, dt = grad.device, acc_dtype or grad.dtype
     stats = _row_stats(grad, hess, mask, dt)
     offs = torch.arange(F, device=dev)[:, None] * num_bins
     out = torch.zeros(F * num_bins, 3, dtype=dt, device=dev)
-    for r0 in range(0, n, CHUNK_ROWS):
-        r1 = min(n, r0 + CHUNK_ROWS)
-        keys = bins_T[:, r0:r1].to(torch.int64) + offs
-        part = torch.zeros_like(out)
-        part.index_add_(0, keys.reshape(-1), stats[r0:r1].repeat(F, 1))
-        out += part
+    span = CHUNK_ROWS * (GROUP_CHUNKS if dt == torch.float64 else 1)
+    for g0 in range(0, n, span):
+        group = None  # (0 + p_0) + p_1 + ... == p_0 + p_1 + ...: p_0 != -0
+        for r0 in range(g0, min(n, g0 + span), CHUNK_ROWS):
+            r1 = min(n, r0 + CHUNK_ROWS)
+            keys = bins_T[:, r0:r1].to(torch.int64) + offs
+            part = torch.zeros_like(out)
+            part.index_add_(0, keys.reshape(-1), stats[r0:r1].repeat(F, 1))
+            group = part if group is None else group.add_(part)
+        out += group
     return out.reshape(F, num_bins, 3)
 
 
@@ -117,10 +128,15 @@ class LevelLayout(NamedTuple):
     (with no rows).  Per chunk, for a static capacity of ceil(n /
     CHUNK_ROWS) + L chunks: ``chunk_row0`` (first sorted position),
     ``chunk_rows`` (row count) and ``chunk_leaf`` (L for the unused tail).
-    Every entry is computed on the leaf ids' device; nothing is read back
-    to the host.  On the card kernels 1'' and 2 build the same chunk table
-    themselves (csrc/level_histogram.cu ``layout_kernel``) after the same
-    stable sort."""
+    The group table of the float64 sums is the same over groups of up to
+    ``GROUP_CHUNKS`` of a leaf's chunks, max(ceil(rows / (CHUNK_ROWS *
+    GROUP_CHUNKS)), 1) a leaf: ``group_start`` [L+1] and, for a capacity
+    of ceil(n / (CHUNK_ROWS * GROUP_CHUNKS)) + L groups, ``group_row0``,
+    ``group_rows`` and ``group_leaf``.  Every entry is computed on the
+    leaf ids' device; nothing is read back to the host.  On the card
+    kernels 1'', 2 and 1''-f64 build the same tables themselves
+    (csrc/level_histogram.cu ``layout_kernel``) after the same stable
+    sort."""
 
     order: torch.Tensor
     sorted_leaf: torch.Tensor
@@ -129,31 +145,42 @@ class LevelLayout(NamedTuple):
     chunk_row0: torch.Tensor
     chunk_rows: torch.Tensor
     chunk_leaf: torch.Tensor
+    group_start: torch.Tensor
+    group_row0: torch.Tensor
+    group_rows: torch.Tensor
+    group_leaf: torch.Tensor
+
+
+def _leaf_units(row_start: torch.Tensor, n: int, unit: int):
+    """Each leaf's rows in units of ``unit`` sorted rows, at least one a
+    leaf: (start [L+1], and for ceil(n / unit) + L units their first row,
+    row count and leaf, L for the unused tail)."""
+    L, dev = row_start.shape[0] - 1, row_start.device
+    counts = row_start[1:] - row_start[:-1]
+    per_leaf = torch.clamp((counts + unit - 1) // unit, min=1)
+    start = torch.cat([torch.zeros(1, dtype=per_leaf.dtype, device=dev),
+                       torch.cumsum(per_leaf, 0)])
+    c = torch.arange((n + unit - 1) // unit + L, device=dev)
+    leaf = torch.searchsorted(start, c, right=True) - 1  # L: the tail
+    lc = leaf.clamp(max=L - 1)
+    k = (c - start[lc]) * unit  # rows of the leaf before this unit
+    used = leaf < L
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    row0 = torch.where(used, row_start[lc] + k, zero)
+    rows = torch.where(used, (counts[lc] - k).clamp(0, unit), zero)
+    return start, row0.contiguous(), rows.contiguous(), leaf
 
 
 def level_layout(leaf_id: torch.Tensor, num_leaves: int) -> LevelLayout:
     """``leaf_id`` [n] integer leaf per row, every id in [0, num_leaves)."""
-    n, L, C = leaf_id.shape[0], num_leaves, CHUNK_ROWS
-    dev = leaf_id.device
+    n, L = leaf_id.shape[0], num_leaves
     sorted_leaf, order = torch.sort(leaf_id, stable=True)
-    ids = torch.arange(L + 1, dtype=sorted_leaf.dtype, device=dev)
+    ids = torch.arange(L + 1, dtype=sorted_leaf.dtype, device=leaf_id.device)
     row_start = torch.searchsorted(sorted_leaf, ids)  # [L+1] int64
-    counts = row_start[1:] - row_start[:-1]
-    per_leaf = torch.clamp((counts + C - 1) // C, min=1)
-    chunk_start = torch.cat([torch.zeros(1, dtype=per_leaf.dtype,
-                                         device=dev),
-                             torch.cumsum(per_leaf, 0)])
-    c = torch.arange((n + C - 1) // C + L, device=dev)
-    leaf = torch.searchsorted(chunk_start, c, right=True) - 1  # L: the tail
-    lc = leaf.clamp(max=L - 1)
-    k = (c - chunk_start[lc]) * C  # rows of the leaf before this chunk
-    used = leaf < L
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    chunk_row0 = torch.where(used, row_start[lc] + k, zero)
-    chunk_rows = torch.where(used, (counts[lc] - k).clamp(0, C), zero)
-    return LevelLayout(order, sorted_leaf, row_start, chunk_start,
-                       chunk_row0.contiguous(), chunk_rows.contiguous(),
-                       leaf)
+    return LevelLayout(order, sorted_leaf, row_start,
+                       *_leaf_units(row_start, n, CHUNK_ROWS),
+                       *_leaf_units(row_start, n,
+                                    CHUNK_ROWS * GROUP_CHUNKS))
 
 
 def histogram_by_leaf_sorted_plain(bins_T: torch.Tensor,
@@ -165,8 +192,8 @@ def histogram_by_leaf_sorted_plain(bins_T: torch.Tensor,
     """The plain version of kernels 1'', 2 and 1''-f64: ``bins_T`` [F, n]
     integer bins; ``leaf_id`` [n]; ``grad``/``hess``/``mask`` [n].
     Returns [L, F, num_bins, 3] in ``acc_dtype`` (default: ``grad``'s
-    dtype), summed in ``level_layout``'s chunk order (``index_add_`` adds
-    each source row in order on the CPU)."""
+    dtype), summed in ``level_layout``'s chunk order, float64 through its
+    groups (``index_add_`` adds each source row in order on the CPU)."""
     F, n = bins_T.shape
     L = num_leaves
     lay = level_layout(leaf_id, L)
@@ -182,8 +209,19 @@ def histogram_by_leaf_sorted_plain(bins_T: torch.Tensor,
         keys = ((chunk * F + f) * num_bins
                 + bins_T[f].to(torch.int64)[lay.order])
         part.index_add_(0, keys, stats)
+    part = part.reshape(nchunks, -1)
+    leaf = lay.chunk_leaf
+    if dt == torch.float64:  # each leaf's chunks in groups, then the groups
+        lc = leaf.clamp(max=L - 1)
+        group = torch.where(
+            leaf < L, lay.group_start[lc]
+            + (torch.arange(nchunks, device=dev) - lay.chunk_start[lc])
+            // GROUP_CHUNKS, lay.group_leaf.shape[0])
+        part = torch.zeros(lay.group_leaf.shape[0] + 1, part.shape[1],
+                           dtype=dt, device=dev).index_add_(0, group, part)
+        leaf = torch.cat([lay.group_leaf, leaf.new_full((1,), L)])
     out = torch.zeros(L + 1, F * num_bins * 3, dtype=dt, device=dev)
-    out.index_add_(0, lay.chunk_leaf, part.reshape(nchunks, -1))
+    out.index_add_(0, leaf, part)
     return out[:L].reshape(L, F, num_bins, 3)
 
 

@@ -3,6 +3,7 @@
     python -m lightgbm_tpu_torch.profile_slice [--rows N] [--trees T]
         [--growth leafwise|depthwise|hybrid] [--histogram-pool-size MB]
         [--objective binary|regression|multiclass|lambdarank]
+        [--hist-dtype float32|float64]
 
 Trains the bench model (bench.py's config: binary, HIGGS-like rows from
 seed 7, 28 features, 255 bins, 255 leaves) through the port's entry
@@ -22,6 +23,8 @@ of the 255 leaves' histograms) the pooled order route (K1 for children and
 rebuilt parents, K5 per split).  Depthwise runs the level histogram (K1'', or
 K2 under ``LGBM_TPU_HIST_KERNEL=bsub``) once per level; hybrid adds the
 resume's level pass and the order route's K1 + K3 per split.
+``--hist-dtype float64`` sums the histograms in float64: leaf-wise on the
+order route with K1-f64 and K3-f64, depthwise with K1''-f64.
 Prints one JSON object (times "per tree" are per iteration): host wall
 per tree with and without the profiler,
 device busy time per tree (the union of kernel and copy intervals on the
@@ -29,8 +32,9 @@ card), the idle share (1 - busy / wall), the device time per kernel name
 summed over the profiled trees, largest first, the device events
 (kernels and copies) per tree, each ported kernel's launches per
 profiled tree (from the wrappers' counts), the host syncs per profiled
-tree and, for K1 and K1', the median and quartiles of the row counts
-they were launched on (for K8, K6 and K7, of their windows' columns);
+tree and, for K1, K1' and K1-f64, the median and quartiles of the row
+counts they were launched on (for K8, K6 and K7, of their windows'
+columns);
 the columns the partition kernels moved a tree, the bytes K6 and K7 must
 move for them (K6 2(W-1)·4, K7 (2W-1)·4 a column) and the byte bound a
 tree at 3.35 TB/s.
@@ -102,8 +106,9 @@ def _quartiles(xs):
 
 @contextlib.contextmanager
 def _record_rows(rows):
-    """Inside, every K1 / K1' launch appends its row count to
-    ``rows["K1"]`` / ``rows["K1'"]``, and every K8, K6 and K7 launch its
+    """Inside, every K1 / K1' / K1-f64 launch appends its row count to
+    ``rows["K1"]`` / ``rows["K1'"]`` / ``rows["K1-f64"]``, and every K8,
+    K6 and K7 launch its
     window's column count to ``rows["K8"]``, ``rows["K6"]``,
     ``rows["K7"]`` (and the record's height to ``rows["K6 W"]``,
     ``rows["K7 W"]``)."""
@@ -112,12 +117,17 @@ def _record_rows(rows):
     from lightgbm_tpu_torch.ops import cuda_split_step as k8
 
     k1, k1r = ch.histogram_single_leaf_cuda, ch.histogram_record_window_cuda
+    k1d = ch.histogram_single_leaf_f64_cuda
     step = k8.split_step_cuda
     compact, place = cr.compact_cuda, cr.place_cuda
 
     def single(bins_T, *a, **kw):
         rows["K1"].append(int(bins_T.shape[1]))
         return k1(bins_T, *a, **kw)
+
+    def single64(bins_T, *a, **kw):
+        rows["K1-f64"].append(int(bins_T.shape[1]))
+        return k1d(bins_T, *a, **kw)
 
     def window(rec, begin, cnt, *a, **kw):
         rows["K1'"].append(int(cnt))
@@ -138,6 +148,7 @@ def _record_rows(rows):
         return place(rec, comp, counts, begin, pcnt, *a, **kw)
 
     ch.histogram_single_leaf_cuda = single
+    ch.histogram_single_leaf_f64_cuda = single64
     ch.histogram_record_window_cuda = window
     k8.split_step_cuda = split_step
     cr.compact_cuda, cr.place_cuda = compact_cuda, place_cuda
@@ -145,6 +156,7 @@ def _record_rows(rows):
         yield
     finally:
         ch.histogram_single_leaf_cuda = k1
+        ch.histogram_single_leaf_f64_cuda = k1d
         ch.histogram_record_window_cuda = k1r
         k8.split_step_cuda = step
         cr.compact_cuda, cr.place_cuda = compact, place
@@ -172,6 +184,8 @@ def main(argv=None) -> int:
     ap.add_argument("--objective", default="binary",
                     choices=("binary", "regression", "multiclass",
                              "lambdarank"))
+    ap.add_argument("--hist-dtype", default="float32",
+                    choices=("float32", "float64"))
     args = ap.parse_args(argv)
 
     import torch
@@ -187,7 +201,8 @@ def main(argv=None) -> int:
 
     params, (X, y, group), _ = workload(args.objective, args.rows,
                                         growth=args.growth,
-                                        pool_mb=args.histogram_pool_size)
+                                        pool_mb=args.histogram_pool_size,
+                                        hist_dtype=args.hist_dtype)
     ds = lt.Dataset(X, label=y, group=group, max_bin=255, params=params)
     booster = lt.Booster(params=params, train_set=ds)
     booster.update()  # warm
@@ -199,8 +214,8 @@ def main(argv=None) -> int:
     plain_wall = time.perf_counter() - t0
     reset_launch_counts()
     serial.HOST_SYNCS = serial.POOL_RECOMPUTES = 0
-    rows = {"K1": [], "K1'": [], "K8": [], "K6": [], "K7": [], "K6 W": [],
-            "K7 W": []}
+    rows = {"K1": [], "K1'": [], "K1-f64": [], "K8": [], "K6": [], "K7": [],
+            "K6 W": [], "K7 W": []}
     with _record_rows(rows), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -224,6 +239,7 @@ def main(argv=None) -> int:
         "device": torch.cuda.get_device_name(0),
         "objective": args.objective, "rows": gb.num_data,
         "trees": args.trees, "growth": args.growth,
+        "hist_dtype": args.hist_dtype,
         "gradients_device_ms_per_iter": sum(grad_ms.values()),
         "gradients_kernel_ms_per_iter": dict(sorted(
             grad_ms.items(), key=lambda kv: -kv[1])[:8]),

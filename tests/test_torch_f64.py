@@ -5,9 +5,12 @@ kernel under float64, models/gbdt.py:395-399): ``histogram_feature_major``
 and ``histogram_by_leaf`` summed in float64, the jnp search in float64
 and a float64 best-split table, cast to a float32 tree at the end.  The
 port sums the objective's float32 row stats widened to float64, in its
-kernels' 2,048-row chunk order (kernels 1-f64, 1''-f64 and 3-f64 on the
-card, the plain versions here).  At most 2,048 rows a leaf that order is
-each bin's rows in row order, the JAX package's, so:
+kernels' two-level order: each 2,048-row chunk's bins in row order, the
+chunks in groups of GROUP_CHUNKS (8), then a leaf's groups (kernels
+1-f64, 1''-f64 and 3-f64 on the card, the plain versions here; held
+against numpy references of both orders and the group table below).  At
+most 2,048 rows a leaf that order is each bin's rows in row order, the
+JAX package's, so:
 
 * the plain float64 histograms are bitwise the JAX package's there, and
   above it the counts are bitwise and the sums within rtol 1e-12;
@@ -59,6 +62,8 @@ from lightgbm_tpu_torch.ops import cuda_search
 from lightgbm_tpu_torch.ops.cuda_histogram import (histogram_by_leaf_sorted,
                                                    histogram_single_leaf)
 from lightgbm_tpu_torch.ops.cuda_search import pack_meta, search2_rows
+from lightgbm_tpu_torch.ops.histogram import (CHUNK_ROWS, GROUP_CHUNKS,
+                                              level_layout)
 
 F64 = torch.float64
 STRUCT = ("split_feature", "threshold_bin", "decision_type", "left_child",
@@ -143,6 +148,178 @@ def test_level_histogram_matches_jax(n, L, big):
     else:
         np.testing.assert_array_equal(port[..., 2], ref[..., 2])
         np.testing.assert_allclose(port, ref, rtol=1e-12, atol=0)
+
+
+# ------------------------------------------- the two-level float64 order
+def _np_hist(bins, g, h, m, B, dt, group):
+    """numpy reference of the single-set sums in ``dt``: each 2,048-row
+    chunk from 0 with every cell's rows in row order (``np.add.at`` adds
+    in index order), the chunks in groups of ``group`` from 0 in chunk
+    order, the groups from 0 in group order (``group`` 1: the flat chunk
+    order)."""
+    F, n = bins.shape
+    st = np.stack([g.astype(dt) * m.astype(dt), h.astype(dt) * m.astype(dt),
+                   m.astype(dt)], 1)
+    offs = np.arange(F)[:, None] * B
+    out = np.zeros((F * B, 3), dt)
+    for g0 in range(0, n, CHUNK_ROWS * group):
+        grp = np.zeros_like(out)
+        for r0 in range(g0, min(n, g0 + CHUNK_ROWS * group), CHUNK_ROWS):
+            r1 = min(n, r0 + CHUNK_ROWS)
+            part = np.zeros_like(out)
+            np.add.at(part, (bins[:, r0:r1].astype(np.int64) + offs)
+                      .reshape(-1), np.tile(st[r0:r1], (F, 1)))
+            grp += part
+        out += grp
+    return out.reshape(F, B, 3)
+
+
+def _np_level(bins, lid, g, h, m, B, L, dt, group):
+    """The same per leaf, over each leaf's rows in row order (a stable
+    sort of the leaf ids), every leaf summed from 0."""
+    out = np.zeros((L, bins.shape[0], B, 3), dt)
+    for lf in range(L):
+        rows = np.flatnonzero(lid == lf)
+        if rows.size:
+            out[lf] = _np_hist(bins[:, rows], g[rows], h[rows], m[rows], B,
+                               dt, group)
+    return out
+
+
+def _wide_rows(n, F, B, seed):
+    """Rows whose stats span 2**-30 .. 2**30, so that float64 sums round
+    and the two orders part in the last bits."""
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, B, (F, n)).astype(np.uint8)
+    scale = 2.0 ** rng.randint(-30, 30, (2, n))
+    g = (rng.randn(n) * scale[0]).astype(np.float32)
+    h = (np.abs(rng.randn(n)) * scale[1]).astype(np.float32)
+    m = (rng.rand(n) < 0.8).astype(np.float32)
+    return bins, g, h, m
+
+
+@pytest.mark.parametrize("chunks", [1, 8, 9, 10, 17, 40])
+def test_single_leaf_two_level_order(chunks):
+    """The plain float64 single-set histogram (kernel 1-f64's) is the
+    two-level order bitwise: chunks in groups of GROUP_CHUNKS, then the
+    groups.  Up to 9 chunks that is the flat chunk order; from 10 on the
+    sums part from it in the last bits (seen here on wide-range stats).
+    The float32 histogram keeps the flat order bitwise."""
+    n, F, B = chunks * CHUNK_ROWS - 7, 2, 3
+    bins, g, h, m = _wide_rows(n, F, B, seed=chunks)
+    port = histogram_single_leaf(*_t(bins, g, h, m), B, acc_dtype=F64)
+    two = _np_hist(bins, g, h, m, B, np.float64, GROUP_CHUNKS)
+    flat = _np_hist(bins, g, h, m, B, np.float64, 1)
+    np.testing.assert_array_equal(port.numpy(), two)
+    if chunks <= GROUP_CHUNKS + 1:
+        np.testing.assert_array_equal(two, flat)
+    elif chunks >= 17:
+        assert (two != flat).any()
+    np.testing.assert_array_equal(port[..., 2].numpy(), flat[..., 2])
+    np.testing.assert_array_equal(
+        histogram_single_leaf(*_t(bins, g, h, m), B).numpy(),
+        _np_hist(bins, g, h, m, B, np.float32, 1))
+
+
+@pytest.mark.parametrize("chunks", [9, 17, 40])
+def test_single_leaf_many_chunks_match_jax(chunks):
+    """Above GROUP_CHUNKS chunks the plain float64 single-set histogram
+    keeps its counts bitwise the JAX package's and its sums within rtol
+    1e-12."""
+    n, F, B = chunks * CHUNK_ROWS - 3, 3, 11
+    bins, g, h, m = _rows(n, F, B, seed=chunks)
+    port = histogram_single_leaf(*_t(bins, g, h, m), B,
+                                 acc_dtype=F64).numpy()
+    with enable_x64(True):
+        ref = np.asarray(jax_fm(jnp.asarray(bins),
+                                jnp.asarray(g).astype(jnp.float64),
+                                jnp.asarray(h).astype(jnp.float64),
+                                jnp.asarray(m), num_bins=B))
+    np.testing.assert_array_equal(port[..., 2], ref[..., 2])
+    np.testing.assert_allclose(port, ref, rtol=1e-12, atol=0)
+
+
+# leaf -> rows: leaves of exactly 8, 9 and 17 chunks, one of 10, two of one
+# chunk (full and a single row) and an empty one
+LEAF_ROWS = {"8": 8 * CHUNK_ROWS, "9": 9 * CHUNK_ROWS, "17": 17 * CHUNK_ROWS,
+             "10": 9 * CHUNK_ROWS + 1, "1": CHUNK_ROWS, "row": 1, "empty": 0}
+
+
+def _chunked_leaves(seed):
+    """Leaf ids with LEAF_ROWS' leaves, their rows shuffled."""
+    sizes = list(LEAF_ROWS.values())
+    rng = np.random.RandomState(seed)
+    return rng.permutation(np.repeat(np.arange(len(sizes)), sizes)).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["gaussian", "wide"])
+def test_level_two_level_order(wide):
+    """The plain float64 level histogram (kernel 1''-f64's) is each leaf's
+    two-level order bitwise (leaves of 8, 9, 10 and 17 chunks, of one, one
+    row and none), the flat order where a leaf holds at most 9 chunks;
+    against the JAX package's float64 ``histogram_by_leaf`` its counts
+    are bitwise and its sums within rtol 1e-12.  The float32 level
+    histogram keeps the flat order bitwise."""
+    lid = _chunked_leaves(seed=5)
+    n, F, B, L = lid.size, 2, 5, len(LEAF_ROWS)
+    bins, g, h, m = _wide_rows(n, F, B, 6) if wide else _rows(n, F, B,
+                                                              seed=6)
+    port = histogram_by_leaf_sorted(*_t(bins), torch.from_numpy(lid),
+                                    *_t(g, h, m), B, L, acc_dtype=F64).numpy()
+    two = _np_level(bins, lid, g, h, m, B, L, np.float64, GROUP_CHUNKS)
+    flat = _np_level(bins, lid, g, h, m, B, L, np.float64, 1)
+    np.testing.assert_array_equal(port, two)
+    small = [i for i, r in enumerate(LEAF_ROWS.values())
+             if r <= (GROUP_CHUNKS + 1) * CHUNK_ROWS]
+    np.testing.assert_array_equal(two[small], flat[small])
+    if wide:
+        assert (two != flat).any()
+    else:
+        with enable_x64(True):
+            ref = np.asarray(jax_by_leaf(
+                jnp.asarray(bins), jnp.asarray(lid),
+                jnp.asarray(g).astype(jnp.float64),
+                jnp.asarray(h).astype(jnp.float64), jnp.asarray(m),
+                num_bins=B, num_leaves=L))
+        np.testing.assert_array_equal(port[..., 2], ref[..., 2])
+        np.testing.assert_allclose(port, ref, rtol=1e-12, atol=0)
+    f32 = histogram_by_leaf_sorted(*_t(bins), torch.from_numpy(lid),
+                                   *_t(g, h, m), B, L).numpy()
+    np.testing.assert_array_equal(
+        f32, _np_level(bins, lid, g, h, m, B, L, np.float32, 1))
+
+
+@pytest.mark.parametrize("extra_empty", [0, 3])
+def test_level_group_table(extra_empty):
+    """``level_layout``'s group table: each leaf owns max(ceil(chunks /
+    GROUP_CHUNKS), 1) consecutive groups (1, 2 and 3 for leaves of 8, 9
+    and 17 chunks; one for a leaf of one chunk, one row or none) covering
+    its sorted rows in order, at most GROUP_CHUNKS chunks each; the
+    capacity's tail holds no rows."""
+    lid = _chunked_leaves(seed=7)
+    L = len(LEAF_ROWS) + extra_empty
+    lay = level_layout(torch.from_numpy(lid), L)
+    span = CHUNK_ROWS * GROUP_CHUNKS
+    counts = np.bincount(lid, minlength=L)
+    gs, rs = lay.group_start.numpy(), lay.row_start.numpy()
+    per = np.maximum(-(-counts // span), 1)
+    np.testing.assert_array_equal(np.diff(gs), per)
+    assert list(per[:4]) == [1, 2, 3, 2] and (per[4:] == 1).all()
+    gcap = lay.group_leaf.shape[0]
+    assert gcap == -(-lid.size // span) + L >= gs[-1]
+    r0, nr = lay.group_row0.numpy(), lay.group_rows.numpy()
+    for lf in range(L):
+        gi = np.arange(gs[lf], gs[lf + 1])
+        assert (lay.group_leaf.numpy()[gi] == lf).all()
+        np.testing.assert_array_equal(r0[gi], rs[lf] + (gi - gs[lf]) * span)
+        assert nr[gi].sum() == counts[lf] and (nr[gi][:-1] == span).all()
+        # a group's chunks are consecutive chunks of its leaf
+        cs = lay.chunk_start.numpy()
+        assert -(-counts[lf] // CHUNK_ROWS) <= (cs[lf + 1] - cs[lf]) \
+            <= GROUP_CHUNKS * len(gi)
+    assert (lay.group_leaf.numpy()[gs[-1]:] == L).all()
+    assert not nr[gs[-1]:].any() and not r0[gs[-1]:].any()
 
 
 def test_root_sums_match_jax():

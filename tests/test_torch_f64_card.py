@@ -4,8 +4,10 @@ Kernel 1-f64 (``histogram_single_leaf``), kernel 1''-f64
 (``histogram_by_leaf_sorted``) and kernel 3-f64 (``search2_rows`` on
 float64 histograms) are each held bitwise against the plain version on
 the CPU, two launches equal, at shapes that reach the kernels' branches
-(u16 bins above the count table, several chunks, empty chunks and
-leaves, categorical features, every scan level); then float64 training on
+(u16 bins above one walk's bin range, one group of chunks and several,
+a bin that holds ~90 % of the rows, leaves of 8, 9 and 17 chunks, empty
+chunks and leaves, categorical features, every scan level); then float64
+training on
 the card (leaf-wise, pooled, depthwise, hybrid) grows the CPU's trees
 bitwise and launches no float32 histogram or search kernel.  No JAX here
 (tests/test_torch_f64.py holds the plain versions against the JAX
@@ -52,12 +54,23 @@ def _rows(n, F, B, dt, seed):
 @pytest.mark.parametrize("F,n,B,dt", [(28, 0, 255, np.uint8),
                                       (28, 1, 255, np.uint8),
                                       (5, 2049, 37, np.uint8),
+                                      (28, 16_384, 255, np.uint8),
+                                      (28, 18_433, 255, np.uint8),
                                       (29, 130_001, 255, np.uint8),
-                                      (3, 20_000, 5000, np.uint16)],
-                         ids=["0", "1", "2049", "130001", "u16x5000"])
+                                      (3, 20_000, 5000, np.uint16),
+                                      (3, 140_000, 5000, np.uint16),
+                                      (6, 140_001, 255, np.uint8)],
+                         ids=["0", "1", "2049", "16384", "18433", "130001",
+                              "u16x5000", "u16x5000-walk", "dominant"])
 def test_k1_f64_matches_plain(F, n, B, dt):
+    """Both pass-1 kernels of K1-f64: the bin sort below 64 chunks
+    (131,072 rows), the walk from there (130,001 rows, bin-range passes at
+    u16 x 5000, ~90 % of the rows in one bin)."""
     _card()
     cpu = _rows(n, F, B, dt, seed=n)
+    if n == 140_001:  # ~90 % of every feature's rows in one bin
+        keep = torch.from_numpy(np.random.RandomState(1).rand(F, n) < 0.9)
+        cpu[0][keep] = B // 3
     dev = [t.cuda() for t in cpu]
     a = histogram_single_leaf(*dev, B, acc_dtype=F64)
     b = histogram_single_leaf(*dev, B, acc_dtype=F64)
@@ -66,11 +79,19 @@ def test_k1_f64_matches_plain(F, n, B, dt):
                                                       acc_dtype=F64))
 
 
+# leaves of 8, 9 and 17 chunks (16,384, 16,385 and 32,769 rows), of one
+# chunk, one row and none, shuffled
+CHUNKED = (16_384, 0, 16_385, 1, 32_769, 0, 2_000, 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,L,B,dt", [(100_000, 255, 255, np.uint8),
                                       (30_000, 4, 5000, np.uint16),
-                                      (9_000, 40, 63, np.uint8)],
-                         ids=["255-leaves", "u16x5000", "empty-leaves"])
+                                      (9_000, 40, 63, np.uint8),
+                                      (sum(CHUNKED), len(CHUNKED), 255,
+                                       np.uint8)],
+                         ids=["255-leaves", "u16x5000", "empty-leaves",
+                              "8-9-17-chunks"])
 def test_k1pp_f64_matches_plain(n, L, B, dt):
     _card()
     bins, g, h, m = _rows(n, 7, B, dt, seed=L)
@@ -78,6 +99,8 @@ def test_k1pp_f64_matches_plain(n, L, B, dt):
     lid = rng.randint(0, L, n)
     if L == 40:
         lid = 3 * rng.randint(0, L // 3, n)  # two thirds of the leaves empty
+    if L == len(CHUNKED):
+        lid = rng.permutation(np.repeat(np.arange(L), CHUNKED))
     lid = torch.from_numpy(lid.astype(np.int32))
     cpu = (bins, lid, g, h, m)
     dev = [t.cuda() for t in cpu]
