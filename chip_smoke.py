@@ -285,20 +285,29 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
    reached); K1''-f64 on a real level's leaf ids
    in 255 leaf slots, two thirds of 40 leaves empty, leaves of 8, 9 and 17
    chunks (and of one chunk, one row and none) and u16 x 5000 bins, its
-   chunk and group tables ``level_layout``'s; K3-f64's float64 rows
-   torch.equal to ``search2_rows``'s on the CPU on phase 3's cases; each
-   timed (ms a call, device ms, byte bound and share) beside its plain
-   version, its float32 kernel and, for the histograms, one float64
-   ``index_add_``, with PR 19's sorted design's numbers from PERF.md
+   chunk and group tables ``level_layout``'s; K3-f64 on phase 3's cases
+   in float64, on each side of its size switch (one cluster, the
+   ticketed grid): its root form's rows, and its step form's rows and
+   written buffer (small left and right, a resident and a recomputed
+   parent), torch.equal to the plain versions' on the CPU; each timed (ms
+   a call, device ms, byte bound and share) beside its plain version, its
+   float32 kernel and, for the histograms, one float64 ``index_add_``
+   (K3-f64 both forms and both branches, beside the composition its step
+   form replaced), with PR 19's sorted design's numbers from PERF.md
    printed beside for reference (K1-f64 with its passes and its scratch
    bytes, the wrapper's allocation);
    then the bench model with ``hist_dtype=float64`` leaf-wise (10 trees:
-   K1-f64 = K3-f64 = trees + splits, no other kernel, 2 + 2 * splits host
-   syncs a tree, AUC within +-0.005 of the JAX package's float64 run) and
-   depthwise (10 trees: K1''-f64 once a level, AUC within +-0.005 of the
-   float32 depthwise reference at 10 trees; the JAX package's float64
-   depthwise grower raises, ROADMAP C9), with the plain versions made to
-   raise; then
+   K1-f64 = trees + splits, K3-f64's root form = trees, its step form =
+   splits, no other kernel, 2 + 2 * splits host syncs a tree, AUC within
+   +-0.005 of the JAX package's float64 run), depthwise (10 trees:
+   K1''-f64 once a level, AUC within +-0.005 of the float32 depthwise
+   reference at 10 trees; the JAX package's float64 depthwise grower
+   raises, ROADMAP C9), pooled (24 slots of 8-byte cells: K1-f64 also for
+   each rebuilt parent, the step form through ``search2_pool``; AUC within
+   +-0.005 of the JAX package's float64 pooled run) and hybrid (K1''-f64
+   a level and once for the resume, then K1-f64 and the step form a
+   split; AUC within +-0.005 of the float32 hybrid reference, C9), with
+   the plain versions made to raise; then
    2**24 + 2**20 = 17,825,792 bench-shaped rows drawn on the card: float32
    refused naming hist_dtype=float64, float64 trains 3 leaf-wise and 2
    depthwise trees on the float64 kernels only, every leaf count equal to
@@ -350,14 +359,16 @@ ROWS, VALID_ROWS, TREES = 1_000_000, 200_000, 10
 #   JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth leafwise \
 #       --histogram-pool-size 4
 AUC_TRAIN, AUC_VALID, AUC_TOL = 0.8571, 0.8477, 0.005
-# and leaf-wise growth under hist_dtype=float64 (44 s on the CPU),
+# and leaf-wise growth under hist_dtype=float64 (44 s on the CPU), pooled
+# too (46 s; its 24 slots give the unpooled AUCs),
 #   JAX_PLATFORMS=cpu python tools/jax_growth_auc.py --growth leafwise \
-#       --hist-dtype float64
+#       --hist-dtype float64 [--histogram-pool-size 4]
 AUC_REF = {"leafwise": (AUC_TRAIN, AUC_VALID),
            "depthwise": (0.842062, 0.833879),
            "hybrid": (0.852152, 0.843580),
            "pooled": (0.853401, 0.844557),
-           "f64-leafwise": (0.853378, 0.844567)}
+           "f64-leafwise": (0.853378, 0.844567),
+           "f64-pooled": (0.853378, 0.844567)}
 K1PP = "K1″"  # the level histogram's launch counter (ops.KERNEL_COUNTERS)
 POOL_MB = 4.0  # the pooled main path's histogram_pool_size: 48 slots
 RANK_FEAT = 136  # the LambdaRank main path's width (MSLR-WEB10K)
@@ -1256,14 +1267,18 @@ ROUTE_ENV = {"mega": _V1,
              "pooled": _V1,
              "depthwise": _V1,
              "depthwise-bsub": dict(_V1, LGBM_TPU_HIST_KERNEL="bsub"),
-             "hybrid": _V1, "f64-leafwise": _V1, "f64-depthwise": _V1}
+             "hybrid": _V1, "f64-leafwise": _V1, "f64-depthwise": _V1,
+             "f64-pooled": _V1, "f64-hybrid": _V1}
 GROWTH = {"depthwise": "depthwise", "depthwise-bsub": "depthwise",
-          "hybrid": "hybrid",
+          "hybrid": "hybrid", "f64-hybrid": "hybrid",
           "f64-depthwise": "depthwise"}  # every other run grows leaf-wise
 # parameters a route adds to the bench config
 ROUTE_PARAMS = {"pooled": {"histogram_pool_size": POOL_MB},
                 "f64-leafwise": {"hist_dtype": "float64"},
-                "f64-depthwise": {"hist_dtype": "float64"}}
+                "f64-depthwise": {"hist_dtype": "float64"},
+                "f64-pooled": {"hist_dtype": "float64",
+                               "histogram_pool_size": POOL_MB},
+                "f64-hybrid": {"hist_dtype": "float64"}}
 
 
 @contextlib.contextmanager
@@ -1323,11 +1338,18 @@ def _expected(route, trees, levels, level_splits, recomputes):
     n = len(trees)
     counts = dict.fromkeys(KERNEL_COUNTERS, 0)
     growth = GROWTH.get(route, "leafwise")
-    if route.startswith("f64"):  # the float64 kernels only
+    if route.startswith("f64"):  # the float64 kernels only: K3-f64's
+        # root form at each root, its step form at every split
         if growth == "depthwise":
             counts["K1″-f64"] = levels
             return counts, levels
-        counts.update({"K1-f64": n + splits, "K3-f64": n + splits})
+        if growth == "hybrid":
+            tail = splits - level_splits
+            counts.update({"K1″-f64": levels + n, "K1-f64": tail,
+                           "K3-f64 step": tail})
+            return counts, levels + n + 2 * tail
+        counts.update({"K1-f64": n + splits + recomputes, "K3-f64": n,
+                       "K3-f64 step": splits})
         return counts, 2 * n + 2 * splits
     if growth == "depthwise":
         counts["K2" if route.endswith("bsub") else K1PP] = levels
@@ -1402,6 +1424,9 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
         check(TREES <= levels and level_splits <= TREES * NUM_LEAVES // 2,
               f"main {route}: phase 1 ran {levels} levels, "
               f"{level_splits} splits")
+    if route == "f64-pooled":  # 8-byte cells: half the slots
+        check(slots == 24 and recomputes > 0,
+              f"main {route}: {slots} slots, {recomputes} parents rebuilt")
     if route == "pooled":
         check(slots == 48 and recomputes > 0,
               f"main {route}: {slots} slots, {recomputes} parents rebuilt")
@@ -2989,10 +3014,10 @@ SORTED_F64 = {"K1-f64": 0.4720, "K1″-f64": 0.6673, "envelope_ms": 8.3498,
 
 @contextlib.contextmanager
 def plain_versions_raise():
-    """The plain versions of K1-f64, K1''-f64 and K3-f64 replaced by a
-    function that raises, inside: a float64 route on the card must reach
-    only the kernels (the depthwise level search is plain PyTorch ops on
-    every device, H3, and stays)."""
+    """The plain versions of K1-f64, K1''-f64 and K3-f64 (both forms)
+    replaced by a function that raises, inside: a float64 route on the
+    card must reach only the kernels (the depthwise level search is plain
+    PyTorch ops on every device, H3, and stays)."""
     from lightgbm_tpu_torch.ops import cuda_histogram, histogram, split
 
     def raises(*args, **kwargs):
@@ -3002,7 +3027,8 @@ def plain_versions_raise():
     slots = [(cuda_histogram, "histogram_feature_major"),
              (histogram, "histogram_feature_major"),
              (histogram, "histogram_by_leaf_sorted_plain"),
-             (split, "search2_rows")]
+             (split, "search2_rows"), (split, "search2_update"),
+             (split, "search2_pool")]
     saved = [getattr(mod, name) for mod, name in slots]
     for mod, name in slots:
         setattr(mod, name, raises)
@@ -3221,51 +3247,146 @@ def _f64_level_holds(torch, bins, nb, nbpf):
     return record
 
 
+def _k3f64_branches(cuda_search, F, B):
+    """The configurations phase 22 holds kernel 3-f64 in at (F, B):
+    search64_config's choice (None) and the other side of its size switch
+    (the ticketed grid where it picks a cluster; where it picks the grid,
+    the widest cluster, if B allows one)."""
+    if cuda_search.search64_config(F, B)[0] > 0:
+        return [None, (0, 0)]
+    if B <= cuda_search.CLUSTER_BINS:
+        return [None, (cuda_search.MAX_CLUSTER, cuda_search.CLUSTER_WARPS)]
+    return [None]
+
+
+@contextlib.contextmanager
+def _forced_k3f64(cuda_search, config):
+    saved = cuda_search._forced_config
+    cuda_search._forced_config = config
+    try:
+        yield
+    finally:
+        cuda_search._forced_config = saved
+
+
 def _f64_search_holds(torch):
-    """K3-f64's [2, 16] float64 rows torch.equal to ``search2_rows``'s on
-    the CPU on phase 3's cases in float64 (100 random cases and the
-    crafted tie at the bench shape, B = 7 / 300 / 600 / 5000, F = 136 /
-    5000); its times at the bench shape beside K3's and the plain
-    version's."""
-    from lightgbm_tpu_torch.ops import cuda_search
-    from lightgbm_tpu_torch.ops.split import search2_rows
+    """Kernel 3-f64 on phase 3's cases in float64 (100 random cases and
+    the crafted tie at the bench shape, B = 7 / 300 / 600 / 5000, F = 136
+    / 5000), on each side of its size switch: the root form's [2, 16]
+    rows, and the step form's rows and written buffer (small left and
+    right in turn; a resident parent, every fourth case a recomputed one
+    through search2_pool), torch.equal to the plain versions' on the CPU;
+    two launches equal.  Times both forms at the bench shape (ms a call,
+    queued device ms, each branch) beside the plain versions, K3 and the
+    composition the float64 learner ran before the step form (a PyTorch
+    subtraction, the root form, two row copies)."""
+    from lightgbm_tpu_torch.ops import cuda_search, split
 
     rng = np.random.RandomState(1)
     n = 0
+    branch_ms = {}
     for F, B, count in _search_shapes():
-        for hs, fmask, nbpf, iscat, consts in _search_cases(rng, F, B,
-                                                            count):
+        branches = _k3f64_branches(cuda_search, F, B)
+        for i, (hs, fmask, nbpf, iscat, consts) in enumerate(
+                _search_cases(rng, F, B, count)):
             case64 = ([x.astype(np.float64) for x in hs], fmask, nbpf,
                       iscat, consts)
             hl, hr, meta, scal = _case_tensors(torch, case64)
-            k = cuda_search._search2_rows_cuda(hl, hr, scal, meta)
-            p = search2_rows(hl.cpu(), hr.cpu(), scal, meta.cpu())
-            check(k.dtype == torch.float64 and torch.equal(k.cpu(), p),
-                  f"K3-f64 F={F} B={B}: rows differ from the plain "
-                  f"version's:\n{k.tolist()}\n{p.tolist()}")
+            mc, hlc, hrc = meta.cpu(), hl.cpu(), hr.cpu()
+            want = split.search2_rows(hlc, hrc, scal, mc)
+            sil = i % 2 == 0
+            small, smc = (hl, hlc) if sil else (hr, hrc)
+            recomputed = i % 4 == 1
+            buf = torch.zeros((3, F, B, 3), dtype=torch.float64,
+                              device="cuda")
+            parent = hl + hr
+            if not recomputed:
+                buf[1] = parent
+            bp = buf.cpu()
+            wstep = (split.search2_pool(bp, smc, parent.cpu(), 2, 0, sil,
+                                        scal, mc) if recomputed else
+                     split.search2_update(bp, smc, 1, 2, sil, scal, mc))
+            for config in branches:
+                what = f"K3-f64 F={F} B={B} config={config or 'shipped'}"
+                with _forced_k3f64(cuda_search, config):
+                    k = [cuda_search._search2_rows_cuda(hl, hr, scal, meta)
+                         for _ in range(2)]
+                    bk = buf.clone()
+                    rk = (cuda_search.search2_pool(bk, small, parent, 2, 0,
+                                                   sil, scal, meta)
+                          if recomputed else cuda_search.search2_update(
+                              bk, small, 1, 2, sil, scal, meta))
+                check(k[0].dtype == torch.float64 and torch.equal(k[0], k[1])
+                      and torch.equal(k[0].cpu(), want),
+                      f"{what}: root rows differ from the plain version's:"
+                      f"\n{k[0].tolist()}\n{want.tolist()}")
+                check(torch.equal(rk.cpu(), wstep) and torch.equal(bk.cpu(),
+                                                                   bp),
+                      f"{what}: step rows or buffer differ from the plain "
+                      f"version's:\n{rk.tolist()}\n{wstep.tolist()}")
             n += 1
-        _check_tie(k.cpu(), B, f"K3-f64 F={F} B={B}")
+        _check_tie(k[0].cpu(), B, f"K3-f64 F={F} B={B}")  # every branch ==
         if (F, B) == (N_FEAT, NUM_BINS):
-            def kernel(hl=hl, hr=hr, scal=scal, meta=meta):
+            buf[1] = parent
+            step = cuda_search.F64Step(buf, meta)
+
+            def root(hl=hl, hr=hr, scal=scal, meta=meta):
                 return cuda_search._search2_rows_cuda(hl, hr, scal, meta)
 
-            ms = time_ms(torch, kernel)
-            dev_ms = queued_ms(torch, kernel)
-            plain_ms = time_ms(torch, lambda: search2_rows(hl, hr, scal,
-                                                           meta))
+            def step_call(step=step, small=small, scal=scal):
+                return step.update(small, 1, 2, True, scal)
+
+            def composition(buf=buf, small=small, scal=scal, meta=meta):
+                large = buf[1] - small
+                rows = cuda_search._search2_rows_cuda(small, large, scal,
+                                                      meta)
+                buf[1] = small
+                buf[2] = large
+                return rows
+
+            for config in branches:
+                with _forced_k3f64(cuda_search, config):
+                    name = "cluster" if cuda_search.search64_config(
+                        F, B)[0] else "grid"
+                    fresh = cuda_search.F64Step(buf, meta)
+                    branch_ms[name] = (
+                        queued_ms(torch, root),
+                        queued_ms(torch, lambda: fresh.update(
+                            small, 1, 2, True, scal)))
+            t = dict(root_ms=time_ms(torch, root),
+                     root_dev=queued_ms(torch, root),
+                     ms=time_ms(torch, step_call),
+                     dev=queued_ms(torch, step_call),
+                     comp_ms=time_ms(torch, composition),
+                     comp_dev=queued_ms(torch, composition),
+                     plain_root=time_ms(torch, lambda: split.search2_rows(
+                         hl, hr, scal, meta)),
+                     plain_ms=time_ms(torch, lambda: split.search2_update(
+                         buf, small, 1, 2, True, scal, meta)))
             hl32, hr32 = hl.float(), hr.float()
-            f32_ms = time_ms(torch, lambda: cuda_search._search2_rows_cuda(
+            t["f32_ms"] = time_ms(torch, lambda: cuda_search._search2_rows_cuda(
                 hl32, hr32, scal, meta))
+            del step
     F, B = N_FEAT, NUM_BINS
-    nbytes = 2 * F * B * 24 + F * 16 + 2 * 16 * 8
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    say(f"[f64 K3] cases={n} float64 rows torch.equal plain (CPU) "
+    root_bytes = 2 * F * B * 24 + F * 16 + 2 * 16 * 8
+    step_bytes = 4 * F * B * 24 + F * 16 + 2 * 16 * 8
+    root_bound = root_bytes / HBM_BYTES_PER_S * 1e3
+    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"[f64 K3] cases={n} float64 root rows, step rows and buffers "
+        f"torch.equal plain (CPU), each branch of the size switch "
         f"(F=28 x B=255, B={'/'.join(map(str, SCAN_BINS))}, "
-        f"F={RANK_FEAT}/{WIDE_F}); at F=28 x B=255: ms={ms:.4f} "
-        f"device_ms={dev_ms:.4f} bound_ms={bound:.6f} ({nbytes} bytes) "
-        f"plain_ms={plain_ms:.4f} K3 (float32) ms={f32_ms:.4f}")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                library_ms=None)
+        f"F={RANK_FEAT}/{WIDE_F}); at F=28 x B=255: root ms={t['root_ms']:.4f}"
+        f" device_ms={t['root_dev']:.4f} bound_ms={root_bound:.6f} "
+        f"({root_bytes} bytes) plain_ms={t['plain_root']:.4f}; step ms="
+        f"{t['ms']:.4f} device_ms={t['dev']:.4f} bound_ms={bound:.6f} "
+        f"({step_bytes} bytes) plain_ms={t['plain_ms']:.4f}; the composition "
+        f"it replaced ms={t['comp_ms']:.4f} device_ms={t['comp_dev']:.4f}; "
+        f"K3 (float32) ms={t['f32_ms']:.4f}; device ms (root, step) by "
+        f"branch: {json.dumps(branch_ms)}")
+    return dict(max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=bound, library_ms=None, device_ms=t["dev"],
+                root_ms=t["root_ms"], root_device_ms=t["root_dev"],
+                root_bound_ms=root_bound, root_plain_ms=t["plain_root"])
 
 
 def _envelope_data(torch, n, seed=19):
@@ -3424,7 +3545,8 @@ def _envelope(torch, lt, params):
                 peak = torch.cuda.max_memory_allocated()
         splits = sum(t.num_leaves - 1 for t in gb.models)
         want = ({"K1″-f64": levels} if growth == "depthwise" else
-                {"K1-f64": trees + splits, "K3-f64": trees + splits})
+                {"K1-f64": trees + splits, "K3-f64": trees,
+                 "K3-f64 step": splits})
         check(counts == want, f"envelope {growth}: launches {counts} != "
               f"{want}")
         _leaf_counts_exact(torch, gb, ids, n, f"envelope {growth}")
@@ -3514,6 +3636,10 @@ def phase_f64(torch, lt, params, train_set, valid_set, Xv, order):
                              valid_set, Xv)
         dw = phase_main_path(torch, lt, "f64-depthwise", params, train_set,
                              valid_set, Xv)
+        pw = phase_main_path(torch, lt, "f64-pooled", params, train_set,
+                             valid_set, Xv)
+        hw = phase_main_path(torch, lt, "f64-hybrid", params, train_set,
+                             valid_set, Xv)
     say(f"[f64 main] leaf-wise float64 s/tree={lw['s_per_tree']:.4f} auc="
         f"{lw['auc'][0]:.6f}/{lw['auc'][1]:.6f} (the JAX package's float64 "
         f"{AUC_REF['f64-leafwise'][0]:.6f}/{AUC_REF['f64-leafwise'][1]:.6f};"
@@ -3522,12 +3648,17 @@ def phase_f64(torch, lt, params, train_set, valid_set, Xv, order):
         f"peak_mem_bytes={lw['peak']}; depthwise float64 "
         f"s/tree={dw['s_per_tree']:.4f} "
         f"auc={dw['auc'][0]:.6f}/{dw['auc'][1]:.6f} peak_mem_bytes="
-        f"{dw['peak']}")
+        f"{dw['peak']}; pooled float64 s/tree={pw['s_per_tree']:.4f} auc="
+        f"{pw['auc'][0]:.6f}/{pw['auc'][1]:.6f}; hybrid float64 s/tree="
+        f"{hw['s_per_tree']:.4f} auc={hw['auc'][0]:.6f}/{hw['auc'][1]:.6f}")
     env = _envelope(torch, lt, params)
     for k, n in (("K1-f64", lw["counts"]["K1-f64"]),
-                 ("K3-f64", lw["counts"]["K3-f64"]),
                  ("K1″-f64", dw["counts"]["K1″-f64"])):
         rec[k]["launches"] = n
+    rec["K3-f64"].update(launches=lw["counts"]["K3-f64"]
+                         + lw["counts"]["K3-f64 step"],
+                         root_launches=lw["counts"]["K3-f64"],
+                         step_launches=lw["counts"]["K3-f64 step"])
     return rec, env
 
 

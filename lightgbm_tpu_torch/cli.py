@@ -23,8 +23,8 @@ guard's parked counts drain before the model is saved).  Refused,
 naming their ROADMAP item: ``task=train_many`` (A7), ``task=serve_fleet``
 (A9), ``task=train_fleet`` (A8/A9), checkpoints and ``resume`` (A9),
 ``num_machines > 1`` (A8) and the configurations
-``models/gbdt.check_supported`` refuses (float64 histograms: A5;
-parallel learners: A8).
+``models/gbdt.check_supported`` refuses (parallel learners: A8).
+``hist_dtype=float64`` trains (float64 histograms, A5).
 """
 
 from __future__ import annotations

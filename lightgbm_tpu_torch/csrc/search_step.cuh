@@ -432,6 +432,18 @@ __device__ __forceinline__ void store_children(float* const rows[2],
   rows[1][i] = small_is_left ? large : small;
 }
 
+// store_children in double: the float64 step form (K3-f64's
+// lgbm_search2_update_f64 / lgbm_search2_pool_f64), large = parent - small
+// by __dsub_rn.
+__device__ __forceinline__ void store_children(double* const rows[2],
+                                               int64_t i, double parent,
+                                               double small,
+                                               int small_is_left) {
+  const double large = __dsub_rn(parent, small);
+  rows[0][i] = small_is_left ? small : large;
+  rows[1][i] = small_is_left ? large : small;
+}
+
 // store_children with the parent read at cell i.  `parent` may be rows[0]
 // (the left child overwrites the parent in place): the thread that calls
 // it for cell i reads the parent there and then writes both children, so

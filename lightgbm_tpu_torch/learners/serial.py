@@ -66,8 +66,11 @@ gbdt.py:818-830) run on the order route, pooled or not, and in the
 resume, given float64 histogram functions (kernels 1-f64 and 1''-f64 on
 the card, over the float32 rows): everything follows the histograms'
 dtype (serial.py:597-602): the root sums are summed in float64 in row
-order, the searches return float64 rows (kernel 3-f64) and the
-best-split table is float64; the node table rounds the gain, the
+order, the searches return float64 rows (kernel 3-f64: the root form at
+the root, its step form, ``F64Step``, for every split: the subtraction,
+both rows written and both searches in one call, unpooled as
+``search2_update``, pooled as ``search2_pool``) and the best-split table
+is float64; the node table rounds the gain, the
 internal value and ``lc + rc`` once to float32 (serial.py:1089-1091),
 and the leaf rows are rounded when the tree is built.  The record, mega
 and raw pooled routes are float32 only.
@@ -97,8 +100,8 @@ import torch
 
 from ..models.tree import Tree
 from ..ops.cuda_histogram import histogram_single_leaf, make_level_hist_fn
-from ..ops.cuda_search import (pack_meta, search2_pool, search2_rows,
-                               search2_update)
+from ..ops.cuda_search import (F64Step, pack_meta, search2_pool,
+                               search2_rows, search2_update)
 from ..ops.histogram import leaf_totals, take_bins
 from ..ops.record import (bins_per_word, build_record, leaf_row,
                           partition_window, place_window, row_id_row,
@@ -416,6 +419,9 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             slot_last = np.full(P, -1, np.int64)
             slot_of[0] = slot_leaf[0] = slot_last[0] = 0
 
+    # float64 histograms: every split is one call of kernel 3-f64's step
+    # form, its checks, stream and rows buffer settled once a tree
+    step64 = F64Step(hists, meta) if hists.dtype == torch.float64 else None
     for step in range(nleaves - 1, L - 1):
         best_leaf = int(np.argmax(best[_BG]))
         if not best[_BG, best_leaf] > 0.0:
@@ -479,7 +485,13 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                         lambda: range_hist(b0, pcnt))
                 else:
                     h_parent, s1, s2 = best_leaf, best_leaf, new_leaf
-                if pool_step:
+                if step64 is not None and pooled:
+                    rows = step64.pool(h_small, h_parent, s1, s2,
+                                       small_is_left, scal)
+                elif step64 is not None:
+                    rows = step64.update(h_small, best_leaf, new_leaf,
+                                         small_is_left, scal)
+                elif pool_step:
                     rows = search2_pool(hists, h_small, h_parent, s1, s2,
                                         small_is_left, scal, meta)
                 else:

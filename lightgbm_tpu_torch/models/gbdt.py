@@ -69,6 +69,7 @@ from ..metrics import Metric, create_metrics
 from ..objectives import ObjectiveFunction, objective_kind
 from ..ops.cuda_histogram import (hist_variant, histogram_record_window,
                                   histogram_single_leaf, make_level_hist_fn)
+from ..ops.cuda_sparse_hist import MAX_BINS as S1_MAX_BINS
 from ..ops.predict import (ensemble_leaves, ensemble_replay_binned_,
                            ensemble_sum, ensemble_update_binned_)
 from ..ops.sparse_hist import make_sparse_hist_fn
@@ -352,15 +353,19 @@ class GBDT:
         """The level histogram of depthwise growth and of hybrid's level
         phase (gbdt.py:434-457), signature ``(bins_T, leaf_id, grad, hess,
         mask, num_leaves)``: for a sparse dataset whose density is at most
-        ``sparse_hist_density`` (float32 histograms), the O(nnz) CSR
-        histogram (kernel S1 on the card, ops/sparse_hist.py); otherwise
-        kernel 1'', or kernel 2 under ``bsub``, on the card (kernel
-        1''-f64 under hist_dtype=float64, sparse sets included, as the
-        JAX package's gate at gbdt.py:445-446)."""
+        ``sparse_hist_density`` (float32 histograms) and whose one leaf
+        of bins fits S1's block (at most ``cuda_sparse_hist.MAX_BINS``,
+        17,319), the O(nnz) CSR histogram (kernel S1 on the card,
+        ops/sparse_hist.py); otherwise kernel 1'', or kernel 2 under
+        ``bsub``, on the card (kernel 1''-f64 under hist_dtype=float64,
+        sparse sets included, as the JAX package's gate at
+        gbdt.py:445-446).  The bin limit is decided on every device, so
+        the CPU grows on the card's route."""
         ds = self.train_set
         if (ds is not None and ds.is_sparse
                 and self.config.hist_dtype != "float64"
-                and ds.density <= self.config.sparse_hist_density):
+                and ds.density <= self.config.sparse_hist_density
+                and self._num_bins <= S1_MAX_BINS):
             return make_sparse_hist_fn(ds, self._num_bins, self.device)
         return make_level_hist_fn(self._num_bins, self._acc_dtype)
 

@@ -18,17 +18,24 @@ writes around it: the same over a ``[P, F, B, 3]`` histogram pool, the
 children written to slots ``s1`` and ``s2`` and the parent read from a
 slot or from a recomputed row; kernel 5 on the card (``POOL_LAUNCHES``).
 
-On float64 histograms (``hist_dtype=float64``) ``search2_rows`` launches
-kernel 3-f64, K3's search in double (``F64_LAUNCHES``), and returns float64
-rows; its CPU path is the plain search in float64.  Kernels 4 and 5 take
-float32 only: the float64 routes subtract in PyTorch and search with
-kernel 3-f64, as the JAX package's canonical routes do.
+On float64 histograms (``hist_dtype=float64``) the same three calls
+launch kernel 3-f64, the search in double, and return float64 rows:
+``search2_rows`` its root form (``F64_LAUNCHES``), ``search2_update`` and
+``search2_pool`` its step form (``F64_STEP_LAUNCHES``: the subtraction, the
+two rows written and both searches in one launch).  ``F64Step`` is the
+step form bound to one tree's buffer: the checks, the device, the stream,
+the configuration and the [2, 16] rows buffer are fixed once a tree, and
+each split pays only for its launch (the float64 learners call it).
+``search64_config`` picks kernel 3-f64's design by shape: one
+thread-block cluster (B <= 256 and F up to ``F64_CLUSTER_MAX_F``, the
+measured size switch) or the ticketed grid; both give the same bits.
 
-The kernels write each (child, feature)'s best to a scratch of ``2 * F *
-8`` values of the histogram's dtype and pick the winners in the last
-block behind an integer ticket; both live in ``_WORK``, allocated once per
-device and dtype (the scratch grown when a wider F comes) and shared by
-every launch there, so one stream at a time may search on a device.
+The ticketed kernels write each (child, feature)'s best to a scratch of
+``2 * F * 8`` values of the histogram's dtype and pick the winners in the
+last block behind an integer ticket; both live in ``_WORK``, allocated
+once per device and dtype (the scratch grown when a wider F comes) and
+shared by every launch there, so one stream at a time may search on a
+device.
 """
 
 from __future__ import annotations
@@ -46,11 +53,23 @@ from .split import SplitResult
 LAUNCHES = 0  # kernel 3
 UPDATE_LAUNCHES = 0  # kernel 4
 POOL_LAUNCHES = 0  # kernel 5
-F64_LAUNCHES = 0  # kernel 3-f64
+F64_LAUNCHES = 0  # kernel 3-f64, root form
+F64_STEP_LAUNCHES = 0  # kernel 3-f64, step form
 
 _VP, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_double
 _PER_FEATURE = 8  # values of one (child, feature) best (csrc kPerFeature)
+
+# kernel 3-f64's cluster design (csrc/search.cu search2_cluster_kernel):
+# at most 256 bins (kClusterBins), 8 blocks (kMaxCluster) of 7 warps
+# (kClusterWarps); above F64_CLUSTER_MAX_F features, where the 2F pairs
+# no longer fit its 56 warps at once, the ticketed grid searches the root
+# faster (tools/search_variants.py --f64)
+CLUSTER_BINS, MAX_CLUSTER, CLUSTER_WARPS = 256, 8, 7
+F64_CLUSTER_MAX_F = MAX_CLUSTER * CLUSTER_WARPS // 2
+# (cluster, warps) forced on every kernel 3-f64 launch when set (the
+# variants tool and the holds of each branch; (0, 0) = the ticketed grid)
+_forced_config = None
 
 # (device index, dtype) -> (ticket int32 [1], bests [>= 2 * F * 8])
 _WORK: Dict[Tuple[int, torch.dtype], Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -63,9 +82,17 @@ def _lib():
         # ... best, ticket, out, stream
         lib.lgbm_search2.argtypes = [_VP, _VP, _VP, _I, _I] + [_F] * 13 + [
             _VP] * 4
+        # ... scal (12 doubles on the host), cluster, warps, best, ticket,
+        # out, stream
         lib.lgbm_search2_f64.restype = _I
-        lib.lgbm_search2_f64.argtypes = [_VP, _VP, _VP, _I, _I] + [
-            _D] * 13 + [_VP] * 4
+        lib.lgbm_search2_f64.argtypes = [_VP, _VP, _VP, _I, _I, _VP, _I,
+                                         _I] + [_VP] * 4
+        lib.lgbm_search2_update_f64.restype = _I
+        lib.lgbm_search2_update_f64.argtypes = [
+            _VP, _VP, _I, _I, _I, _VP, _I, _I, _VP, _I, _I] + [_VP] * 4
+        lib.lgbm_search2_pool_f64.restype = _I
+        lib.lgbm_search2_pool_f64.argtypes = [
+            _VP, _VP, _VP, _I, _I, _I, _VP, _I, _I, _VP, _I, _I] + [_VP] * 4
         lib.lgbm_search2_update.restype = _I
         lib.lgbm_search2_update.argtypes = [_VP, _VP, _I, _I, _I, _VP, _I,
                                             _I] + [_F] * 12 + [_VP] * 4
@@ -88,6 +115,20 @@ def pack_meta(feature_mask, num_bins_per_feature, is_categorical,
         torch.as_tensor(is_categorical).to(device=device, dtype=torch.int32),
         torch.zeros_like(fm),
     ], dim=1).contiguous()
+
+
+def search64_config(F: int, B: int) -> Tuple[int, int]:
+    """Kernel 3-f64's (cluster, warps) at F features and B bins: one
+    cluster of up to 8 blocks, the 2F (child, feature) pairs spread over
+    at most 7 warps a block, where B <= 256 and F <= F64_CLUSTER_MAX_F;
+    else (0, 0), the ticketed grid."""
+    if _forced_config is not None:
+        return _forced_config
+    if B > CLUSTER_BINS or F > F64_CLUSTER_MAX_F:
+        return 0, 0
+    pairs = max(2 * F, 1)
+    cluster = min(MAX_CLUSTER, pairs)
+    return cluster, min(CLUSTER_WARPS, -(-pairs // cluster))
 
 
 def search2_rows(h_left: torch.Tensor, h_right: torch.Tensor,
@@ -135,8 +176,8 @@ def _check_search(hists, meta, scal, F, dtype=torch.float32):
 
 
 def _search2_rows_cuda(h_left, h_right, scal, meta):
-    """Kernel 3, or kernel 3-f64 on float64 histograms, on the card
-    (raises on anything it does not take)."""
+    """Kernel 3, or kernel 3-f64's root form on float64 histograms, on the
+    card (raises on anything it does not take)."""
     global LAUNCHES, F64_LAUNCHES
     F, B, three = h_left.shape
     dev = h_left.device
@@ -151,16 +192,21 @@ def _search2_rows_cuda(h_left, h_right, scal, meta):
     _check_search([("h_left", h_left), ("h_right", h_right)], meta, scal, F,
                   torch.float64 if f64 else torch.float32)
     lib = _lib()
-    can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = (
-        float(v) for v in scal)
     out = torch.empty((2, 16), dtype=dt, device=dev)
-    entry = lib.lgbm_search2_f64 if f64 else lib.lgbm_search2
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = entry(
-            h_left.data_ptr(), h_right.data_ptr(), meta.data_ptr(), F, B,
-            can, lsg, lsh, lc, can, rsg, rsh, rc, md, mh, l1, l2, mg,
-            *_workspace(dev, F, dt), out.data_ptr(), stream)
+        if f64:
+            code = lib.lgbm_search2_f64(
+                h_left.data_ptr(), h_right.data_ptr(), meta.data_ptr(), F, B,
+                (_D * 12)(*map(float, scal)), *search64_config(F, B),
+                *_workspace(dev, F, dt), out.data_ptr(), stream)
+        else:
+            can, lsg, lsh, lc, rsg, rsh, rc, md, mh, l1, l2, mg = (
+                float(v) for v in scal)
+            code = lib.lgbm_search2(
+                h_left.data_ptr(), h_right.data_ptr(), meta.data_ptr(), F, B,
+                can, lsg, lsh, lc, can, rsg, rsh, rc, md, mh, l1, l2, mg,
+                *_workspace(dev, F, dt), out.data_ptr(), stream)
     if f64:
         _build.check(code, "float64 search kernel")
         F64_LAUNCHES += 1
@@ -175,11 +221,15 @@ def search2_update(hists: torch.Tensor, h_small: torch.Tensor, parent: int,
                    meta: torch.Tensor) -> torch.Tensor:
     """``hists[parent]`` <- left child, ``hists[new_leaf]`` <- right child
     (``h_small`` and ``hists[parent] - h_small``, routed by
-    ``small_is_left``), in place; returns both children's [2, 16] rows.
-    ``scal`` and ``meta`` as for ``search2_rows``."""
+    ``small_is_left``), in place; returns both children's [2, 16] rows
+    (kernel 4, or kernel 3-f64's step form on float64 tensors).  ``scal``
+    and ``meta`` as for ``search2_rows``."""
     if hists.device.type == "cpu":
         return plain.search2_update(hists, h_small, parent, new_leaf,
                                     small_is_left, scal, meta)
+    if hists.dtype == torch.float64:
+        return F64Step(hists, meta).update(h_small, parent, new_leaf,
+                                           small_is_left, scal)
     return _search2_update_cuda(hists, h_small, parent, new_leaf,
                                 small_is_left, scal, meta)
 
@@ -227,7 +277,8 @@ def search2_pool(pool: torch.Tensor, h_small: torch.Tensor,
     returns both children's [2, 16] rows.  ``parent`` is the parent's pool
     slot or its recomputed [F, B, 3] histogram.  ``s2`` may be neither
     ``s1`` nor the parent's slot; ``s1`` may be the parent's slot (the left
-    child then overwrites the parent).  ``scal`` and ``meta`` as for
+    child then overwrites the parent).  Kernel 5, or kernel 3-f64's step
+    form on float64 tensors.  ``scal`` and ``meta`` as for
     ``search2_rows``."""
     P = pool.shape[0]
     ps = None if isinstance(parent, torch.Tensor) else int(parent)
@@ -241,6 +292,9 @@ def search2_pool(pool: torch.Tensor, h_small: torch.Tensor,
     if pool.device.type == "cpu":
         return plain.search2_pool(pool, h_small, parent, s1, s2,
                                   small_is_left, scal, meta)
+    if pool.dtype == torch.float64:
+        return F64Step(pool, meta).pool(h_small, parent, s1, s2,
+                                        small_is_left, scal)
     return _search2_pool_cuda(pool, h_small, parent, s1, s2, small_is_left,
                               scal, meta)
 
@@ -284,6 +338,99 @@ def _search2_pool_cuda(pool, h_small, parent, s1, s2, small_is_left, scal,
     _build.check(code, "pooled search kernel")
     POOL_LAUNCHES += 1
     return out
+
+
+class F64Step:
+    """Kernel 3-f64's step form over one tree's float64 buffer ``buf``
+    ([L, F, B, 3] leaf rows or a [P, F, B, 3] pool): ``update`` is
+    ``search2_update``, ``pool`` is ``search2_pool``, with everything that
+    holds for the tree (the buffer's and ``meta``'s checks, the device,
+    the stream, the configuration, the scratch and the [2, 16] rows)
+    settled here once.  Each call checks its own tensors' shape, dtype,
+    device and layout, launches (one count in ``F64_STEP_LAUNCHES``) and
+    returns the same rows tensor, overwritten by the next call: read it
+    first.  On a CPU buffer the calls are the plain versions (ops/split.py),
+    each returning new rows."""
+
+    def __init__(self, buf: torch.Tensor, meta: torch.Tensor):
+        self.buf, self.meta = buf, meta
+        self.cuda = buf.device.type == "cuda"
+        if not self.cuda:
+            return
+        if buf.dim() != 4 or buf.shape[3] != 3:
+            raise ValueError(f"the buffer must be [L, F, B, 3], got "
+                             f"{tuple(buf.shape)}")
+        n, F, B, _ = buf.shape
+        _check_search([("buffer", buf)], meta, [0.0] * 12, F, torch.float64)
+        self._n, self._F, self._B = n, F, B
+        self._shape, self._dev = buf.shape[1:], buf.get_device()
+        self._row_bytes = F * B * 3 * 8
+        lib = _lib()
+        self._update_fn = lib.lgbm_search2_update_f64
+        self._pool_fn = lib.lgbm_search2_pool_f64
+        self.rows = torch.empty((2, 16), dtype=torch.float64,
+                                device=buf.device)
+        self._scal = (_D * 12)()
+        with torch.cuda.device(buf.device):
+            stream = torch.cuda.current_stream(buf.device).cuda_stream
+        # buffer, meta, F, B / scal, cluster, warps, best, ticket, rows,
+        # stream
+        self._head = (meta.data_ptr(), F, B)
+        self._tail = (self._scal, *search64_config(F, B),
+                      *_workspace(buf.device, F, torch.float64),
+                      self.rows.data_ptr(), stream)
+
+    def _check(self, t: torch.Tensor, name: str) -> int:
+        if (t.dtype != torch.float64 or t.shape != self._shape
+                or t.get_device() != self._dev or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float64 "
+                             f"{list(self._shape)} tensor on the buffer's "
+                             "device")
+        return t.data_ptr()
+
+    def update(self, h_small: torch.Tensor, parent: int, new_leaf: int,
+               small_is_left: bool, scal: Sequence[float]) -> torch.Tensor:
+        """``buf[parent]`` <- left child, ``buf[new_leaf]`` <- right child,
+        both searched (``search2_update``)."""
+        global F64_STEP_LAUNCHES
+        if not self.cuda:
+            return plain.search2_update(self.buf, h_small, parent, new_leaf,
+                                        small_is_left, scal, self.meta)
+        if not (0 <= parent < self._n and 0 <= new_leaf < self._n
+                and parent != new_leaf):
+            raise ValueError(f"rows {parent} and {new_leaf} must be distinct "
+                             f"rows of the {self._n}-row buffer")
+        small = self._check(h_small, "h_small")
+        self._scal[:] = scal
+        code = self._update_fn(self.buf.data_ptr(), small, parent, new_leaf,
+                               int(bool(small_is_left)), *self._head,
+                               *self._tail)
+        _build.check(code, "float64 search-update kernel")
+        F64_STEP_LAUNCHES += 1
+        return self.rows
+
+    def pool(self, h_small: torch.Tensor, parent: Union[int, torch.Tensor],
+             s1: int, s2: int, small_is_left: bool,
+             scal: Sequence[float]) -> torch.Tensor:
+        """``buf[s1]`` <- left child, ``buf[s2]`` <- right child, the
+        parent a slot or a recomputed [F, B, 3] tensor, both searched
+        (``search2_pool``, which checks the slots)."""
+        global F64_STEP_LAUNCHES
+        if not self.cuda:
+            return plain.search2_pool(self.buf, h_small, parent, s1, s2,
+                                      small_is_left, scal, self.meta)
+        small = self._check(h_small, "h_small")
+        if isinstance(parent, torch.Tensor):
+            par = self._check(parent, "parent")
+        else:
+            par = self.buf.data_ptr() + parent * self._row_bytes
+        self._scal[:] = scal
+        code = self._pool_fn(self.buf.data_ptr(), small, par, s1, s2,
+                             int(bool(small_is_left)), *self._head,
+                             *self._tail)
+        _build.check(code, "float64 pooled search kernel")
+        F64_STEP_LAUNCHES += 1
+        return self.rows
 
 
 def unpack(rows: torch.Tensor, i: int) -> SplitResult:

@@ -14,7 +14,8 @@ the card use.
 ``leaf_tiles`` is the host's plan of a call: a block of S1 holds the
 [Lt, B, 3] cells of Lt leaves in shared memory, so the leaves are cut
 into the fewest tiles whose cells fit (``tile_smem``, the C entry's own
-sum, which checks it again).
+sum, which checks it again).  A set whose one leaf does not fit
+(``MAX_BINS``) grows on the dense level route (``GBDT._level_hist_fn``).
 """
 
 from __future__ import annotations
@@ -44,16 +45,21 @@ def tile_smem(tile_leaves: int, num_bins: int) -> int:
     return 4 * cells + 16 * _CHUNK + 4 * (warps * _THREADS + warps)
 
 
+# the most bins one leaf may have: its cells and the rest of a block fit
+# SMEM_MAX (17,319)
+MAX_BINS = (SMEM_MAX - tile_smem(0, 1) - 12) // 12
+
+
 def leaf_tiles(num_leaves: int, num_bins: int) -> tuple:
     """(leaves a tile, tiles): the fewest tiles of equal size whose
     blocks fit in SMEM_MAX bytes; tile t holds leaves [t·Lt, min(L, t·Lt
-    + Lt)).  Raises when one leaf's bins do not fit."""
+    + Lt)).  Raises when one leaf's bins do not fit (more than
+    MAX_BINS)."""
     L, B = int(num_leaves), int(num_bins)
     most = (SMEM_MAX - tile_smem(0, B) - 12) // (12 * B)
     if most < 1:
         raise ValueError(f"S1 holds a leaf's {B} bins in shared memory: "
-                         f"at most {(SMEM_MAX - tile_smem(0, 1) - 12) // 12}"
-                         " bins")
+                         f"at most {MAX_BINS} bins")
     tiles = -(-L // min(most, L))
     lt = -(-L // tiles)
     return lt, -(-L // lt)

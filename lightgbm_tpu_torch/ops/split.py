@@ -216,7 +216,8 @@ def search2_pool(pool: torch.Tensor, h_small: torch.Tensor,
     """Plain version of kernel 5, the pooled route's step (the JAX
     package's subtraction, routing and slot writes around
     ``search2_pallas_raw``, serial.py:961-1008): ``h_large = parent -
-    h_small`` in float32, where ``parent`` is ``pool[parent]`` for a slot
+    h_small`` in the tensors' dtype (float32, or float64 for kernel
+    3-f64's step form), where ``parent`` is ``pool[parent]`` for a slot
     index or the recomputed [F, B, 3] histogram itself; the two routed to
     left and right by ``small_is_left`` and written to ``pool[s1]`` (left)
     and ``pool[s2]`` (right); both searched from the written slots, as the

@@ -24,7 +24,8 @@ rebuilt parents, K5 per split).  Depthwise runs the level histogram (K1'', or
 K2 under ``LGBM_TPU_HIST_KERNEL=bsub``) once per level; hybrid adds the
 resume's level pass and the order route's K1 + K3 per split.
 ``--hist-dtype float64`` sums the histograms in float64: leaf-wise on the
-order route with K1-f64 and K3-f64, depthwise with K1''-f64.
+order route with K1-f64 and K3-f64 (its root form at the root, its step
+form at every split), depthwise with K1''-f64.
 Prints one JSON object (times "per tree" are per iteration): host wall
 per tree with and without the profiler,
 device busy time per tree (the union of kernel and copy intervals on the

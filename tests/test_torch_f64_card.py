@@ -6,10 +6,15 @@ float64 histograms) are each held bitwise against the plain version on
 the CPU, two launches equal, at shapes that reach the kernels' branches
 (u16 bins above one walk's bin range, one group of chunks and several,
 a bin that holds ~90 % of the rows, leaves of 8, 9 and 17 chunks, empty
-chunks and leaves, categorical features, every scan level); then float64
-training on
-the card (leaf-wise, pooled, depthwise, hybrid) grows the CPU's trees
-bitwise and launches no float32 histogram or search kernel.  No JAX here
+chunks and leaves, categorical features, every scan level); kernel
+3-f64's root form (``search2_rows``) and step form (``search2_update``,
+``search2_pool`` with a resident and a recomputed parent) on both sides
+of its size switch (one cluster, the ticketed grid) at F = 28 / 136 /
+2000 / 5000 and B = 7 / 300 / 600 / 5000, rows and written buffer
+bitwise the plain versions', two launches equal; then float64 training
+on the card (leaf-wise, pooled, depthwise, hybrid) grows the CPU's trees
+bitwise, the root through the root form and every later split through
+the step form, and launches no float32 histogram or search kernel.  No JAX here
 (tests/test_torch_f64.py holds the plain versions against the JAX
 package; chip_smoke.py phase 22 holds the kernels at the bench shape)::
 
@@ -25,7 +30,10 @@ import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops import launch_counts, reset_launch_counts
 from lightgbm_tpu_torch.ops.cuda_histogram import (histogram_by_leaf_sorted,
                                                    histogram_single_leaf)
-from lightgbm_tpu_torch.ops.cuda_search import pack_meta, search2_rows
+from lightgbm_tpu_torch.ops import cuda_search
+from lightgbm_tpu_torch.ops import split as plain
+from lightgbm_tpu_torch.ops.cuda_search import (pack_meta, search2_pool,
+                                                search2_rows, search2_update)
 
 F64 = torch.float64
 TREE = ("split_feature", "threshold_bin", "decision_type", "left_child",
@@ -135,6 +143,81 @@ def test_k3_f64_matches_plain(F, B):
         assert got.dtype == F64 and torch.equal(got.cpu(), want), case
 
 
+def _step_case(F, B, seed):
+    """A parent's and a smaller child's float64 cells, meta and the totals
+    of both routings, on the CPU."""
+    rng = np.random.RandomState(seed)
+
+    def cells():
+        return np.stack([rng.randn(F, B), np.abs(rng.randn(F, B)) + 0.1,
+                         rng.randint(0, 40, (F, B)).astype(np.float64)], -1)
+
+    small = torch.from_numpy(cells())
+    parent = small + torch.from_numpy(cells())
+    meta = pack_meta(torch.from_numpy(rng.rand(F) < 0.9),
+                     torch.from_numpy(rng.randint(2, B + 1, F)),
+                     torch.from_numpy(rng.rand(F) < 0.1), "cpu")
+    ts, tp = small[0].sum(0).tolist(), parent[0].sum(0).tolist()
+    tl = [a - b for a, b in zip(tp, ts)]
+    scal = {True: [1.0, *ts, *tl, 20.0, 1e-3, 0.5, 1.0, 0.0],
+            False: [1.0, *tl, *ts, 20.0, 1e-3, 0.0, 1.0, 0.0]}
+    return parent, small, meta, scal
+
+
+# (F, B, forced configuration): None is search64_config's own choice,
+# "cluster" the most blocks and warps its pairs fill, "grid" the ticketed
+# grid (0, 0)
+K3F64_CASES = [(1, 7, None), (1, 7, "grid"), (28, 255, None),
+               (28, 255, "grid"), (28, 256, "cluster"), (136, 255, "cluster"),
+               (136, 255, "grid"), (2000, 255, "cluster"),
+               (2000, 255, None), (5000, 255, None), (6, 7, None),
+               (6, 7, "grid"), (5, 300, None), (5, 300, "grid"),
+               (4, 600, None), (3, 5000, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,B,config", K3F64_CASES,
+                         ids=[f"F{f}-B{b}-{c or 'shipped'}"
+                              for f, b, c in K3F64_CASES])
+def test_k3_f64_forms_match_plain(F, B, config, monkeypatch):
+    """Kernel 3-f64's root and step forms, rows and written buffers,
+    bitwise their plain versions on the CPU; two launches equal."""
+    _card()
+    if config == "grid":
+        monkeypatch.setattr(cuda_search, "_forced_config", (0, 0))
+    elif config == "cluster":
+        monkeypatch.setattr(cuda_search, "_forced_config",
+                            (8, min(cuda_search.CLUSTER_WARPS,
+                                    -(-2 * F // 8))))
+    parent, small, meta, scal = _step_case(F, B, seed=F + B)
+    mc, sc, pc = meta.cuda(), small.cuda(), parent.cuda()
+    for sil in (True, False):
+        want = search2_rows(small, parent, scal[sil], meta)
+        got = [search2_rows(sc, pc, scal[sil], mc) for _ in range(2)]
+        assert torch.equal(got[0], got[1])
+        assert torch.equal(got[0].cpu(), want)
+        # update: the parent in row 1 becomes the left child
+        buf = torch.zeros((3, F, B, 3), dtype=F64)
+        buf[1] = parent
+        bp = buf.clone()
+        rp = plain.search2_update(bp, small, 1, 2, sil, scal[sil], meta)
+        outs = []
+        for _ in range(2):
+            bk = buf.cuda()
+            outs.append((search2_update(bk, sc, 1, 2, sil, scal[sil],
+                                        mc).clone(), bk))
+        for rk, bk in outs:
+            assert torch.equal(rk.cpu(), rp) and torch.equal(bk.cpu(), bp)
+        # pool: a recomputed parent, the children to slots 2 and 0
+        pool = torch.zeros((3, F, B, 3), dtype=F64)
+        pp = pool.clone()
+        rp = plain.search2_pool(pp, small, parent, 2, 0, sil, scal[sil],
+                                meta)
+        pk = pool.cuda()
+        rk = search2_pool(pk, sc, pc, 2, 0, sil, scal[sil], mc)
+        assert torch.equal(rk.cpu(), rp) and torch.equal(pk.cpu(), pp)
+
+
 def _grow(device, growth, extra=None):
     rng = np.random.RandomState(2)
     X = rng.randn(20_000, 8)
@@ -167,5 +250,11 @@ def test_float64_training_on_card_matches_cpu(growth, extra):
     assert not any(counts[k] for k in FLOAT32_KERNELS), counts
     if growth == "depthwise":
         assert counts["K1″-f64"] > 0 and counts["K1-f64"] == 0
-    else:
-        assert counts["K1-f64"] > 0 and counts["K3-f64"] > 0
+    elif growth == "hybrid":  # the best-first splits, after the levels
+        splits = sum(t.num_leaves - 1 for t in card)
+        assert counts["K1-f64"] > 0 and counts["K3-f64"] == 0
+        assert 0 < counts["K3-f64 step"] < splits
+    else:  # the root form once a tree, the step form every split
+        splits = sum(t.num_leaves - 1 for t in card)
+        assert counts["K1-f64"] > 0 and counts["K3-f64"] == len(card)
+        assert counts["K3-f64 step"] == splits

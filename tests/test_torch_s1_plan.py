@@ -16,16 +16,26 @@ one-hot data (B = 2, 255 leaves) to 128 x 255 and 255 x 300:
   contiguous cut of its entries in order, and the fold reads a feature's
   slabs in segment order;
 * the wrapper refuses a leaf whose bins alone exceed the budget and a
-  CPU tensor.
+  CPU tensor;
+* ``GBDT._level_hist_fn`` sends a sparse set to S1 only up to
+  ``MAX_BINS`` (17,319) bins, on every device, and above it to the dense
+  level route; on the card (marked ``cuda``) a 20,000-bin sparse set
+  trains through K1'' and grows the CPU's trees.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.models.gbdt import GBDT
+from lightgbm_tpu_torch.ops import launch_counts, reset_launch_counts
 from lightgbm_tpu_torch.ops import sparse_hist
 from lightgbm_tpu_torch.ops.cuda_sparse_hist import (
-    SMEM_MAX, leaf_tiles, sparse_histogram_by_leaf_cuda, tile_smem)
+    MAX_BINS, SMEM_MAX, leaf_tiles, sparse_histogram_by_leaf_cuda, tile_smem)
 
 SHAPES = [(255, 2), (237, 2), (1, 2), (16, 255), (64, 255), (128, 255),
           (200, 300), (255, 300), (9, 300), (7, 5000)]
@@ -122,3 +132,62 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA tensors"):
         sparse_histogram_by_leaf_cuda(csc, torch.zeros(1, dtype=torch.int32),
                                       one, one, one, 2, 2)
+
+
+@pytest.mark.parametrize("bins,device", [(17_319, "cpu"), (17_320, "cpu"),
+                                         (17_319, "cuda"),
+                                         (17_320, "cuda")])
+def test_dispatch_sends_sets_s1_cannot_hold_to_the_dense_route(bins,
+                                                               device):
+    """S1 takes a sparse set whose one leaf of bins fits its block; one
+    bin more goes to the dense level route, whatever the device (the
+    dispatch reads no card)."""
+    assert MAX_BINS == 17_319
+    leaf_tiles(1, MAX_BINS)
+    with pytest.raises(ValueError):
+        leaf_tiles(1, MAX_BINS + 1)
+    ds = SimpleNamespace(is_sparse=True, density=0.01,
+                         sparse_device=lambda dev: {})
+    gb = SimpleNamespace(train_set=ds, _num_bins=bins, device=device,
+                         _acc_dtype=torch.float32,
+                         config=SimpleNamespace(hist_dtype="float32",
+                                                sparse_hist_density=0.05))
+    name = GBDT._level_hist_fn(gb).__qualname__
+    want = "make_sparse_hist_fn" if bins <= MAX_BINS else "make_level_hist_fn"
+    assert name.startswith(want), name
+
+
+def _grow_wide(device):
+    """Two depthwise trees on a sparse set of 20,000 bins (density 0.04)."""
+    rng = np.random.RandomState(0)
+    n, F = 100_000, 20
+    X = np.zeros((n, F))
+    on = rng.rand(n, F) < 0.01
+    on[:, 0] = rng.rand(n) < 0.6  # 60,000 distinct values: 20,000 bins
+    X[on] = rng.randn(on.sum())
+    y = (X[:, 0] + X[:, 1] > 0).astype(np.float32)
+    params = {"objective": "binary", "tree_growth": "depthwise",
+              "max_bin": 20_000, "num_leaves": 15, "verbose": -1}
+    ds = lt.Dataset(sp.csr_matrix(X), label=y, params=params, device=device)
+    reset_launch_counts()
+    bst = lt.train(params, ds, 2, device=device)
+    inner = ds.construct()
+    assert inner.is_sparse and inner.density <= 0.05
+    assert bst._gbdt._num_bins > MAX_BINS
+    return bst._gbdt.models, launch_counts()
+
+
+@pytest.mark.cuda
+def test_wide_sparse_set_trains_on_card_as_on_cpu():
+    """A sparse set S1 cannot hold trains on the card through K1'' (no
+    S1 launch) and grows the CPU's trees bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the dense level route's K1'')")
+    card, counts = _grow_wide("cuda")
+    cpu, _ = _grow_wide("cpu")
+    assert counts["S1"] == 0 and counts["K1″"] > 0, counts
+    for a, b in zip(card, cpu):
+        assert a.num_leaves == b.num_leaves
+        for k in ("split_feature", "threshold_bin", "left_child",
+                  "right_child", "leaf_count", "split_gain", "leaf_value"):
+            assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), k
