@@ -4,11 +4,15 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
-``lightgbm_tpu_torch/csrc`` (one nvcc per source, started together), then
-(the files it writes go under the git-ignored ``build/smoke_files``):
+``lightgbm_tpu_torch/csrc`` (one nvcc per source, started together) and,
+beside them, the host libraries of ``csrc/host`` (the native reader with
+g++, the C API shim with gcc), then (the files it writes go under the
+git-ignored ``build/smoke_files``):
 
-1. prints the card (nvidia-smi name and power limit), the build times and
-   each kernel's registers / shared memory (nvcc -Xptxas -v);
+1. prints the card (nvidia-smi name and power limit), the build times,
+   the Python the shim builds against (Python.h, ``Py_ENABLE_SHARED``,
+   ``LIBDIR``) and each kernel's registers / shared memory (nvcc -Xptxas
+   -v);
 2. holds the histogram kernel (K1) against its plain PyTorch version on
    the CPU bitwise, against float64 sums, and K2 over one leaf against it,
    at the main path's shapes and the edge cases (a dominant bin, u16 x
@@ -202,17 +206,33 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 19. (run after phases 14-16) files, the CLI, the batch tier, ``task=serve``
    and sklearn at the bench width: the bench data (1M + 200k rows x 28
    features) written as ``%.17g`` CSV by a pool of processes (timed
-   apart); numpy's parse rate one-shot and streamed; ``cli.main``
+   apart); the parse rate of the native reader (``native.py``, OpenMP,
+   its threads and the OpenMP runtimes mapped printed beside the host's
+   CPUs) and of the numpy parser (``LIGHTGBM_TPU_NO_NATIVE=1``), one-shot
+   and streamed, both bitwise the written floats; ``cli.main``
    training from a ``train.conf`` of the reference's keys (one-shot
    load, ``use_two_round_loading`` writing the binary cache, then the
    cache): each model text bitwise the in-memory model of phase 8's mega
-   route (the same data and parameters), with load and s/tree beside
-   phase 8's mega s/tree; ``task=predict`` and
+   route (the same data and parameters), with load, its stages (parse,
+   bin finding, encode, labels and masks, the cache) and s/tree beside
+   phase 8's mega s/tree; no bench file handed to numpy
+   (``native_fallbacks``); ``task=predict`` and
    ``pipelined_predict_file`` (its reader / P1 / writer stage times) equal
    to ``format_block`` of ``Booster.predict``; ``task=serve`` answering
    ``POST /v1/predict`` with the offline answers, then draining; an
    ``LGBMClassifier`` (this machine has no scikit-learn) with the same
    model text and ``predict_proba == predict``;
+23. (run after phase 19, on its files) the C API: the shim
+   (``csrc/host/lgbm_capi.c``, built in phase 1 beside the native reader)
+   loaded with ctypes, ``LGBM_DatasetCreateFromFile`` on the train CSV
+   and on the valid CSV with the train handle as reference (no hand-off
+   to numpy; load stages), ``BoosterCreate``, ``AddValidData``, TREES
+   ``UpdateOneIter`` with every count set to 0 just before (phase 8's
+   mega launches, K8 = K7 = 2540, K1' = K3 = 10, and one P2 launch a
+   tree for the valid set), ``GetEval``, ``SaveModel`` bitwise phase 8's
+   mega model, ``PredictForMat`` on the valid rows bitwise
+   ``Booster.predict`` and ``PredictForFile`` bitwise ``task=predict``'s
+   result file;
 20. sparse depthwise at Allstate's width (1M rows, cut from 13.18M; 4,228
    one-hot columns in 33 categorical groups, 33 stored entries a row,
    density 0.0078): 10 depthwise trees of 255 leaves through kernel S1
@@ -467,12 +487,28 @@ def phase_build(torch):
     say(f"[device] {card}")
     say(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    import sysconfig
+
     from lightgbm_tpu_torch.ops import _build
 
+    def host(name):
+        t = time.perf_counter()
+        _build.build_host(name)
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    secs = _build.build_all(force=True)
+    # the host libraries (native reader, C API shim) build beside nvcc
+    with ThreadPoolExecutor(1) as ex:
+        hosts = ex.submit(lambda: {n: host(n) for n in _build.HOST_LIBS})
+        secs = _build.build_all(force=True)
+        secs.update(hosts.result())
     say(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s")
+    say(f"[build] python {sys.version.split()[0]} Python.h under "
+        f"{sysconfig.get_paths()['include']}, Py_ENABLE_SHARED="
+        f"{sysconfig.get_config_var('Py_ENABLE_SHARED')} LIBDIR="
+        f"{sysconfig.get_config_var('LIBDIR')}: "
+        f"{' '.join(_build.python_flags())}")
     for name in _build.SOURCES:
         for line in _build.ptxas_report(name).splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -4302,7 +4338,7 @@ def phase_files(torch, lt, params, mega):
     ``LGBMClassifier`` with the same model text."""
     import http.client
 
-    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch import cli, native
     from lightgbm_tpu_torch import sklearn as lsk
     from lightgbm_tpu_torch.io import parser
     from lightgbm_tpu_torch.serving import batch
@@ -4318,22 +4354,34 @@ def phase_files(torch, lt, params, mega):
         f"%.17g CSV ({mb[train_csv]:.1f} + {mb[valid_csv]:.1f} MB) in "
         f"{write_s:.2f}s with {os.cpu_count()} processes")
 
-    # ---- parse rates, one-shot and streamed, on the valid file
-    t0 = time.perf_counter()
-    raw, _ = parser.parse_file(valid_csv)
-    one_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    streamed = np.vstack(list(parser.parse_file_chunks(valid_csv)))
-    stream_s = time.perf_counter() - t0
-    check(np.array_equal(raw, streamed)
-          and np.array_equal(raw[:, 1:], Xv.astype(np.float64))
-          and np.array_equal(raw[:, 0], yv),
-          "files: the parsed valid file differs from the written floats")
-    say(f"[files] parse one-shot {mb[valid_csv] / one_s:.1f} MB/s "
-        f"{VALID_ROWS / one_s:.0f} rows/s ({one_s:.3f}s); streamed "
-        f"{mb[valid_csv] / stream_s:.1f} MB/s {VALID_ROWS / stream_s:.0f} "
-        f"rows/s ({stream_s:.3f}s); host CPUs {os.cpu_count()}")
-    del raw, streamed
+    # ---- parse rates of both readers, one-shot and streamed, on the
+    # valid file, each bitwise the written floats
+    fallbacks = native_fallbacks()
+    for reader, switch in (("native", None), ("numpy", "1")):
+        with env_var("LIGHTGBM_TPU_NO_NATIVE", switch):
+            t0 = time.perf_counter()
+            raw, _ = parser.parse_file(valid_csv)
+            one_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            streamed = np.vstack(list(parser.parse_file_chunks(valid_csv)))
+            stream_s = time.perf_counter() - t0
+        check(np.array_equal(raw, streamed)
+              and np.array_equal(raw[:, 1:], Xv.astype(np.float64))
+              and np.array_equal(raw[:, 0], yv),
+              f"files: the {reader} parse of the valid file differs from "
+              "the written floats")
+        say(f"[files] {reader} parse one-shot {mb[valid_csv] / one_s:.1f} "
+            f"MB/s {VALID_ROWS / one_s:.0f} rows/s ({one_s:.3f}s); "
+            f"streamed {mb[valid_csv] / stream_s:.1f} MB/s "
+            f"{VALID_ROWS / stream_s:.0f} rows/s ({stream_s:.3f}s); host "
+            f"CPUs {os.cpu_count()}")
+        del raw, streamed
+    with open("/proc/self/maps") as fh:
+        gomp = sorted({line.split()[-1] for line in fh if "libgomp" in line})
+    say(f"[files] native reader threads {native.num_threads()} (host CPUs "
+        f"{os.cpu_count()}); OpenMP runtimes mapped: {gomp}")
+    check(native.num_threads() == os.cpu_count(),
+          "files: the native reader does not run a thread a CPU")
 
     ref_text, mega_s_per_tree = mega["text"], mega["s_per_tree"]
 
@@ -4355,10 +4403,12 @@ def phase_files(torch, lt, params, mega):
                            "is_save_binary_file=true", "valid_data="]),
             ("binary-cache", ["valid_data="])):
         out = os.path.join(FILES_DIR, f"model-{name}.txt")
+        stages = load_stages()
         t0 = time.perf_counter()
         load_s, train_s = _run_cli(
             torch, cli, [f"config={conf}", f"output_model={out}", *extra])
         wall = time.perf_counter() - t0
+        stages = {k: v - stages[k] for k, v in load_stages().items()}
         with open(out) as fh:
             check(fh.read() == ref_text, f"files: the CLI's {name} model "
                   "differs from the in-memory train model")
@@ -4368,13 +4418,17 @@ def phase_files(torch, lt, params, mega):
             f"train_s={train_s:.3f} s/tree={train_s / TREES:.4f} (phase 8 "
             f"mega s/tree={mega_s_per_tree:.4f}); model bitwise the "
             "in-memory train model")
+        say(f"[files cli {name}] load stages " + " ".join(
+            f"{k}={v:.3f}s" for k, v in stages.items()))
+    os.remove(train_csv + ".bin")  # the C API's load parses the file
     say(f"[files] CLI peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes")
 
     # ---- task=predict and the pipelined batch tier
     model = os.path.join(FILES_DIR, "model-one-shot.txt")
     bst = lt.Booster(model_file=model)
-    want = batch.format_block(bst.predict(Xv))
+    pred = bst.predict(Xv)
+    want = batch.format_block(pred)
     result = os.path.join(FILES_DIR, "predict.txt")
     t0 = time.perf_counter()
     _run_cli(torch, cli, ["task=predict", f"data={valid_csv}",
@@ -4440,8 +4494,152 @@ def phase_files(torch, lt, params, mega):
         f"{lsk._SKLBase.__module__}.{lsk._SKLBase.__name__}) fit "
         f"{fit_s:.3f}s (binning the arrays in memory and {TREES} trees); "
         "model bitwise the train model; predict_proba == predict")
-    for name in os.listdir(FILES_DIR):
-        os.remove(os.path.join(FILES_DIR, name))
+    check(native_fallbacks() == fallbacks,
+          "files: the native reader handed a bench file to numpy")
+    return dict(train=train_csv, valid=valid_csv, result=result, Xv=Xv,
+                pred=pred)
+
+
+def native_fallbacks():
+    from lightgbm_tpu_torch.obs import telemetry
+
+    return telemetry.get_telemetry().counter("native_fallbacks")
+
+
+LOAD_STAGES = ("parse", "bin_find", "encode", "labels", "binary_cache")
+
+
+def load_stages():
+    """The loading spans' seconds so far (io/dataset.py's ``load.*``)."""
+    from lightgbm_tpu_torch.obs import telemetry
+
+    tel = telemetry.get_telemetry()
+    return {k: getattr(tel.span_stat(f"load.{k}"), "total_s", 0.0)
+            for k in LOAD_STAGES}
+
+
+@contextlib.contextmanager
+def env_var(name, value):
+    """``name`` set to ``value`` inside (removed for None), then restored."""
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+# ----------------------------------------------------------------- phase 23
+def phase_capi(torch, lt, params, mega, files):
+    """The C API (``csrc/host/lgbm_capi.c`` over ``capi_impl``) on the card
+    with phase 19's files: the train and valid CSVs through
+    ``LGBM_DatasetCreateFromFile`` (the native reader), ``BoosterCreate``,
+    ``AddValidData``, TREES ``UpdateOneIter`` with every count set to 0
+    just before (phase 8's mega launches, one P2 launch a tree for the
+    valid set), ``GetEval``, ``SaveModel`` bitwise phase 8's mega model,
+    ``PredictForMat`` on the valid rows bitwise ``Booster.predict`` and
+    ``PredictForFile`` bitwise ``task=predict``'s result file."""
+    import ctypes
+
+    from lightgbm_tpu_torch import capi_impl
+    from lightgbm_tpu_torch.ops import launch_counts
+
+    try:
+        with env_var("LGBM_CAPI_PLATFORM", None):
+            _capi_run(torch, ctypes, capi_impl, launch_counts, params, mega,
+                      files)
+    finally:
+        for name in os.listdir(FILES_DIR):
+            os.remove(os.path.join(FILES_DIR, name))
+
+
+def _capi_run(torch, ctypes, capi_impl, launch_counts, params, mega, files):
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(capi_impl.library_path())
+    lib.LGBM_GetLastError.restype = ctypes.c_char_p
+    load_s = time.perf_counter() - t0
+
+    def ok(rc, what):
+        check(rc == 0, f"capi {what}: {lib.LGBM_GetLastError().decode()}")
+
+    pstr = " ".join(f"{k}={v}" for k, v in params.items()).encode()
+    fallbacks, stages = native_fallbacks(), load_stages()
+    train, valid, bst = (ctypes.c_void_p() for _ in range(3))
+    t0 = time.perf_counter()
+    ok(lib.LGBM_DatasetCreateFromFile(files["train"].encode(), pstr, None,
+                                      ctypes.byref(train)), "train dataset")
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok(lib.LGBM_DatasetCreateFromFile(files["valid"].encode(), pstr, train,
+                                      ctypes.byref(valid)), "valid dataset")
+    valid_s = time.perf_counter() - t0
+    stages = {k: v - stages[k] for k, v in load_stages().items()}
+    check(native_fallbacks() == fallbacks,
+          "capi: the native reader handed a bench file to numpy")
+    ok(lib.LGBM_BoosterCreate(train, pstr, ctypes.byref(bst)), "booster")
+    ok(lib.LGBM_BoosterAddValidData(bst, valid), "valid data")
+    fin = ctypes.c_int()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(TREES):
+        ok(lib.LGBM_BoosterUpdateOneIter(bst, ctypes.byref(fin)), "update")
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = launch_counts()
+    want = dict(mega["counts"], P2=TREES)
+    check(counts == want, f"capi: launches {counts} != {want}")
+    n = ctypes.c_int64()
+    ok(lib.LGBM_BoosterGetEvalCounts(bst, ctypes.byref(n)), "eval counts")
+    check(n.value == 1, f"capi: {n.value} metrics, expected the AUC")
+    auc = (ctypes.c_double * 1)()
+    ok(lib.LGBM_BoosterGetEval(bst, 1, ctypes.byref(n), auc), "eval")
+    model = os.path.join(FILES_DIR, "model-capi.txt")
+    ok(lib.LGBM_BoosterSaveModel(bst, -1, model.encode()), "save")
+    with open(model) as fh:
+        check(fh.read() == mega["text"],
+              "capi: the model differs from phase 8's mega model")
+    Xv = np.ascontiguousarray(files["Xv"], np.float64)
+    out = np.empty(len(Xv), np.float64)
+    reset_counts()
+    t0 = time.perf_counter()
+    ok(lib.LGBM_BoosterPredictForMat(
+        bst, Xv.ctypes.data_as(ctypes.c_void_p), 1, len(Xv), Xv.shape[1], 1,
+        0, ctypes.c_int64(-1), ctypes.byref(n),
+        out.ctypes.data_as(ctypes.c_void_p)), "predict mat")
+    mat_s = time.perf_counter() - t0
+    p1 = launch_counts()["P1"]
+    check(n.value == len(Xv) and out.tobytes() == files["pred"].tobytes(),
+          "capi: PredictForMat differs from Booster.predict")
+    result = os.path.join(FILES_DIR, "predict-capi.txt")
+    t0 = time.perf_counter()
+    ok(lib.LGBM_BoosterPredictForFile(
+        bst, files["valid"].encode(), 0, 0, ctypes.c_int64(-1),
+        result.encode()), "predict file")
+    file_s = time.perf_counter() - t0
+    with open(result) as fh, open(files["result"]) as ref:
+        check(fh.read() == ref.read(),
+              "capi: PredictForFile differs from task=predict")
+    for h in (train, valid):
+        ok(lib.LGBM_DatasetFree(h), "free")
+    ok(lib.LGBM_BoosterFree(bst), "free")
+    say(f"[capi] shim loaded in {load_s:.3f}s; DatasetCreateFromFile train "
+        f"{train_s:.3f}s, valid {valid_s:.3f}s (stages " + " ".join(
+            f"{k}={v:.3f}s" for k, v in stages.items()) + f"); {TREES} "
+        f"UpdateOneIter {elapsed:.3f}s s/tree={elapsed / TREES:.4f} (phase 8 "
+        f"mega s/tree={mega['s_per_tree']:.4f}); launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}; valid AUC "
+        f"{auc[0]:.6f} (phase 8 {mega['auc'][1]:.6f}); model bitwise phase "
+        f"8's mega model")
+    say(f"[capi] PredictForMat {len(Xv)} rows {mat_s:.3f}s ({p1} P1 "
+        f"launches) bitwise Booster.predict; PredictForFile {file_s:.3f}s "
+        "bitwise task=predict")
 
 
 # ----------------------------------------------------------------- phase 20
@@ -4894,7 +5092,9 @@ def main() -> int:
         timed(kind, phase_objective, torch, lt, card, kind)
     timed("multiclass_300k", phase_objective, torch, lt, card, "multiclass",
           rows=MULTICLASS_BAND_ROWS)
-    timed("files", phase_files, torch, lt, params, routes["mega"])
+    files = timed("files", phase_files, torch, lt, params, routes["mega"])
+    timed("capi", phase_capi, torch, lt, params, routes["mega"], files)
+    del files
     sparse, s1_launches = timed("sparse", phase_sparse, torch, lt)
     p1_launches = one_call + serve["launches"]  # one predict + served
     p1["max_abs_err"] = max(p1["max_abs_err"], serve["max_abs_err"])

@@ -290,3 +290,16 @@ def test_file_modules_import_without_pandas_sklearn_or_jax():
             os.path.join("serving", "batch.py"),
             os.path.join("ops", "sparse_hist.py"),
             os.path.join("ops", "cuda_sparse_hist.py")} <= names
+
+
+def test_host_libraries_import_only_the_port():
+    """The native reader's and the C API's Python sides are among the
+    sources the AST check above scans, and the C shim imports the port's
+    ``capi_impl`` and names no module of the JAX package."""
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    assert {"native.py", "capi_impl.py"} <= names
+    with open(os.path.join(PKG, "csrc", "host", "lgbm_capi.c")) as fh:
+        shim = fh.read()
+    assert 'PyImport_ImportModule("lightgbm_tpu_torch.capi_impl")' in shim
+    assert "lightgbm_tpu." not in shim
+    assert shim.count("\nDllExport ") == 40
