@@ -340,6 +340,23 @@ git-ignored ``build/smoke_files``):
    rows equal to such a threshold, printed); s/tree, peak memory and
    K1-f64's root ms there, the scratch its wrapper allocates held to at
    most 1/8 of a partial a chunk (PR 19's design).
+24. The forest (after phase 17, on its data; (f) after phase 19, on its
+   files): F1 and F3 (csrc/forest.cu) bitwise their plain versions on
+   the CPU, two launches equal, at 1-64 lanes, 100 / 2,048 / 5,000 / 1M
+   rows, u8 and u16 bins, F = 28 and 136, idle lanes, empty targets and
+   lanes with no feature, each timed beside its plain version (and F1
+   beside one ``index_add_``); (b) ``train_many`` of 8 models (learning
+   rate, ``lambda_l2``, ``feature_fraction`` and seeds varied) over the
+   bench's first 2,048 rows, 31 leaves, 50 rounds, as lanes and as
+   sequential rounds on the order route (model strings bitwise) and on
+   the mega route (printed), each with s/round, host syncs, F1/F3
+   launches a round, the device idle share and peak memory; (c) 5-class
+   multiclass on those rows, 20 iterations, lanes bitwise the class
+   loop; (d) 4 models at 1M rows x 255 leaves, 3 rounds, lanes bitwise
+   sequential (order route); (e) phase 17's bin-once cv folds bitwise
+   the subset-trained folds, their ``-mean`` metrics equal, with the
+   binned bytes each uploads; (f) ``task=train_many`` (3 models, 5
+   iterations) on ``valid.csv``, model i bitwise ``task=train seed=i``.
 
 The seconds each phase took are printed before the result.
 
@@ -2453,9 +2470,372 @@ def phase_api(torch, lt, params, train_set, valid_set, Xv):
             f"{cv_syncs / len(cv_trees):.1f} peak_mem_bytes={cv_peak} "
             f"K8={cv_n['K8']} K7={cv_n['K7']}")
         check(cv_ok, "api (f): cv")
+        cv_run = dict(base=dict(base), hist=hist, s=cv_s, peak=cv_peak,
+                      texts=[b.model_to_string() for b in folds],
+                      bins=[b._gbdt._bins_T for b in folds])
         del folds, seen
     return dict(a=rows["a"], plain=rows["plain"],
-                cv=(cv_s / len(cv_trees), cv_syncs / len(cv_trees), cv_peak))
+                cv=(cv_s / len(cv_trees), cv_syncs / len(cv_trees), cv_peak),
+                cv_run=cv_run)
+
+
+# ----------------------------------------------------------------- phase 24
+# F1's cases: (name, lanes, rows, features, bins, bin dtype, leaves the
+# rows are spread over, idle lanes, lanes with an empty target, timed)
+F1_CASES = [("b1-n100", 1, 100, 28, 255, np.uint8, 1, (), (), False),
+            ("b8-n2048", 8, 2048, 28, 255, np.uint8, 4, (1,), (2,), True),
+            ("b8-n5000-u16", 8, 5000, 136, 300, np.uint16, 3, (3,), (5,),
+             False),
+            ("b64-n2048", 64, 2048, 28, 255, np.uint8, 8, (0, 63), (7,),
+             True),
+            ("b64-n5000-F136", 64, 5000, 136, 255, np.uint8, 2, (9,), (),
+             False),
+            ("b4-n1M", 4, ROWS, 28, 255, np.uint8, 1, (), (), True),
+            ("b64-n1M", 64, ROWS, 28, 255, np.uint8, 64, (5,), (), True)]
+# F3's cases: F1 cases whose lane histograms (two targets) are searched
+F3_CASES = ("b1-n100", "b8-n2048", "b8-n5000-u16", "b64-n2048",
+            "b64-n5000-F136")
+# the forest's main paths: train_many over the first FOREST_ROWS bench
+# rows, FOREST_MODELS models of FOREST_LEAVES leaves, FOREST_ROUNDS rounds
+FOREST_ROWS, FOREST_MODELS, FOREST_ROUNDS, FOREST_LEAVES = 2048, 8, 50, 31
+FOREST_PROFILED = 2  # rounds of (b)'s profiled call (the idle share)
+FOREST_CLASSES, FOREST_MC_ROUNDS = 5, 20
+FOREST_WIDE_MODELS, FOREST_WIDE_ROUNDS = 4, 3
+FOREST_CLI_MODELS, FOREST_CLI_ROUNDS = 3, 5
+
+
+def _f1_case(torch, rng, B, n, F, nb, dt, leaves, idle, empty):
+    """CPU tensors of one F1 case: ~1/(leaves + 1) of each lane's rows
+    outside every leaf (-1), the rest spread over the leaves; target b is
+    a leaf, -1 for an idle lane, ``leaves`` (no row) for an empty one."""
+    bins = torch.from_numpy(rng.randint(0, nb, (F, n)).astype(dt))
+    g = torch.from_numpy(rng.randn(B, n).astype(np.float32))
+    h = torch.from_numpy(np.abs(rng.randn(B, n)).astype(np.float32))
+    m = torch.from_numpy((rng.rand(B, n) < 0.8).astype(np.float32))
+    lid = torch.from_numpy(rng.randint(-1, leaves, (B, n)).astype(np.int32))
+    tgt = rng.permutation(max(B, leaves))[:B] % leaves
+    tgt[list(idle)] = -1
+    tgt[list(empty)] = leaves
+    return bins, g, h, m, lid, torch.from_numpy(tgt.astype(np.int32))
+
+
+def _f1_library(torch, bins, g, h, m, lid, tgt, nb):
+    """One ``index_add_`` of every lane's sums over its member rows (the
+    library yardstick: the same function, unordered)."""
+    F = bins.shape[0]
+    lane, row = torch.nonzero(lid == tgt[:, None].to(lid.dtype),
+                              as_tuple=True)
+    keys = ((lane[None] * F + torch.arange(F, device="cuda")[:, None]) * nb
+            + bins[:, row].to(torch.int64)).reshape(-1)
+    mm = m[lane, row]
+    src = torch.stack([g[lane, row] * mm, h[lane, row] * mm, mm],
+                      -1).repeat(F, 1)
+    B = g.shape[0]
+    return lambda: torch.zeros(B * F * nb, 3, device="cuda").index_add_(
+        0, keys, src), int(row.numel())
+
+
+def phase_forest_kernels(torch):
+    """F1 and F3 against their plain versions (on the CPU), bitwise, two
+    launches each bitwise equal, at B = 1-64 lanes, 100 to 1M rows, u8
+    and u16 bins, F = 28 and 136, idle lanes and empty targets; times
+    each, its plain version on the card and (F1) one ``index_add_``."""
+    from lightgbm_tpu_torch.ops import cuda_forest
+    from lightgbm_tpu_torch.ops.cuda_search import pack_meta
+    from lightgbm_tpu_torch.ops.forest import (forest_histogram_plain,
+                                               forest_search_plain)
+
+    rng = np.random.RandomState(24)
+    records, hists = {}, {}
+    for (name, B, n, F, nb, dt, leaves, idle, empty,
+         timed_) in F1_CASES:
+        cpu = _f1_case(torch, rng, B, n, F, nb, dt, leaves, idle, empty)
+        bins, g, h, m, lid, tgt = (t.cuda() for t in cpu)
+        k1 = cuda_forest.forest_histogram_cuda(bins, g, h, m, lid, tgt, nb)
+        k2 = cuda_forest.forest_histogram_cuda(bins, g, h, m, lid, tgt, nb)
+        torch.cuda.synchronize()
+        plain = forest_histogram_plain(*cpu, nb)
+        err = float((k1.cpu() - plain).abs().max())
+        check(torch.equal(k1, k2), f"forest F1 {name}: launches differ")
+        check(torch.equal(k1.cpu(), plain),
+              f"forest F1 {name}: differs from its plain version "
+              f"(max abs {err})")
+        if name in F3_CASES:  # a second target set: each lane's sibling
+            tgt2 = torch.where(cpu[5] >= 0, (cpu[5] + 1) % leaves, cpu[5])
+            hists[name] = (plain, forest_histogram_plain(
+                *cpu[:5], tgt2, nb), F, nb, leaves)
+        line = (f"[forest F1 {name}] B={B} n={n} F={F} bins={nb} "
+                f"{np.dtype(dt).name} idle={list(idle)} empty="
+                f"{list(empty)} bitwise: launches, == plain (CPU)")
+        if timed_:
+            def kernel():
+                return cuda_forest.forest_histogram_cuda(bins, g, h, m, lid,
+                                                         tgt, nb)
+
+            lib, members = _f1_library(torch, bins, g, h, m, lid, tgt, nb)
+            ms = time_ms(torch, kernel)
+            plain_ms = time_ms(torch, lambda: forest_histogram_plain(
+                bins, g, h, m, lid, tgt, nb), reps=3, warm=1)
+            lib_ms = time_ms(torch, lib)
+            nbytes = (4 * B * n + members * (F * bins.element_size() + 12)
+                      + B * F * nb * 12)
+            bound = max(nbytes / HBM_BYTES_PER_S,
+                        3 * F * members / F32_FLOPS) * 1e3
+            records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, library_ms=lib_ms)
+            line += (f" member_rows={members} ms={ms:.4f} "
+                     f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                     f"bound_ms={bound:.5f} share={bound / ms:.4f} "
+                     f"faster_than_index_add={ms < lib_ms}")
+            del lib
+        say(line)
+        del bins, g, h, m, lid, tgt, k1, k2, cpu
+    for name in F3_CASES:
+        h_l, h_r, F, nb, leaves = hists[name]
+        A = h_l.shape[0]
+        fm = rng.rand(A, F) < 0.8
+        fm[A - 1] = False  # a lane with every feature masked: no winner
+        meta = torch.stack([pack_meta(torch.from_numpy(fm[a]),
+                                      torch.full((F,), nb),
+                                      torch.from_numpy(rng.rand(F) < 0.1),
+                                      "cpu") for a in range(A)])
+        # (can, the children's totals from feature 0, the constraints)
+        scal = torch.from_numpy(np.column_stack([
+            rng.rand(A) < 0.9, h_l[:, 0].sum(1).numpy(),
+            h_r[:, 0].sum(1).numpy(), rng.choice([1.0, 5.0, 20.0], A),
+            rng.choice([0.0, 1e-3], A), rng.choice([0.0, 0.5], A),
+            rng.choice([0.5, 1.0, 10.0], A),
+            rng.choice([0.0, 0.1], A)]).astype(np.float32))
+        dev = [t.cuda() for t in (h_l, h_r, meta, scal)]
+        k1 = cuda_forest.forest_search_cuda(*dev)
+        k2 = cuda_forest.forest_search_cuda(*dev)
+        torch.cuda.synchronize()
+        plain = forest_search_plain(h_l, h_r, meta, scal)
+        err = float(torch.nan_to_num((k1.cpu() - plain).abs(),
+                                     posinf=0.0).max())
+        check(torch.equal(k1, k2), f"forest F3 {name}: launches differ")
+        check(torch.equal(k1.cpu().view(torch.int32),
+                          plain.view(torch.int32)),
+              f"forest F3 {name}: differs from its plain version "
+              f"(max abs {err})")
+        wins = int((plain[:, :, 1] >= 0).sum())
+        ms = time_ms(torch, lambda: cuda_forest.forest_search_cuda(*dev))
+        plain_ms = time_ms(torch, lambda: forest_search_plain(*dev), reps=3,
+                           warm=1)
+        nbytes = 2 * A * F * nb * 12 + A * F * 16 + A * 48 + A * 128
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        records[f"F3 {name}"] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound,
+                                     library_ms=None)
+        say(f"[forest F3 {name}] A={A} F={F} bins={nb} children with a "
+            f"winner={wins}/{2 * A} bitwise: launches, == plain (CPU) "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.5f} "
+            f"share={bound / ms:.4f}")
+        del dev, k1, k2
+    return records
+
+
+def _forest_run(torch, fn, rounds, profiled=0):
+    """(result, s a round, host syncs a round, F1 and F3 launches a round,
+    peak device bytes) of ``fn()`` with every count set to 0 just before
+    and read just after; with ``profiled`` > 0 the device idle share of a
+    second, profiled call of ``fn(profiled)`` too (else None)."""
+    from lightgbm_tpu_torch.learners import serial
+    from lightgbm_tpu_torch.ops import launch_counts
+    from lightgbm_tpu_torch.profile_slice import _busy_us
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn(rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = launch_counts()
+    rec = dict(s_round=wall / rounds, syncs=serial.HOST_SYNCS / rounds,
+               f1=n["F1"] / rounds, f3=n["F3"] / rounds, counts=n,
+               peak=torch.cuda.max_memory_allocated(), idle=None)
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(profiled)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        rec["idle"] = 1.0 - _busy_us(ev) * 1e-6 / pwall
+    return out, rec
+
+
+def _texts(boosters):
+    return [b.model_to_string() for b in boosters]
+
+
+def _forest_say(tag, rec):
+    idle = "not measured" if rec["idle"] is None else f"{rec['idle']:.4f}"
+    say(f"[forest {tag}] s/round={rec['s_round']:.4f} host_syncs/round="
+        f"{rec['syncs']:.1f} F1/round={rec['f1']:.1f} F3/round="
+        f"{rec['f3']:.1f} device_idle_share={idle} "
+        f"peak_mem_bytes={rec['peak']} launches={json.dumps(rec['counts'])}")
+
+
+def phase_forest(torch, lt, params, train_set, cv_run):
+    """The forest's main paths (b-e) on the bench data: ``train_many`` of
+    8 models at 2,048 rows as lanes against sequential rounds (order route:
+    bitwise; mega route: printed), 5-class multiclass lanes against the
+    class loop, 4 models at 1M rows x 255 leaves as lanes against
+    sequential rounds, and phase 17's bin-once cv folds against the
+    subset-trained folds; each run's s/round, host syncs, F1/F3 launches,
+    idle share and peak memory."""
+    from lightgbm_tpu_torch.learners import forest
+
+    saved_params = dict(train_set.params)
+    X, y = train_set.data, np.asarray(train_set.label)
+    base = dict(objective="binary", num_leaves=FOREST_LEAVES,
+                max_bin=NUM_BINS, min_data_in_leaf=20, verbose=-1)
+    plist = [dict(base, learning_rate=float(lr), lambda_l2=float(l2),
+                  feature_fraction=float(ff), feature_fraction_seed=2 + i,
+                  seed=i)
+             for i, (lr, l2, ff) in enumerate(zip(
+                 np.linspace(0.05, 0.4, FOREST_MODELS),
+                 np.linspace(0.0, 10.0, FOREST_MODELS),
+                 np.linspace(0.6, 1.0, FOREST_MODELS)))]
+    small = lt.Dataset(X[:FOREST_ROWS], label=y[:FOREST_ROWS],
+                       max_bin=NUM_BINS)
+
+    def many(ps, knob, ds=small):
+        return lambda r: lt.train_many(
+            [dict(p, forest_batching=knob) for p in ps], ds, r)
+
+    # ---- (b) train_many: lanes, then sequential rounds, order route
+    with route_env("order"):
+        lanes, rec_l = _forest_run(torch, many(plist, "on"), FOREST_ROUNDS,
+                                   profiled=FOREST_PROFILED)
+        seq, rec_s = _forest_run(torch, many(plist, "off"), FOREST_ROUNDS,
+                                 profiled=FOREST_PROFILED)
+    with route_env("mega"):
+        mega, rec_m = _forest_run(torch, many(plist, "off"), FOREST_ROUNDS,
+                                  profiled=FOREST_PROFILED)
+    same = _texts(lanes) == _texts(seq)
+    same_mega = _texts(mega) == _texts(seq)
+    trees = sum(b.num_trees() for b in lanes)
+    splits = sum(t.num_leaves - 1 for b in lanes for t in b._gbdt.models)
+    for tag, rec in (("b lanes", rec_l), ("b sequential order", rec_s),
+                     ("b sequential mega", rec_m)):
+        _forest_say(tag, rec)
+    say(f"[forest b] train_many {FOREST_MODELS} models x {FOREST_ROUNDS} "
+        f"rounds at {FOREST_ROWS} rows, {trees} trees, {splits} splits: "
+        f"lanes == sequential (order route) bitwise: {same}; mega route's "
+        f"trees == the order route's: {same_mega}; grow_forest calls "
+        f"{forest.DISPATCHES}")
+    check(same, "forest (b): lanes differ from sequential rounds")
+    check(rec_l["counts"]["F1"] > 0 and rec_l["counts"]["F3"] > 0
+          and rec_s["counts"]["F1"] == 0,
+          "forest (b): lanes never launched F1/F3, or sequential did")
+    # the lanes' launches: one F1 and F3 at each round's root, one each a
+    # forest step (every step of a round splits at least one lane)
+    launches = dict(F1=rec_l["counts"]["F1"], F3=rec_l["counts"]["F3"])
+    del lanes, seq, mega
+
+    # ---- (c) multiclass lanes against the class loop, order route
+    cls = np.digitize(X[:FOREST_ROWS, 0] + X[:FOREST_ROWS, 1],
+                      np.quantile(X[:FOREST_ROWS, 0] + X[:FOREST_ROWS, 1],
+                                  [0.2, 0.4, 0.6, 0.8])).astype(np.float32)
+    mc = lt.Dataset(X[:FOREST_ROWS], label=cls, max_bin=NUM_BINS)
+    mp = dict(base, objective="multiclass", num_class=FOREST_CLASSES)
+    with route_env("order"):
+        on, rec_on = _forest_run(torch, lambda r: lt.train(
+            dict(mp, forest_batching="on"), mc, r), FOREST_MC_ROUNDS)
+        off, rec_off = _forest_run(torch, lambda r: lt.train(
+            dict(mp, forest_batching="off"), mc, r), FOREST_MC_ROUNDS)
+    same_mc = on.model_to_string() == off.model_to_string()
+    _forest_say("c multiclass lanes", rec_on)
+    _forest_say("c multiclass class loop", rec_off)
+    say(f"[forest c] multiclass {FOREST_CLASSES} classes x "
+        f"{FOREST_MC_ROUNDS} iterations at {FOREST_ROWS} rows: lanes == "
+        f"class loop bitwise: {same_mc}")
+    check(same_mc and rec_on["counts"]["F1"] > 0,
+          "forest (c): multiclass lanes differ from the class loop")
+    del on, off
+
+    # ---- (d) full width: 4 models at 1M rows x 255 leaves
+    wide = [dict(p, num_leaves=NUM_LEAVES, min_data_in_leaf=MIN_DATA)
+            for p in plist[:FOREST_WIDE_MODELS]]
+    with route_env("order"):
+        w_on, rec_won = _forest_run(torch, many(wide, "on", train_set),
+                                    FOREST_WIDE_ROUNDS)
+        w_off, rec_woff = _forest_run(torch, many(wide, "off", train_set),
+                                      FOREST_WIDE_ROUNDS)
+    same_w = _texts(w_on) == _texts(w_off)
+    _forest_say("d 1M lanes", rec_won)
+    _forest_say("d 1M sequential order", rec_woff)
+    say(f"[forest d] {FOREST_WIDE_MODELS} models x {FOREST_WIDE_ROUNDS} "
+        f"rounds at {ROWS} rows x {N_FEAT} features x {NUM_BINS} bins, "
+        f"{NUM_LEAVES} leaves: lanes == sequential (order route) bitwise: "
+        f"{same_w}; leaves={[t.num_leaves for b in w_on for t in b._gbdt.models]}")
+    check(same_w, "forest (d): 1M-row lanes differ from sequential rounds")
+    del w_on, w_off
+    train_set.params = saved_params
+
+    # ---- (e) phase 17's bin-once cv folds against subset-trained folds
+    folds = {}
+    with route_env("mega"):
+        hist_sub, rec_sub = _forest_run(torch, lambda r: lt.cv(
+            dict(cv_run["base"]), train_set, num_boost_round=r, nfold=3,
+            stratified=True, fpreproc=lambda tr, te, p: (tr, te, p),
+            callbacks=[lambda env: folds.setdefault("f", env.model)]), 5)
+    sub = folds["f"].boosters
+    same_cv = _texts(sub) == cv_run["texts"]
+    same_mean = all(hist_sub[k] == cv_run["hist"][k]
+                    for k in hist_sub if k.endswith("-mean"))
+    up_once = sum({id(t): t.numel() * t.element_size()
+                   for t in cv_run["bins"]}.values())
+    up_sub = sum(b._gbdt._bins_T.numel() * b._gbdt._bins_T.element_size()
+                 for b in sub)
+    say(f"[forest e] cv 3 stratified folds x 5 rounds at {ROWS} rows (mega "
+        f"route): bin-once folds == subset-trained folds bitwise: "
+        f"{same_cv}; -mean metrics equal: {same_mean}; bin-once "
+        f"s/round={cv_run['s'] / 5:.4f} peak_mem_bytes={cv_run['peak']} "
+        f"binned bytes uploaded={up_once} (one shared matrix, resident "
+        f"since phase 8); subset s/round={rec_sub['s_round']:.4f} "
+        f"peak_mem_bytes={rec_sub['peak']} binned bytes uploaded={up_sub} "
+        f"(a copy a fold)")
+    check(same_cv and same_mean,
+          "forest (e): bin-once folds differ from subset-trained folds")
+    del sub, folds
+    return dict(launches=launches, b=(rec_l, rec_s, rec_m),
+                d=(rec_won, rec_woff))
+
+
+def phase_forest_cli(torch, lt, files):
+    """(f) ``task=train_many`` through the CLI on phase 19's valid file:
+    model i bitwise ``task=train`` with ``seed=i``."""
+    from lightgbm_tpu_torch import cli
+
+    out = os.path.join(FILES_DIR, "forest_m.txt")
+    common = [f"data={files['valid']}", "objective=binary",
+              f"num_iterations={FOREST_CLI_ROUNDS}", "num_leaves=63",
+              f"max_bin={NUM_BINS}"]
+    t0 = time.perf_counter()
+    _run_cli(torch, cli, ["task=train_many", f"num_models="
+                          f"{FOREST_CLI_MODELS}", f"output_model={out}"]
+             + common)
+    many_s = time.perf_counter() - t0
+    same = []
+    for i in range(FOREST_CLI_MODELS):
+        one = f"{out}.alone{i}"
+        _run_cli(torch, cli, ["task=train", f"seed={i}",
+                              f"output_model={one}"] + common)
+        with open(f"{out}.{i}") as a, open(one) as b:
+            same.append(a.read() == b.read())
+    say(f"[forest f] task=train_many num_models={FOREST_CLI_MODELS} x "
+        f"{FOREST_CLI_ROUNDS} iterations on {VALID_ROWS} rows in "
+        f"{many_s:.2f}s: output_model.i == task=train seed=i bitwise: "
+        f"{same}")
+    check(all(same), "forest (f): task=train_many models differ from "
+          "task=train")
 
 
 # ----------------------------------------------------------------- phase 21
@@ -5075,7 +5455,10 @@ def main() -> int:
           and main_dw["leaves"] == main_bsub["leaves"],
           f"depthwise under bsub and v1 differ: {main_bsub['auc']} vs "
           f"{main_dw['auc']}")
-    timed("api", phase_api, torch, lt, *data)
+    api = timed("api", phase_api, torch, lt, *data)
+    forest_k = timed("forest_kernels", phase_forest_kernels, torch)
+    forest_main = timed("forest", phase_forest, torch, lt, data[0], data[1],
+                        api.pop("cv_run"))
     dart = timed("dart", phase_dart, torch, lt, *data,
                  routes["mega"]["s_per_tree"])
     f64, _ = timed("f64", phase_f64, torch, lt, *data, routes["order"])
@@ -5093,6 +5476,7 @@ def main() -> int:
     timed("multiclass_300k", phase_objective, torch, lt, card, "multiclass",
           rows=MULTICLASS_BAND_ROWS)
     files = timed("files", phase_files, torch, lt, params, routes["mega"])
+    timed("forest_cli", phase_forest_cli, torch, lt, files)
     timed("capi", phase_capi, torch, lt, params, routes["mega"], files)
     del files
     sparse, s1_launches = timed("sparse", phase_sparse, torch, lt)
@@ -5185,6 +5569,18 @@ def main() -> int:
         dict(name="search2_f64", route="cuda", source=src + "search.cu",
              replaces="lightgbm_tpu/ops/split.py:69", path="f64-leafwise",
              bound_by="bytes", **f64["K3-f64"]),
+        # no pallas_call: the JAX package's forest lanes are jnp vmaps
+        # (learners/forest.py:123 _batched_hist, :112-121 the searches);
+        # times at train_many's shape (8 lanes, 2,048 rows, F = 28)
+        dict(name="forest_histogram", route="cuda",
+             source=src + "forest.cu",
+             replaces="lightgbm_tpu/learners/forest.py:123",
+             path="forest", launches=forest_main["launches"]["F1"],
+             bound_by="bytes", **forest_k["b8-n2048"]),
+        dict(name="forest_search", route="cuda", source=src + "forest.cu",
+             replaces="lightgbm_tpu/learners/forest.py:112",
+             path="forest", launches=forest_main["launches"]["F3"],
+             bound_by="bytes", **forest_k["F3 b8-n2048"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,15 +13,17 @@ merged over a config file (argv wins, application.cpp:46-104), then
 * ``task=predict`` (application.cpp:242-256): stream ``data`` through the
   batch tier (serving/batch.py) into ``output_result``;
 * ``task=serve``: the online service (serving/server.py
-  ``serve_from_config``).
+  ``serve_from_config``);
+* ``task=train_many``: ``num_models`` models on one binned dataset, model
+  i with ``seed + i``, saved to ``<output_model>.<i>``.
 
 Reference ``train.conf`` files parse unchanged.  Every task runs on the
 ``device`` argument of :func:`main` (CUDA unless ``"cpu"``); no config
 key selects it.  ``boosting_type=dart`` trains DART (models/dart.py) and
 ``nonfinite_policy`` guards the gradients (resilience/guards.py; the
 guard's parked counts drain before the model is saved).  Refused,
-naming their ROADMAP item: ``task=train_many`` (A7), ``task=serve_fleet``
-(A9), ``task=train_fleet`` (A8/A9), checkpoints and ``resume`` (A9),
+naming their ROADMAP item: ``task=serve_fleet`` (A9), ``task=train_fleet``
+(A8/A9), checkpoints and ``resume`` (A9),
 ``num_machines > 1`` (A8) and the configurations
 ``models/gbdt.check_supported`` refuses (parallel learners: A8).
 ``hist_dtype=float64`` trains (float64 histograms, A5).
@@ -178,6 +180,37 @@ def run_train(cfg: Config, device=None) -> GBDT:
     return booster
 
 
+def run_train_many(cfg: Config, params: Dict[str, str],
+                   device=None) -> list:
+    """``task=train_many`` (the JAX package's cli.py:427-463): ``num_models``
+    models on one binned dataset, each round advanced for all of them
+    (``engine.train_many``: one forest a round where every model may grow
+    as a lane).  Model i trains with ``seed + i`` and is saved, atomically
+    with its ``.sha256`` sidecar, to ``<output_model>.<i>``; each is the
+    model ``task=train`` with that seed writes, bitwise."""
+    from .basic import Dataset
+    from .engine import train_many
+
+    _refuse_unported(cfg)
+    if cfg.num_models < 1:
+        Log.fatal("num_models must be >= 1 for task=train_many")
+    dev = resolve_device(device)
+    base = {k: v for k, v in params.items()
+            if k not in ("task", "num_models", "data", "output_model")}
+    plist = [dict(base, seed=cfg.seed + i) for i in range(cfg.num_models)]
+    t0 = time.perf_counter()
+    ds = Dataset(cfg.data, params=dict(base), device=dev)
+    boosters = train_many(plist, ds, num_boost_round=cfg.num_iterations,
+                          device=dev)
+    Log.info(f"Finished training {len(boosters)} models in "
+             f"{time.perf_counter() - t0:.6f} seconds")
+    for i, bst in enumerate(boosters):
+        path = f"{cfg.output_model}.{i}"
+        bst.save_model(path)
+        Log.info(f"Saved model {i} ({bst.num_trees()} trees) to {path}")
+    return boosters
+
+
 @contextlib.contextmanager
 def _profiled(cfg: Config, dev):
     """``profile=true``: a ``torch.profiler`` trace of the training loop
@@ -308,7 +341,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         elif cfg.task == "serve":
             return int(run_serve(cfg, device, block=True) or 0)
         elif cfg.task == "train_many":
-            raise _not_ported("task=train_many", "A7: learners/forest.py")
+            run_train_many(cfg, params, device)
         elif cfg.task == "serve_fleet":
             raise _not_ported("task=serve_fleet", "A9: the fleet supervisor")
         elif cfg.task == "train_fleet":

@@ -86,6 +86,14 @@ __device__ __forceinline__ double max_of(double a, double b) {
 // K_EPSILON in T: 1e-15f, or the double 1e-15 of the float64 search
 __device__ __forceinline__ float epsilon_of(float) { return kEpsilon; }
 __device__ __forceinline__ double epsilon_of(double) { return 1e-15; }
+// -0 in T, from its bits: the plain version's -sign(0) (ops/split.py
+// leaf_output), which a literal's negation need not keep
+__device__ __forceinline__ float neg_zero(float) {
+  return __int_as_float(0x80000000);
+}
+__device__ __forceinline__ double neg_zero(double) {
+  return __longlong_as_double(0x8000000000000000LL);
+}
 
 constexpr int kScanBlock = 16;
 constexpr int kMaxLevels = 5;  // 16^5 bins > any uint16 bin count
@@ -166,11 +174,13 @@ __device__ __forceinline__ T leaf_gain(T g, T h, T l1, T l2) {
   return div_rn(mul_rn(reg, reg), add_rn(h, l2));
 }
 
+// -sign(g) * reg / (h + l2) as the plain version computes it: -sign(g)
+// is -1, 1 or -0 (g = 0), so a zero gradient gives -0, as there
 template <typename T>
 __device__ __forceinline__ T leaf_out(T g, T h, T l1, T l2) {
   const T reg = max_of(abs_of(g) - l1, T(0));
-  const T sgn = (g > T(0)) ? T(1) : ((g < T(0)) ? T(-1) : T(0));
-  return div_rn(-sgn * reg, add_rn(h, l2));
+  const T neg_sgn = (g > T(0)) ? T(-1) : ((g < T(0)) ? T(1) : neg_zero(g));
+  return div_rn(mul_rn(neg_sgn, reg), add_rn(h, l2));
 }
 
 // One feature's scan of one child, by one warp (every lane must call it;

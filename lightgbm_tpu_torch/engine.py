@@ -8,8 +8,13 @@ and runs the boosting loop with a custom objective (``fobj``) and metric
 validation set that is the training set is not added: its name becomes
 the booster's ``train_data_name``, under which ``Booster.eval_train``
 reports and on which early stopping never stops.  ``cv`` trains one
-booster per fold on row subsets of the binned data (stratified or query
-by query where asked) and averages their metrics.  Every entry point
+booster per fold (stratified or query by query where asked) and averages
+their metrics: on the whole dataset's bins with the fold's rows as the
+root row set where ``_cv_can_share_bins`` allows (bin once: no per-fold
+binned copy or upload; folds that are all ``_forest_eligible`` grow as
+one forest's lanes each round), else on the fold's row subset; the trees
+are the same bitwise.  ``train_many`` trains several models on one
+binned dataset, as one forest a round where it may.  Every entry point
 runs on ``device`` (None -> CUDA; pass ``"cpu"`` for the plain PyTorch
 path).
 """
@@ -23,7 +28,8 @@ import numpy as np
 
 from . import callback
 from .basic import Booster, Dataset
-from .config import key_alias_transform
+from .config import Config, key_alias_transform
+from .models.gbdt import train_forest_round
 
 
 def _sorted_callbacks(cbs: List[Callable]):
@@ -166,11 +172,48 @@ def train(params: Dict[str, Any], train_set: Dataset,
 
 
 def train_many(params_list: List[Dict[str, Any]], train_set: Dataset,
-               num_boost_round: int = 100) -> List[Booster]:
-    """Several models on one binned dataset, batched: not ported."""
-    raise NotImplementedError(
-        "train_many is not ported to lightgbm_tpu_torch yet (ROADMAP queue "
-        "A7: forest batching)")
+               num_boost_round: int = 100, device=None) -> List[Booster]:
+    """Train N independent models on one binned dataset (engine.py:239-
+    301): the data is binned once, from ``train_set`` with the first
+    model's parameters merged in, and every round advances all models.
+    Where every model is ``_forest_eligible``, a round grows all their
+    trees as the lanes of one forest (``train_forest_round``); else each
+    model takes its own sequential round.  Either way each model is the
+    model ``train`` grows alone from its parameters, bitwise.  Models may
+    differ in the constraints, learning rate, sampling, seeds and
+    objective; ``num_leaves`` and ``max_bin`` must match (else
+    ``ValueError``).  Returns the boosters in input order."""
+    if not params_list:
+        return []
+    plist = [key_alias_transform(dict(p)) for p in params_list]
+    merged = dict(train_set.params or {})
+    merged.update(plist[0])
+    # the one binning serves every model: a model asking for another
+    # max_bin would silently get it, so it is refused with num_leaves
+    bins = {Config.from_dict(dict(merged, **p)).max_bin for p in plist}
+    train_set.params = merged
+    train_set.construct()
+    boosters = [Booster(params=p, train_set=train_set, device=device)
+                for p in plist]
+    gb = [b._gbdt for b in boosters]
+    if len(bins) > 1 or len({g.max_leaves for g in gb}) > 1:
+        raise ValueError(
+            "train_many: num_leaves and max_bin must match across models; "
+            "vary the learning rate, regularization, sampling and seeds "
+            "per model instead")
+    batched = all(g._forest_eligible() for g in gb)
+    done = [False] * len(gb)
+    for _ in range(num_boost_round):
+        idx = [i for i, d in enumerate(done) if not d]
+        if not idx:
+            break
+        if batched:
+            stops = train_forest_round([gb[i] for i in idx])
+        else:
+            stops = [boosters[i].update() for i in idx]
+        for i, stop in zip(idx, stops):
+            done[i] = bool(stop)
+    return boosters
 
 
 class CVBooster:
@@ -229,6 +272,28 @@ def _make_n_folds(full_data: Dataset, nfold: int, seed: int,
     return folds
 
 
+def _cv_can_share_bins(params, inner, fpreproc, fobj) -> bool:
+    """Whether ``cv`` may train every fold on the whole dataset's bins
+    with the fold's rows as a base row mask (engine.py:204-236): nothing
+    in training may read data-wide statistics.  Not with ``fpreproc`` or
+    ``fobj`` (user code sees the dataset), query groups (per-query
+    objectives), bagging (the draw is over all rows), ``is_unbalance``
+    or ``scale_pos_weight`` (class weights from the whole label vector),
+    or any boosting but gbdt."""
+    if fpreproc is not None or fobj is not None:
+        return False
+    if inner.metadata.query_boundaries is not None:
+        return False
+    try:
+        probe = Config.from_dict(dict(params))
+    except Exception:  # noqa: BLE001 — an invalid config takes the subset
+        return False
+    return (probe.boosting_type == "gbdt"
+            and (probe.bagging_fraction >= 1.0 or probe.bagging_freq <= 0)
+            and not probe.is_unbalance
+            and probe.scale_pos_weight == 1.0)
+
+
 def _agg_cv_result(raw_results):
     """Mean and standard deviation over the folds (engine.py:306-319):
     ("cv_agg", "<data> <metric>", mean, bigger_is_better, std)."""
@@ -264,19 +329,42 @@ def cv(params: Dict[str, Any], train_set: Dataset,
     if metrics:
         params["metric"] = metrics
     cvfolds = CVBooster()
+    inner = train_set.construct()
+    share_bins = _cv_can_share_bins(params, inner, fpreproc, fobj)
+    shared_all = True
     for train_idx, test_idx in _make_n_folds(train_set, nfold, seed,
                                              stratified, shuffle):
-        tr = train_set.subset(np.sort(train_idx))
         te = train_set.subset(np.sort(test_idx))
         tparams = dict(params)
-        if fpreproc is not None:
-            tr, te, tparams = fpreproc(tr, te, tparams.copy())
-        init_path = tparams.pop("input_model", "")
-        tr.params.update(tparams)
-        bst = Booster(params=tparams, train_set=tr, device=device)
+        bst = None
+        if share_bins:
+            # bin once: the fold trains on the whole dataset's bins with
+            # its rows as the root row set, bitwise the subset run
+            init_path = tparams.pop("input_model", "")
+            cand = Booster(params=tparams, train_set=train_set,
+                           device=device)
+            mask = np.zeros(inner.num_data, np.float32)
+            mask[train_idx] = 1.0
+            try:
+                cand._gbdt.set_base_row_mask(mask)
+                bst = cand
+            except ValueError:
+                tparams = dict(params)
+        if bst is None:
+            shared_all = False
+            tr = train_set.subset(np.sort(train_idx))
+            if fpreproc is not None:
+                tr, te, tparams = fpreproc(tr, te, tparams.copy())
+            init_path = tparams.pop("input_model", "")
+            tr.params.update(tparams)
+            bst = Booster(params=tparams, train_set=tr, device=device)
         bst.add_valid(te, "valid")
         _continue_from(bst, init_model, init_path)
         cvfolds.append(bst)
+    # bin-once folds that may grow as lanes: one forest a round advances
+    # every fold (engine.py:398-407)
+    batch_folds = (share_bins and shared_all and fobj is None and all(
+        b._gbdt._forest_eligible() for b in cvfolds.boosters))
 
     cbs = list(dict.fromkeys(callbacks or []))  # ordered dedupe
     if early_stopping_rounds is not None and early_stopping_rounds > 0:
@@ -297,8 +385,11 @@ def cv(params: Dict[str, Any], train_set: Dataset,
                     end_iteration=num_boost_round,
                     evaluation_result_list=None))
         fold_results = []
+        if batch_folds:
+            train_forest_round([b._gbdt for b in cvfolds.boosters])
         for bst in cvfolds.boosters:
-            bst.update(fobj=fobj)
+            if not batch_folds:
+                bst.update(fobj=fobj)
             fold_results.append(bst.eval_valid(feval))
         res = _agg_cv_result(fold_results)
         for _, key, mean, _, std in res:

@@ -318,6 +318,34 @@ def _pool_slots(slot_of: np.ndarray, slot_last: np.ndarray, leaf: int,
     return parent, s1, int(np.argmin(others))
 
 
+def record_split(best: np.ndarray, tree_i: np.ndarray, tree_f: np.ndarray,
+                 bcol: np.ndarray, res: np.ndarray, best_leaf: int, node: int,
+                 is_cat: bool) -> None:
+    """The host tables after split ``node`` of ``best_leaf`` (its column
+    ``bcol`` of the best-split table, copied before the split) with the
+    children's search rows ``res`` [2, >= 11]: the left child takes the
+    parent's column of ``best``, the right child the new leaf's (``node +
+    1``), and the node table the split (Tree::Split, tree.cpp:52-96)."""
+    new_leaf = node + 1
+    depth_child = int(bcol[_BLDEP]) + 1
+    lc, rc = bcol[_BLC], bcol[_BRC]
+    tail = np.array([0.0, 0.0, node, depth_child, 0.0], best.dtype)
+    best[:11, best_leaf] = res[0, :11]
+    best[11:, best_leaf] = tail
+    best[_BLV, best_leaf], best[_BLCNT, best_leaf] = bcol[_BLO], lc
+    best[:11, new_leaf] = res[1, :11]
+    best[11:, new_leaf] = tail
+    best[_BLV, new_leaf], best[_BLCNT, new_leaf] = bcol[_BRO], rc
+    parent = int(bcol[_BLPAR])
+    if parent >= 0:
+        side = 3 if tree_i[3, parent] == ~best_leaf else 4
+        tree_i[side, parent] = node
+    tree_i[:, node] = [int(bcol[_BF]), int(bcol[_BT]), int(is_cat),
+                       ~best_leaf, ~new_leaf]
+    # lc + rc in the table's dtype, rounded once to float32
+    tree_f[:, node] = [bcol[_BG], bcol[_BLV], np.float32(lc + rc)]
+
+
 def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               bag_mask: torch.Tensor, feature_mask, num_bins_per_feature,
               is_categorical, params: TreeLearnerParams, num_bins: int,
@@ -325,7 +353,9 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               hist_fn=None, init_tree: Optional[Tree] = None,
               init_leaf_id: Optional[torch.Tensor] = None,
               init_hist_fn=None,
-              hist_pool: int = 0) -> Tuple[Tree, torch.Tensor]:
+              hist_pool: int = 0,
+              root_rows: Optional[torch.Tensor] = None
+              ) -> Tuple[Tree, torch.Tensor]:
     """Grow one tree; returns (tree, leaf_id per row).
 
     ``bins_T`` [F, n] uint8/uint16; ``grad``/``hess``/``bag_mask`` [n]
@@ -354,7 +384,14 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
     The root sums, the search rows and the best-split table take the
     histograms' dtype: float64 ``hist_fn`` / ``init_hist_fn`` grow a
-    hist_dtype=float64 tree."""
+    hist_dtype=float64 tree.
+
+    ``root_rows`` (int64, ascending) is the root's row set, a cv fold's
+    training rows on the shared bins (``GBDT.set_base_row_mask``): the
+    order route's ``order`` and the record route's root record start as
+    those rows, so every window, block and positional count is the run's
+    on the fold's row subset, and the tree is that run's tree bitwise.
+    Rows outside the set get leaf 0 in the returned map."""
     pooled = 0 < hist_pool < max_leaves
     if pooled and init_tree is not None:
         raise ValueError("a resumed tree grows unpooled")
@@ -368,6 +405,8 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     rec_route = hist_fn_raw is not None
     if init_tree is not None and rec_route:
         raise ValueError("a resumed tree grows on the order route only")
+    if init_tree is not None and root_rows is not None:
+        raise ValueError("a resumed tree has no root row set")
     mega = rec_route and fuse_hist
     dev = bins_T.device
     F, n = bins_T.shape
@@ -385,15 +424,26 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                             init_hist_fn, consts)
     else:
         # ---- root (LeafSplits::Init, leaf_splits.hpp:51-92)
+        n0 = n if root_rows is None else int(root_rows.shape[0])
         if rec_route:
             k = bins_per_word(bins_T.dtype)
             rec = build_record(bins_T, grad, hess, bag_mask)
-            hist0 = hist_fn_raw(rec, 0, n, F, k, num_bins)
-        else:
+            if root_rows is not None:
+                rec = rec.index_select(1, root_rows)
+            hist0 = hist_fn_raw(rec, 0, n0, F, k, num_bins)
+        elif root_rows is None:
             order = torch.arange(n, dtype=torch.int64, device=dev)
             hist0 = hist_fn(bins_T, grad, hess, bag_mask)
-        sg0, sh0, c0 = (float(v) for v in _root_sums(grad, hess, bag_mask,
-                                                      hist0.dtype))
+        else:
+            order = root_rows.clone()
+            hist0 = hist_fn(take_bins(bins_T, 1, order),
+                            grad.index_select(0, order),
+                            hess.index_select(0, order),
+                            bag_mask.index_select(0, order))
+        stats = ((grad, hess, bag_mask) if root_rows is None else
+                 (t.index_select(0, root_rows) for t in (grad, hess,
+                                                         bag_mask)))
+        sg0, sh0, c0 = (float(v) for v in _root_sums(*stats, hist0.dtype))
         rows = search2_rows(hist0, hist0, [float(params.can_split(0)),
                                            sg0, sh0, c0, sg0, sh0, c0]
                             + consts, meta)
@@ -406,7 +456,7 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         hists[0] = hist0
         begin = np.zeros(L, np.int64)
         count = np.zeros(L, np.int64)
-        count[0] = n
+        count[0] = n0
         tree_i = np.zeros((5, L), np.int32)  # feat, thr, dtype, lch, rch
         tree_i[0] = -1
         tree_f = np.zeros((3, L), np.float32)  # gain, int_value, int_count
@@ -514,34 +564,17 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                     slot_leaf[s1], slot_leaf[s2] = best_leaf, new_leaf
                     slot_last[s1] = slot_last[s2] = step
             res = _host(rows)
-        nright = pcnt - nleft
-
-        # ---- best-split table + ranges: the left child takes the
-        # parent's column, the right child the new leaf's
-        tail = np.array([0.0, 0.0, node, depth_child, 0.0], best.dtype)
-        best[:11, best_leaf] = res[0, :11]
-        best[11:, best_leaf] = tail
-        best[_BLV, best_leaf], best[_BLCNT, best_leaf] = bcol[_BLO], lc
-        best[:11, new_leaf] = res[1, :11]
-        best[11:, new_leaf] = tail
-        best[_BLV, new_leaf], best[_BLCNT, new_leaf] = bcol[_BRO], rc
+        record_split(best, tree_i, tree_f, bcol, res, best_leaf, node,
+                     is_cat)
         begin[new_leaf] = b0 + nleft
-        count[best_leaf], count[new_leaf] = nleft, nright
-
-        # ---- node table (Tree::Split, tree.cpp:52-96)
-        parent = int(bcol[_BLPAR])
-        if parent >= 0:
-            side = 3 if tree_i[3, parent] == ~best_leaf else 4
-            tree_i[side, parent] = node
-        tree_i[:, node] = [f, thr, int(is_cat), ~best_leaf, ~new_leaf]
-        # lc + rc in the table's dtype, rounded once to float32
-        tree_f[:, node] = [bcol[_BG], bcol[_BLV], np.float32(lc + rc)]
+        count[best_leaf], count[new_leaf] = nleft, pcnt - nleft
         nleaves += 1
 
     tree = host_tree(nleaves, tree_i, tree_f, best[_BLV], best[_BLCNT],
                      best[_BLPAR], best[_BLDEP], dev)
 
-    leaf_id = torch.empty(n, dtype=torch.int32, device=dev)
+    leaf_id = (torch.empty if root_rows is None else torch.zeros)(
+        n, dtype=torch.int32, device=dev)
     if rec_route:
         # every split stamped its children's ids into the record's leaf-id
         # row (serial.py:1148-1154)
@@ -556,6 +589,6 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         torch.tensor(live, dtype=torch.int32, device=dev),
         torch.tensor([int(count[lf]) for lf in live], dtype=torch.int64,
                      device=dev),
-        output_size=n)
+        output_size=order.shape[0])
     leaf_id[order] = leaf_of_pos
     return tree, leaf_id

@@ -42,11 +42,19 @@ a float32 histogram or search kernel; the finished tree is float32.  Its
 count channel is exact past 2**24 rows, so the envelope check
 (``check_count_envelope``) refuses only float32 beyond it.
 
+Forest batching (gbdt.py:615-813, :1362): where ``_forest_eligible``,
+an iteration's K class trees grow as the lanes of one forest
+(learners/forest.py), and ``train_forest_round`` grows several boosters'
+trees as one forest (``train_many``, cv's bin-once folds); an iteration
+is ``_begin_iter`` (gradients, guard, bagging, feature samples), the
+growth, then ``_finish_iter``.  ``set_base_row_mask`` trains a cv fold on
+the whole dataset's bins with its rows as every tree's root row set.
+
 Not ported yet (ROADMAP queue A), and refused with NotImplementedError
 rather than ignored: parallel learners (A8).
 Depthwise and hybrid growth ignore histogram_pool_size with the JAX
-package's warning.  Forest batching, the lagged stop check (the port's
-stop check is eager), checkpoints and telemetry are not carried.
+package's warning.  The lagged stop check (the port's stop check is
+eager), checkpoints and telemetry are not carried.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from ..backend import resolve_device
 from ..config import Config
 from ..io.dataset import BinnedDataset
 from ..learners.depthwise import grow_tree_depthwise
+from ..learners.forest import grow_forest
 from ..learners.hybrid import grow_tree_hybrid
 from ..learners.serial import TreeLearnerParams, grow_tree
 from ..log import Log
@@ -78,6 +87,17 @@ from ..resilience.guards import make_guard
 from .tree import (TREE_FIELDS, BinnedTrees, PackedTrees, Tree, binned_table,
                    empty_tree, finalize_thresholds_device,
                    pack_threshold_bounds, pack_trees)
+
+# forest_batching="auto" batches lanes at most this many rows
+# (LGBM_TPU_FOREST_MAX_ROWS, the JAX package's knob and default,
+# gbdt.py:63-69; read per call here)
+FOREST_AUTO_MAX_ROWS = 2048
+
+
+def forest_auto_max_rows() -> int:
+    return int(os.environ.get("LGBM_TPU_FOREST_MAX_ROWS",
+                              str(FOREST_AUTO_MAX_ROWS)))
+
 
 # leaf_count/internal_count ride the float32 histogram count channel,
 # integer-exact only up to 2**24 rows (lightgbm_tpu/learners/serial.py:78)
@@ -181,6 +201,8 @@ class GBDT:
         self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
         # the non-finite guard (resilience/guards.py); None under "off"
         self._nf_guard = make_guard(config.nonfinite_policy)
+        self._base_row_mask: Optional[torch.Tensor] = None
+        self._root_rows: Optional[torch.Tensor] = None
         if train_set is not None:
             self.reset_training_data(train_set, objective)
 
@@ -217,7 +239,29 @@ class GBDT:
             dev)
         self._scores = self._init_scores(train_set)
         self._bag_mask = torch.ones(n, dtype=torch.float32, device=dev)
+        # the root row set of a cv fold on shared bins (set_base_row_mask)
+        self._base_row_mask: Optional[torch.Tensor] = None
+        self._root_rows: Optional[torch.Tensor] = None
         self.train_metrics = create_metrics(self.config, train_set.metadata, n)
+
+    def set_base_row_mask(self, mask) -> None:
+        """Train on the rows where ``mask`` is nonzero only, over the whole
+        dataset's bins: how ``cv`` trains each fold on one shared binned
+        matrix (gbdt.py:491-515).  The fold's rows, ascending, are every
+        tree's root row set (``grow_tree``'s ``root_rows``), so every
+        window, block and count is the subset-trained run's and the trees
+        are that run's bitwise; the bagging mask is ANDed with it.  Rows
+        outside it take leaf 0's value in the training scores, which no
+        metric of a fold reads.  Leaf-wise growth only: any other raises
+        ``ValueError`` (the JAX package's rule), and ``cv`` then trains on
+        the fold's subset."""
+        if self.config.tree_growth != "leafwise":
+            raise ValueError("set_base_row_mask requires leaf-wise growth "
+                             "(the serial leaf-wise learner)")
+        m = torch.as_tensor(np.asarray(mask, np.float32)).to(self.device)
+        self._base_row_mask = m
+        self._root_rows = torch.nonzero(m).flatten()
+        self._bag_mask = self._bag_mask * m
 
     def add_valid_dataset(self, valid_set: BinnedDataset) -> None:
         """GBDT::AddValidDataset (gbdt.cpp:124-140); replays the trees
@@ -278,6 +322,8 @@ class GBDT:
             mask[self._bag_rng.choice(n, size=int(n * frac),
                                       replace=False)] = 1.0
         self._bag_mask = torch.from_numpy(mask).to(self.device)
+        if self._base_row_mask is not None:
+            self._bag_mask = self._bag_mask * self._base_row_mask
 
     def _sample_features(self) -> torch.Tensor:
         """Per-tree feature_fraction sample (serial_tree_learner.cpp:
@@ -390,14 +436,63 @@ class GBDT:
         return grow_tree(*args, hist_fn=self._leafwise_hist_fn(),
                          hist_fn_raw=raw,
                          fuse_hist=raw is not None and self._fuse_hist(),
-                         hist_pool=self._hist_pool_slots())
+                         hist_pool=self._hist_pool_slots(),
+                         root_rows=self._root_rows)
+
+    def _forest_eligible(self) -> bool:
+        """Whether this booster's trees may grow as a forest's lanes
+        (learners/forest.py), the JAX package's rule (gbdt.py:615-644):
+        ``forest_batching`` is not ``off``, the serial learner grows leaf-
+        wise with float32 histograms and no histogram pool, and under
+        ``auto`` the data has at most ``LGBM_TPU_FOREST_MAX_ROWS`` rows
+        (2,048).  The JAX rule also leaves out its kernel routes; that is
+        the TPU's, not ported: the port's lanes have kernels F1 and F3 and
+        the rule is decided alike on every device, so the CPU and the card
+        grow the same trees.  DART and the non-finite guard's ``raise``
+        policy grow one tree at a time."""
+        cfg = self.config
+        knob = cfg.forest_batching
+        if knob == "off" or self.name != "gbdt":
+            return False
+        if cfg.tree_learner != "serial" or cfg.tree_growth != "leafwise":
+            return False
+        if cfg.hist_dtype != "float32" or self._hist_pool_slots():
+            return False
+        if self._nf_guard is not None and self._nf_guard.policy == "raise":
+            return False
+        return knob == "on" or self.num_data <= forest_auto_max_rows()
 
     def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting iteration (gbdt.cpp:217-252): one tree per class.
         ``grad`` / ``hess`` are a custom objective's gradients, ``[K·n]``
         class-major (gbdt.py:695-701); without them the objective's.
         Returns True when no tree could be grown (training should stop);
-        False also when the ``skip_tree`` guard skipped the iteration."""
+        False also when the ``skip_tree`` guard skipped the iteration.
+        The K class trees grow as one forest's lanes where
+        ``_forest_eligible`` (gbdt.py:797-813), else one by one."""
+        pre = self._begin_iter(grad, hess)
+        if pre is None:
+            return False
+        grad, hess, fmasks, nf_snap = pre
+        K = self.num_class
+        if K > 1 and self._forest_eligible():
+            trees, lids = grow_forest(
+                self._bins_T, grad, hess,
+                self._bag_mask.expand(K, -1).contiguous(),
+                torch.stack(fmasks), self._nbpf, self._is_cat,
+                [self._params] * K, self._num_bins, self.max_leaves,
+                root_rows=[self._root_rows] * K)
+            return self._finish_iter(zip(trees, lids), nf_snap)
+        grown = (self.grow(grad[k].contiguous(), hess[k].contiguous(),
+                           fmasks[k]) for k in range(K))
+        return self._finish_iter(grown, nf_snap)
+
+    def _begin_iter(self, grad=None, hess=None):
+        """The first half of an iteration, up to the growth (gbdt.py:667-
+        728): the gradients, the non-finite guard, the bagging draw and
+        the K feature samples.  Returns (grad [K, n], hess [K, n], the K
+        feature masks, the guard's snapshot) or None when the
+        ``skip_tree`` guard skips the iteration."""
         K = self.num_class
         if grad is not None and hess is not None:
             grad, hess = (torch.as_tensor(np.asarray(a, np.float32))
@@ -426,36 +521,48 @@ class GBDT:
                 nf_snap = self.snapshot_state()
             grad, hess, skip = guard.check_gradients(grad, hess)
             if skip:
-                return False
+                return None
         self._update_bagging()
         # the K feature samples in class order before any tree grows: the
         # JAX package's _feat_rng draws (gbdt.py:719-724)
         fmasks = [self._sample_features() for _ in range(K)]
+        return grad, hess, fmasks, nf_snap
+
+    def _finish_tree(self, k: int, tree: Tree, leaf_id: torch.Tensor
+                     ) -> bool:
+        """The second half, a grown tree at a time (gbdt.py:730-775): the
+        leaf-output guard, shrinkage, the train-score update through the
+        row -> leaf map, threshold finalization, the valid-score walk and
+        the model list.  Returns whether the tree split."""
+        guard = self._nf_guard
+        if guard is not None:
+            # the leaf-output guard; it never drops a tree, so models
+            # stays iteration-major
+            tree = guard.check_tree(tree)
+        # shrinkage + train-score update through the row -> leaf map
+        # + threshold finalization (gbdt.cpp:229-247)
+        tree = tree.shrink(self.learning_rate)
+        self._scores[k] += tree.leaf_value[leaf_id.to(torch.int64)]
+        tree = finalize_thresholds_device(tree, self._bounds_mat,
+                                          self._real_feat_dev)
+        if self._valid_bins:
+            self._walk_into(binned_table([tree], self.device), k, None, 1.0)
+        self.models.append(tree)
+        return tree.num_leaves > 1
+
+    def _finish_iter(self, grown, nf_snap) -> bool:
+        """Close an iteration whose K trees ``grown`` yields as (tree,
+        leaf_id) in class order (gbdt.py:777-790); True when no tree
+        split."""
         could_split = False
-        for k in range(K):
-            tree, leaf_id = self.grow(grad[k].contiguous(),
-                                      hess[k].contiguous(), fmasks[k])
-            if guard is not None:
-                # the leaf-output guard; it never drops a tree, so models
-                # stays iteration-major
-                tree = guard.check_tree(tree)
-            # shrinkage + train-score update through the row -> leaf map
-            # + threshold finalization (gbdt.cpp:229-247)
-            tree = tree.shrink(self.learning_rate)
-            self._scores[k] += tree.leaf_value[leaf_id.to(torch.int64)]
-            tree = finalize_thresholds_device(tree, self._bounds_mat,
-                                              self._real_feat_dev)
-            if self._valid_bins:
-                self._walk_into(binned_table([tree], self.device), k, None,
-                                1.0)
-            self.models.append(tree)
-            could_split |= tree.num_leaves > 1
+        for k, (tree, leaf_id) in enumerate(grown):
+            could_split |= self._finish_tree(k, tree, leaf_id)
         self._models_changed()
         self.iter_ += 1
-        if guard is not None:
+        if self._nf_guard is not None:
             # policy=raise reads its parked counts here, restoring nf_snap
             # before it raises
-            guard.raise_if_poisoned(self, nf_snap)
+            self._nf_guard.raise_if_poisoned(self, nf_snap)
         return not could_split
 
     def _walk_into(self, table: BinnedTrees, c0: int,
@@ -795,6 +902,67 @@ class GBDT:
     @property
     def num_trees(self) -> int:
         return len(self.models)
+
+
+def train_forest_round(gbdts: List[GBDT]) -> List[bool]:
+    """Advance every booster in ``gbdts`` one iteration, all their trees
+    (each booster's K class trees) grown as the lanes of one forest
+    (gbdt.py:1362-1470): ``train_many``'s models and ``cv``'s bin-once
+    folds.  Every booster must be ``_forest_eligible``, share one binned
+    matrix (the same ``BinnedDataset.bins_T`` tensor), ``num_bins`` and
+    ``max_leaves``, and all or none have a base row mask; else
+    ``ValueError``.  Per-lane constraints, feature samples, bagging and
+    root row sets may differ.  Returns each booster's "should stop"
+    flag; a booster whose guard skipped the iteration grows no lane."""
+    if not gbdts:
+        return []
+    ref = gbdts[0]
+    for b in gbdts:
+        if not b._forest_eligible():
+            raise ValueError(
+                "train_forest_round: a booster is not forest-eligible "
+                "(forest_batching=off, DART, float64 or pooled histograms, "
+                "another growth or learner, or more rows than the auto "
+                "ceiling)")
+        if b._bins_T is not ref._bins_T:
+            raise ValueError("train_forest_round: boosters must share one "
+                             "binned dataset (bin once)")
+        if b._num_bins != ref._num_bins or b.max_leaves != ref.max_leaves:
+            raise ValueError("train_forest_round: max_bin and num_leaves "
+                             "must match across boosters")
+        if (b._base_row_mask is None) != (ref._base_row_mask is None):
+            raise ValueError("train_forest_round: base row masks (cv folds) "
+                             "must be set on all boosters or none")
+    stops = [False] * len(gbdts)
+    active, pres = [], []
+    for i, b in enumerate(gbdts):
+        pre = b._begin_iter()
+        if pre is not None:
+            active.append(i)
+            pres.append(pre)
+    if not active:
+        return stops
+    grads, hesses, bags, fmasks, params, rows = [], [], [], [], [], []
+    for i, (grad, hess, fms, _snap) in zip(active, pres):
+        b = gbdts[i]
+        for k in range(b.num_class):
+            grads.append(grad[k])
+            hesses.append(hess[k])
+            bags.append(b._bag_mask)
+            fmasks.append(fms[k])
+            params.append(b._params)
+            rows.append(b._root_rows)
+    trees, lids = grow_forest(
+        ref._bins_T, torch.stack(grads), torch.stack(hesses),
+        torch.stack(bags), torch.stack(fmasks), ref._nbpf, ref._is_cat,
+        params, ref._num_bins, ref.max_leaves, root_rows=rows)
+    lane = 0
+    for i, pre in zip(active, pres):
+        K = gbdts[i].num_class
+        grown = [(trees[lane + k], lids[lane + k]) for k in range(K)]
+        lane += K
+        stops[i] = gbdts[i]._finish_iter(grown, pre[3])
+    return stops
 
 
 def _fmt(x) -> str:

@@ -4,7 +4,8 @@ record's partition and write-back, the mega route's split step, the level
 histogram of depthwise growth, dense and sparse (kernel S1), ensemble
 prediction (P1), the binned ensemble walk of training (P2), and the
 float64 histograms and search of hist_dtype=float64 (K1-f64, K1''-f64,
-K3-f64 in its root and step forms))."""
+K3-f64 in its root and step forms), and the forest's lane histogram and
+search (F1, F3))."""
 
 import importlib
 from typing import Dict
@@ -29,6 +30,8 @@ KERNEL_COUNTERS = {
     "K1″-f64": ("cuda_histogram", "LEVEL_F64_LAUNCHES"),
     "K3-f64": ("cuda_search", "F64_LAUNCHES"),
     "K3-f64 step": ("cuda_search", "F64_STEP_LAUNCHES"),
+    "F1": ("cuda_forest", "LAUNCHES"),
+    "F3": ("cuda_forest", "SEARCH_LAUNCHES"),
 }
 
 

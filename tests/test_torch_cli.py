@@ -282,13 +282,22 @@ def test_serve_task_answers_http(jax_model):
 def test_refused_tasks_name_their_item(tmp_path, argv, item):
     """What the CLI does not run raises naming its ROADMAP item.
     ``boosting_type=dart`` (A3) was refused here until DART was ported:
-    it now trains and writes a ``dart`` model."""
+    it now trains and writes a ``dart`` model.  ``task=train_many`` (A7)
+    likewise: it now writes ``num_models`` (2) models, ``m.txt.0`` and
+    ``m.txt.1``."""
     train, valid, keys = _problem(tmp_path, "binary", n=300)
     conf = _conf(tmp_path, train, valid, keys)
     if item == "A3":
         assert tcli.main([f"config={conf}", *argv], device="cpu") == 0
         with open(tmp_path / "m.txt") as fh:
             assert fh.readline() == "dart\n"
+        return
+    if item == "A7":
+        assert tcli.main([f"config={conf}", *argv], device="cpu") == 0
+        for i in range(2):
+            with open(tmp_path / f"m.txt.{i}") as fh:
+                assert fh.readline() == "gbdt\n"
+        assert not os.path.exists(tmp_path / "m.txt")
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
         tcli.main([f"config={conf}", *argv], device="cpu")

@@ -3,8 +3,9 @@ the CPU.
 
 The JAX side runs ``cv`` with ``forest_batching="off"`` and
 ``hist_impl="matmul"``: its bin-once path (one shared binned matrix, a
-row mask per fold) is by its own contract bitwise its subset path, which
-the port always takes (the bin-once path is ROADMAP A7).  Fold indices
+row mask per fold) is by its own contract bitwise its subset path, and
+so is the port's (tests/test_torch_forest.py holds the two bitwise).
+Fold indices
 must equal the JAX package's exactly, the means and standard deviations
 to rtol 1e-5, the truncated histories of early stopping in length.
 """
@@ -172,6 +173,18 @@ def test_cv_with_fobj_and_init_model(tmp_path):
 
 
 def test_train_many_raises_naming_a7():
+    """``train_many`` raised naming A7 until the forest was ported: it now
+    trains, each model the model ``train`` grows alone, and what it
+    cannot batch (``num_leaves`` that differ) raises ``ValueError``."""
     X, y, _, _ = _data(200)
-    with pytest.raises(NotImplementedError, match="A7"):
-        lt.train_many([dict(PARAMS)], lt.Dataset(X, label=y, device="cpu"))
+    p = dict(PARAMS, forest_batching="on")
+    got = lt.train_many([p, dict(p, lambda_l2=2.0)],
+                        lt.Dataset(X, label=y, device="cpu"), 3,
+                        device="cpu")
+    for q, bst in zip([p, dict(p, lambda_l2=2.0)], got):
+        alone = lt.train(q, lt.Dataset(X, label=y, device="cpu"), 3,
+                         device="cpu")
+        assert bst.model_to_string() == alone.model_to_string()
+    with pytest.raises(ValueError, match="num_leaves"):
+        lt.train_many([p, dict(p, num_leaves=7)],
+                      lt.Dataset(X, label=y, device="cpu"), device="cpu")

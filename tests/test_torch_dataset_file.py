@@ -10,15 +10,38 @@ written by either package and read by the other, and
 ``is_enable_sparse=false``.
 """
 
+import subprocess
+
 import numpy as np
 import pytest
 
+from lightgbm_tpu import native as jax_native
 from lightgbm_tpu.config import Config as JaxConfig
 from lightgbm_tpu.io.dataset import BinnedDataset as JaxDataset
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.io.dataset import BinnedDataset
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_reader(tmp_path_factory):
+    """The JAX package's native reader, built into a private directory for
+    this module.  Its own loader builds ``lightgbm_tpu/lib`` in place and
+    remembers a failed load for the life of the process: under several
+    test workers another worker's build can hand this one a half-written
+    library, and the JAX package then parses with its Python reader,
+    whose floats differ from the port's in the last bits."""
+    out = str(tmp_path_factory.mktemp("jax_native") / "liblgbm_native.so")
+    subprocess.run(["g++", "-O3", "-std=c++17", "-fPIC", "-fopenmp",
+                    "-shared", "-o", out, jax_native._SRC], check=True,
+                   capture_output=True, timeout=600)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB_PATH", out)
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_tried", False)
+        assert jax_native.available()
+        yield jax_native
 
 
 def _write(path, rows, sep=",", header=None):
