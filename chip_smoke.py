@@ -342,15 +342,22 @@ git-ignored ``build/smoke_files``):
    most 1/8 of a partial a chunk (PR 19's design).
 24. The forest (after phase 17, on its data; (f) after phase 19, on its
    files): F1 and F3 (csrc/forest.cu) bitwise their plain versions on
-   the CPU, two launches equal, at 1-64 lanes, 100 / 2,048 / 5,000 / 1M
-   rows, u8 and u16 bins, F = 28 and 136, idle lanes, empty targets and
-   lanes with no feature, each timed beside its plain version (and F1
-   beside one ``index_add_``); (b) ``train_many`` of 8 models (learning
+   the CPU, in both forms: the root forms, two launches equal, at 1-64
+   lanes, 100 / 2,048 / 5,000 / 1M rows, u8 and u16 bins, F = 28 and
+   136, idle lanes, empty targets and lanes with no feature; the step
+   forms (``ForestStep``: the partition, the smaller children and their
+   left counts, the buffer rows and the search rows), two ForestSteps
+   equal, at 8 and 64 lanes, with inactive lanes, ties, categorical
+   splits, u16 bins, F = 136 and 64 lanes x 1M rows, the scratch sized
+   from the step's parents; each form timed a call and on the device
+   beside its plain version (F1's root form also beside one
+   ``index_add_``); (b) ``train_many`` of 8 models (learning
    rate, ``lambda_l2``, ``feature_fraction`` and seeds varied) over the
    bench's first 2,048 rows, 31 leaves, 50 rounds, as lanes and as
    sequential rounds on the order route (model strings bitwise) and on
    the mega route (printed), each with s/round, host syncs, F1/F3
-   launches a round, the device idle share and peak memory; (c) 5-class
+   launches a round, the device idle share, the lanes' device events a
+   step and peak memory; (c) 5-class
    multiclass on those rows, 20 iterations, lanes bitwise the class
    loop; (d) 4 models at 1M rows x 255 leaves, 3 rounds, lanes bitwise
    sequential (order route); (e) phase 17's bin-once cv folds bitwise
@@ -2480,21 +2487,28 @@ def phase_api(torch, lt, params, train_set, valid_set, Xv):
 
 
 # ----------------------------------------------------------------- phase 24
-# F1's cases: (name, lanes, rows, features, bins, bin dtype, leaves the
-# rows are spread over, idle lanes, lanes with an empty target, timed)
-F1_CASES = [("b1-n100", 1, 100, 28, 255, np.uint8, 1, (), (), False),
-            ("b8-n2048", 8, 2048, 28, 255, np.uint8, 4, (1,), (2,), True),
-            ("b8-n5000-u16", 8, 5000, 136, 300, np.uint16, 3, (3,), (5,),
-             False),
-            ("b64-n2048", 64, 2048, 28, 255, np.uint8, 8, (0, 63), (7,),
-             True),
-            ("b64-n5000-F136", 64, 5000, 136, 255, np.uint8, 2, (9,), (),
-             False),
-            ("b4-n1M", 4, ROWS, 28, 255, np.uint8, 1, (), (), True),
-            ("b64-n1M", 64, ROWS, 28, 255, np.uint8, 64, (5,), (), True)]
-# F3's cases: F1 cases whose lane histograms (two targets) are searched
-F3_CASES = ("b1-n100", "b8-n2048", "b8-n5000-u16", "b64-n2048",
-            "b64-n5000-F136")
+# the root forms' cases (F1 over every lane's leaf 0, F3 on it): (name,
+# lanes, rows, features, bins, bin dtype, leaves the rows are spread over,
+# lanes with no row of leaf 0, timed)
+ROOT_CASES = [("b1-n100", 1, 100, 28, 255, np.uint8, 1, (), False),
+              ("b8-n2048", 8, 2048, 28, 255, np.uint8, 4, (2,), True),
+              ("b8-n5000-u16", 8, 5000, 136, 300, np.uint16, 3, (5,),
+               False),
+              ("b64-n2048", 64, 2048, 28, 255, np.uint8, 8, (7,), True),
+              ("b64-n5000-F136", 64, 5000, 136, 255, np.uint8, 2, (),
+               False),
+              ("b4-n1M", 4, ROWS, 28, 255, np.uint8, 1, (), True),
+              ("b64-n1M", 64, ROWS, 28, 255, np.uint8, 64, (5,), True)]
+# the step forms' cases: (name, lanes, active lanes (None: all), rows,
+# features, bins, bin dtype, leaves the rows are spread over, lanes that
+# split on a categorical feature, the lane whose split is a tie, timed)
+STEP_CASES = [("b8-n2048", 8, None, 2048, 28, 255, np.uint8, 4, (), 1, True),
+              ("b8-n5000-u16-inactive", 8, (0, 2, 3, 6), 5000, 28, 300,
+               np.uint16, 3, (2,), 3, False),
+              ("b64-n5000-F136-cat", 64, tuple(range(0, 64, 3)), 5000, 136,
+               255, np.uint8, 4, (0, 9), 6, False),
+              ("b64-n1M", 64, None, ROWS, 28, 255, np.uint8, 16, (5,), 2,
+               True)]
 # the forest's main paths: train_many over the first FOREST_ROWS bench
 # rows, FOREST_MODELS models of FOREST_LEAVES leaves, FOREST_ROUNDS rounds
 FOREST_ROWS, FOREST_MODELS, FOREST_ROUNDS, FOREST_LEAVES = 2048, 8, 50, 31
@@ -2504,27 +2518,49 @@ FOREST_WIDE_MODELS, FOREST_WIDE_ROUNDS = 4, 3
 FOREST_CLI_MODELS, FOREST_CLI_ROUNDS = 3, 5
 
 
-def _f1_case(torch, rng, B, n, F, nb, dt, leaves, idle, empty):
-    """CPU tensors of one F1 case: ~1/(leaves + 1) of each lane's rows
-    outside every leaf (-1), the rest spread over the leaves; target b is
-    a leaf, -1 for an idle lane, ``leaves`` (no row) for an empty one."""
-    bins = torch.from_numpy(rng.randint(0, nb, (F, n)).astype(dt))
-    g = torch.from_numpy(rng.randn(B, n).astype(np.float32))
-    h = torch.from_numpy(np.abs(rng.randn(B, n)).astype(np.float32))
-    m = torch.from_numpy((rng.rand(B, n) < 0.8).astype(np.float32))
-    lid = torch.from_numpy(rng.randint(-1, leaves, (B, n)).astype(np.int32))
-    tgt = rng.permutation(max(B, leaves))[:B] % leaves
-    tgt[list(idle)] = -1
-    tgt[list(empty)] = leaves
-    return bins, g, h, m, lid, torch.from_numpy(tgt.astype(np.int32))
+def _root_case(torch, rng, B, n, F, nb, dt, leaves, empty):
+    """CPU tensors of one root case: ~1/(leaves + 1) of each lane's rows
+    outside every leaf (-1), the rest spread over the leaves (lanes
+    ``empty`` with no row of leaf 0); meta (a tenth of the features
+    categorical, every feature of the last lane masked); an L = 2 buffer
+    of zeros; the lanes' search scalars from the plain roots' totals."""
+    from lightgbm_tpu_torch.ops.cuda_search import pack_meta
+
+    gen = np.random.default_rng(rng.randint(2 ** 31))  # bulk draws
+    bins = torch.from_numpy(gen.integers(0, nb, (F, n), dtype=dt))
+    g = torch.from_numpy(gen.standard_normal((B, n), np.float32))
+    h = torch.from_numpy(np.abs(gen.standard_normal((B, n), np.float32)))
+    m = torch.from_numpy((gen.random((B, n), np.float32) < 0.8).astype(
+        np.float32))
+    lid = gen.integers(-1, leaves, (B, n), dtype=np.int32)
+    for b in empty:
+        lid[b][lid[b] == 0] = -1
+    fm = rng.rand(B, F) < 0.8
+    fm[B - 1] = False  # a lane with every feature masked: no winner
+    meta = torch.stack([pack_meta(torch.from_numpy(fm[a]),
+                                  torch.full((F,), nb),
+                                  torch.from_numpy(rng.rand(F) < 0.1),
+                                  "cpu") for a in range(B)])
+    return [bins, g, h, m, torch.from_numpy(lid)], meta, \
+        torch.zeros((B, 2, F, nb, 3))
 
 
-def _f1_library(torch, bins, g, h, m, lid, tgt, nb):
-    """One ``index_add_`` of every lane's sums over its member rows (the
-    library yardstick: the same function, unordered)."""
+def _root_scal(rng, tot):
+    """[B, 12] search scalars of B roots of totals ``tot`` [B, 3]: (can,
+    the root's totals as both children's, the constraints)."""
+    B = tot.shape[0]
+    return np.column_stack([
+        rng.rand(B) < 0.9, tot, tot, rng.choice([1.0, 5.0, 20.0], B),
+        rng.choice([0.0, 1e-3], B), rng.choice([0.0, 0.5], B),
+        rng.choice([0.5, 1.0, 10.0], B),
+        rng.choice([0.0, 0.1], B)]).astype(np.float32)
+
+
+def _f1_library(torch, bins, g, h, m, lid, nb):
+    """One ``index_add_`` of every lane's sums over its rows of leaf 0
+    (the library yardstick: the same function, unordered)."""
     F = bins.shape[0]
-    lane, row = torch.nonzero(lid == tgt[:, None].to(lid.dtype),
-                              as_tuple=True)
+    lane, row = torch.nonzero(lid == 0, as_tuple=True)
     keys = ((lane[None] * F + torch.arange(F, device="cuda")[:, None]) * nb
             + bins[:, row].to(torch.int64)).reshape(-1)
     mm = m[lane, row]
@@ -2535,103 +2571,278 @@ def _f1_library(torch, bins, g, h, m, lid, tgt, nb):
         0, keys, src), int(row.numel())
 
 
-def phase_forest_kernels(torch):
-    """F1 and F3 against their plain versions (on the CPU), bitwise, two
-    launches each bitwise equal, at B = 1-64 lanes, 100 to 1M rows, u8
-    and u16 bins, F = 28 and 136, idle lanes and empty targets; times
-    each, its plain version on the card and (F1) one ``index_add_``."""
-    from lightgbm_tpu_torch.ops import cuda_forest
+def _f1_bound(B, n, F, members, nb, bin_bytes, parent=0, moved=0):
+    """F1's least ms: the lanes' map (4 B a row a lane), in the step form
+    the split feature's bin of each of the ``parent`` rows of the split
+    leaves and the new leaf id of each of the ``moved`` rows that go
+    right, each member's bins and stats, the histograms out; or its adds
+    at the f32 peak."""
+    nbytes = (4 * B * n + parent * bin_bytes + 4 * moved
+              + members * (F * bin_bytes + 12) + B * F * nb * 12)
+    return max(nbytes / HBM_BYTES_PER_S, 3 * F * members / F32_FLOPS) * 1e3
+
+
+def _step_case(torch, rng, B, act, n, F, nb, dt, leaves, cat, tie):
+    """CPU tensors of one step: a map over ``leaves`` leaves (-1 outside
+    the root sets), meta (feature 0 categorical), a random buffer, and the
+    step of lanes ``act`` (default all), each splitting leaf 0 on its own
+    feature at its own threshold (lanes ``cat`` on feature 0; lane ``tie``
+    at a feature's median bin that gives 2 * nleft == pcnt)."""
     from lightgbm_tpu_torch.ops.cuda_search import pack_meta
+
+    act = np.arange(B) if act is None else np.asarray(act)
+    gen = np.random.default_rng(rng.randint(2 ** 31))  # bulk draws
+    bins = gen.integers(0, nb, (F, n), dtype=dt)
+    lid = gen.integers(-1, leaves, (B, n), dtype=np.int32)
+    is_cat = np.zeros(F, bool)
+    is_cat[0] = True
+    feats = rng.randint(1, F, len(act))
+    thrs = rng.randint(0, nb, len(act))
+    for i, b in enumerate(act):
+        if b in cat:
+            feats[i], thrs[i] = 0, int(bins[0][lid[b] == 0][0])
+        if b == tie:  # an even count, split at its median
+            rows = np.flatnonzero(lid[b] == 0)
+            if len(rows) % 2:
+                lid[b, rows[-1]] = -1
+                rows = rows[:-1]
+            h = len(rows) // 2
+            for f in range(1, F):  # a feature whose median splits evenly
+                v = np.sort(bins[f][rows])
+                if h and v[h - 1] < v[h]:
+                    feats[i], thrs[i] = f, v[h - 1]
+                    break
+    pcnt = (lid[act] == 0).sum(1)
+    L = leaves + 1
+    t = [torch.from_numpy(x) for x in (
+        bins, gen.standard_normal((B, n), np.float32),
+        np.abs(gen.standard_normal((B, n), np.float32)),
+        (gen.random((B, n), np.float32) < 0.8).astype(np.float32), lid)]
+    meta = torch.stack([pack_meta(torch.from_numpy(rng.rand(F) < 0.8),
+                                  torch.full((F,), nb),
+                                  torch.from_numpy(is_cat), "cpu")
+                        for _ in range(B)])
+    hists = torch.from_numpy(gen.random((B, L, F, nb, 3), np.float32))
+    scal = np.column_stack([np.ones(len(act)), rng.rand(len(act), 6) * 100,
+                            np.tile([5.0, 1e-3, 0.0, 1.0, 0.0],
+                                    (len(act), 1))]).astype(np.float32)
+    spec = (act, np.zeros(len(act), np.int64), feats, thrs, is_cat[feats],
+            pcnt, leaves, scal)
+    return t, meta, hists, spec
+
+
+def _same_bits(a, b) -> bool:
+    """Two tensors of 4-byte elements hold the same bits (NaN, -0 too),
+    compared where they lie (on the CPU where either does)."""
+    import torch
+
+    if a.device != b.device:
+        a, b = a.cpu(), b.cpu()
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _restored_ms(torch, restore, fn, reps: int = 20, warm: int = 3):
+    """``time_ms`` of ``fn`` with ``restore()`` run and finished before
+    each call (outside the events)."""
+    for _ in range(warm):
+        restore()
+        fn()
+    times = []
+    for _ in range(reps):
+        restore()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_forest_kernels(torch):
+    """F1 and F3 against their plain versions (on the CPU), bitwise, in
+    both forms, through ``ForestStep``, the grower's entry.  Root forms
+    (``root_histogram`` into ``hists[:, 0]``, then ``root_search``): two
+    calls bitwise equal, the buffer's other row untouched, at B = 1-64
+    lanes, 100 to 1M rows (the root in one or two lane batches), u8 and
+    u16 bins, F = 28 and 136, lanes with an empty root and with every
+    feature masked.  Step forms: the map, the smaller children, the left
+    counts, the buffer and the rows, at 8 and 64 lanes, inactive lanes,
+    ties, categorical splits, u16 bins, F = 136 and 64 lanes x 1M rows
+    with the scratch sized from the step's parents, two ForestSteps on
+    fresh copies equal.  Times each form a call (CUDA events) and on the
+    device (queued), beside its plain version on the card (F1's root form
+    also beside one ``index_add_``); a timed step starts from the map
+    before the step each call."""
+    from lightgbm_tpu_torch.ops import cuda_forest
     from lightgbm_tpu_torch.ops.forest import (forest_histogram_plain,
-                                               forest_search_plain)
+                                               forest_search_plain,
+                                               forest_search_step_plain,
+                                               forest_split_plain)
 
     rng = np.random.RandomState(24)
-    records, hists = {}, {}
-    for (name, B, n, F, nb, dt, leaves, idle, empty,
-         timed_) in F1_CASES:
-        cpu = _f1_case(torch, rng, B, n, F, nb, dt, leaves, idle, empty)
-        bins, g, h, m, lid, tgt = (t.cuda() for t in cpu)
-        k1 = cuda_forest.forest_histogram_cuda(bins, g, h, m, lid, tgt, nb)
-        k2 = cuda_forest.forest_histogram_cuda(bins, g, h, m, lid, tgt, nb)
+    records, batches = {}, 0
+    for (name, B, n, F, nb, dt, leaves, empty, timed_) in ROOT_CASES:
+        t_case = time.perf_counter()
+        cpu, meta, hbuf = _root_case(torch, rng, B, n, F, nb, dt, leaves,
+                                     empty)
+        zeros = torch.zeros(B, dtype=torch.int32)
+        plain = forest_histogram_plain(*cpu, zeros, nb)
+        scal = _root_scal(rng, plain[:, 0].sum(1).numpy())
+        plain_rows = forest_search_plain(plain, plain, meta,
+                                         torch.from_numpy(scal))
+        dev = [t.cuda() for t in cpu]
+        fs = cuda_forest.ForestStep(*dev, nb, meta=meta.cuda(),
+                                    hists=hbuf.cuda())
+        c0 = cuda_forest.LAUNCHES
+        k1 = fs.root_histogram().clone()
+        calls = cuda_forest.LAUNCHES - c0
+        batches = max(batches, calls)
+        r1 = fs.root_search(scal).clone()
+        r2 = fs.root(scal)
         torch.cuda.synchronize()
-        plain = forest_histogram_plain(*cpu, nb)
+        k2 = fs.hists[:, 0]
         err = float((k1.cpu() - plain).abs().max())
-        check(torch.equal(k1, k2), f"forest F1 {name}: launches differ")
+        check(torch.equal(k1, k2) and _same_bits(r1, r2),
+              f"forest root {name}: two calls differ")
+        check(int(torch.count_nonzero(fs.hists[:, 1])) == 0,
+              f"forest F1 root {name}: wrote outside hists[:, 0]")
         check(torch.equal(k1.cpu(), plain),
-              f"forest F1 {name}: differs from its plain version "
+              f"forest F1 root {name}: differs from its plain version "
               f"(max abs {err})")
-        if name in F3_CASES:  # a second target set: each lane's sibling
-            tgt2 = torch.where(cpu[5] >= 0, (cpu[5] + 1) % leaves, cpu[5])
-            hists[name] = (plain, forest_histogram_plain(
-                *cpu[:5], tgt2, nb), F, nb, leaves)
-        line = (f"[forest F1 {name}] B={B} n={n} F={F} bins={nb} "
-                f"{np.dtype(dt).name} idle={list(idle)} empty="
-                f"{list(empty)} bitwise: launches, == plain (CPU)")
+        check(_same_bits(r1, plain_rows),
+              f"forest F3 root {name}: differs from its plain version")
+        wins = int((plain_rows[:, :, 1] >= 0).sum())
+        line = (f"[forest root {name}] B={B} n={n} F={F} bins={nb} "
+                f"{np.dtype(dt).name} empty={list(empty)} F1 calls={calls} "
+                f"children with a winner={wins}/{2 * B} bitwise: two calls, "
+                "F1 (hists[:, 0]) and F3 (rows) == plain (CPU)")
         if timed_:
-            def kernel():
-                return cuda_forest.forest_histogram_cuda(bins, g, h, m, lid,
-                                                         tgt, nb)
-
-            lib, members = _f1_library(torch, bins, g, h, m, lid, tgt, nb)
-            ms = time_ms(torch, kernel)
+            f1, f3 = fs.root_histogram, (lambda: fs.root_search(scal))
+            lib, members = _f1_library(torch, *dev, nb)
+            ms, dev_ms = time_ms(torch, f1), queued_ms(torch, f1)
+            zd = zeros.cuda()
             plain_ms = time_ms(torch, lambda: forest_histogram_plain(
-                bins, g, h, m, lid, tgt, nb), reps=3, warm=1)
+                *dev, zd, nb), reps=3, warm=1)
             lib_ms = time_ms(torch, lib)
-            nbytes = (4 * B * n + members * (F * bins.element_size() + 12)
-                      + B * F * nb * 12)
-            bound = max(nbytes / HBM_BYTES_PER_S,
-                        3 * F * members / F32_FLOPS) * 1e3
+            bound = _f1_bound(B, n, F, members, nb, dev[0].element_size())
             records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound, library_ms=lib_ms)
-            line += (f" member_rows={members} ms={ms:.4f} "
-                     f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                     f"bound_ms={bound:.5f} share={bound / ms:.4f} "
-                     f"faster_than_index_add={ms < lib_ms}")
-            del lib
-        say(line)
-        del bins, g, h, m, lid, tgt, k1, k2, cpu
-    for name in F3_CASES:
-        h_l, h_r, F, nb, leaves = hists[name]
-        A = h_l.shape[0]
-        fm = rng.rand(A, F) < 0.8
-        fm[A - 1] = False  # a lane with every feature masked: no winner
-        meta = torch.stack([pack_meta(torch.from_numpy(fm[a]),
-                                      torch.full((F,), nb),
-                                      torch.from_numpy(rng.rand(F) < 0.1),
-                                      "cpu") for a in range(A)])
-        # (can, the children's totals from feature 0, the constraints)
-        scal = torch.from_numpy(np.column_stack([
-            rng.rand(A) < 0.9, h_l[:, 0].sum(1).numpy(),
-            h_r[:, 0].sum(1).numpy(), rng.choice([1.0, 5.0, 20.0], A),
-            rng.choice([0.0, 1e-3], A), rng.choice([0.0, 0.5], A),
-            rng.choice([0.5, 1.0, 10.0], A),
-            rng.choice([0.0, 0.1], A)]).astype(np.float32))
-        dev = [t.cuda() for t in (h_l, h_r, meta, scal)]
-        k1 = cuda_forest.forest_search_cuda(*dev)
-        k2 = cuda_forest.forest_search_cuda(*dev)
-        torch.cuda.synchronize()
-        plain = forest_search_plain(h_l, h_r, meta, scal)
-        err = float(torch.nan_to_num((k1.cpu() - plain).abs(),
-                                     posinf=0.0).max())
-        check(torch.equal(k1, k2), f"forest F3 {name}: launches differ")
-        check(torch.equal(k1.cpu().view(torch.int32),
-                          plain.view(torch.int32)),
-              f"forest F3 {name}: differs from its plain version "
+                                 bound_ms=bound, library_ms=lib_ms,
+                                 device_ms=dev_ms)
+            ms3, dev3 = time_ms(torch, f3), queued_ms(torch, f3)
+            b3 = (B * F * nb * 12 + B * F * 16 + B * 80 + B * 128) \
+                / HBM_BYTES_PER_S * 1e3
+            line += (f" member_rows={members}; F1 root ms={ms:.4f} "
+                     f"device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
+                     f"library_ms={lib_ms:.4f} bound_ms={bound:.5f} "
+                     f"share={bound / ms:.4f} "
+                     f"faster_than_index_add={ms < lib_ms}; F3 root "
+                     f"ms={ms3:.4f} device_ms={dev3:.4f} "
+                     f"bound_ms={b3:.5f}")
+            del lib, zd
+        say(f"{line} case_s={time.perf_counter() - t_case:.1f}")
+        del dev, fs, k1, k2, r1, r2, cpu, hbuf, plain
+        torch.cuda.empty_cache()
+    check(batches > 1, "forest root: no case ran F1's root form in more "
+          "than one lane batch")
+    for (name, B, act, n, F, nb, dt, leaves, cat, tie,
+         timed_) in STEP_CASES:
+        t_case = time.perf_counter()
+        cpu, meta, hbuf, spec = _step_case(torch, rng, B, act, n, F, nb,
+                                           dt, leaves, cat, tie)
+        A, pcnt = len(spec[0]), spec[5]
+        # the plain step on CPU copies: F1's part, then F3's
+        lid_p, hbuf_p = cpu[4].clone(), hbuf.clone()
+        h_small, nleft, small_left = forest_split_plain(
+            *cpu[:4], lid_p, nb, *spec[:7])
+        rows_p = forest_search_step_plain(hbuf_p, meta, h_small, nleft,
+                                          small_left, spec[0], spec[1],
+                                          spec[6], spec[7])
+        ties = int((2 * nleft == torch.from_numpy(pcnt)).sum())
+        outs = []
+        for _ in range(2):  # two ForestSteps on fresh copies
+            dev = [t.cuda() for t in cpu]
+            fs = cuda_forest.ForestStep(*dev, nb, max_rows=int(pcnt.max()),
+                                        meta=meta.cuda(), hists=hbuf.cuda())
+            hk = fs.split_histogram(*spec).clone()
+            info = fs.lane_info[:A].clone()
+            rows = fs.search()
+            torch.cuda.synchronize()
+            outs.append((hk, info, rows.clone(), dev[4], fs.hists))
+        (hk, info, rows, lid_k, hb_k), second = outs[0], outs[1]
+        check(all(_same_bits(x, y) for x, y in zip(outs[0], second)),
+              f"forest step {name}: two ForestSteps differ")
+        err = float((hk.cpu() - h_small).abs().max())
+        check(torch.equal(hk.cpu(), h_small)
+              and torch.equal(info[:, 1].cpu().long(), nleft)
+              and torch.equal(info[:, 2].cpu() == 0, small_left)
+              and torch.equal(lid_k.cpu(), lid_p),
+              f"forest F1 step {name}: differs from its plain version "
               f"(max abs {err})")
-        wins = int((plain[:, :, 1] >= 0).sum())
-        ms = time_ms(torch, lambda: cuda_forest.forest_search_cuda(*dev))
-        plain_ms = time_ms(torch, lambda: forest_search_plain(*dev), reps=3,
-                           warm=1)
-        nbytes = 2 * A * F * nb * 12 + A * F * 16 + A * 48 + A * 128
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        records[f"F3 {name}"] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=bound,
-                                     library_ms=None)
-        say(f"[forest F3 {name}] A={A} F={F} bins={nb} children with a "
-            f"winner={wins}/{2 * A} bitwise: launches, == plain (CPU) "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.5f} "
-            f"share={bound / ms:.4f}")
-        del dev, k1, k2
+        check(_same_bits(rows, rows_p) and _same_bits(hb_k, hbuf_p),
+              f"forest F3 step {name}: differs from its plain version")
+        line = (f"[forest step {name}] B={B} active={A} n={n} F={F} "
+                f"bins={nb} {np.dtype(dt).name} categorical lanes="
+                f"{list(cat)} ties={ties} smaller right="
+                f"{int((~small_left).sum())} max_rows={int(pcnt.max())} "
+                "bitwise: two ForestSteps, F1 (map, smaller children, "
+                "left counts) and F3 (rows, buffer) == plain (CPU)")
+        if timed_:
+            # every timed F1 call is the step itself: the map before the
+            # step is restored before it (device ms: the queued restores'
+            # own ms taken off); F3 re-splits the rows the step wrote
+            smalls, parent = int(info[:, 0].sum()), int(pcnt.sum())
+            moved = parent - int(info[:, 1].sum())
+            lid0 = cpu[4].cuda()
+            f1 = lambda: fs.split_histogram(*spec)  # noqa: E731
+            restore = lambda: dev[4].copy_(lid0)  # noqa: E731
+
+            def f1_restored():
+                restore()
+                f1()
+
+            ms = _restored_ms(torch, restore, f1)
+            dev_ms = queued_ms(torch, f1_restored) - queued_ms(torch,
+                                                               restore)
+            check(torch.equal(fs.lane_info[:A], info),
+                  f"forest F1 step {name}: a timed call differs")
+            bufs = fs.hists.clone()
+
+            def f1_plain():
+                return forest_split_plain(*dev[:4], dev[4], nb, *spec[:7])
+
+            plain_ms = _restored_ms(torch, restore, f1_plain, reps=3, warm=1)
+            bound = _f1_bound(A, n, F, smalls, nb, dev[0].element_size(),
+                              parent=parent, moved=moved)
+            records[f"F1 step {name}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                library_ms=None, device_ms=dev_ms)
+            f3 = fs.search
+            ms3, dev3 = time_ms(torch, f3), queued_ms(torch, f3)
+            restore()
+            hs, nl, sl = f1_plain()
+            plain3 = time_ms(torch, lambda: forest_search_step_plain(
+                bufs, fs.meta, hs, nl, sl, spec[0], spec[1], spec[6],
+                spec[7]), reps=2, warm=1)
+            b3 = (4 * A * F * nb * 12 + A * F * 16 + A * 80 + A * 128) \
+                / HBM_BYTES_PER_S * 1e3
+            records[f"F3 step {name}"] = dict(
+                max_abs_err=0.0, ms=ms3, plain_ms=plain3, bound_ms=b3,
+                library_ms=None, device_ms=dev3)
+            line += (f" smaller_rows={smalls} parent_rows={parent} "
+                     f"moved_rows={moved}; F1 step ms={ms:.4f} "
+                     f"device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
+                     f"bound_ms={bound:.5f} share={bound / ms:.4f}; F3 step "
+                     f"ms={ms3:.4f} device_ms={dev3:.4f} "
+                     f"plain_ms={plain3:.4f} bound_ms={b3:.5f}")
+            del bufs, hs, lid0
+        say(f"{line} case_s={time.perf_counter() - t_case:.1f}")
+        del outs, second, dev, fs, hk, rows, lid_k, hb_k, cpu, hbuf
+        del lid_p, hbuf_p, h_small
+        torch.cuda.empty_cache()
     return records
 
 
@@ -2639,7 +2850,8 @@ def _forest_run(torch, fn, rounds, profiled=0):
     """(result, s a round, host syncs a round, F1 and F3 launches a round,
     peak device bytes) of ``fn()`` with every count set to 0 just before
     and read just after; with ``profiled`` > 0 the device idle share of a
-    second, profiled call of ``fn(profiled)`` too (else None)."""
+    second, profiled call of ``fn(profiled)`` too and, where it grows
+    lanes, the device events a forest step (else None)."""
     from lightgbm_tpu_torch.learners import serial
     from lightgbm_tpu_torch.ops import launch_counts
     from lightgbm_tpu_torch.profile_slice import _busy_us
@@ -2654,7 +2866,8 @@ def _forest_run(torch, fn, rounds, profiled=0):
     n = launch_counts()
     rec = dict(s_round=wall / rounds, syncs=serial.HOST_SYNCS / rounds,
                f1=n["F1"] / rounds, f3=n["F3"] / rounds, counts=n,
-               peak=torch.cuda.max_memory_allocated(), idle=None)
+               peak=torch.cuda.max_memory_allocated(), idle=None,
+               step_events=None)
     if profiled:
         from torch.profiler import ProfilerActivity, profile
 
@@ -2666,6 +2879,13 @@ def _forest_run(torch, fn, rounds, profiled=0):
         ev = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
         rec["idle"] = 1.0 - _busy_us(ev) * 1e-6 / pwall
+        # a forest step's device events: the median count from one step's
+        # F3 launch to the next (a round's root and boosting fall between
+        # the rounds' last and first steps only)
+        ev.sort(key=lambda e: e.time_range.start)
+        at = [i for i, e in enumerate(ev) if "lane_step_kernel" in e.name]
+        if len(at) > 1:
+            rec["step_events"] = float(np.median(np.diff(at)))
     return out, rec
 
 
@@ -2675,9 +2895,11 @@ def _texts(boosters):
 
 def _forest_say(tag, rec):
     idle = "not measured" if rec["idle"] is None else f"{rec['idle']:.4f}"
+    steps = ("" if rec["step_events"] is None
+             else f" device_events_a_step={rec['step_events']:.1f}")
     say(f"[forest {tag}] s/round={rec['s_round']:.4f} host_syncs/round="
         f"{rec['syncs']:.1f} F1/round={rec['f1']:.1f} F3/round="
-        f"{rec['f3']:.1f} device_idle_share={idle} "
+        f"{rec['f3']:.1f} device_idle_share={idle}{steps} "
         f"peak_mem_bytes={rec['peak']} launches={json.dumps(rec['counts'])}")
 
 
@@ -5571,7 +5793,8 @@ def main() -> int:
              bound_by="bytes", **f64["K3-f64"]),
         # no pallas_call: the JAX package's forest lanes are jnp vmaps
         # (learners/forest.py:123 _batched_hist, :112-121 the searches);
-        # times at train_many's shape (8 lanes, 2,048 rows, F = 28)
+        # times at train_many's shape (8 lanes, 2,048 rows, F = 28): F1's
+        # root form beside index_add_, F3's step form (a round's 30 of 31)
         dict(name="forest_histogram", route="cuda",
              source=src + "forest.cu",
              replaces="lightgbm_tpu/learners/forest.py:123",
@@ -5580,7 +5803,7 @@ def main() -> int:
         dict(name="forest_search", route="cuda", source=src + "forest.cu",
              replaces="lightgbm_tpu/learners/forest.py:112",
              path="forest", launches=forest_main["launches"]["F3"],
-             bound_by="bytes", **forest_k["F3 b8-n2048"]),
+             bound_by="bytes", **forest_k["F3 step b8-n2048"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

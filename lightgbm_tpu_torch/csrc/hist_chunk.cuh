@@ -678,7 +678,9 @@ __device__ __forceinline__ void walk_fetch(const Rows& rows, int64_t c0,
 // row, then the others' from `st` (the warp's [3, 32] staging, written by
 // those lanes) in lane order, four loads at a time (a missing one adds
 // +0.0, which leaves a sum from 0 unchanged: such a sum is never -0.0).
-// A lane loads its rows kAhead batches ahead.
+// A lane loads its rows kAhead batches ahead.  With Acc = float (F1,
+// forest.cu) the products are float32's, K1's staged g * m and h * m, and
+// a bin's sum from 0.f is K1's partial bitwise.
 template <typename Rows, typename Acc>
 __device__ inline void walk_chunk(const Rows& rows, int64_t c0, int cr,
                                   int f, int b0, int nb,

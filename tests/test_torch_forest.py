@@ -44,9 +44,10 @@ from lightgbm_tpu_torch.learners.forest import grow_forest
 from lightgbm_tpu_torch.learners.serial import TreeLearnerParams, grow_tree
 from lightgbm_tpu_torch.models.gbdt import train_forest_round
 from lightgbm_tpu_torch.models.tree import TREE_FIELDS
-from lightgbm_tpu_torch.ops.cuda_forest import forest_histogram, forest_search
 from lightgbm_tpu_torch.ops.cuda_histogram import histogram_single_leaf
 from lightgbm_tpu_torch.ops.cuda_search import pack_meta, search2_rows
+from lightgbm_tpu_torch.ops.forest import (forest_histogram_plain,
+                                           forest_search_plain)
 
 from test_torch_objectives import assert_same_trees
 
@@ -72,7 +73,7 @@ def test_f1_plain_is_the_order_routes_histogram_per_lane(dt, nb):
     lid[0] = 0  # all 5,000 rows: three 2,048-row blocks
     # lane 1 idle, lane 2 an empty leaf
     target = torch.tensor([0, -1, 5, 1, 0, 1], dtype=torch.int32)
-    got = forest_histogram(bins, g, h, m, lid, target, nb)
+    got = forest_histogram_plain(bins, g, h, m, lid, target, nb)
     assert got.shape == (B, F, nb, 3)
     for b in range(B):
         t = int(target[b])
@@ -87,7 +88,8 @@ def test_f1_plain_is_the_order_routes_histogram_per_lane(dt, nb):
         assert got[b].numpy().tobytes() == want.numpy().tobytes(), b
     assert int(got[2].abs().sum()) == 0
     with pytest.raises(ValueError, match="max_rows"):
-        forest_histogram(bins, g, h, m, lid, target, nb, max_rows=100)
+        forest_histogram_plain(bins, g, h, m, lid, target, nb,
+                               max_rows=100)
 
 
 def test_f3_plain_is_search2_rows_per_lane():
@@ -95,8 +97,8 @@ def test_f3_plain_is_search2_rows_per_lane():
     A, F, nb, n = 5, 6, 16, 700
     bins, g, h, m = _lanes(rng, 2 * A, n, F, nb, np.uint8)
     lid = torch.zeros((2 * A, n), dtype=torch.int32)
-    hists = forest_histogram(bins, g, h, m, lid,
-                             torch.zeros(2 * A, dtype=torch.int32), nb)
+    hists = forest_histogram_plain(bins, g, h, m, lid,
+                                   torch.zeros(2 * A, dtype=torch.int32), nb)
     h_l, h_r = hists[:A].contiguous(), hists[A:].contiguous()
     is_cat = torch.zeros(F, dtype=torch.bool)
     is_cat[2] = True
@@ -112,7 +114,7 @@ def test_f3_plain_is_search2_rows_per_lane():
                                     [20.0, 1e-3, 0.0, 0.0, 0.0],
                                     [1.0, 0.0, 0.0, 1.0, 0.0],
                                     [50.0, 1.0, 1.0, 10.0, 0.5]])], 1)
-    got = forest_search(h_l, h_r, meta, scal)
+    got = forest_search_plain(h_l, h_r, meta, scal)
     assert got.shape == (A, 2, 16)
     for a in range(A):
         want = search2_rows(h_l[a], h_r[a], scal[a].tolist(), meta[a])
