@@ -364,6 +364,28 @@ git-ignored ``build/smoke_files``):
    the subset-trained folds, their ``-mean`` metrics equal, with the
    binned bytes each uploads; (f) ``task=train_many`` (3 models, 5
    iterations) on ``valid.csv``, model i bitwise ``task=train seed=i``.
+25. Checkpoints, resume and the fleet (after phase 24 (f), on phase
+   19's files and phase 18's model, before phase 23 removes the files):
+   (a) the route matrix: 100k bench rows x 28, 63 leaves, a checkpoint
+   after 3 of 6 trees written to a file and restored into a new booster
+   (with the valid set) on the mega, record, order, pooled, depthwise,
+   hybrid, float64 leaf-wise, DART-with-bagging, multiclass-lanes (2,048
+   rows) and multiclass class-loop routes: the model text bitwise the
+   uninterrupted run's and the resumed trees' launches equal to its
+   (every kernel of the route launched); (b) ``python -m
+   lightgbm_tpu_torch`` on phase 19's train.conf with ``snapshot_freq=3``,
+   two processes at a time: killed by ``LGBM_TPU_FAULT=kill_after_tree:4``
+   and by an external SIGTERM after an iteration drawn from a printed
+   seed, each exits 75 with no model, and its ``--resume`` writes phase
+   19's model-one-shot.txt byte for byte on the card (its manifest's
+   backend), with the checkpoint's bytes and seconds (and of them the
+   host sync and device reads) and the resume's seconds; (c)
+   ``ReplicaSupervisor(subprocess_factory(...), replicas=2)`` behind a
+   ``FleetFrontEnd`` over phase 18's bench100.txt: 4 clients x 100
+   requests of 1-64 valid rows, replica 0 SIGKILLed after 50 answers,
+   no request failed, every answer bitwise ``Booster.predict`` of its
+   rows, at least one restart, the replacement's seconds to ready and
+   the front end's p50 / p99, then ``stop()``: both replicas exit 75.
 
 The seconds each phase took are printed before the result.
 
@@ -380,6 +402,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -5625,6 +5648,466 @@ def phase_sparse(torch, lt):
                 bound_ms=bound, library_ms=lib_ms), counts["S1"]
 
 
+# ----------------------------------------------------------------- phase 25
+# (a) the route matrix: bench rows, RES_LEAVES leaves, RES_TREES trees, one
+# checkpoint after RES_AT written to a file and restored into a new booster
+RES_ROWS, RES_VALID_ROWS, RES_LEAVES = 100_000, 20_000, 63
+RES_TREES, RES_AT, RES_LANE_ROWS, RES_CLASSES = 6, 3, 2048, 5
+# (name, route_env key, parameters over the matrix's bench config, rows,
+# the kernels the resumed trees must launch)
+RES_MC = {"objective": "multiclass", "num_class": RES_CLASSES,
+          "metric": "multi_logloss"}
+RES_ROUTES = [
+    ("mega", "mega", {}, RES_ROWS, ("K1'", "K3", "K8", "K7", "P2")),
+    ("record", "record", {}, RES_ROWS, ("K1'", "K3", "K4", "K6", "K7", "P2")),
+    ("order", "order", {}, RES_ROWS, ("K1", "K3", "P2")),
+    ("pooled", "pooled", {"histogram_pool_size": POOL_MB}, RES_ROWS,
+     ("K1", "K3", "K5", "P2")),
+    ("depthwise", "depthwise", {"tree_growth": "depthwise"}, RES_ROWS,
+     (K1PP, "P2")),
+    ("hybrid", "hybrid", {"tree_growth": "hybrid"}, RES_ROWS,
+     (K1PP, "K1", "K3", "P2")),
+    ("f64-leafwise", "f64-leafwise", {"hist_dtype": "float64"}, RES_ROWS,
+     ("K1-f64", "K3-f64", "K3-f64 step", "P2")),
+    ("dart", "mega", {"boosting_type": "dart", "bagging_fraction": 0.8,
+                      "bagging_freq": 1, "feature_fraction": 0.8,
+                      "drop_rate": 0.5, "skip_drop": 0.0}, RES_ROWS,
+     ("K1'", "K3", "K8", "K7", "P2")),
+    ("multiclass-lanes", "mega", RES_MC, RES_LANE_ROWS, ("F1", "F3", "P2")),
+    ("multiclass-loop", "mega", RES_MC, RES_ROWS,
+     ("K1'", "K3", "K8", "K7", "P2")),
+]
+# (b) the CLI at the bench width: phase 19's train.conf with a snapshot
+# every RES_SNAPSHOT iterations, the kill fault after RES_KILL_AT, and an
+# external SIGTERM after an iteration drawn from RES_SIGTERM_SEED
+RES_SNAPSHOT, RES_KILL_AT, RES_SIGTERM_SEED = 3, 4, 25
+# (c) the fleet over phase 18's model: FLEET_CLIENTS clients of
+# FLEET_REQUESTS requests of 1-64 valid rows, replica 0 SIGKILLed after
+# FLEET_KILL_AFTER answered requests
+FLEET_CLIENTS, FLEET_REQUESTS, FLEET_KILL_AFTER = 4, 100, 50
+RES_DIR = os.path.join(ROOT, "build", "resilience")
+
+
+def _res_sets(lt, base):
+    """The matrix's train and valid sets: binary and five-class labels
+    on the bench rows, and the lanes' first RES_LANE_ROWS rows."""
+    from lightgbm_tpu_torch.synthetic import bench_data, multiclass_labels
+
+    X, y, Xv, yv = bench_data(RES_ROWS, seed=7, n_valid=RES_VALID_ROWS)
+    ymc, yvmc = multiclass_labels(X, Xv, RES_CLASSES)
+    sets = {}
+    for kind, (a, b) in (("binary", (y, yv)), ("multiclass", (ymc, yvmc))):
+        for n in (RES_ROWS, RES_LANE_ROWS):
+            tr = lt.Dataset(X[:n], label=a[:n], max_bin=NUM_BINS,
+                            params=base)
+            tr.construct()
+            m = n * RES_VALID_ROWS // RES_ROWS
+            sets[kind, n] = (tr, tr.create_valid(Xv[:m], label=b[:m]))
+    return sets
+
+
+def _res_route(torch, lt, ck, sets, base, route):
+    """One route of (a): the uninterrupted booster checkpointed after
+    RES_AT trees (its state unchanged by it) and trained on; a new booster
+    restored from the file and trained to RES_TREES; the model strings
+    and the resumed trees' launches compared."""
+    from lightgbm_tpu_torch.ops import launch_counts
+
+    name, env, extra, n, kernels = route
+    params = dict(base, **extra)
+    tr, va = sets["multiclass" if "num_class" in params else "binary", n]
+
+    def booster():
+        bst = lt.Booster(params=params, train_set=tr)
+        bst.add_valid(va, "valid")
+        return bst
+
+    def rest(bst):
+        torch.cuda.synchronize()
+        reset_counts()
+        for _ in range(RES_TREES - RES_AT):
+            bst.update()
+        torch.cuda.synchronize()
+        return launch_counts()
+
+    path = ck.checkpoint_file(os.path.join(RES_DIR, name), RES_AT)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with route_env(env):
+        full = booster()
+        for _ in range(RES_AT):
+            full.update()
+        t0 = time.perf_counter()
+        ck.save_checkpoint(path, full._gbdt, full._gbdt.config,
+                           iteration=RES_AT)
+        save_s = time.perf_counter() - t0
+        want = rest(full)
+        res = booster()
+        t0 = time.perf_counter()
+        payload = ck.load_checkpoint(path)
+        ck.validate_against_config(payload, res._gbdt.config, path)
+        at = ck.restore_training_state(res._gbdt, payload)
+        load_s = time.perf_counter() - t0
+        got = rest(res)
+    same = res.model_to_string() == full.model_to_string()
+    launched = {k: v for k, v in got.items() if v}
+    say(f"[resilience a {name}] {n} rows x {N_FEAT}, {RES_LEAVES} leaves: "
+        f"checkpoint after {at} trees ({os.path.getsize(path)} bytes, "
+        f"save {save_s:.4f}s, load + restore {load_s:.4f}s); resumed model "
+        f"bitwise the uninterrupted run's: {same}; launches of trees "
+        f"{RES_AT + 1}-{RES_TREES} resumed {json.dumps(launched)}, "
+        f"uninterrupted equal: {got == want}")
+    check(at == RES_AT and same,
+          f"resilience (a) {name}: the resumed model differs")
+    check(got == want, f"resilience (a) {name}: resumed launches {got} != "
+          f"the uninterrupted run's {want}")
+    check(all(got[k] > 0 for k in kernels),
+          f"resilience (a) {name}: a kernel of the route never launched "
+          f"({launched})")
+    return launched
+
+
+def _cli_argv(conf, out, *extra):
+    return [sys.executable, "-u", "-m", "lightgbm_tpu_torch",
+            f"config={conf}", "enable_load_from_binary_file=false",
+            f"snapshot_freq={RES_SNAPSHOT}", f"output_model={out}",
+            "verbose=1", *extra]
+
+
+def _child_env(fault=""):
+    env = {k: v for k, v in os.environ.items() if k != "LGBM_TPU_FAULT"}
+    if fault:
+        env["LGBM_TPU_FAULT"] = fault
+    return env
+
+
+def _finish_child(proc, log_path, want_rc, what):
+    rc = proc.wait(300)
+    with open(log_path) as fh:
+        log = fh.read()
+    check(rc == want_rc, f"resilience (b) {what}: exit code {rc}, expected "
+          f"{want_rc}:\n{log[-3000:]}")
+    return log
+
+
+def _cli_chain(conf, out, kind, term_at, procs, result):
+    """One of (b)'s two runs: ``python -m lightgbm_tpu_torch`` preempted
+    (``kind`` "kill": the kill fault; "term": SIGTERM from here once its
+    log says iteration ``term_at`` finished), then its ``--resume``;
+    ``result`` gets both logs and their seconds."""
+    import signal
+
+    log = os.path.join(FILES_DIR, f"{kind}.log")
+    t0 = time.perf_counter()
+    if kind == "kill":
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(
+                _cli_argv(conf, out), stdout=fh, stderr=subprocess.STDOUT,
+                cwd=ROOT, env=_child_env(f"kill_after_tree:{RES_KILL_AT}"))
+        procs.append(proc)
+    else:
+        proc = subprocess.Popen(
+            _cli_argv(conf, out), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=_child_env())
+        procs.append(proc)
+        sent = False
+        with open(log, "w") as fh:
+            for line in proc.stdout:
+                fh.write(line)
+                if not sent and line.rstrip().endswith(
+                        f"finished iteration {term_at}"):
+                    proc.send_signal(signal.SIGTERM)
+                    sent = True
+        check(sent, "resilience (b): the SIGTERM run never reached "
+              f"iteration {term_at}")
+    result["killed"] = _finish_child(proc, log, 75, kind)
+    result["killed_s"] = time.perf_counter() - t0
+    result["wrote"] = os.path.exists(out)
+    log = os.path.join(FILES_DIR, f"{kind}-resume.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            _cli_argv(conf, out, "--resume"), stdout=fh,
+            stderr=subprocess.STDOUT, cwd=ROOT, env=_child_env())
+    procs.append(proc)
+    result["resumed"] = _finish_child(proc, log, 0, f"{kind} --resume")
+    result["resumed_s"] = time.perf_counter() - t0
+
+
+def _res_cli(torch):
+    """(b) ``python -m lightgbm_tpu_torch`` on phase 19's train.conf (the
+    mega route, 1M + 200k rows, TREES trees, the valid AUC each round)
+    with a snapshot every RES_SNAPSHOT iterations: killed by the fault
+    after RES_KILL_AT, and by an external SIGTERM after a drawn iteration,
+    the two runs side by side, each resumed as soon as it exits; each
+    exits 75 and its ``--resume`` writes phase 19's model-one-shot.txt
+    byte for byte, on the card."""
+    import threading
+
+    conf = os.path.join(FILES_DIR, "train.conf")
+    with open(os.path.join(FILES_DIR, "model-one-shot.txt"), "rb") as fh:
+        want = fh.read()
+    term_at = int(np.random.RandomState(RES_SIGTERM_SEED).randint(
+        2, TREES - 2))
+    say(f"[resilience b] external SIGTERM after the log line of iteration "
+        f"{term_at} (drawn from seed {RES_SIGTERM_SEED})")
+    out = {k: os.path.join(FILES_DIR, f"model-{k}.txt")
+           for k in ("kill", "term")}
+    res = {"kill": {}, "term": {}}
+    procs, errors = [], []
+
+    def kill_chain():
+        try:
+            _cli_chain(conf, out["kill"], "kill", term_at, procs,
+                       res["kill"])
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    side = threading.Thread(target=kill_chain)
+    try:
+        side.start()
+        _cli_chain(conf, out["term"], "term", term_at, procs, res["term"])
+        side.join()
+    finally:
+        side.join(600)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    if errors:
+        raise errors[0]
+    wall = time.perf_counter() - t0
+    for k in ("kill", "term"):
+        r = res[k]
+        check(not r["wrote"],
+              f"resilience (b) {k}: a model was written on preemption")
+        stop = int(re.findall(r"preempted at iteration (\d+)",
+                              r["killed"])[-1])
+        check(stop == RES_KILL_AT if k == "kill" else stop >= term_at,
+              f"resilience (b) {k}: preempted at iteration {stop}")
+        with open(out[k], "rb") as fh:
+            same = fh.read() == want
+        with open(out[k] + ".manifest.json") as fh:
+            runtime = json.load(fh)["runtime"]
+        snaps = re.findall(
+            r"Checkpoint written: \S+ \(iteration (\d+), (\d+) bytes in "
+            r"([0-9.]+) seconds, device reads ([0-9.]+) seconds\)",
+            r["killed"])
+        restore = re.findall(r"continuing at iteration (\d+) \(read, checked "
+                             r"and restored in ([0-9.]+) seconds\)",
+                             r["resumed"])
+        load = re.findall(r"Finish loading data, use ([0-9.]+) seconds",
+                          r["resumed"])
+        check(bool(snaps) and bool(restore),
+              f"resilience (b) {k}: no checkpoint / resume line")
+        say(f"[resilience b {k}] preempted after iteration {stop} -> exit 75 "
+            f"({r['killed_s']:.2f}s); checkpoints " + ", ".join(
+                f"iteration {it}: {b} bytes in {s}s (host sync + device "
+                f"reads of the 1.2M scores and the trees {d}s)"
+                for it, b, s, d in snaps)
+            + f"; --resume ({r['resumed_s']:.2f}s) read, checked and "
+            f"restored the checkpoint in {restore[-1][1]}s (continuing at "
+            f"iteration {restore[-1][0]}; the data load {load[-1]}s) -> exit "
+            f"0; model bitwise phase 19's model-one-shot.txt: {same}; "
+            f"backend {runtime.get('backend')} "
+            f"({runtime.get('device_kind')})")
+        check(same, f"resilience (b) {k}: the resumed model differs from "
+              "model-one-shot.txt")
+        check(runtime.get("backend") == "cuda",
+              f"resilience (b) {k}: the resumed run ran on {runtime}")
+        shutil.rmtree(out[k] + ".ckpt")  # phase 23 empties FILES_DIR of files
+    say(f"[resilience b] both runs and their resumes, side by side, in "
+        f"{wall:.2f}s")
+
+
+class _ResFleet:
+    """(c) ``ReplicaSupervisor(subprocess_factory(...), replicas=2)``
+    behind a ``FleetFrontEnd`` over phase 18's 100-tree model: 4 clients,
+    SIGKILL of replica 0 under load, no request failed, every answer
+    bitwise ``Booster.predict`` of its rows, the replacement's seconds to
+    ready, then ``stop()``: the replicas drain and exit 75.  The replicas
+    boot while (a) runs and the replacement while (b) runs: ``start``,
+    ``serve`` and ``finish`` are the three steps."""
+
+    def __init__(self, lt, files):
+        import threading
+
+        from lightgbm_tpu_torch import cli, serving
+
+        model = os.path.join(ROOT, "build", "serving", "bench100.txt")
+        offline = lt.Booster(model_file=model)
+        Xv = files["Xv"]
+        rng = np.random.RandomState(250)
+        self.reqs = []
+        for _ in range(FLEET_CLIENTS * FLEET_REQUESTS):
+            m = int(rng.randint(1, 65))
+            lo = int(rng.randint(0, len(Xv) - m))
+            rows = Xv[lo:lo + m].astype(np.float64)
+            self.reqs.append((rows, offline.predict(rows).tobytes()))
+        self.workdir = os.path.join(ROOT, "build", "fleet")
+        shutil.rmtree(self.workdir, ignore_errors=True)
+        os.makedirs(self.workdir)
+        cfg = lt.Config.from_dict(cli.load_parameters(
+            ["task=serve_fleet", f"input_model={model}", "serve_port=0"]))
+        self.sup = serving.ReplicaSupervisor(
+            serving.subprocess_factory(cfg, self.workdir), replicas=2,
+            restart_budget=cfg.serve_restart_budget, seed=cfg.seed,
+            health_interval_s=0.1)
+        self.serving, self.front = serving, None
+        self.lock = threading.Lock()
+        self.answered, self.failed, self.lats = [], [], []
+        self.kill, self.error = {}, None
+        self.thread = threading.Thread(target=self._start)
+
+    def _start(self):
+        try:
+            t0 = time.perf_counter()
+            self.sup.start()
+            self.start_s = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 — raised in serve()
+            self.error = e
+
+    def start(self):
+        self.thread.start()
+
+    def _watch(self, old_pid):
+        while time.perf_counter() - self.kill["t"] < 300:
+            pids = [r["pid"] for r in self.sup.describe()["replicas"]]
+            if old_pid not in pids and len(pids) == 2:
+                self.kill["ready_s"] = time.perf_counter() - self.kill["t"]
+                return
+            time.sleep(0.005)
+
+    def _client(self, c):
+        import http.client
+        import threading
+
+        front = self.front
+        conn = http.client.HTTPConnection(front.host, front.port, timeout=60)
+        for j in range(c, len(self.reqs), FLEET_CLIENTS):
+            rows, want = self.reqs[j]
+            t0 = time.perf_counter()
+            try:
+                conn.request("POST", "/v1/predict",
+                             json.dumps({"rows": rows.tolist()}),
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+            except (OSError, http.client.HTTPException) as e:
+                self.failed.append(f"transport: {e}")
+                conn = http.client.HTTPConnection(front.host, front.port,
+                                                  timeout=60)
+                continue
+            dt = time.perf_counter() - t0
+            ok = resp.status == 200 and np.asarray(
+                body.get("predictions")).tobytes() == want
+            with self.lock:
+                self.lats.append(dt)
+                if ok:
+                    self.answered.append(j)
+                else:
+                    self.failed.append((resp.status, str(body)[:200]))
+                if len(self.answered) == FLEET_KILL_AFTER and not self.kill:
+                    sup = self.sup
+                    self.kill["pid"] = sup.describe()["replicas"][0]["pid"]
+                    self.kill["t"] = time.perf_counter()
+                    sup.chaos_kill(0)
+                    threading.Thread(target=self._watch,
+                                     args=(self.kill["pid"],),
+                                     daemon=True).start()
+        conn.close()
+
+    def serve(self):
+        """The clients through the front end; the killed replica's
+        replacement boots after they return."""
+        import threading
+
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        self.front = self.serving.FleetFrontEnd(self.sup)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=self._client, args=(c,))
+                   for c in range(FLEET_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        self.load_s = time.perf_counter() - t0
+
+    def finish(self):
+        """Wait for the replacement, stop the fleet, check and print."""
+        while "ready_s" not in self.kill and \
+                time.perf_counter() - self.kill.get("t", 0) < 300:
+            time.sleep(0.01)
+        handles = [s.handle for s in self.sup._slots]
+        restarts, fleet_failed = self.sup.restarts_total, self.sup.failed
+        self.close()
+        rcs = [h.exit_code() for h in handles]
+        p50, p99 = _percentiles(self.lats)
+        kill, failed = self.kill, self.failed
+        say(f"[resilience c] 2 replicas ({self.start_s:.2f}s to ready, "
+            f"booting during (a)) behind the front end: "
+            f"{len(self.answered)} of {len(self.reqs)} requests answered "
+            f"({FLEET_CLIENTS} clients, 1-64 rows) in {self.load_s:.2f}s, "
+            f"failed {len(failed)}; every answer bitwise Booster.predict "
+            f"of its rows: {not failed}; replica 0 (pid {kill.get('pid')}) "
+            f"SIGKILLed after {FLEET_KILL_AFTER} answers, replacement ready "
+            f"after {kill.get('ready_s', float('nan')):.2f}s (booting "
+            f"during (b)); restarts_total {restarts}; front end latency p50 "
+            f"{p50:.3f} ms p99 {p99:.3f} ms; stop(): replicas exited {rcs}")
+        check(kill and not failed
+              and len(self.answered) == len(self.reqs),
+              f"resilience (c): {len(failed)} failed requests: {failed[:3]}")
+        check(restarts >= 1 and fleet_failed is None and "ready_s" in kill,
+              f"resilience (c): restarts {restarts}, failed {fleet_failed}")
+        check(rcs == [75, 75], f"resilience (c): replicas exited {rcs}")
+        shutil.rmtree(self.workdir, ignore_errors=True)
+
+    def close(self):
+        """Stop the front end and the fleet (idempotent): every replica
+        process ends."""
+        if self.front is not None:
+            self.front.close()
+            self.front = None
+        self.thread.join()
+        self.sup.stop()
+
+
+def phase_resilience(torch, lt, files):
+    """Phase 25: checkpoints, resume and the fleet on the card: (a) the
+    route matrix, (b) the CLI at the bench width, (c) the fleet, whose
+    replicas boot while (a) and (b) run."""
+    from lightgbm_tpu_torch.resilience import checkpoint as ck
+
+    base = {"objective": "binary", "num_leaves": RES_LEAVES,
+            "max_bin": NUM_BINS, "learning_rate": LEARNING_RATE,
+            "min_data_in_leaf": MIN_DATA, "metric": "auc", "verbose": -1}
+    fleet = _ResFleet(lt, files)
+    try:
+        fleet.start()
+        t0 = time.perf_counter()
+        sets = _res_sets(lt, base)
+        for route in RES_ROUTES:
+            _res_route(torch, lt, ck, sets, base, route)
+        shutil.rmtree(RES_DIR, ignore_errors=True)
+        del sets
+        say(f"[resilience a] {len(RES_ROUTES)} routes bitwise, launches "
+            f"equal, in {time.perf_counter() - t0:.2f}s")
+        t0 = time.perf_counter()
+        fleet.serve()
+        serve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _res_cli(torch)
+        cli_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fleet.finish()
+        say(f"[resilience] (c) clients {serve_s:.2f}s, (b) {cli_s:.2f}s, "
+            f"(c) the rest {time.perf_counter() - t0:.2f}s")
+    finally:
+        fleet.close()
+
+
 def main() -> int:
     try:
         import torch
@@ -5699,6 +6182,7 @@ def main() -> int:
           rows=MULTICLASS_BAND_ROWS)
     files = timed("files", phase_files, torch, lt, params, routes["mega"])
     timed("forest_cli", phase_forest_cli, torch, lt, files)
+    timed("resilience", phase_resilience, torch, lt, files)
     timed("capi", phase_capi, torch, lt, params, routes["mega"], files)
     del files
     sparse, s1_launches = timed("sparse", phase_sparse, torch, lt)

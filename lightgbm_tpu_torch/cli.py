@@ -15,17 +15,24 @@ merged over a config file (argv wins, application.cpp:46-104), then
 * ``task=serve``: the online service (serving/server.py
   ``serve_from_config``);
 * ``task=train_many``: ``num_models`` models on one binned dataset, model
-  i with ``seed + i``, saved to ``<output_model>.<i>``.
+  i with ``seed + i``, saved to ``<output_model>.<i>``;
+* ``task=serve_fleet``: supervised ``task=serve`` replicas behind one
+  front end (serving/supervisor.py ``serve_fleet_from_config``).
+
+``task=train`` checkpoints (resilience/checkpoint.py): every
+``snapshot_freq`` iterations into ``snapshot_dir`` (default
+``<output_model>.ckpt/``) and on SIGTERM / SIGINT, after which it exits
+75; ``resume=true`` (``--resume``) continues from the newest checkpoint
+and the final model is bitwise the uninterrupted run's.
 
 Reference ``train.conf`` files parse unchanged.  Every task runs on the
 ``device`` argument of :func:`main` (CUDA unless ``"cpu"``); no config
 key selects it.  ``boosting_type=dart`` trains DART (models/dart.py) and
 ``nonfinite_policy`` guards the gradients (resilience/guards.py; the
 guard's parked counts drain before the model is saved).  Refused,
-naming their ROADMAP item: ``task=serve_fleet`` (A9), ``task=train_fleet``
-(A8/A9), checkpoints and ``resume`` (A9),
-``num_machines > 1`` (A8) and the configurations
-``models/gbdt.check_supported`` refuses (parallel learners: A8).
+naming their ROADMAP item: ``task=train_fleet`` and ``num_machines > 1``
+(A8) and the configurations ``models/gbdt.check_supported`` refuses
+(parallel learners: A8).
 ``hist_dtype=float64`` trains (float64 histograms, A5).
 """
 
@@ -134,16 +141,25 @@ def _refuse_unported(cfg: Config) -> None:
     """Fail before any data loads on what the port does not run."""
     if cfg.num_machines > 1:
         raise _not_ported(f"num_machines={cfg.num_machines}", "A8: parallel")
-    if cfg.resume or cfg.snapshot_freq > 0:
-        raise _not_ported("checkpoints (resume, snapshot_freq)",
-                          "A9: resilience")
     check_supported(cfg)
 
 
 def run_train(cfg: Config, device=None) -> GBDT:
-    """InitTrain + Train (application.cpp:187-239) on ``device``."""
+    """InitTrain + Train (application.cpp:187-239) on ``device``, with
+    checkpoints: ``resume=true`` continues from the newest checkpoint
+    (resilience/checkpoint.py; none at all starts fresh, with a warning;
+    a corrupt one or one written under another config raises), and the
+    loop runs inside a ``CheckpointManager`` (``snapshot_freq``, the
+    stop signals).  A preempted run raises ``TrainingPreempted`` and
+    writes no model."""
+    from .resilience import checkpoint as ckpt
+
     _refuse_unported(cfg)
     dev = resolve_device(device)
+    # a preempted or poisoned run dumps its flight recorder next to the
+    # model it was training (LGBM_TPU_FLIGHTREC_DIR overrides)
+    flightrec.configure_dir(
+        os.path.dirname(os.path.abspath(cfg.output_model)))
     t0 = time.perf_counter()
     train = BinnedDataset.from_file(cfg.data, cfg)
     Log.info(f"Finish loading data, use {time.perf_counter() - t0:.6f} "
@@ -163,9 +179,30 @@ def run_train(cfg: Config, device=None) -> GBDT:
         booster.merge_from(init._gbdt, prepend=True)
         Log.info(f"Continued training from {cfg.input_model} "
                  f"({init._gbdt.num_trees} trees)")
+    # early-stopping state per (valid set, metric) (gbdt.cpp:336-347),
+    # out here so that a checkpoint carries it
+    best_score: Dict[tuple, float] = {}
+    best_iter: Dict[tuple, int] = {}
+    start_iter = 0
+    if cfg.resume:
+        t1 = time.perf_counter()
+        found = ckpt.load_latest_for(cfg)
+        if found is not None:
+            ck_path, payload = found
+            start_iter = ckpt.restore_training_state(
+                booster, payload, best_score, best_iter)
+            Log.info(f"Resumed from {ck_path}: {booster.num_trees} trees, "
+                     f"continuing at iteration {start_iter + 1} (read, "
+                     f"checked and restored in "
+                     f"{time.perf_counter() - t1:.6f} seconds)")
+        else:
+            Log.warning("resume=true but no checkpoint found in "
+                        f"{ckpt.checkpoint_dir(cfg)}; starting fresh")
     start = time.perf_counter()
-    with _profiled(cfg, dev):
-        stop_iter = _train_loop(cfg, booster, valid_names, start)
+    with _profiled(cfg, dev), ckpt.CheckpointManager(
+            cfg, booster, best_score, best_iter) as ckmgr:
+        stop_iter = _train_loop(cfg, booster, valid_names, best_score,
+                                best_iter, start, start_iter, ckmgr)
     # the guard's parked counts drain before the save and the manifest
     # (a short clip run would report no clipped values otherwise)
     booster.finalize_guards()
@@ -192,6 +229,12 @@ def run_train_many(cfg: Config, params: Dict[str, str],
     from .engine import train_many
 
     _refuse_unported(cfg)
+    if cfg.resume or cfg.snapshot_freq > 0:
+        # the JAX package's run_train_many does not read them: a knob
+        # accepted without being read would be silently ignored
+        raise ValueError(
+            "task=train_many does not checkpoint (resume, snapshot_freq "
+            "are read by task=train only, as in the JAX package)")
     if cfg.num_models < 1:
         Log.fatal("num_models must be >= 1 for task=train_many")
     dev = resolve_device(device)
@@ -260,15 +303,17 @@ def _write_train_manifest(cfg: Config, booster: GBDT, train_s: float) -> None:
 
 
 def _train_loop(cfg: Config, booster: GBDT, valid_names: List[str],
-                start: float) -> Optional[int]:
-    """The iteration loop (application.cpp:223-239); returns the best
-    0-based iteration when early stopping fired, else None.  Early
-    stopping fires as soon as ANY (valid set, metric) pair has gone
-    ``early_stopping_round`` iterations without improving, and the model
-    is cut to THAT pair's best iteration (gbdt.cpp:336-349)."""
-    best_score: Dict[tuple, float] = {}
-    best_iter: Dict[tuple, int] = {}
-    for it in range(cfg.num_iterations):
+                best_score: Dict[tuple, float], best_iter: Dict[tuple, int],
+                start: float, start_iter: int, ckmgr) -> Optional[int]:
+    """The iteration loop (application.cpp:223-239) from ``start_iter``;
+    returns the best 0-based iteration when early stopping fired, else
+    None.  Early stopping fires as soon as ANY (valid set, metric) pair
+    has gone ``early_stopping_round`` iterations without improving, and
+    the model is cut to THAT pair's best iteration (gbdt.cpp:336-349).
+    ``ckmgr.after_iteration`` runs once a completed iteration that did
+    not end the run, after the early-stop bookkeeping (the JAX package's
+    cli.py:414-419), so a checkpoint at k carries k's bests."""
+    for it in range(start_iter, cfg.num_iterations):
         finished = booster.train_one_iter()
         Log.info(f"{time.perf_counter() - start:.6f} seconds elapsed, "
                  f"finished iteration {it + 1}")
@@ -291,6 +336,8 @@ def _train_loop(cfg: Config, booster: GBDT, valid_names: List[str],
             Log.info("Stopped training because there are no more leaves "
                      "that meet the split requirements.")
             break
+        if ckmgr is not None:
+            ckmgr.after_iteration(it)
     return None
 
 
@@ -326,9 +373,35 @@ def run_serve(cfg: Config, device=None, block: bool = True):
     return serve_from_config(cfg, block=block, device=device)
 
 
+def run_serve_fleet(cfg: Config, device=None) -> int:
+    """``task=serve_fleet``: the replica supervisor (serving/supervisor.py)
+    — ``serve_replicas`` ``task=serve`` subprocesses behind one
+    round-robin front end, health-checked, restarted on crash or
+    preemption with jittered backoff, scaled between ``serve_replicas``
+    and ``serve_max_replicas`` off the queue-depth gauge.  The replicas
+    are ``python -m lightgbm_tpu_torch`` processes, which run on the
+    card: ``device`` must be the card (in process, ``ReplicaSupervisor``
+    over ``ThreadReplica(device="cpu")`` runs a CPU fleet)."""
+    from .serving.supervisor import serve_fleet_from_config
+
+    if not cfg.input_model:
+        Log.fatal("input_model should not be empty for serve_fleet task")
+    if resolve_device(device).type != "cuda":
+        raise ValueError(
+            "task=serve_fleet runs its replicas as python -m "
+            "lightgbm_tpu_torch processes, on the card; in process, "
+            "supervise ThreadReplica(..., device='cpu') instead")
+    return int(serve_fleet_from_config(cfg) or 0)
+
+
 def main(argv: Optional[List[str]] = None, device=None) -> int:
     """main.cpp:4-22: 0 on success, 1 (with the message on stderr) on an
-    error; what the port does not run raises ``NotImplementedError``."""
+    error, 75 (``EXIT_PREEMPTED``) when a stop signal preempted training
+    after its checkpoint; what the port does not run raises
+    ``NotImplementedError``."""
+    from .resilience import EXIT_PREEMPTED
+    from .resilience.checkpoint import TrainingPreempted
+
     argv = sys.argv[1:] if argv is None else list(argv)
     try:
         params = load_parameters(argv)
@@ -343,15 +416,24 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         elif cfg.task == "train_many":
             run_train_many(cfg, params, device)
         elif cfg.task == "serve_fleet":
-            raise _not_ported("task=serve_fleet", "A9: the fleet supervisor")
+            return run_serve_fleet(cfg, device)
         elif cfg.task == "train_fleet":
             raise _not_ported("task=train_fleet",
-                              "A8/A9: gang training needs parallel and "
-                              "resilience")
+                              "A8: gang training needs the parallel "
+                              "learners")
         else:
             Log.fatal(f"Unknown task: {cfg.task!r}")
     except NotImplementedError:
         raise
+    except TrainingPreempted as ex:
+        # sysexits EX_TEMPFAIL: a supervisor relaunches with resume=true
+        # and loses nothing.  The flight recorder dumps last, so its tail
+        # is the preemption itself.
+        print(f"Preempted:\n{ex}", file=sys.stderr)
+        flightrec.record("preempted", iteration=ex.iteration,
+                         checkpoint=ex.path)
+        flightrec.dump(reason="preempted")
+        return EXIT_PREEMPTED
     except Exception as ex:  # noqa: BLE001 — the CLI's error boundary
         if isinstance(ex, NonFiniteError):
             # the guard recorded its trip; the dump's tail names the abort

@@ -612,6 +612,13 @@ class GBDT:
         for i, v in enumerate(valid):
             self._valid_scores[i] = v.clone()
 
+    def install_models(self, models: List[Tree]) -> None:
+        """Replace the tree list with ``models`` (a checkpoint's trees,
+        resilience/checkpoint.py): the packed ensemble and every table
+        built from the old list are stale after it."""
+        self.models = list(models)
+        self._models_changed()
+
     def rollback_one_iter(self) -> None:
         """GBDT::RollbackOneIter (gbdt.cpp:254-271): subtract the last
         iteration's K trees from the train and valid scores and pop them.

@@ -1,14 +1,29 @@
-"""Deterministic fault injection for the paths the port has: the atomic
-write, the serving hot-swap, the serving dispatch and the gradients of
-the training loop.
+"""Deterministic fault injection for the paths the port has: the training
+loop and its checkpoints, the atomic write, the serving hot-swap, the
+serving dispatch, the training gradients and the guarded collective.
 
-A copy of the JAX package's ``resilience/faults.py`` (stdlib only) cut
-to the hooks those paths call.  ``LGBM_TPU_FAULT`` holds a
+A copy of the JAX package's ``resilience/faults.py`` (stdlib only)
+without the hooks of ``obs/dist``.  ``LGBM_TPU_FAULT`` holds a
 comma-separated list of fault specs:
 
 ==========================  ====================================================
 spec                        injection point
 ==========================  ====================================================
+``kill_after_tree:K``       cli train loop raises SIGTERM to the process the
+                            moment iteration K completes — the real
+                            preemption signal through the real handler
+                            (resilience/checkpoint.py)
+``hang_after_tree:K[:S]``   cli train loop stalls for S seconds (default
+                            3600) the moment iteration K completes, after
+                            any due checkpoint — the stand-in for a wedged
+                            collective that a supervisor's heartbeat
+                            deadline must notice
+``corrupt_checkpoint``      every checkpoint write is followed by
+                            overwriting bytes mid-file — resume must refuse
+                            it loudly
+``fail_collective_once``    the first guarded collective raises a fake
+                            ``UNAVAILABLE`` (resilience/retry.py) —
+                            exercises retry_transient
 ``fail_write_once``         first atomic_write fails before its rename —
                             the destination must stay intact
 ``corrupt_model``           every serving hot-swap candidate is corrupted
@@ -25,22 +40,24 @@ spec                        injection point
                             guards (resilience/guards.py)
 ==========================  ====================================================
 
-The JAX package's other kinds (the training loop's kill and hang, the
-checkpoint and collective faults) belong to modules not ported yet and
-raise ``NotImplementedError`` naming ROADMAP A9.  The env var is
-read once at import; tests inject in-process via :func:`set_fault` /
-:func:`clear_faults`.  ``*_once`` faults self-consume.
+The JAX package's ``delay_collective`` and ``desync_step`` belong to
+``obs/dist``, not ported, and raise ``NotImplementedError`` naming ROADMAP
+A8.  The env var is read once at import; tests inject in-process via
+:func:`set_fault` / :func:`clear_faults`.  ``*_once`` faults
+self-consume.
 """
 
 from __future__ import annotations
 
 import os
+import signal
 from typing import Dict, Optional
 
-_VALID = ("fail_write_once", "corrupt_model", "oom_dispatch", "nan_grads")
-# the JAX package's kinds whose injection points are not ported yet
-_NOT_PORTED = ("kill_after_tree", "hang_after_tree", "corrupt_checkpoint",
-               "fail_collective_once", "delay_collective", "desync_step")
+_VALID = ("kill_after_tree", "hang_after_tree", "corrupt_checkpoint",
+          "fail_collective_once", "fail_write_once", "corrupt_model",
+          "oom_dispatch", "nan_grads")
+# the JAX package's kinds whose injection points (obs/dist) are not ported
+_NOT_PORTED = ("delay_collective", "desync_step")
 
 
 class InjectedFault(Exception):
@@ -50,6 +67,10 @@ class InjectedFault(Exception):
 
 
 class InjectedWriteError(InjectedFault, OSError):
+    pass
+
+
+class InjectedCollectiveError(InjectedFault, RuntimeError):
     pass
 
 
@@ -71,7 +92,8 @@ def _parse(spec: str) -> Dict[str, Optional[str]]:
         if kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"LGBM_TPU_FAULT kind {kind!r} is not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP queue A9: resilience)")
+                "lightgbm_tpu_torch yet (ROADMAP queue A8: parallel, "
+                "obs/dist)")
         if kind not in _VALID:
             raise ValueError(
                 f"unknown LGBM_TPU_FAULT kind {kind!r} "
@@ -121,6 +143,43 @@ def _note(kind: str, **fields) -> None:
 
 
 # ------------------------------------------------------- injection points
+def kill_after_tree() -> Optional[int]:
+    """Iteration count after which the training loop should receive
+    SIGTERM, or None."""
+    p = fault_active("kill_after_tree")
+    return int(p) if p else None
+
+
+def maybe_kill(completed_iterations: int) -> None:
+    """cli train-loop hook: raise the REAL preemption signal to this
+    process once iteration K has completed (the handler then finishes
+    bookkeeping and checkpoints, exactly as under a fleet preemption)."""
+    k = kill_after_tree()
+    if k is not None and completed_iterations == k:
+        _consume("kill_after_tree")
+        _note("kill_after_tree", iteration=completed_iterations)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+
+def maybe_hang(completed_iterations: int) -> None:
+    """cli train-loop hook: stall for S seconds once iteration K has
+    completed, without heartbeating: from a supervisor's seat this is a
+    wedged collective, which its heartbeat deadline must notice."""
+    p = fault_active("hang_after_tree")
+    if p is None:
+        return
+    k, _, secs = p.partition(":")
+    if completed_iterations != int(k or 0):
+        return
+    _consume("hang_after_tree")
+    stall_s = float(secs) if secs else 3600.0
+    _note("hang_after_tree", iteration=completed_iterations,
+          stall_s=stall_s)
+    import time
+
+    time.sleep(stall_s)
+
+
 def maybe_fail_write(path: str) -> None:
     """atomic_write hook, fired after the tmp file is written but BEFORE
     the rename: the crash window the atomic protocol exists to survive."""
@@ -141,6 +200,27 @@ def _overwrite_mid_file(path: str) -> None:
     with open(path, "r+b") as fh:
         fh.seek(size // 2)
         fh.write(b"A" * min(16, max(1, size // 2)))
+
+
+def maybe_fail_collective() -> None:
+    """Guarded-collective hook: one fake transient failure, in the
+    vocabulary real collective stacks use (retry_transient keys on it)."""
+    if fault_active("fail_collective_once") is not None:
+        _consume("fail_collective_once")
+        _note("fail_collective_once")
+        raise InjectedCollectiveError(
+            "UNAVAILABLE: injected transient collective failure")
+
+
+def maybe_corrupt_checkpoint(path: str) -> bool:
+    """Checkpoint-writer hook: corrupt the freshly committed file —
+    the resume must refuse it loudly.  Returns True when corruption was
+    injected."""
+    if fault_active("corrupt_checkpoint") is None:
+        return False
+    _overwrite_mid_file(path)
+    _note("corrupt_checkpoint", path=path)
+    return True
 
 
 def maybe_oom_dispatch(where: str) -> None:

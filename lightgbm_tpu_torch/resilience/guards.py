@@ -18,8 +18,8 @@ and hessians before growing, leaf outputs after) under
   when poisoned; after ``MAX_CONSECUTIVE_SKIPS`` skips in a row it raises.
 * ``clip``: zero non-finite gradient/hessian entries (the poisoned rows
   contribute nothing this iteration) and non-finite leaf outputs; the
-  counts stay on the device and drain every 64 parked counts and at
-  ``finalize``.
+  counts stay on the device and drain every 64 parked counts, at
+  ``finalize`` and at a checkpoint (``state_dict``).
 
 Everything is counted in telemetry (``nonfinite_grad_events``,
 ``nonfinite_values_clipped``, ``nonfinite_skipped_trees``,
@@ -77,6 +77,9 @@ class NonFiniteGuard:
         # parked device counts, read at a sync point of the policy's own
         self._pending: List[torch.Tensor] = []
         self._consecutive_skips = 0
+        # clip counts drained so far: a checkpoint carries it across a
+        # resume (state_dict)
+        self._clipped_total = 0
 
     # ------------------------------------------------------------- grads
     def check_gradients(self, grad: torch.Tensor, hess: torch.Tensor):
@@ -160,6 +163,7 @@ class NonFiniteGuard:
         n = _read(self._pending)
         self._pending.clear()
         if n:
+            self._clipped_total += n
             telemetry.count("nonfinite_values_clipped", n)
             telemetry.count("nonfinite_grad_events")
             Log.warning(f"clipped {n} non-finite gradient/hessian/leaf "
@@ -171,6 +175,18 @@ class NonFiniteGuard:
         self._drain_clip()
         if self.policy == "raise" and self._pending:
             self.raise_if_poisoned(None)
+
+    # ------------------------------------------------------ checkpointing
+    def state_dict(self) -> dict:
+        """The guard's checkpoint block (the JAX package's
+        guards.py:215-221); the parked clip counts are on the device, so
+        they drain first."""
+        self._drain_clip()
+        return {"policy": self.policy,
+                "clipped_total": int(self._clipped_total)}
+
+    def load_state_dict(self, d: dict) -> None:
+        self._clipped_total = int(d.get("clipped_total", 0))
 
 
 def make_guard(policy: str) -> Optional[NonFiniteGuard]:

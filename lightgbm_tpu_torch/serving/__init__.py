@@ -15,10 +15,10 @@ The port of the JAX package's ``serving/`` core over kernel P1
   client the tests use, and ``serve_from_config`` (``task=serve``).
 * :mod:`batch`   — the batch tier: a data file streamed through reader,
   P1 and writer threads into a result file (``task=predict``).
-
-Not ported yet: the fleet supervisor (``serve_fleet``; it needs
-``resilience/retry``, ROADMAP A9).  Its names raise
-``NotImplementedError`` naming the item.
+* :mod:`supervisor` — the fleet: replicas (``task=serve`` subprocesses
+  or in-process threads) under a supervisor that restarts them with
+  ``resilience/retry``'s backoff and retries a request once on another
+  replica, behind one front end (``task=serve_fleet``).
 """
 
 from .batch import format_block, pipelined_predict_file, predict_chunk_stream
@@ -28,6 +28,10 @@ from .queue import (DeadlineExpired, MicroBatchQueue, PredictionResult,
                     QueueDraining, QueueFull, RequestShed)
 from .server import (InProcessClient, ServingServer, serve_from_config,
                      write_serving_manifest)
+from .supervisor import (FleetBudgetExhausted, FleetFrontEnd,
+                         FleetRequestFailed, ReplicaSupervisor,
+                         SubprocessReplica, ThreadReplica,
+                         serve_fleet_from_config, subprocess_factory)
 
 __all__ = [
     "PackedModel", "ServingEngine", "power_of_two_buckets",
@@ -37,21 +41,7 @@ __all__ = [
     "InProcessClient", "ServingServer", "serve_from_config",
     "write_serving_manifest", "format_block", "pipelined_predict_file",
     "predict_chunk_stream",
+    "ReplicaSupervisor", "SubprocessReplica", "ThreadReplica",
+    "FleetFrontEnd", "FleetRequestFailed", "FleetBudgetExhausted",
+    "serve_fleet_from_config", "subprocess_factory",
 ]
-
-# the JAX package's serving names that are not ported, with their item
-DEFERRED = {
-    **dict.fromkeys(("ReplicaSupervisor", "SubprocessReplica",
-                     "ThreadReplica", "FleetFrontEnd", "FleetRequestFailed",
-                     "FleetBudgetExhausted", "serve_fleet_from_config",
-                     "supervisor"),
-                    "A9: the fleet supervisor needs resilience/retry"),
-}
-
-
-def __getattr__(name):
-    if name in DEFERRED:
-        raise NotImplementedError(
-            f"serving.{name} is not ported to lightgbm_tpu_torch yet "
-            f"(ROADMAP queue {DEFERRED[name]})")
-    raise AttributeError(name)

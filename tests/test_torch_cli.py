@@ -270,21 +270,32 @@ def test_serve_task_answers_http(jax_model):
         server.close()
 
 
+# the ids the cases had while serve_fleet, train_fleet, resume and
+# snapshot_freq were refused naming A9 (A8/A9 for train_fleet)
+REFUSED_IDS = ["argv0-A7", "argv1-A9", "argv2-A8/A9", "argv3-A9",
+               "argv4-A9", "argv5-A8", "argv6-A3"]
+
+
 @pytest.mark.parametrize("argv,item", [
     (["task=train_many"], "A7"),
-    (["task=serve_fleet"], "A9"),
-    (["task=train_fleet"], "A8/A9"),
+    (["task=serve_fleet"], "A11"),
+    (["task=train_fleet"], "A8"),
     (["resume=true"], "A9"),
     (["snapshot_freq=5"], "A9"),
     (["num_machines=2"], "A8"),
     (["boosting_type=dart"], "A3"),
-])
-def test_refused_tasks_name_their_item(tmp_path, argv, item):
+], ids=REFUSED_IDS)
+def test_refused_tasks_name_their_item(tmp_path, argv, item, capsys):
     """What the CLI does not run raises naming its ROADMAP item.
     ``boosting_type=dart`` (A3) was refused here until DART was ported:
     it now trains and writes a ``dart`` model.  ``task=train_many`` (A7)
     likewise: it now writes ``num_models`` (2) models, ``m.txt.0`` and
-    ``m.txt.1``."""
+    ``m.txt.1``.  Checkpoints (A9) likewise: ``resume=true`` with no
+    checkpoint trains from scratch and ``snapshot_freq=5`` leaves the
+    checkpoint of iteration 5 beside the model.  ``task=serve_fleet``
+    (A11) reaches the fleet's entry, which needs a model and the card
+    (its replicas are ``python -m lightgbm_tpu_torch`` processes).
+    ``task=train_fleet`` names A8 alone."""
     train, valid, keys = _problem(tmp_path, "binary", n=300)
     conf = _conf(tmp_path, train, valid, keys)
     if item == "A3":
@@ -297,6 +308,29 @@ def test_refused_tasks_name_their_item(tmp_path, argv, item):
         for i in range(2):
             with open(tmp_path / f"m.txt.{i}") as fh:
                 assert fh.readline() == "gbdt\n"
+        assert not os.path.exists(tmp_path / "m.txt")
+        return
+    if item == "A9":
+        assert tcli.main([f"config={conf}", *argv], device="cpu") == 0
+        with open(tmp_path / "m.txt") as fh:
+            assert fh.readline() == "gbdt\n"
+        ckpts = sorted(os.listdir(tmp_path / "m.txt.ckpt")) \
+            if argv[0].startswith("snapshot") else []
+        assert ckpts == (["ckpt_00000005.json"]
+                         if argv[0].startswith("snapshot") else [])
+        # train_many reads no checkpoint knob, so it refuses them
+        assert tcli.main([f"config={conf}", "task=train_many", *argv],
+                         device="cpu") == 1
+        assert "task=train_many does not checkpoint" in capsys.readouterr().err
+        return
+    if item == "A11":
+        assert tcli.main([f"config={conf}", *argv], device="cpu") == 1
+        assert "input_model should not be empty for serve_fleet" in \
+            capsys.readouterr().err
+        assert tcli.main([f"config={conf}", *argv,
+                          f"input_model={tmp_path / 'x.txt'}"],
+                         device="cpu") == 1
+        assert "on the card" in capsys.readouterr().err
         assert not os.path.exists(tmp_path / "m.txt")
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):

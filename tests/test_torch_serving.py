@@ -349,20 +349,24 @@ def test_swap_incompatible_shape_refused(served, engine_a, tmp_path):
 
 
 def test_deferred_serving_names_raise():
-    """The fleet names (A9) raise naming their item; the batch tier (A6)
-    is ported and importable."""
-    for name, item in (("ReplicaSupervisor", "A9"),
-                       ("FleetFrontEnd", "A9"),
-                       ("serve_fleet_from_config", "A9")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
-            getattr(serving, name)
-    with pytest.raises(NotImplementedError, match="A9"):
-        from lightgbm_tpu_torch.serving import supervisor  # noqa: F401
+    """The fleet names (A11) were refused here, naming A9, until the
+    supervisor was ported: they now import from ``serving`` and
+    ``serving.supervisor``.  The batch tier (A6) is ported and
+    importable, and the training loop's ``kill_after_tree`` fault is
+    accepted (A9)."""
+    from lightgbm_tpu_torch.serving import supervisor
+    for name in ("ReplicaSupervisor", "FleetFrontEnd",
+                 "serve_fleet_from_config"):
+        assert getattr(serving, name) is getattr(supervisor, name)
+    assert not hasattr(serving, "DEFERRED")
     from lightgbm_tpu_torch.serving import batch
     assert serving.pipelined_predict_file is batch.pipelined_predict_file
     assert serving.format_block is batch.format_block
-    with pytest.raises(NotImplementedError, match="A9"):
-        faults.set_fault("kill_after_tree:3")
+    faults.set_fault("kill_after_tree:3")
+    try:
+        assert faults.kill_after_tree() == 3
+    finally:
+        faults.clear_faults()
 
 
 # ---------------------------------------------------- server transport
