@@ -387,6 +387,36 @@ git-ignored ``build/smoke_files``):
    rows, at least one restart, the replacement's seconds to ready and
    the front end's p50 / p99, then ``stop()``: both replicas exit 75.
 
+26. The parallel learners (after phase 20, on the bench data made anew):
+   (a) a one-rank NCCL world in this process at the bench's full width
+   (255 leaves): the data-parallel learner (record route) grows 3 trees
+   on an exact-sum copy of the gradients (integers in [-4, 4], unit
+   hessians), each bitwise the serial record route's tree and leaf ids,
+   with exactly K1' = K3 = 1 + S and K6 = K7 = S launches, 3 + 2S host
+   syncs and the census's 3 collectives a split plus the root's 3 and
+   the leaf ids' (S splits); then 3 trees from the serial run's
+   gradients (at most one divergent node a tree against the serial
+   learner grown from the same gradients and the root totals the world
+   reduced; the divergence from the mega route's trees printed) and 3
+   bench trees through the training API (train / valid AUC within 0.005
+   of the serial run's); the group is destroyed.  (b) four rank
+   processes sharing cuda:0 over gloo (``--parallel-rank R 4 PORT``),
+   one world, each making the bench data from its seed: the
+   data-parallel learner leaf-wise, depthwise and hybrid, feature,
+   voting (``top_k`` 20 and 5) and a 2 x 2 grid at 15 leaves (a
+   collective of four processes time-slicing one card costs
+   milliseconds: 255 leaves took ~9 s a tree), 3 trees each through the
+   API (the same trees and AUC on every rank, within 0.005 of serial;
+   each rank's launches, host syncs and collectives exactly those the
+   learner's route makes for the trees it grew), from the serial run's
+   gradients (at most one divergent node a tree against the serial
+   learner given the root totals the world reduced, as in (a); not for
+   ``top_k`` 5, which selects 10 of 28 features) and on the exact-sum
+   copy (bitwise the serial trees and leaf ids; not for ``top_k`` 5);
+   prints s/tree, the collectives a tree and their ms, host syncs a
+   tree, each rank's launches a tree, the peak device memory of each
+   rank and a tiny all-gather's ms on the card's tensors.
+
 The seconds each phase took are printed before the result.
 
 Every phase must pass or the script exits non-zero without a result.  The
@@ -1394,7 +1424,7 @@ def reset_counts():
     depthwise.LEVELS = depthwise.LEVEL_SPLITS = 0
 
 
-def make_bench_data(lt):
+def make_bench_data(lt, quiet=False):
     from lightgbm_tpu_torch.synthetic import bench_data
 
     t0 = time.perf_counter()
@@ -1405,7 +1435,8 @@ def make_bench_data(lt):
     train_set = lt.Dataset(X, label=y, max_bin=NUM_BINS, params=params)
     train_set.construct()
     valid_set = train_set.create_valid(Xv, label=yv)
-    say(f"[main] data + binning {time.perf_counter() - t0:.1f}s")
+    if not quiet:
+        say(f"[main] data + binning {time.perf_counter() - t0:.1f}s")
     return params, train_set, valid_set, Xv
 
 
@@ -6108,6 +6139,517 @@ def phase_resilience(torch, lt, files):
         fleet.close()
 
 
+# -------------------------------------------------------------- phase 26
+PAR_TREES = 3  # trees a learner grows in phase 26, bench and exact-sum
+PAR_WORLD = 4  # (b)'s gloo ranks sharing cuda:0
+# (b)'s leaves: every collective of four ranks sharing one card costs
+# milliseconds (gloo over loopback, the card time-sliced between four
+# processes), and a 255-leaf tree makes 766 of them
+PAR_B_LEAVES = 15
+PAR_DIR = os.path.join(ROOT, "build", "smoke_parallel")
+# (b)'s learners: (name, tree_learner, extra params); voting5 selects 10
+# of the 28 features a split, so it need not grow the serial tree
+PAR_LEARNERS = (("data", "data", {}),
+                ("data-depthwise", "data", {"tree_growth": "depthwise"}),
+                ("data-hybrid", "data", {"tree_growth": "hybrid"}),
+                ("feature", "feature", {}),
+                ("voting20", "voting", {"top_k": 20}),
+                ("voting5", "voting", {"top_k": 5}),
+                ("grid", "grid", {"grid_feature_shards": 2}))
+
+
+def _par_growth(extra) -> str:
+    return extra.get("tree_growth", "leafwise")
+
+
+def _par_exact_grads(torch, n):
+    """PAR_TREES exact-sum gradient vectors: integers in [-4, 4] (every
+    sum of 1M rows stays below 2**24 units: exact in float32), hessians
+    1."""
+    rng = np.random.RandomState(26)
+    return [torch.from_numpy(rng.randint(-4, 5, n).astype(np.float32))
+            .cuda() for _ in range(PAR_TREES)]
+
+
+def _par_args(torch, gbdt, grad, hess=None):
+    """A grower's arguments on ``gbdt``'s bins and constraints, every row
+    and feature in, with ``grad`` (and unit hessians by default)."""
+    ones = torch.ones_like(grad)
+    return (gbdt._bins_T, grad, ones if hess is None else hess, ones,
+            torch.ones(gbdt._bins_T.shape[0], dtype=torch.bool,
+                       device=grad.device), gbdt._nbpf, gbdt._is_cat,
+            gbdt._params)
+
+
+def _par_tree(t) -> dict:
+    return {k: getattr(t, k).cpu() for k in TREE_FIELDS} | {
+        "num_leaves": int(t.num_leaves)}
+
+
+def _par_refs(torch, lt, params, train_set, valid_set, growths):
+    """The serial learner's references at ``params``: per growth, PAR_TREES
+    bench trees through the API with each iteration's gradients and the
+    AUCs, and the exact-sum trees with their leaf ids (leaf-wise on the
+    record route, the data-parallel learner's own)."""
+    import functools
+
+    from lightgbm_tpu_torch.learners.depthwise import grow_tree_depthwise
+    from lightgbm_tpu_torch.learners.hybrid import grow_tree_hybrid
+    from lightgbm_tpu_torch.learners.serial import grow_tree
+    from lightgbm_tpu_torch.ops.cuda_histogram import (
+        histogram_record_window, histogram_single_leaf, make_level_hist_fn)
+
+    refs = {"bench": {}, "exact": {}}
+    for growth in growths:
+        bst = lt.Booster(params=dict(params, tree_growth=growth),
+                         train_set=train_set)
+        gb = bst._gbdt
+        grads = []
+        for _ in range(PAR_TREES):
+            g, h = gb.objective.get_gradients(gb._scores[0])
+            grads.append((g.cpu(), h.cpu()))
+            bst.update()
+        bst.add_valid(valid_set, "valid")
+        refs["bench"][growth] = dict(
+            trees=[_par_tree(t) for t in gb.models], grads=grads,
+            auc=(bst.eval_train()[0][2], bst.eval_valid()[0][2]))
+        kw = dict(num_bins=NUM_BINS, max_leaves=gb.max_leaves)
+        exact = []
+        for g in _par_exact_grads(torch, gb.num_data):
+            args = _par_args(torch, gb, g)
+            if growth == "depthwise":
+                t, lid = grow_tree_depthwise(*args, **kw)
+            elif growth == "hybrid":
+                t, lid = grow_tree_hybrid(
+                    *args, **kw, hist_fn=functools.partial(
+                        histogram_single_leaf, num_bins=NUM_BINS),
+                    level_hist_fn=make_level_hist_fn(NUM_BINS))
+            else:
+                t, lid = grow_tree(*args, **kw,
+                                   hist_fn_raw=histogram_record_window)
+            exact.append((_par_tree(t), lid.cpu()))
+        refs["exact"][growth] = exact
+    return refs
+
+
+def _par_bitwise(torch, t, lid, ref) -> bool:
+    tree, ref_lid = ref
+    return (int(t.num_leaves) == tree["num_leaves"]
+            and all(torch.equal(getattr(t, k).cpu(), tree[k])
+                    for k in TREE_FIELDS)
+            and torch.equal(lid.cpu(), ref_lid))
+
+
+def _par_root_sg(grad, hess, blocks: int) -> float:
+    """The relative difference of the root's Σg as the serial learner
+    sums it (every row in one float32 pass) and as ``blocks`` ranks of
+    contiguous rows do (a pass each, the partials added in rank order)."""
+    from lightgbm_tpu_torch.learners.serial import _root_sums
+
+    ones = grad.new_ones(grad.shape)
+    whole = float(_root_sums(grad, hess, ones)[0])
+    part = np.zeros(2, np.float32)
+    for gb, hb, mb in zip(grad.chunk(blocks), hess.chunk(blocks),
+                          ones.chunk(blocks)):
+        part = part + _root_sums(gb, hb, mb)[:2]
+    return float(f"{abs(float(part[0]) - whole) / max(abs(whole), 1e-30):.3g}")
+
+
+def _par_divergent(t, r) -> tuple:
+    """(the internal nodes whose feature, threshold bin or decision type
+    differ between trees ``t`` and ``r`` (None: another leaf count), the
+    relative gap of the two split gains at the first such node)."""
+    k = min(t["num_leaves"], r["num_leaves"]) - 1
+    same = np.ones(k, bool)
+    for f in ("split_feature", "threshold_bin", "decision_type"):
+        same &= t[f][:k].numpy() == r[f][:k].numpy()
+    bad = np.flatnonzero(~same)
+    gap = 0.0
+    if len(bad):
+        a = float(t["split_gain"][bad[0]])
+        b = float(r["split_gain"][bad[0]])
+        gap = abs(a - b) / max(abs(b), 1e-30)
+    return (int(len(bad)) if t["num_leaves"] == r["num_leaves"] else None,
+            round(gap, 6))
+
+
+def _par_div_ok(div) -> bool:
+    """At most one divergent node in every tree, against the serial
+    learner given the root totals the world reduced."""
+    return all(d["witness"][0] is not None and d["witness"][0] <= 1
+               for d in div)
+
+
+def _par_same_grads(torch, gbdt, ref, blocks: int):
+    """The learner's trees grown from the serial run's gradients of each
+    iteration (structure comparable tree by tree, where boosting's own
+    scores drift apart after a flip), each against (``witness``) the
+    serial learner grown from the same gradients with the root's
+    ``[Σg, Σh, count]`` the world all-reduced (the record route with a
+    ``reduce_fn`` that returns them; the serial tree where the learner
+    reduced no root sums), and against (``serial``) the serial run's
+    tree, with ``sg``, the root Σg's relative difference of ``blocks``
+    row blocks and one pass.  The rank's reduced root sums are taken
+    from ``Mesh.psum`` at the ``*.root_sums_allreduce`` sites."""
+    from lightgbm_tpu_torch.learners.serial import grow_tree
+    from lightgbm_tpu_torch.ops.cuda_histogram import histogram_record_window
+    from lightgbm_tpu_torch.parallel import mesh as pmesh
+
+    psum = pmesh.Mesh.psum
+    seen = []
+
+    def recording_psum(self, x, site=None):
+        out = psum(self, x, site)
+        if site and site.endswith("root_sums_allreduce"):
+            seen.append(out.cpu().clone())
+        return out
+
+    out = []
+    for (g, h), serial_tree in zip(ref["grads"], ref["trees"]):
+        g, h = g.cuda(), h.cuda()
+        seen.clear()
+        pmesh.Mesh.psum = recording_psum
+        try:
+            t, _ = gbdt._learner(*_par_args(torch, gbdt, g, h))
+        finally:
+            pmesh.Mesh.psum = psum
+        t = _par_tree(t)
+        witness = serial_tree
+        if seen:
+            totals = seen[-1]
+            w, _ = grow_tree(*_par_args(torch, gbdt, g, h), num_bins=NUM_BINS,
+                             max_leaves=gbdt.max_leaves,
+                             hist_fn_raw=histogram_record_window,
+                             reduce_fn=lambda x: totals.to(x.dtype),
+                             child_counts_fn=lambda nl, nr: torch.stack(
+                                 [nl, nr]))
+            witness = _par_tree(w)
+        out.append(dict(witness=_par_divergent(t, witness),
+                        serial=_par_divergent(t, serial_tree),
+                        sg=_par_root_sg(g, h, blocks)))
+    return out
+
+
+def _par_census():
+    from lightgbm_tpu_torch.obs.dist import collective_census
+
+    return collective_census()
+
+
+def _par_delta(after, before) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0) and k.startswith("collective_site.")}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _par_nccl(torch, lt, params, train_set, valid_set, refs):
+    """(a) A one-rank NCCL world in this process, the bench at full
+    width: the data-parallel learner on the record route, its exact-sum
+    trees bitwise the serial record route's with each tree's launches,
+    host syncs and census exact, then PAR_TREES bench trees through the
+    training API."""
+    import torch.distributed as dist
+
+    from lightgbm_tpu_torch.learners import serial
+    from lightgbm_tpu_torch.ops import launch_counts
+    from lightgbm_tpu_torch.parallel import data_mesh
+    from lightgbm_tpu_torch.parallel import mesh as pmesh
+    from lightgbm_tpu_torch.parallel.data_parallel import \
+        make_data_parallel_grower
+
+    pmesh.init_world("nccl", 0, 1, f"tcp://127.0.0.1:{_free_port()}",
+                     timeout_s=60, device=torch.device("cuda:0"))
+    try:
+        grower = make_data_parallel_grower(data_mesh(device="cuda"),
+                                           NUM_BINS, NUM_LEAVES)
+        bst = lt.Booster(params=dict(params, tree_learner="data"),
+                         train_set=train_set)
+        gb = bst._gbdt
+        gb._learner = grower  # a world of one grows serially
+        ok, per_tree = True, []
+        for i, g in enumerate(_par_exact_grads(torch, gb.num_data)):
+            args = _par_args(torch, gb, g)
+            torch.cuda.synchronize()
+            reset_counts()
+            pmesh.reset_counters()
+            c0 = _par_census()
+            t0 = time.perf_counter()
+            t, lid = grower(*args)
+            torch.cuda.synchronize()
+            per_tree.append(time.perf_counter() - t0)
+            counts = {k: v for k, v in launch_counts().items() if v}
+            sites = {k.split(".")[2]: v
+                     for k, v in _par_delta(_par_census(), c0).items()}
+            S = t.num_leaves - 1
+            want = {"K1'": 1 + S, "K3": 1 + S, "K6": S, "K7": S}
+            want_sites = {"root_sums_allreduce": 1,
+                          "hist_reduce_scatter": S + 1,
+                          "root_split_allgather": 1,
+                          "child_counts_allgather": S,
+                          "split_allgather": S, "leaf_id_allgather": 1}
+            bit = _par_bitwise(torch, t, lid, refs["exact"]["leafwise"][i])
+            ok &= (bit and counts == want and sites == want_sites
+                   and serial.HOST_SYNCS == 3 + 2 * S
+                   and pmesh.CALLS == 3 * S + 4)
+            say(f"[parallel a exact] tree {i}: {t.num_leaves} leaves, "
+                f"{per_tree[-1]:.4f}s, bitwise the serial record route's "
+                f"(every tree field, leaf ids): {bit}; launches "
+                f"{json.dumps(counts)} (expected {json.dumps(want)}); host "
+                f"syncs {serial.HOST_SYNCS} (expected {3 + 2 * S}); "
+                f"collectives {pmesh.CALLS} (3 a split, the root's 3, the "
+                f"leaf ids' 1) in {pmesh.SECONDS * 1e3:.1f} ms; census "
+                f"{json.dumps(sites)}")
+        check(ok, "phase 26 (a): the one-rank NCCL learner's exact-sum "
+              "trees, launches, host syncs or census differ")
+        div = _par_same_grads(torch, gb, refs["bench"]["leafwise"], 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAR_TREES):
+            bst.update()
+        torch.cuda.synchronize()
+        el = (time.perf_counter() - t0) / PAR_TREES
+        bst.add_valid(valid_set, "valid")
+        auc = (bst.eval_train()[0][2], bst.eval_valid()[0][2])
+    finally:
+        dist.destroy_process_group()
+    ref_auc = refs["bench"]["leafwise"]["auc"]
+    say(f"[parallel a bench] {PAR_TREES} trees s/tree={el:.4f} "
+        f"(exact-sum s/tree={statistics.median(per_tree):.4f}); from the "
+        f"serial (mega) run's gradients, a tree's divergent nodes and the "
+        f"gain gap where they start, against the serial learner given the "
+        f"world's root totals and against the serial run's tree, and the "
+        f"root's Σg of one block against one pass: {json.dumps(div)}; AUC "
+        f"{auc[0]:.6f}/{auc[1]:.6f}, serial {ref_auc[0]:.6f}/"
+        f"{ref_auc[1]:.6f}")
+    check(_par_div_ok(div), f"phase 26 (a): divergent nodes {div}")
+    check(all(abs(a - b) <= AUC_TOL for a, b in zip(auc, ref_auc)),
+          f"phase 26 (a): AUC {auc} against {ref_auc}")
+
+
+def _par_latency(torch, mesh, reps=100) -> float:
+    """ms a tiny all-gather of this world's CUDA tensors takes (a child
+    count's)."""
+    x = torch.zeros(2, dtype=torch.int32, device="cuda")
+    mesh.all_gather(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mesh.all_gather(x)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _par_expected(name, n, splits, levels, level_splits):
+    """The launches, host syncs and collectives of ``n`` trees of (b)'s
+    learner ``name`` with ``splits`` splits, ``levels`` level histograms
+    and ``level_splits`` of the splits made by levels: leaf-wise on the
+    record route (data, voting) a root K1' + K3 and per split K6, K7, one
+    window K1' and K3 (voting: K3 once a child), three host syncs at the
+    root (the sums, their all-reduce, the search) and two a split, and
+    the root's three collectives (the sums, the histogram or votes +
+    histograms, the split) plus three a split; the feature and grid
+    learners on the order route K1 + K3 at the root and a split, the
+    feature learner's only collective its split all-gather and its root
+    sums not reduced; depthwise one K1'' pass, one host sync and a
+    reduce-scatter + all-gather a level; hybrid its level phase, then the
+    resume's fused pass (a K1'' pass, a sync, two collectives) and per
+    best-first split K1, K3, two syncs and three collectives.  Every
+    row-sharded learner all-gathers the leaf ids once a tree."""
+    S = splits
+    if name == "data-depthwise":
+        return {"K1″": levels}, levels, 2 * levels + n
+    if name == "data-hybrid":
+        tail = splits - level_splits
+        return ({"K1″": levels + n, "K1": tail, "K3": tail},
+                levels + n + 2 * tail, 2 * levels + 3 * n + 3 * tail)
+    if name == "feature":
+        return {"K1": n + S, "K3": n + S}, 2 * n + 2 * S, n + S
+    if name == "grid":
+        return {"K1": n + S, "K3": n + S}, 3 * n + 2 * S, 4 * n + 3 * S
+    k3 = n + (2 * S if name.startswith("voting") else S)
+    return ({"K1'": n + S, "K3": k3, "K6": S, "K7": S}, 3 * n + 2 * S,
+            4 * n + 3 * S)
+
+
+def _par_rank_child(torch, rank: int, world: int, port: int) -> int:
+    """``--parallel-rank R W PORT``: one of (b)'s gloo ranks on cuda:0.
+    Makes the bench data from its seed and, for each learner, grows its
+    bench trees through the training API, its trees from the serial
+    run's gradients and its exact-sum trees, and saves what it saw to
+    PAR_DIR/rank<R>.pt."""
+    import lightgbm_tpu_torch as lt
+    import torch.distributed as dist
+
+    from lightgbm_tpu_torch.learners import depthwise, serial
+    from lightgbm_tpu_torch.ops import launch_counts
+    from lightgbm_tpu_torch.parallel import data_mesh
+    from lightgbm_tpu_torch.parallel import mesh as pmesh
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    pmesh.init_world("gloo", rank, world, f"tcp://127.0.0.1:{port}",
+                     timeout_s=60)
+    try:
+        refs = torch.load(os.path.join(PAR_DIR, "refs.pt"))
+        t0 = time.perf_counter()
+        params, train_set, valid_set, _ = make_bench_data(lt, quiet=True)
+        params["num_leaves"] = PAR_B_LEAVES
+        out = {"data_s": time.perf_counter() - t0, "learners": {},
+               "latency_ms": _par_latency(torch, data_mesh(device="cuda"))}
+        for name, tl, extra in PAR_LEARNERS:
+            bst = lt.Booster(params=dict(params, tree_learner=tl, **extra),
+                             train_set=train_set)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            pmesh.reset_counters()
+            t0 = time.perf_counter()
+            for _ in range(PAR_TREES):
+                bst.update()
+            torch.cuda.synchronize()
+            el = time.perf_counter() - t0
+            trees = [_par_tree(t) for t in bst._gbdt.models]
+            r = dict(s_per_tree=el / PAR_TREES,
+                     launches={k: v for k, v in launch_counts().items() if v},
+                     syncs=serial.HOST_SYNCS, calls=pmesh.CALLS,
+                     coll_ms=pmesh.SECONDS * 1e3 / PAR_TREES,
+                     peak=torch.cuda.max_memory_allocated(), trees=trees,
+                     expected=_par_expected(
+                         name, PAR_TREES,
+                         sum(t["num_leaves"] - 1 for t in trees),
+                         depthwise.LEVELS, depthwise.LEVEL_SPLITS))
+            bst.add_valid(valid_set, "valid")
+            r["auc"] = (bst.eval_train()[0][2], bst.eval_valid()[0][2])
+            growth = _par_growth(extra)
+            r["divergent"] = _par_same_grads(
+                torch, bst._gbdt, refs["bench"][growth],
+                {"feature": 1, "grid": 2}.get(name, world))
+            r["exact"] = []
+            for i, g in enumerate(_par_exact_grads(torch, ROWS)):
+                t, lid = bst._gbdt._learner(*_par_args(torch, bst._gbdt, g))
+                r["exact"].append(_par_bitwise(torch, t, lid,
+                                               refs["exact"][growth][i]))
+            out["learners"][name] = r
+        torch.save(out, os.path.join(PAR_DIR, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _par_gloo(torch):
+    """(b) PAR_WORLD rank processes sharing cuda:0 over gloo, one world
+    for every learner: the trees the same on every rank, bitwise the
+    serial trees on the exact-sum copy, within one divergent node a tree
+    of the serial learner given the world's root totals from the same
+    gradients (voting5 aside), within AUC_TOL of their AUC through the
+    API, and each rank's launches, host syncs and collectives exactly
+    the route's for the trees it grew."""
+    refs = torch.load(os.path.join(PAR_DIR, "refs.pt"))
+    port = _free_port()
+    logs = [open(os.path.join(PAR_DIR, f"rank{r}.log"), "w")
+            for r in range(PAR_WORLD)]
+    t0 = time.perf_counter()
+    # gloo over the loopback device: the ranks share this host
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), str(PAR_WORLD), str(port)], stdout=logs[r],
+        stderr=subprocess.STDOUT, env=env) for r in range(PAR_WORLD)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(240 - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(PAR_DIR, f"rank{r}.log")) as f:
+                print(f.read()[-4000:], flush=True)
+            check(False, f"phase 26 (b): rank {r} exited {p.returncode}")
+    ranks = [torch.load(os.path.join(PAR_DIR, f"rank{r}.pt"))
+             for r in range(PAR_WORLD)]
+    ok = True
+    for name, tl, extra in PAR_LEARNERS:
+        rs = [rk["learners"][name] for rk in ranks]
+        r0 = rs[0]
+        same = all(
+            all(a["num_leaves"] == b["num_leaves"]
+                and all(torch.equal(a[k], b[k]) for k in TREE_FIELDS)
+                for a, b in zip(r["trees"], r0["trees"]))
+            and r["auc"] == r0["auc"] for r in rs)
+        exact = all(all(r["exact"]) for r in rs)
+        ref = refs["bench"][_par_growth(extra)]
+        div = r0["divergent"]
+        auc_ok = all(abs(a - b) <= AUC_TOL
+                     for a, b in zip(r0["auc"], ref["auc"]))
+        div_ok = _par_div_ok(div)
+        counted = all((r["launches"], r["syncs"], r["calls"])
+                      == r["expected"] for r in rs)
+        ok &= (same and auc_ok and counted
+               and (name == "voting5" or exact and div_ok))
+        per = [{k: v / PAR_TREES for k, v in r["launches"].items()}
+               for r in rs]
+        say(f"[parallel b {name}] s/tree={r0['s_per_tree']:.4f} "
+            f"(ranks {[round(r['s_per_tree'], 4) for r in rs]}); "
+            f"collectives a tree {r0['calls'] / PAR_TREES:.1f} in "
+            f"{r0['coll_ms']:.1f} ms; host syncs a tree "
+            f"{r0['syncs'] / PAR_TREES:.1f}; launches a tree per rank "
+            f"{json.dumps(per)}; launches, host syncs and collectives of "
+            f"the {PAR_TREES} trees on every rank exactly the route's "
+            f"{json.dumps(r0['expected'])}: {counted}; peak device memory "
+            f"a rank {[r['peak'] for r in rs]}; trees the same on every "
+            f"rank: {same}; exact-sum trees bitwise the serial learner's: "
+            f"{exact}; from the serial run's gradients, a tree's divergent "
+            f"nodes and the gain gap where they start, against the serial "
+            f"learner given the world's root totals and against the serial "
+            f"run's tree, and the root's Σg summed by blocks against in one "
+            f"pass: {json.dumps(div)}; AUC {r0['auc'][0]:.6f}/"
+            f"{r0['auc'][1]:.6f} (serial {ref['auc'][0]:.6f}/"
+            f"{ref['auc'][1]:.6f})")
+    say(f"[parallel b] {PAR_WORLD} gloo ranks on cuda:0, {PAR_B_LEAVES} "
+        f"leaves, {wall:.1f}s (data + binning a rank "
+        f"{ranks[0]['data_s']:.1f}s); a tiny all-gather of the world's "
+        f"CUDA tensors {ranks[0]['latency_ms']:.3f} ms")
+    check(ok, "phase 26 (b): a learner's trees differ across ranks, from "
+          "the serial trees, in AUC or in launches, host syncs or "
+          "collectives")
+
+
+def phase_parallel(torch, lt):
+    """Phase 26: the parallel learners on the card, (a) one NCCL rank in
+    this process at the bench's full width, (b) PAR_WORLD gloo ranks
+    sharing the card, every learner at PAR_B_LEAVES leaves."""
+    params, train_set, valid_set, _ = make_bench_data(lt)
+    os.makedirs(PAR_DIR, exist_ok=True)
+    try:
+        refs = _par_refs(torch, lt, params, train_set, valid_set,
+                         ("leafwise",))
+        _par_nccl(torch, lt, params, train_set, valid_set, refs)
+        torch.save(_par_refs(torch, lt, dict(params,
+                                             num_leaves=PAR_B_LEAVES),
+                             train_set, valid_set,
+                             ("leafwise", "depthwise", "hybrid")),
+                   os.path.join(PAR_DIR, "refs.pt"))
+        del train_set, valid_set, refs
+        torch.cuda.empty_cache()
+        _par_gloo(torch)
+    finally:
+        shutil.rmtree(PAR_DIR, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -6126,6 +6668,9 @@ def main() -> int:
     if "--p2-trace" in sys.argv:  # phase 21's trace in a fresh process
         return _p2_trace_child(torch, sys.argv[sys.argv.index("--p2-trace")
                                                 + 1])
+    if "--parallel-rank" in sys.argv:  # one of phase 26 (b)'s ranks
+        i = sys.argv.index("--parallel-rank")
+        return _par_rank_child(torch, *map(int, sys.argv[i + 1:i + 4]))
     import lightgbm_tpu_torch as lt
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6186,6 +6731,7 @@ def main() -> int:
     timed("capi", phase_capi, torch, lt, params, routes["mega"], files)
     del files
     sparse, s1_launches = timed("sparse", phase_sparse, torch, lt)
+    timed("parallel", phase_parallel, torch, lt)
     p1_launches = one_call + serve["launches"]  # one predict + served
     p1["max_abs_err"] = max(p1["max_abs_err"], serve["max_abs_err"])
     say(f"[phase seconds] {json.dumps(PHASE_S)}")

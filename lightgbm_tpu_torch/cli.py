@@ -29,11 +29,18 @@ Reference ``train.conf`` files parse unchanged.  Every task runs on the
 ``device`` argument of :func:`main` (CUDA unless ``"cpu"``); no config
 key selects it.  ``boosting_type=dart`` trains DART (models/dart.py) and
 ``nonfinite_policy`` guards the gradients (resilience/guards.py; the
-guard's parked counts drain before the model is saved).  Refused,
-naming their ROADMAP item: ``task=train_fleet`` and ``num_machines > 1``
-(A8) and the configurations ``models/gbdt.check_supported`` refuses
-(parallel learners: A8).
+guard's parked counts drain before the model is saved).
 ``hist_dtype=float64`` trains (float64 histograms, A5).
+
+Under ``torchrun`` (``WORLD_SIZE > 1`` in the environment) ``task=train``
+joins the world the environment describes (:func:`torchrun_world`): each
+rank on ``cuda:LOCAL_RANK`` over NCCL, or on the CPU over gloo where
+``main`` is given ``device="cpu"``; ``tree_learner`` then picks the
+parallel learner and ``num_machines`` (if set) must equal the world's
+size, each rank loading its partition of ``data``.  Every rank writes the
+same model.  Bringing a world up from a machine list (``num_machines >
+1`` without one) and ``task=train_fleet`` are refused, naming ROADMAP A8
+step 3.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from .models.gbdt import GBDT, check_supported
 from .obs import flightrec
 from .resilience.guards import NonFiniteError
 from .obs import RunManifest, manifest_path, telemetry
+from .parallel.mesh import env_world, init_world, world_size
 from .objectives import create_objective
 from .resilience.atomic import atomic_write
 from .serving.batch import DEFAULT_CHUNK_ROWS, DEFAULT_STREAM_THRESHOLD
@@ -139,9 +147,33 @@ def _output_metrics(gbdt: GBDT, iter_num: int, names: List[str],
 
 def _refuse_unported(cfg: Config) -> None:
     """Fail before any data loads on what the port does not run."""
-    if cfg.num_machines > 1:
-        raise _not_ported(f"num_machines={cfg.num_machines}", "A8: parallel")
+    if cfg.num_machines > 1 and world_size() != cfg.num_machines:
+        raise _not_ported(
+            f"num_machines={cfg.num_machines} without a torch.distributed "
+            "world of that size", "A8 step 3: the machine-list bootstrap")
     check_supported(cfg)
+
+
+@contextlib.contextmanager
+def torchrun_world(device=None):
+    """The device to train on, inside the world ``torchrun``'s
+    environment describes (``RANK``, ``WORLD_SIZE`` > 1, ``LOCAL_RANK``,
+    ``MASTER_ADDR`` / ``MASTER_PORT``): gloo with ``device="cpu"``, else
+    NCCL with this rank on ``cuda:LOCAL_RANK``.  A world already up, or
+    none described, is left as it is and ``device`` passes through.  A
+    failed join raises; the joined world is left on the way out."""
+    env = env_world()
+    if env is None or torch.distributed.is_initialized():
+        yield device
+        return
+    rank, size, local = env
+    cpu = device is not None and torch.device(device).type == "cpu"
+    dev = torch.device("cpu") if cpu else resolve_device(f"cuda:{local}")
+    init_world("gloo" if cpu else "nccl", rank, size, device=dev)
+    try:
+        yield dev
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def run_train(cfg: Config, device=None) -> GBDT:
@@ -408,7 +440,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         cfg = Config.from_dict(params)
         Log.reset_log_level(cfg.verbose)
         if cfg.task == "train":
-            run_train(cfg, device)
+            with torchrun_world(device) as dev:
+                run_train(cfg, dev)
         elif cfg.task in ("predict", "prediction", "test"):
             run_predict(cfg, device)
         elif cfg.task == "serve":
@@ -419,8 +452,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             return run_serve_fleet(cfg, device)
         elif cfg.task == "train_fleet":
             raise _not_ported("task=train_fleet",
-                              "A8: gang training needs the parallel "
-                              "learners")
+                              "A8 step 3: the gang supervisor")
         else:
             Log.fatal(f"Unknown task: {cfg.task!r}")
     except NotImplementedError:

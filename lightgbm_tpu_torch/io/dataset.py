@@ -27,7 +27,10 @@ regrouped by feature (``sparse_device``, the input of kernel S1).  Both
 are built once per device and cached on the dataset.
 
 ``from_jax_arrays`` carries a JAX ``BinnedDataset`` across through its
-numpy fields.  Distributed loading (``num_machines > 1``) is ROADMAP A8.
+numpy fields.  With ``num_machines > 1`` (and ``is_pre_partition=false``)
+under a ``torch.distributed`` world of that size, ``from_file`` keeps the
+rank's partition of the rows (io/distributed.py); the parallel learners
+then train on it.
 """
 
 from __future__ import annotations
@@ -54,11 +57,24 @@ BINARY_MAGIC = "lightgbm_tpu_binned_dataset_v1"
 _SIDE = ("weights", "query_boundaries", "init_score")
 
 
-def _refuse_distributed(config: Config) -> None:
-    if config.num_machines > 1 and not config.is_pre_partition:
+def _distributed_rank(config: Config) -> Optional[int]:
+    """This process's rank where ``num_machines > 1`` asks for a
+    partitioned load (``is_pre_partition=false``), else None.  The load
+    needs a ``torch.distributed`` world of exactly ``num_machines``
+    ranks; without one it is refused: bringing a world up from a
+    machine list is ROADMAP A8 step 3."""
+    if config.num_machines <= 1 or config.is_pre_partition:
+        return None
+    import torch.distributed as dist
+
+    up = dist.is_available() and dist.is_initialized()
+    if not up or dist.get_world_size() != config.num_machines:
         raise NotImplementedError(
-            "distributed loading (num_machines > 1) is not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP queue A8: parallel)")
+            f"distributed loading with num_machines={config.num_machines} "
+            "needs a torch.distributed world of that many ranks (e.g. "
+            "torchrun); starting one from a machine list is not ported to "
+            "lightgbm_tpu_torch yet (ROADMAP queue A8 step 3)")
+    return dist.get_rank()
 
 
 def _finite_label_mask(label_col: np.ndarray, config: Config, path: str,
@@ -300,6 +316,13 @@ class BinnedDataset:
             f"Column_{i}" for i in range(num_total_features)]
         self._bins_T: Dict[str, torch.Tensor] = {}
         self._sparse_dev: Dict[str, dict] = {}
+        # the rank whose partition of a file this is (a load with
+        # num_machines > 1), None for whole data
+        self.partition_rank: Optional[int] = None
+
+    def _mark_partition(self, rank: Optional[int]) -> "BinnedDataset":
+        self.partition_rank = rank
+        return self
 
     # ---------------------------------------------------------------- props
     @property
@@ -489,10 +512,11 @@ class BinnedDataset:
         (when ``enable_load_from_binary_file`` and no reference or API
         categorical declaration is given)."""
         config = config or Config()
-        _refuse_distributed(config)
+        rank = _distributed_rank(config)
         bin_path = path + ".bin"
         if (config.enable_load_from_binary_file and os.path.exists(bin_path)
-                and reference is None and not categorical_features):
+                and reference is None and not categorical_features
+                and rank is None):
             try:
                 with telemetry.span("load.binary_cache"):
                     ds = BinnedDataset.load_binary(bin_path)
@@ -510,11 +534,12 @@ class BinnedDataset:
                 and not config.group_column):
             return BinnedDataset._from_libsvm_sparse(
                 path, config, reference=reference,
-                categorical_features=categorical_features)
+                categorical_features=categorical_features, rank=rank)
         # auto-stream only for files too big to hold as f64 comfortably
+        # (one machine's load: a partitioned load parses the whole file)
         want_stream = config.use_two_round_loading or (
             os.path.getsize(path) > (4 << 30))
-        if want_stream and fmt != "libsvm":
+        if want_stream and fmt != "libsvm" and rank is None:
             try:
                 return BinnedDataset._from_file_streaming(
                     path, config, fmt, reference=reference,
@@ -563,14 +588,36 @@ class BinnedDataset:
                             weights=weights, query_boundaries=qb,
                             init_score=side.get("init_score"))
             X = raw[:, feat_cols]
+        mappers_all = None
+        if rank is not None:
+            # the rank's rows (query by query for ranked data), and every
+            # feature's mapper from the whole file's shared-seed sample,
+            # each rank fitting its feature shard's (io/dataset.py:
+            # 566-600)
+            from .distributed import (distributed_find_bin_mappers,
+                                      partition_rows)
+
+            keep = partition_rows(n, rank, config.num_machines,
+                                  seed=config.data_random_seed,
+                                  query_boundaries=meta.query_boundaries)
+            if reference is None:
+                sample_idx = _sample_row_indices(n, config)
+                mappers_all = distributed_find_bin_mappers(
+                    X[sample_idx], rank, config.num_machines,
+                    max_bin=config.max_bin, categorical_features=cat_inner,
+                    total_sample_cnt=len(sample_idx))
+            X = X[keep]
+            meta = meta.subset(keep)
         if reference is not None:
-            return reference.align_with(X, meta)
+            return reference.align_with(X, meta)._mark_partition(rank)
         ds = BinnedDataset.from_matrix(X, meta, config,
                                        categorical_features=cat_inner,
-                                       feature_names=fnames)
-        if config.is_save_binary_file:
+                                       feature_names=fnames,
+                                       mappers_all=mappers_all)
+        # the binary cache holds whole files only
+        if config.is_save_binary_file and rank is None:
             ds.save_binary(bin_path)
-        return ds
+        return ds._mark_partition(rank)
 
     @staticmethod
     def _from_file_streaming(path: str, config: Config, fmt: str,
@@ -681,7 +728,8 @@ class BinnedDataset:
     def _from_libsvm_sparse(path: str, config: Config,
                             reference: Optional["BinnedDataset"] = None,
                             categorical_features: Optional[Sequence[int]]
-                            = None) -> "BinnedDataset":
+                            = None, rank: Optional[int] = None
+                            ) -> "BinnedDataset":
         """LibSVM ingest in O(nnz) memory: streamed CSR parse, sparse bin
         finding with elided zeros, in-place bin encoding.  Numeric
         ``ignore_column`` / ``categorical_column`` specs are feature
@@ -710,13 +758,38 @@ class BinnedDataset:
         meta = Metadata(label=label, weights=side.get("weights"),
                         query_boundaries=side.get("query_boundaries"),
                         init_score=side.get("init_score"))
+        mappers_all = None
+        if rank is not None:
+            # the rank's rows; the mappers from the whole file's shared
+            # sample, with no communication (io/dataset.py:820-850)
+            from .distributed import partition_rows
+            from .sparse import find_bin_mappers_csr
+
+            n = len(label)
+            keep = partition_rows(n, rank, config.num_machines,
+                                  seed=config.data_random_seed,
+                                  query_boundaries=meta.query_boundaries)
+            if reference is None:
+                mappers_all = find_bin_mappers_csr(
+                    indptr, indices, values, num_cols,
+                    _sample_row_indices(n, config), max_bin=config.max_bin,
+                    categorical_features=cats)
+            lens = np.diff(indptr)[keep]
+            take = (np.concatenate([np.arange(indptr[r], indptr[r + 1])
+                                    for r in keep]).astype(np.int64)
+                    if len(keep) else np.empty(0, np.int64))
+            indices, values = indices[take], values[take]
+            indptr = np.concatenate([[0], np.cumsum(lens, dtype=np.int64)])
+            meta = meta.subset(keep)
         if reference is not None:
-            return reference.align_with_csr(indptr, indices, values, meta)
+            return reference.align_with_csr(indptr, indices, values,
+                                            meta)._mark_partition(rank)
         ds = BinnedDataset.from_csr(indptr, indices, values, num_cols, meta,
-                                    config, categorical_features=cats)
-        if config.is_save_binary_file:
+                                    config, categorical_features=cats,
+                                    mappers_all=mappers_all)
+        if config.is_save_binary_file and rank is None:
             ds.save_binary(path + ".bin")
-        return ds
+        return ds._mark_partition(rank)
 
     @staticmethod
     def from_jax_arrays(X_bin, bin_mapper_dicts: List[dict],

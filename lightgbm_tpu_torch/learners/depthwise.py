@@ -90,7 +90,8 @@ def grow_tree_depthwise(bins_T: torch.Tensor, grad: torch.Tensor,
                         params: TreeLearnerParams, num_bins: int,
                         max_leaves: int, hist_fn=None,
                         stop_before_budget: int = 0,
-                        tree_device=None) -> Tuple[Tree, torch.Tensor]:
+                        tree_device=None, search_leaves_fn=None
+                        ) -> Tuple[Tree, torch.Tensor]:
     """Grow one tree level by level; returns (tree, leaf_id per row).
 
     Arguments as ``serial.grow_tree``'s.  ``hist_fn(bins_T, leaf_id, grad,
@@ -100,7 +101,15 @@ def grow_tree_depthwise(bins_T: torch.Tensor, grad: torch.Tensor,
     ``stop_before_budget`` (hybrid growth's first phase) stops once
     ``factor * num_leaves > max_leaves``.  The tree's tensors go to
     ``tree_device`` (default: ``bins_T``'s device); the hybrid learner
-    keeps them on the host for its resume."""
+    keeps them on the host for its resume.
+
+    ``search_leaves_fn(hist, sum_g, sum_h, count, can) -> SplitResult``
+    searches a level (default: ``find_best_split_leaves`` over every
+    feature): the data-parallel learner's searches its feature shard of
+    a reduce-scattered level histogram and combines the ranks' winners
+    (depthwise.py:90-96, data_parallel.py:114-160).  The leaf totals come
+    from the first feature of the histogram ``hist_fn`` returns, its
+    shard's under the data-parallel learner, as in the JAX package."""
     global LEVELS, LEVEL_SPLITS
     dev = bins_T.device
     F, n = bins_T.shape
@@ -113,6 +122,11 @@ def grow_tree_depthwise(bins_T: torch.Tensor, grad: torch.Tensor,
          params.lambda_l1, params.lambda_l2, params.min_gain_to_split],
         dtype=torch.float32, device=dev)
     max_levels = params.max_depth if params.max_depth > 0 else L - 1
+    if search_leaves_fn is None:
+        def search_leaves_fn(hist, sg, sh, c, can):
+            return find_best_split_leaves(hist, sg, sh, c, feature_mask,
+                                          num_bins_per_feature, is_cat,
+                                          *consts, can)
 
     tree_i = np.zeros((5, L), np.int32)  # feat, thr, dtype, lch, rch
     tree_i[0] = -1
@@ -132,9 +146,7 @@ def grow_tree_depthwise(bins_T: torch.Tensor, grad: torch.Tensor,
             can = torch.from_numpy(leaf_depth[:K] < params.max_depth).to(dev)
         else:
             can = torch.ones(K, dtype=torch.bool, device=dev)
-        best = find_best_split_leaves(
-            hist, tot[:, 0], tot[:, 1], tot[:, 2], feature_mask,
-            num_bins_per_feature, is_cat, *consts, can)
+        best = search_leaves_fn(hist, tot[:, 0], tot[:, 1], tot[:, 2], can)
         dt = hist.dtype
         del hist  # the next level's histogram must not wait for it
         cat = is_cat[best.feature.clamp(min=0).to(torch.int64)]

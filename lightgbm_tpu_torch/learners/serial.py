@@ -55,6 +55,13 @@ the best-first growth of SerialTreeLearner
   off under the pool, :404, :427); otherwise PyTorch subtraction, slot
   writes and kernel 3, its canonical pooled route.  The residency tables
   live on the host, so the pool adds no host sync.
+* Hooked (the parallel learners, parallel/*; serial.py:300-358): the
+  record route's partition or the order route's, with the histograms,
+  root sums, child counts and searches through the learner's hooks,
+  which may reduce across ranks and hold feature shards; see
+  ``grow_tree``.  Host syncs: three at the root (its row-order totals,
+  their reduced values, its search row), two per split (the left count
+  with the reduced counts, the two children's rows).
 * Resume (``init_tree``, hybrid growth's second phase, serial.py:605-687):
   the order route starts from a partial tree of K0 leaves; one level
   histogram pass fills the live leaves' histograms, one search of all of
@@ -243,7 +250,7 @@ def _empty_best(L: int, dtype=np.float32) -> np.ndarray:
 
 def _resume(bins_T, grad, hess, bag_mask, feature_mask, num_bins_per_feature,
             is_categorical, params, num_bins, L, init_tree, init_leaf_id,
-            init_hist_fn, consts):
+            init_hist_fn, consts, init_search_fn=None):
     """The state of a resumed tree (serial.py:605-687): the leaf-sorted
     permutation (a stable sort of the leaf ids) and per-leaf ranges, every
     live leaf's histogram from one ``init_hist_fn`` pass, the best-split
@@ -265,9 +272,12 @@ def _resume(bins_T, grad, hess, bag_mask, feature_mask, num_bins_per_feature,
     depth0 = init_tree.leaf_depth.cpu().numpy()
     can0 = torch.from_numpy(np.array([params.can_split(int(d))
                                       for d in depth0[:K0]])).to(dev)
-    res = find_best_split_leaves(
-        fused, tot[:, 0], tot[:, 1], tot[:, 2], feature_mask,
-        num_bins_per_feature, is_categorical, *consts, can0)
+    if init_search_fn is not None:
+        res = init_search_fn(fused, tot[:, 0], tot[:, 1], tot[:, 2], can0)
+    else:
+        res = find_best_split_leaves(
+            fused, tot[:, 0], tot[:, 1], tot[:, 2], feature_mask,
+            num_bins_per_feature, is_categorical, *consts, can0)
     got = _host(torch.stack([a.to(torch.float64) for a in res]
                             + [(row_start[1:] - row_start[:-1]).double()]))
 
@@ -279,7 +289,8 @@ def _resume(bins_T, grad, hess, bag_mask, feature_mask, num_bins_per_feature,
     count = np.zeros(L, np.int64)
     count[:K0] = got[11]
     begin = np.concatenate([[0], np.cumsum(count)[:-1]])
-    hists = torch.zeros((L, F, num_bins, 3), dtype=fused.dtype, device=dev)
+    hists = torch.zeros((L,) + tuple(fused.shape[1:]), dtype=fused.dtype,
+                        device=dev)
     hists[:K0] = fused
     li = L - 1
     tree_i = np.zeros((5, L), np.int32)
@@ -354,7 +365,9 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               init_leaf_id: Optional[torch.Tensor] = None,
               init_hist_fn=None,
               hist_pool: int = 0,
-              root_rows: Optional[torch.Tensor] = None
+              root_rows: Optional[torch.Tensor] = None,
+              reduce_fn=None, search_fn=None, search2_fn=None,
+              child_counts_fn=None, init_search_fn=None
               ) -> Tuple[Tree, torch.Tensor]:
     """Grow one tree; returns (tree, leaf_id per row).
 
@@ -391,11 +404,54 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     order route's ``order`` and the record route's root record start as
     those rows, so every window, block and positional count is the run's
     on the fold's row subset, and the tree is that run's tree bitwise.
-    Rows outside the set get leaf 0 in the returned map."""
+    Rows outside the set get leaf 0 in the returned map.
+
+    The parallel learners (parallel/*) grow through five hooks, the JAX
+    package's (serial.py:300-358); with none given every route above is
+    unchanged.  ``hist_fn`` / ``hist_fn_raw`` / ``init_hist_fn`` may
+    return a feature shard ``[Fs, B, 3]`` of the global histogram; the
+    resident buffer then holds shards and the subtraction runs on them.
+
+    * ``reduce_fn(x)`` sums the root's ``[Σg, Σh, count]`` over ranks.
+    * ``child_counts_fn(nl, nr) -> [2]`` lifts a split's local
+      positional child counts (0-d tensors) to (Σ left, Σ right); the
+      smaller child is chosen by the sums, so every rank builds the same
+      child.  Default: ``reduce_fn`` of the pair.  (The JAX package also
+      reduces the maxes for its capacity-tier gates; the port slices
+      exact ranges and has no tiers.)
+    * ``search_fn(hist, scal, meta)`` (the root; its first row is the
+      result) and ``search2_fn(h_left, h_right, scal, meta)`` (both
+      children) return the winners' ``[.., >= 11]`` rows, combined over
+      ranks; defaults: kernel 3 through ``search2_rows``.
+    * ``init_search_fn(hist, sum_g, sum_h, count, can)`` searches the
+      resume's live leaves (a SplitResult).
+
+    Under hooks the step is the record route's partition (kernels 6 and
+    7) and window histogram where ``hist_fn_raw`` is given (the JAX
+    package's ``rec_hooks``, serial.py:413-429), else the order route's;
+    then the subtraction on the histograms ``hist_fn_raw`` / ``hist_fn``
+    returned, ``search2_fn``, and the buffer writes: no mega step, no
+    kernel 4 or 5, no float64 step form.  A split's host read carries
+    the local left count and the reduced counts; every branch depends on
+    reduced values only, so all ranks take the same branches."""
+    hooked = any(h is not None for h in (
+        reduce_fn, search_fn, search2_fn, child_counts_fn, init_search_fn))
+    if hooked and (fuse_hist or root_rows is not None):
+        raise ValueError("a hooked tree grows without the mega step and "
+                         "without a root row set")
+    if search2_fn is None:
+        search2_fn = search2_rows
+    if search_fn is None:
+        def search_fn(h, scal, meta_):
+            return search2_fn(h, h, scal, meta_)
+    if child_counts_fn is None and hooked:
+        def child_counts_fn(nl, nr):
+            two = torch.stack([nl, nr])
+            return two if reduce_fn is None else reduce_fn(two)
     pooled = 0 < hist_pool < max_leaves
     if pooled and init_tree is not None:
         raise ValueError("a resumed tree grows unpooled")
-    pool_step = pooled and hist_fn_raw is not None
+    pool_step = pooled and hist_fn_raw is not None and not hooked
     if pooled:
         hist_fn_raw = None
     if hist_fn is None:
@@ -421,7 +477,7 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
          nleaves) = _resume(bins_T, grad, hess, bag_mask, feature_mask,
                             num_bins_per_feature, is_categorical, params,
                             num_bins, L, init_tree, init_leaf_id,
-                            init_hist_fn, consts)
+                            init_hist_fn, consts, init_search_fn)
     else:
         # ---- root (LeafSplits::Init, leaf_splits.hpp:51-92)
         n0 = n if root_rows is None else int(root_rows.shape[0])
@@ -443,15 +499,19 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         stats = ((grad, hess, bag_mask) if root_rows is None else
                  (t.index_select(0, root_rows) for t in (grad, hess,
                                                          bag_mask)))
-        sg0, sh0, c0 = (float(v) for v in _root_sums(*stats, hist0.dtype))
-        rows = search2_rows(hist0, hist0, [float(params.can_split(0)),
-                                           sg0, sh0, c0, sg0, sh0, c0]
-                            + consts, meta)
+        sums0 = _root_sums(*stats, hist0.dtype)
+        if reduce_fn is not None:
+            # the tree-start allreduce (data_parallel_tree_learner.cpp:
+            # 97-125): every rank's row-order sums, summed over ranks
+            sums0 = _host(reduce_fn(torch.from_numpy(sums0)))
+        sg0, sh0, c0 = (float(v) for v in sums0)
+        rows = search_fn(hist0, [float(params.can_split(0)),
+                                 sg0, sh0, c0, sg0, sh0, c0] + consts, meta)
         best = _empty_best(L, _np_dtype(hist0.dtype))
         best[:11, 0] = _host(rows)[0, :11]
 
         P = max(hist_pool, 2) if pooled else L
-        hists = torch.zeros((P, F, num_bins, 3), dtype=hist0.dtype,
+        hists = torch.zeros((P,) + tuple(hist0.shape), dtype=hist0.dtype,
                             device=dev)
         hists[0] = hist0
         begin = np.zeros(L, np.int64)
@@ -471,7 +531,8 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
     # float64 histograms: every split is one call of kernel 3-f64's step
     # form, its checks, stream and rows buffer settled once a tree
-    step64 = F64Step(hists, meta) if hists.dtype == torch.float64 else None
+    step64 = (F64Step(hists, meta)
+              if hists.dtype == torch.float64 and not hooked else None)
     for step in range(nleaves - 1, L - 1):
         best_leaf = int(np.argmax(best[_BG]))
         if not best[_BG, best_leaf] > 0.0:
@@ -507,14 +568,24 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             else:
                 nleft_t = _partition(order, bins_T[f], thr, is_cat, b0,
                                      pcnt)
-            nleft = int(_host(nleft_t))
+            if hooked:
+                # one read: the local left count and the reduced counts
+                nleft_t = nleft_t.to(torch.int32)
+                got = _host(torch.cat([
+                    nleft_t.reshape(1),
+                    child_counts_fn(nleft_t, pcnt - nleft_t).to(
+                        torch.int32)]))
+                nleft = int(got[0])
+                small_is_left = bool(got[1] <= got[2])
+            else:
+                nleft = int(_host(nleft_t))
+                small_is_left = nleft <= pcnt - nleft
 
             # ---- smaller child's histogram from its contiguous range;
             # the sibling by subtraction
-            small_is_left = nleft <= pcnt - nleft
             cnt_s = nleft if small_is_left else pcnt - nleft
             begin_s = b0 if small_is_left else b0 + nleft
-            if rec_route:
+            if rec_route and not hooked:
                 h_small = hist_fn_raw(rec, begin_s, cnt_s, F, k, num_bins)
                 rows = search2_update(hists, h_small, best_leaf, new_leaf,
                                       small_is_left, scal, meta)
@@ -526,7 +597,8 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                                    hess.index_select(0, rs),
                                    bag_mask.index_select(0, rs))
 
-                h_small = range_hist(begin_s, cnt_s)
+                h_small = (hist_fn_raw(rec, begin_s, cnt_s, F, k, num_bins)
+                           if rec_route else range_hist(begin_s, cnt_s))
                 # the parent's histogram and the children's rows: the
                 # buffer rows of the two leaves, or pool slots s1/s2
                 if pooled:
@@ -550,7 +622,7 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                     h_large = h_parent - h_small
                     h_left, h_right = ((h_small, h_large) if small_is_left
                                        else (h_large, h_small))
-                    rows = search2_rows(h_left, h_right, scal, meta)
+                    rows = search2_fn(h_left, h_right, scal, meta)
                     hists[s1] = h_left
                     hists[s2] = h_right
                 if pooled:

@@ -50,8 +50,10 @@ is ``_begin_iter`` (gradients, guard, bagging, feature samples), the
 growth, then ``_finish_iter``.  ``set_base_row_mask`` trains a cv fold on
 the whole dataset's bins with its rows as every tree's root row set.
 
-Not ported yet (ROADMAP queue A), and refused with NotImplementedError
-rather than ignored: parallel learners (A8).
+The parallel learners (``tree_learner`` data, feature, voting, grid;
+parallel/*) grow where a ``torch.distributed`` world of more than one
+rank is up (``_create_tree_learner``); every rank runs this boosting
+loop on the same data and grows the same trees.
 Depthwise and hybrid growth ignore histogram_pool_size with the JAX
 package's warning.  The lagged stop check (the port's stop check is
 eager), checkpoints and telemetry are not carried.
@@ -82,6 +84,12 @@ from ..ops.cuda_sparse_hist import MAX_BINS as S1_MAX_BINS
 from ..ops.predict import (ensemble_leaves, ensemble_replay_binned_,
                            ensemble_sum, ensemble_update_binned_)
 from ..ops.sparse_hist import make_sparse_hist_fn
+from ..parallel.data_parallel import (data_parallel_sharded,
+                                      make_data_parallel_grower)
+from ..parallel.feature_parallel import make_feature_parallel_grower
+from ..parallel.grid_parallel import grid_mesh, make_grid_parallel_grower
+from ..parallel.mesh import data_mesh, world_size
+from ..parallel.voting_parallel import make_voting_parallel_grower
 from ..resilience import faults
 from ..resilience.guards import make_guard
 from .tree import (TREE_FIELDS, BinnedTrees, PackedTrees, Tree, binned_table,
@@ -131,15 +139,9 @@ def fuse_hist_fits(F: int, num_bins: int) -> bool:
 
 
 def check_supported(config: Config) -> None:
-    """Refuse every configuration outside the slice, naming its ROADMAP
-    item."""
-    def no(what: str, item: str) -> None:
-        raise NotImplementedError(
-            f"{what} is not ported to lightgbm_tpu_torch yet (ROADMAP "
-            f"queue {item})")
-
-    if config.tree_learner != "serial":
-        no(f"tree_learner={config.tree_learner}", "A8: parallel")
+    """Refuse a configuration the port cannot train: ``num_class`` that
+    does not fit the objective.  (Every ROADMAP item it once refused is
+    ported; the parallel learners' were the last.)"""
     if config.objective == "none":  # a custom objective: any num_class
         return
     kind = objective_kind(config.objective)
@@ -203,6 +205,7 @@ class GBDT:
         self._nf_guard = make_guard(config.nonfinite_policy)
         self._base_row_mask: Optional[torch.Tensor] = None
         self._root_rows: Optional[torch.Tensor] = None
+        self._learner = None  # the parallel learner (_create_tree_learner)
         if train_set is not None:
             self.reset_training_data(train_set, objective)
 
@@ -243,6 +246,54 @@ class GBDT:
         self._base_row_mask: Optional[torch.Tensor] = None
         self._root_rows: Optional[torch.Tensor] = None
         self.train_metrics = create_metrics(self.config, train_set.metadata, n)
+        self._learner = self._create_tree_learner()
+
+    def _create_tree_learner(self):
+        """TreeLearner::CreateTreeLearner (tree_learner.cpp:8-20; the JAX
+        package's gbdt.py:228-353): None for the serial learner (``grow``'s
+        routes), else the parallel learner's grow callable over the
+        ``torch.distributed`` world.  A world of one rank grows serially,
+        as the JAX package does on one device; with more ranks the learner
+        the config names, each rank's share on this booster's device.  A
+        rank's partition of a file (a load with ``num_machines > 1``)
+        always grows data-parallel, its rows being its own: a serial
+        learner there would train on a fraction of the data."""
+        cfg = self.config
+        tl = cfg.tree_learner
+        W = world_size()
+        if W > 1 and cfg.num_machines > 1 and cfg.num_machines != W:
+            raise ValueError(f"num_machines={cfg.num_machines} but the "
+                             f"torch.distributed world has {W} ranks")
+        partitioned = self.train_set.partition_rank is not None
+        if W <= 1 or (tl == "serial" and not partitioned):
+            return None
+        if (cfg.tree_growth == "hybrid"
+                and tl in ("feature", "voting", "grid")):
+            Log.warning(
+                "tree_growth=hybrid runs on serial and data-parallel "
+                f"learners; tree_learner={tl} uses leaf-wise growth "
+                "(same accuracy, no fused level phase)")
+        kw = dict(num_bins=self._num_bins, max_leaves=self.max_leaves,
+                  hist_pool=self._hist_pool_slots(),
+                  hist_dtype=self._acc_dtype)
+        if partitioned:
+            if tl != "data":
+                Log.warning(f"tree_learner={tl} runs data-parallel on a "
+                            "partitioned load (each rank holds its rows)")
+            return data_parallel_sharded(data_mesh(device=self.device),
+                                         growth=cfg.tree_growth, **kw)
+        if tl == "feature":
+            return make_feature_parallel_grower(
+                data_mesh(device=self.device), **kw)
+        if tl == "grid":
+            c = max(1, min(int(cfg.grid_feature_shards), W))
+            return make_grid_parallel_grower(
+                grid_mesh((W // c, c), device=self.device), **kw)
+        if tl == "voting":
+            return make_voting_parallel_grower(
+                data_mesh(device=self.device), top_k=int(cfg.top_k), **kw)
+        return make_data_parallel_grower(data_mesh(device=self.device),
+                                         growth=cfg.tree_growth, **kw)
 
     def set_base_row_mask(self, mask) -> None:
         """Train on the rows where ``mask`` is nonzero only, over the whole
@@ -255,7 +306,7 @@ class GBDT:
         metric of a fold reads.  Leaf-wise growth only: any other raises
         ``ValueError`` (the JAX package's rule), and ``cv`` then trains on
         the fold's subset."""
-        if self.config.tree_growth != "leafwise":
+        if self.config.tree_growth != "leafwise" or self._learner is not None:
             raise ValueError("set_base_row_mask requires leaf-wise growth "
                              "(the serial leaf-wise learner)")
         m = torch.as_tensor(np.asarray(mask, np.float32)).to(self.device)
@@ -422,6 +473,8 @@ class GBDT:
         args = (self._bins_T, grad, hess, self._bag_mask, feature_mask,
                 self._nbpf, self._is_cat, self._params, self._num_bins,
                 self.max_leaves)
+        if self._learner is not None:
+            return self._learner(*args[:8])
         growth = self.config.tree_growth
         # every grower sums in the dtype of the histogram functions handed
         # to it

@@ -16,9 +16,12 @@ memory layer on PyTorch's allocator:
   owner-tagged census, watermarks and OOM post-mortems.
 * :mod:`~lightgbm_tpu_torch.obs.manifest` — ``RunManifest``.
 
-Not ported yet (ROADMAP A10): ``dist`` (the cross-rank layer),
-``device_time`` (profiler phases) and ``memmodel`` (the footprint
-model).
+* :mod:`~lightgbm_tpu_torch.obs.dist` — the collective census of the
+  parallel learners (``record_collective_site``).
+
+Not ported yet: the rest of ``dist`` (the cross-rank layer, ROADMAP A8
+step 3), ``device_time`` (profiler phases) and ``memmodel`` (the
+footprint model), ROADMAP A10.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ dumps (and the rare capacity changes) against each other.
 Dump triggers in the port: a serving dispatcher-thread crash, a refused
 hot-swap and a serving process's SIGTERM/SIGINT.  The rank in the file
 name is 0 unless :func:`set_rank` says otherwise: the port runs one
-process (multi-process runs are ROADMAP A8).
+process (a rank of a parallel run sets its own).
 
 The dump directory: ``LGBM_TPU_FLIGHTREC_DIR`` (read at import) wins;
 otherwise an entry point calls :func:`configure_dir` (next to the served
@@ -72,7 +72,7 @@ def set_rank(rank: Optional[int]) -> None:
 
 def _resolve_rank() -> int:
     """The rank baked into the dump filename: the explicit override, or
-    0 (one process; the JAX package asks its obs/dist, ROADMAP A10)."""
+    0 (one process; the JAX package asks its obs/dist, ROADMAP A8 step 3)."""
     if _STATE.get("rank") is not None:
         return int(_STATE["rank"])  # type: ignore[arg-type]
     return 0

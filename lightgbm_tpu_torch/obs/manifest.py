@@ -134,7 +134,7 @@ class RunManifest:
     per_tree: dict
     result: dict
     extra: dict = dataclasses.field(default_factory=dict)
-    # multi-rank runs (the JAX package's obs/dist.py, ROADMAP A10): one
+    # multi-rank runs (the JAX package's obs/dist.py, ROADMAP A8 step 3): one
     # entry per rank.  Empty on single-process runs; optional in v1.
     ranks: list = dataclasses.field(default_factory=list)
     # device-memory section beside phases{}: allocator gauges, boundary

@@ -86,15 +86,14 @@ def leaf_output(sum_grad, sum_hess, l1, l2):
     return -torch.sign(sum_grad) * reg / (sum_hess + l2)
 
 
-def find_best_split_leaves(hist, sum_grad, sum_hess, num_data, feature_mask,
-                           num_bins_per_feature, is_categorical,
-                           min_data_in_leaf, min_sum_hessian_in_leaf,
-                           lambda_l1, lambda_l2, min_gain_to_split,
-                           can_split) -> SplitResult:
-    """Best split of K leaves at once.  ``hist`` [K, F, B, 3];
-    ``sum_grad``/``sum_hess``/``num_data``/``can_split`` [K];
-    ``feature_mask``/``num_bins_per_feature``/``is_categorical`` [F];
-    the five constraints are scalars.  Returns a SplitResult of [K]."""
+def _candidate_gains(hist, sum_grad, sum_hess, num_data, feature_mask,
+                     num_bins_per_feature, is_categorical, min_data_in_leaf,
+                     min_sum_hessian_in_leaf, lambda_l1, lambda_l2,
+                     min_gain_to_split, can_split):
+    """Every (leaf, feature, bin) candidate's gain, K_MIN_SCORE where it
+    is not a valid split, with the left / right sums and the leaves'
+    gain shift: (gains [K, F, B], left, right [K, F, B, 3], shift [K],
+    l1, l2)."""
     K, F, B, _ = hist.shape
     dt, dev = hist.dtype, hist.device
 
@@ -131,6 +130,44 @@ def find_best_split_leaves(hist, sum_grad, sum_hess, num_data, feature_mask,
              & torch.as_tensor(can_split, device=dev).bool()
              .reshape(-1)[:, None, None])
     gains = torch.where(valid, gains, torch.full_like(gains, K_MIN_SCORE))
+    return gains, left, right, gain_shift, l1, l2
+
+
+def feature_best_gains(hist, sum_grad, sum_hess, num_data, feature_mask,
+                       num_bins_per_feature, is_categorical,
+                       min_data_in_leaf, min_sum_hessian_in_leaf, lambda_l1,
+                       lambda_l2, min_gain_to_split,
+                       can_split) -> torch.Tensor:
+    """[K, F]: each feature's best split gain of each leaf, searched
+    alone (``find_best_split(...).gain`` of that feature's histogram:
+    the voting learner's local proposals, voting_parallel.py:52-67),
+    K_MIN_SCORE where the feature has no valid split."""
+    gains, _, _, shift, _, _ = _candidate_gains(
+        hist, sum_grad, sum_hess, num_data, feature_mask,
+        num_bins_per_feature, is_categorical, min_data_in_leaf,
+        min_sum_hessian_in_leaf, lambda_l1, lambda_l2, min_gain_to_split,
+        can_split)
+    best = gains.max(dim=2).values
+    return torch.where(best > K_MIN_SCORE, best - shift[:, None],
+                       torch.full_like(best, K_MIN_SCORE))
+
+
+def find_best_split_leaves(hist, sum_grad, sum_hess, num_data, feature_mask,
+                           num_bins_per_feature, is_categorical,
+                           min_data_in_leaf, min_sum_hessian_in_leaf,
+                           lambda_l1, lambda_l2, min_gain_to_split,
+                           can_split) -> SplitResult:
+    """Best split of K leaves at once.  ``hist`` [K, F, B, 3];
+    ``sum_grad``/``sum_hess``/``num_data``/``can_split`` [K];
+    ``feature_mask``/``num_bins_per_feature``/``is_categorical`` [F];
+    the five constraints are scalars.  Returns a SplitResult of [K]."""
+    K, F, B, _ = hist.shape
+    dev = hist.device
+    gains, left, right, gain_shift, l1, l2 = _candidate_gains(
+        hist, sum_grad, sum_hess, num_data, feature_mask,
+        num_bins_per_feature, is_categorical, min_data_in_leaf,
+        min_sum_hessian_in_leaf, lambda_l1, lambda_l2, min_gain_to_split,
+        can_split)
 
     # winner: smallest (feature, B-1-bin) position among the maxima
     flat = torch.flip(gains, [2]).reshape(K, F * B)

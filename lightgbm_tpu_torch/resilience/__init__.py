@@ -25,8 +25,8 @@ And the PyTorch ports:
 * :mod:`~lightgbm_tpu_torch.resilience.guards` — the non-finite guards
   of ``nonfinite_policy`` (raise, skip_tree, clip).
 
-The gang supervisor (``resilience/gang.py``, ``task=train_fleet``) goes
-with the parallel learners, ROADMAP A8.
+The gang supervisor (``resilience/gang.py``, ``task=train_fleet``) is
+ROADMAP A8 step 3.
 """
 
 from .atomic import (  # noqa: F401

@@ -42,7 +42,7 @@ spec                        injection point
 
 The JAX package's ``delay_collective`` and ``desync_step`` belong to
 ``obs/dist``, not ported, and raise ``NotImplementedError`` naming ROADMAP
-A8.  The env var is read once at import; tests inject in-process via
+A8 step 3.  The env var is read once at import; tests inject in-process via
 :func:`set_fault` / :func:`clear_faults`.  ``*_once`` faults
 self-consume.
 """
@@ -92,7 +92,7 @@ def _parse(spec: str) -> Dict[str, Optional[str]]:
         if kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"LGBM_TPU_FAULT kind {kind!r} is not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP queue A8: parallel, "
+                "lightgbm_tpu_torch yet (ROADMAP queue A8 step 3: "
                 "obs/dist)")
         if kind not in _VALID:
             raise ValueError(

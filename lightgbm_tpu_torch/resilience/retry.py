@@ -20,8 +20,9 @@ Two production failure shapes this covers:
 
 :func:`backoff_delay` is also the restart schedule of the serving
 fleet's supervisor (serving/supervisor.py).  No collective of the port
-calls :func:`guarded_collective` yet: the parallel learners (ROADMAP A8)
-will.  The classifier works on message text, so the module imports
+calls :func:`guarded_collective` yet: the parallel learners' collectives
+run under their process group's deadline (parallel/mesh.py), and the
+gang supervisor (ROADMAP A8 step 3) will.  The classifier works on message text, so the module imports
 neither torch nor numpy.
 """
 

@@ -393,3 +393,38 @@ def test_card_trees_match_cpu_trees(growth):
         assert a.num_leaves == b.num_leaves
         for k in STRUCT:
             assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), k
+
+
+def test_search_leaves_fn_hook():
+    """``search_leaves_fn`` (the data-parallel learner's level search)
+    replaces the level search: a hook that delegates to
+    ``find_best_split_leaves`` grows the default tree bitwise and is
+    called once a level, on every live leaf."""
+    from lightgbm_tpu_torch.ops.split import find_best_split_leaves
+
+    d = _random_case()
+    cfg = _config(dict(min_data_in_leaf=10, lambda_l2=0.5), 31)
+    args = _args(d, cfg, "port")
+    want, lid_w = grow_tree_depthwise(*args, num_bins=d["B"], max_leaves=31)
+    seen = []
+
+    def search_leaves_fn(hist, sg, sh, c, can):
+        seen.append(hist.shape[0])
+        return find_best_split_leaves(hist, sg, sh, c, args[4], args[5],
+                                      args[6], *[
+                                          getattr(args[7], k) for k in (
+                                              "min_data_in_leaf",
+                                              "min_sum_hessian_in_leaf",
+                                              "lambda_l1", "lambda_l2",
+                                              "min_gain_to_split")], can)
+
+    levels = port_depthwise.LEVELS
+    got, lid_g = grow_tree_depthwise(*args, num_bins=d["B"], max_leaves=31,
+                                     search_leaves_fn=search_leaves_fn)
+    assert len(seen) == port_depthwise.LEVELS - levels >= 3
+    assert seen[0] == 1 and seen == sorted(seen)
+    assert got.num_leaves == want.num_leaves
+    for k in STRUCT + VALUES:
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      getattr(want, k).numpy(), err_msg=k)
+    np.testing.assert_array_equal(lid_g.numpy(), lid_w.numpy())

@@ -178,13 +178,15 @@ def test_out_of_slice_configs_raise(extra):
     """Each configuration outside the port raises, naming its ROADMAP
     item; objective=none is in it (a custom objective), and training
     without the fobj that supplies its gradients raises naming fobj.
-    DART (A3), the non-finite guards (A9's first step) and float64
-    histograms (A5) were refused here until they were ported: they now
-    train."""
+    DART (A3), the non-finite guards (A9's first step), float64
+    histograms (A5) and the parallel learners (A8) were refused here
+    until they were ported: they now train (``tree_learner=data`` with
+    no distributed world grows serially, as on one device)."""
     X, y = _data()
     params = {"objective": "binary", "verbose": -1, **extra}
     ds = lt.Dataset(X, label=y, device="cpu")
-    if {"boosting_type", "nonfinite_policy", "hist_dtype"} & set(extra):
+    if {"boosting_type", "nonfinite_policy", "hist_dtype",
+            "tree_learner"} & set(extra):
         bst = lt.train(params, ds, 2, device="cpu")
         assert bst.current_iteration == 2
         assert bst.model_to_string().startswith(

@@ -428,3 +428,69 @@ def test_mega_route_host_syncs(monkeypatch):
         syncs[route] = (port_serial.HOST_SYNCS, splits)
     assert syncs["mega"][0] == 2 * 3 + syncs["mega"][1]
     assert syncs["record"][0] == 2 * 3 + 2 * syncs["record"][1]
+
+
+def _hook_problem():
+    rng = np.random.RandomState(6)
+    n, F, B = 2000, 6, 20
+    t = [torch.from_numpy(a) for a in (
+        rng.randint(0, B, size=(F, n)).astype(np.uint8),
+        rng.randn(n).astype(np.float32),
+        (np.abs(rng.randn(n)) + 0.1).astype(np.float32),
+        (rng.rand(n) < 0.9).astype(np.float32), np.ones(F, bool),
+        np.full(F, B, np.int32), np.arange(F) == 3)]
+    return t, TreeLearnerParams.from_config(
+        Config(min_data_in_leaf=10, min_sum_hessian_in_leaf=1e-3)), B
+
+
+@pytest.mark.parametrize("route", ["order", "record", "pooled"])
+def test_identity_hooks_grow_the_serial_tree(route):
+    """``grow_tree``'s hooks (the parallel learners' entry) with
+    single-rank identities grow the unhooked tree bitwise on every route
+    they take, with one hooked host read a split (the left count with the
+    reduced counts) and every hook called as the parallel learners rely
+    on; without hooks the routes' host syncs are unchanged (two a split
+    and two a tree)."""
+    from lightgbm_tpu_torch.ops.cuda_search import search2_rows
+
+    args, prm, B = _hook_problem()
+    L = 15
+    kw = dict(num_bins=B, max_leaves=L,
+              hist_fn_raw=histogram_record_window if route == "record"
+              else None, hist_pool=4 if route == "pooled" else 0)
+    port_serial.HOST_SYNCS = 0
+    want, lid_w = grow_tree(*args, prm, **kw)
+    assert port_serial.HOST_SYNCS == 2 + 2 * (want.num_leaves - 1)
+    calls = {"reduce": 0, "counts": 0, "root": 0, "two": 0}
+
+    def reduce_fn(x):
+        calls["reduce"] += 1
+        return x.clone()
+
+    def child_counts_fn(nl, nr):
+        calls["counts"] += 1
+        return torch.stack([nl, nr])
+
+    def search_fn(h, scal, meta):
+        calls["root"] += 1
+        return search2_rows(h, h, scal, meta)
+
+    def search2_fn(hl, hr, scal, meta):
+        calls["two"] += 1
+        return search2_rows(hl, hr, scal, meta)[:, :11]
+
+    port_serial.HOST_SYNCS = 0
+    got, lid_g = grow_tree(*args, prm, **kw, reduce_fn=reduce_fn,
+                           child_counts_fn=child_counts_fn,
+                           search_fn=search_fn, search2_fn=search2_fn)
+    S = want.num_leaves - 1
+    assert S > 4 and calls == {"reduce": 1, "counts": S, "root": 1,
+                               "two": S}
+    assert port_serial.HOST_SYNCS == 3 + 2 * S
+    assert got.num_leaves == want.num_leaves
+    for k in STRUCT + ("leaf_value", "internal_value", "split_gain"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      getattr(want, k).numpy(), err_msg=k)
+    np.testing.assert_array_equal(lid_g.numpy(), lid_w.numpy())
+    with pytest.raises(ValueError, match="mega"):
+        grow_tree(*args, prm, **kw, search2_fn=search2_fn, fuse_hist=True)
