@@ -415,7 +415,33 @@ git-ignored ``build/smoke_files``):
    copy (bitwise the serial trees and leaf ids; not for ``top_k`` 5);
    prints s/tree, the collectives a tree and their ms, host syncs a
    tree, each rank's launches a tree, the peak device memory of each
-   rank and a tiny all-gather's ms on the card's tensors.
+   rank and a tiny all-gather's ms on the card's tensors.  Every
+   learner of (b) also runs the desync sentinel: one host read of the
+   tree and one all-gather a tree beyond its route's counts.
+
+27. Multihost and the training gang (after phase 25, before phase 23
+   empties phase 19's files), every rank a ``python -m
+   lightgbm_tpu_torch`` child on the card, in two waves.  Wave 1: (a)
+   ``task=train_fleet`` of phase 19's train.conf (1M + 200k rows, 255
+   leaves, 10 trees), 2 redundant ranks, checkpoint barriers every 2
+   trees, slot 1 SIGKILLed at iteration 5 (``LGBM_TPU_GANG_CHAOS_KILL``):
+   exit 0, both ranks' models bitwise phase 19's one-shot model, one
+   restart, ``failed_iterations`` 0, the MTTR and the gang's readiness
+   times, each rank's K8 / K7 / K1' / K3 launches and host syncs from
+   its rank snapshot exactly the mega route's for the trees it grew;
+   (c1) a 2-rank ``machine_list_file`` world on 127.0.0.1 sharing
+   cuda:0 over gloo on the valid file (63 leaves, 4 trees), rank 1 with
+   another ``bagging_seed`` and ``delay_collective:1:200``, and (c2) the
+   same training from torchrun's env: one model on every rank of both
+   worlds, each rank's launches, host syncs and census exactly the
+   record route's plus one sentinel check a tree, rank 0's merged
+   manifest naming rank 1 the straggler, the sentinel's and the config
+   sync's ms.  Wave 2: (b) ``gang_shard_data=true`` on the valid file
+   (one parity check, each rank's model bitwise ``task=train`` of its
+   shard), (c3) ranks that differ in ``num_leaves`` (both exit non-zero
+   at the config sync, naming the fingerprints), (c4) ``desync_step:1``
+   (both stop naming rank 1 at iteration 1).  The rank children's
+   launches are added to the kernels' record as ``multihost_launches``.
 
 The seconds each phase took are printed before the result.
 
@@ -6460,7 +6486,17 @@ def _par_expected(name, n, splits, levels, level_splits):
     reduce-scatter + all-gather a level; hybrid its level phase, then the
     resume's fused pass (a K1'' pass, a sync, two collectives) and per
     best-first split K1, K3, two syncs and three collectives.  Every
-    row-sharded learner all-gathers the leaf ids once a tree."""
+    row-sharded learner all-gathers the leaf ids once a tree.  Every
+    learner of a world of more than one rank adds the desync sentinel's
+    host read of the tree and its all-gather, one each a tree
+    (parallel/multihost.py)."""
+    launches, syncs, calls = _par_route_counts(name, n, splits, levels,
+                                               level_splits)
+    return launches, syncs + n, calls + n
+
+
+def _par_route_counts(name, n, splits, levels, level_splits):
+    """``_par_expected``'s counts of the learner's route alone."""
     S = splits
     if name == "data-depthwise":
         return {"K1″": levels}, levels, 2 * levels + n
@@ -6650,6 +6686,393 @@ def phase_parallel(torch, lt):
         shutil.rmtree(PAR_DIR, ignore_errors=True)
 
 
+# -------------------------------------------------------------- phase 27
+MH_DIR = os.path.join(ROOT, "build", "smoke_multihost")
+# (a): the gang's barriers every GANG_EVERY trees, slot 1 SIGKILLed once
+# its heartbeat reaches GANG_KILL_AT (the gang rolls back to barrier 4,
+# or a later one where slot 1 got further before the kill landed)
+GANG_EVERY, GANG_KILL_AT = 2, 5
+GANG_B_TREES = 4  # (b): trees of each shard's rank
+# (c): the worlds' trees and leaves on phase 19's valid file (200k rows:
+# a gloo collective of two processes sharing the card costs ms)
+ML_TREES, ML_LEAVES = 4, 63
+ML_SEEDS = (7, 3)  # (c) rank 0's and rank 1's bagging_seed: the sync's 3
+ML_DELAY_MS = 200  # (c) rank 1's delay before every traced collective
+MH_WAVE_S = 240  # a wave's deadline
+# the launcher env a rank child must not inherit from this process
+MH_ENV_DROP = ("LGBM_TPU_FAULT", "LGBM_TPU_GANG", "LGBM_TPU_PROCESS_ID",
+               "LGBM_TPU_NUM_PROCESSES", "LGBM_TPU_COORDINATOR",
+               "LGBM_TPU_RANK_OBS_DIR", "MASTER_ADDR", "MASTER_PORT",
+               "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+
+
+class _MhProc:
+    """A ``python -m lightgbm_tpu_torch`` child on the card, its output
+    written to ``<MH_DIR>/<name>.log`` with each line's seconds since the
+    start."""
+
+    def __init__(self, name, argv, **env):
+        import threading
+
+        self.name, self.lines = name, []
+        self.log = os.path.join(MH_DIR, f"{name}.log")
+        e = {k: v for k, v in os.environ.items()
+             if not k.startswith(MH_ENV_DROP)}
+        e.update(GLOO_SOCKET_IFNAME="lo", **{k: str(v)
+                                             for k, v in env.items()})
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "lightgbm_tpu_torch", *argv,
+             "verbose=1"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, cwd=ROOT, env=e)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        with open(self.log, "w") as fh:
+            for line in self.proc.stdout:
+                t = time.perf_counter() - self.t0
+                self.lines.append((t, line.rstrip("\n")))
+                fh.write(f"{t:9.3f} {line}")
+        self.s = time.perf_counter() - self.t0  # its output closed: it ended
+
+    def wait(self, deadline):
+        try:
+            self.proc.wait(max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.reader.join(10)
+        return self.proc.returncode
+
+    def text(self):
+        return "\n".join(line for _, line in self.lines)
+
+    def first(self, needle):
+        """Seconds since the start of the first line holding ``needle``."""
+        return next((t for t, line in self.lines if needle in line), None)
+
+
+def _mh_wait(procs, want_rc=0):
+    """Wait for ``procs`` (a dict name -> _MhProc) under one deadline;
+    every exit code must be ``want_rc`` (None: any but 0)."""
+    deadline = time.perf_counter() + MH_WAVE_S
+    for name, p in procs.items():
+        rc = p.wait(deadline)
+        ok = rc != 0 if want_rc is None else rc == want_rc
+        check(ok, f"phase 27 {name}: exit code {rc}:\n{p.text()[-3000:]}")
+
+
+def _mh_leaves(path):
+    with open(path) as fh:
+        return [int(v) for v in re.findall(r"^num_leaves=(\d+)$", fh.read(),
+                                           re.M)]
+
+
+def _mh_snap(path):
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def _mh_rank_counts(snap, want, sites):
+    """A rank snapshot's launches of the ``want`` kernels (every other
+    learner kernel 0), learner host syncs and census calls at ``sites``."""
+    got = snap["extra"]["kernel_launches"]
+    learner = ("K1", "K1'", "K1″", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+    counts = {k: got.get(k, 0) for k in learner if got.get(k) or k in want}
+    c = snap["telemetry"]["counters"]
+    calls = {s: c.get(f"collective_site.{s}", 0) for s in sites}
+    return counts, snap["extra"]["learner_host_syncs"], calls
+
+
+def _mh_argv_c(files, out, *extra):
+    return [f"data={files['valid']}", "objective=binary",
+            f"max_bin={NUM_BINS}", f"num_leaves={ML_LEAVES}",
+            f"num_trees={ML_TREES}", f"learning_rate={LEARNING_RATE}",
+            f"min_data_in_leaf={MIN_DATA}", "tree_learner=data",
+            "num_machines=2", "bagging_fraction=0.8", "bagging_freq=1",
+            "enable_load_from_binary_file=false",
+            f"output_model={os.path.join(MH_DIR, out)}", *extra]
+
+
+def _mh_mlist(name):
+    path = os.path.join(MH_DIR, f"{name}.mlist")
+    with open(path, "w") as fh:
+        fh.write(f"127.0.0.1 {_free_port()}\n127.0.0.1 {_free_port()}\n")
+    return path
+
+
+def _mh_world_c(files, name, extra_of, env_of):
+    """Two ``task=train`` ranks of a machine-list world on 127.0.0.1
+    (sharing cuda:0 over gloo), rank r with ``extra_of(r)`` argv and
+    ``env_of(r)`` env."""
+    ml = _mh_mlist(name)
+    return {f"{name}{r}": _MhProc(
+        f"{name}{r}", _mh_argv_c(files, f"{name}{r}.txt",
+                                 f"machine_list_file={ml}", *extra_of(r)),
+        LGBM_TPU_PROCESS_ID=r, **env_of(r)) for r in range(2)}
+
+
+def _mh_gang_counts(gdir, model, trees_total):
+    """Each gang rank's launches a tree against the mega route's, from its
+    rank snapshot (the last incarnation's: the trees from its
+    ``first_iteration``): K1' = K3 = 1, K8 = K7 = its splits."""
+    leaves = _mh_leaves(model)
+    out = []
+    for slot in (0, 1):
+        snap = _mh_snap(os.path.join(gdir, "obs", f"rank_{slot}.json"))
+        first = snap["extra"]["first_iteration"]
+        n = trees_total - first
+        S = sum(v - 1 for v in leaves[first:])
+        want = {"K1'": n, "K3": n, "K8": S, "K7": S}
+        counts, syncs, _ = _mh_rank_counts(snap, want, ())
+        # the rank's log holds every incarnation: s/tree of the last
+        with open(os.path.join(gdir, f"r{slot}", "log.txt")) as fh:
+            its = re.findall(r"([0-9.]+) seconds elapsed, finished "
+                             r"iteration (\d+)", fh.read())
+        out.append(dict(slot=slot, first=first, counts=counts, syncs=syncs,
+                        ok=counts == want and syncs == 2 * n + S,
+                        gang=snap.get("gang"),
+                        s_tree=float(its[-1][0]) / n if its else math.nan))
+    return out
+
+
+def _mh_world_counts(obs_dir, model):
+    """Each rank of a 2-rank data-parallel world on its partition (record
+    route) against the route's formula plus the sentinel: K1' = K3 = n +
+    S, K6 = K7 = S; 3n + 2S host syncs and one tree read a tree; 3n + 3S
+    collectives of the learner and one sentinel all-gather (and its
+    barrier) a tree; the config sync's one gather and one barrier and the
+    fingerprint's gather."""
+    leaves = _mh_leaves(model)
+    n, S = len(leaves), sum(v - 1 for v in leaves)
+    want = {"K1'": n + S, "K3": n + S, "K6": S, "K7": S}
+    want_calls = {"dp.root_sums_allreduce.all-reduce": n,
+                  "dp.hist_reduce_scatter.reduce-scatter": n + S,
+                  "dp.root_split_allgather.all-gather": n,
+                  "dp.child_counts_allgather.all-gather": S,
+                  "dp.split_allgather.all-gather": S,
+                  "desync_sentinel.all-gather": n,
+                  "desync_sentinel.barrier": n,
+                  "config_sync.all-gather": 1, "config_sync.barrier": 1,
+                  "config_fingerprint.all-gather": 1}
+    out = []
+    for r in (0, 1):
+        snap = _mh_snap(os.path.join(obs_dir, f"rank_{r}.json"))
+        counts, syncs, calls = _mh_rank_counts(snap, want, want_calls)
+        res = snap["telemetry"]["reservoirs"]
+        spans = snap["telemetry"]["spans"]
+
+        def ms(name):
+            return 1e3 * res.get(name, {}).get("mean_s", 0.0)
+
+        out.append(dict(
+            rank=r, counts=counts, syncs=syncs, calls=calls,
+            ok=(counts == want and syncs == 4 * n + 2 * S
+                and calls == want_calls),
+            sentinel_wait_ms=ms("collective.desync_sentinel.wait_s"),
+            sentinel_transfer_ms=ms("collective.desync_sentinel.transfer_s"),
+            tree_read_ms=1e3 * spans.get("dist.grow.fetch", {}).get(
+                "total_s", 0.0) / max(1, n),
+            sync_ms=ms("collective.config_sync.wait_s")
+            + ms("collective.config_sync.transfer_s")
+            + ms("collective.config_fingerprint.transfer_s")))
+    return out, n, S
+
+
+def _mh_s_per_tree(proc, trees):
+    t = re.findall(r"([0-9.]+) seconds elapsed, finished iteration",
+                   proc.text())
+    return float(t[-1]) / trees if len(t) == trees else float("nan")
+
+
+def _mh_launch_sum(snaps):
+    total = {}
+    for s in snaps:
+        for k, v in s["extra"]["kernel_launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_multihost(torch, lt, files):
+    """Phase 27: the training gang and machine-list worlds on the card,
+    every rank a ``python -m lightgbm_tpu_torch`` child.  Wave 1: (a)
+    ``task=train_fleet`` of phase 19's train.conf, 2 redundant ranks,
+    barriers every GANG_EVERY trees, slot 1 SIGKILLed at GANG_KILL_AT;
+    (c1) a 2-rank machine-list world on 127.0.0.1 sharing cuda:0 over
+    gloo, rank 1 with another bagging_seed and ML_DELAY_MS before every
+    traced collective; (c2) the same world from torchrun's env.  Wave 2:
+    (b) ``gang_shard_data=true`` on the valid file; (c3) a world whose
+    ranks differ in num_leaves; (c4) a world under ``desync_step:1``.
+    Returns the launches of the kernels its rank children ran."""
+    from lightgbm_tpu_torch import cli
+
+    shutil.rmtree(MH_DIR, ignore_errors=True)
+    os.makedirs(MH_DIR)
+    conf = os.path.join(FILES_DIR, "train.conf")
+    with open(os.path.join(FILES_DIR, "model-one-shot.txt")) as fh:
+        one_shot = fh.read()
+    t_phase = time.perf_counter()
+    # ---- wave 1
+    gdir_a = os.path.join(MH_DIR, "gang_a")
+    wave = {"a": _MhProc("a", [
+        f"config={conf}", "task=train_fleet",
+        "enable_load_from_binary_file=false", "train_ranks=2",
+        f"gang_barrier_every={GANG_EVERY}", f"gang_dir={gdir_a}",
+        f"output_model={os.path.join(MH_DIR, 'gang_a.txt')}"],
+        LGBM_TPU_GANG_CHAOS_KILL=f"1:{GANG_KILL_AT}")}
+    wave.update(_mh_world_c(
+        files, "ml", lambda r: [f"bagging_seed={ML_SEEDS[r]}"],
+        lambda r: dict(
+            LGBM_TPU_RANK_OBS_DIR=os.path.join(MH_DIR, "ml_obs"),
+            **({"LGBM_TPU_FAULT": f"delay_collective:1:{ML_DELAY_MS}"}
+               if r else {}))))
+    port = _free_port()
+    for r in range(2):
+        wave[f"tr{r}"] = _MhProc(
+            f"tr{r}", _mh_argv_c(files, f"tr{r}.txt",
+                                 f"bagging_seed={min(ML_SEEDS)}"),
+            RANK=r, LOCAL_RANK=r, WORLD_SIZE=2, LOCAL_WORLD_SIZE=2,
+            MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+            LGBM_TPU_RANK_OBS_DIR=os.path.join(MH_DIR, "tr_obs"))
+    _mh_wait(wave)
+    wave1_s = time.perf_counter() - t_phase
+
+    # (a) the gang: rank 0's model bitwise phase 19's one-shot train
+    with open(os.path.join(MH_DIR, "gang_a.txt")) as fh:
+        gang_model = fh.read()
+    with open(os.path.join(gdir_a, "r1", "model.txt")) as fh:
+        slot1_model = fh.read()
+    art = _mh_snap(os.path.join(gdir_a, "train_fleet.json"))
+    tf = art["train_fleet"]
+    rec = tf["recovery_timeline"]
+    gang = _mh_gang_counts(gdir_a, os.path.join(MH_DIR, "gang_a.txt"), TREES)
+    sup = wave["a"]
+    formed = [t for t, line in sup.lines if "gang: formed with" in line]
+    say(f"[multihost a] train_fleet of {TREES} trees, 2 ranks, barrier "
+        f"every {GANG_EVERY}, slot 1 killed at {GANG_KILL_AT}: exit 0 in "
+        f"{sup.s:.2f}s; rank 0's model bitwise phase 19's task=train: "
+        f"{gang_model == one_shot}, slot 1's too: {slot1_model == one_shot}; "
+        f"failed_iterations {tf['failed_iterations']}, restarts "
+        f"{tf['restarts']}, rank_deaths {tf['rank_deaths']}, mttr_s "
+        f"{tf['mttr_s']}, lost_iterations {tf['lost_iterations']}, final "
+        f"barrier {tf['final_barrier']}, wall_s {tf['wall_s']}; the gang "
+        f"formed (ready) at {[round(t, 3) for t in formed]}s; recoveries "
+        f"{json.dumps(rec)}; counters {json.dumps(art['counters'])}")
+    for g in gang:
+        say(f"[multihost a slot {g['slot']}] from iteration {g['first']}: "
+            f"s/tree={g['s_tree']:.4f} (the valid AUC each round, the "
+            f"other rank on the card beside it), launches "
+            f"{json.dumps(g['counts'])}, learner host syncs "
+            f"{g['syncs']} (the mega route's, exact: {g['ok']}); gang "
+            f"stamp {json.dumps(g['gang'])}")
+    check(gang_model == one_shot and slot1_model == one_shot,
+          "phase 27 (a): the gang's model differs from task=train's")
+    check(tf["failed_iterations"] == 0 and tf["restarts"] == 1
+          and tf["rank_deaths"] == 1 and tf["exit_code"] == 0
+          and len(rec) == 1 and rec[0]["barrier"] >= GANG_KILL_AT - 1,
+          f"phase 27 (a): the recovery {json.dumps(tf)}")
+    check(all(g["ok"] for g in gang), "phase 27 (a): a gang rank's "
+          "launches or host syncs differ from the mega route's")
+
+    # (c1), (c2): one model on every rank of both worlds
+    models = {}
+    for name in ("ml0", "ml1", "tr0", "tr1"):
+        with open(os.path.join(MH_DIR, f"{name}.txt")) as fh:
+            models[name] = fh.read()
+    man = _mh_snap(os.path.join(MH_DIR, "ml0.txt.manifest.json"))
+    strag = {s["site"]: s for s in man["extra"]["distributed"]["stragglers"]}
+    ml, n, S = _mh_world_counts(os.path.join(MH_DIR, "ml_obs"),
+                                os.path.join(MH_DIR, "ml0.txt"))
+    tr, _, _ = _mh_world_counts(os.path.join(MH_DIR, "tr_obs"),
+                                os.path.join(MH_DIR, "tr0.txt"))
+    same = len(set(models.values())) == 1
+    backend = all("backend=gloo on cuda:0" in wave[f"ml{r}"].text()
+                  for r in range(2))
+    for world, ranks in (("c1 machine list", ml), ("c2 torchrun env", tr)):
+        for r in ranks:
+            p = wave[("ml" if world.startswith("c1") else "tr") + str(r["rank"])]
+            say(f"[multihost {world} rank {r['rank']}] s/tree="
+                f"{_mh_s_per_tree(p, ML_TREES):.4f} ({n} trees, {S} splits, "
+                f"{ML_LEAVES} leaves, 200k rows over 2 ranks); launches "
+                f"{json.dumps(r['counts'])}, learner host syncs {r['syncs']}, "
+                f"census {json.dumps(r['calls'])} (the route's formula plus "
+                f"one sentinel check a tree, exact: {r['ok']}); sentinel wait "
+                f"{r['sentinel_wait_ms']:.3f} ms + transfer "
+                f"{r['sentinel_transfer_ms']:.3f} ms a tree, tree read "
+                f"{r['tree_read_ms']:.3f} ms; config sync "
+                f"{r['sync_ms']:.3f} ms; process {p.s:.2f}s")
+    say(f"[multihost c1] every rank of both worlds wrote one model: {same}; "
+        f"machine-list ranks on gloo on cuda:0: {backend}; rank 0's merged "
+        f"manifest: ranks {[x['process_index'] for x in man['ranks']]}, "
+        f"stragglers {json.dumps(list(strag.values()))}")
+    check(same, "phase 27 (c): the worlds' models differ")
+    check(backend, "phase 27 (c): a machine-list rank is not on gloo on "
+          "cuda:0")
+    check(all(r["ok"] for r in ml + tr), "phase 27 (c): a rank's launches, "
+          "host syncs or collectives differ from the route's")
+    check(strag.get("desync_sentinel", {}).get("straggler_rank") == 1
+          and strag.get("config_sync", {}).get("straggler_rank") == 1,
+          f"phase 27 (c1): the straggler is not rank 1: {strag}")
+
+    # ---- wave 2
+    t2 = time.perf_counter()
+    gdir_b = os.path.join(MH_DIR, "gang_b")
+    wave = {"b": _MhProc("b", [
+        f"config={conf}", "task=train_fleet", f"data={files['valid']}",
+        "valid_data=", f"num_trees={GANG_B_TREES}", "gang_shard_data=true",
+        "enable_load_from_binary_file=false", "train_ranks=2",
+        f"gang_barrier_every={GANG_EVERY}", f"gang_dir={gdir_b}",
+        f"output_model={os.path.join(MH_DIR, 'gang_b.txt')}"])}
+    wave.update(_mh_world_c(
+        files, "cfg", lambda r: [f"num_leaves={(ML_LEAVES, 31)[r]}"],
+        lambda r: {}))
+    wave.update(_mh_world_c(files, "ds", lambda r: [],
+                            lambda r: {"LGBM_TPU_FAULT": "desync_step:1"}))
+    _mh_wait({k: v for k, v in wave.items() if k.startswith("b")})
+    plain = []
+    for slot in (0, 1):
+        out = os.path.join(MH_DIR, f"plain_r{slot}.txt")
+        _run_cli(torch, cli, [
+            f"config={conf}", f"data={os.path.join(gdir_b, f'shard_r{slot}.csv')}",
+            "valid_data=", f"num_trees={GANG_B_TREES}",
+            "enable_load_from_binary_file=false", f"output_model={out}"])
+        with open(out) as fh, open(os.path.join(gdir_b, f"r{slot}",
+                                                "model.txt")) as gh:
+            plain.append(fh.read() == gh.read())
+    _mh_wait({k: v for k, v in wave.items() if not k.startswith("b")},
+             want_rc=None)
+    art_b = _mh_snap(os.path.join(gdir_b, "train_fleet.json"))
+    mismatch = all("differs across processes" in wave[f"cfg{r}"].text()
+                   and not os.path.exists(os.path.join(MH_DIR, f"cfg{r}.txt"))
+                   for r in range(2))
+    named = all("cross-rank desync at iteration 1: rank(s) [1]"
+                in wave[f"ds{r}"].text() for r in range(2))
+    say(f"[multihost b] sharded gang of {GANG_B_TREES} trees on the valid "
+        f"file: exit 0 in {wave['b'].s:.2f}s; parity checks "
+        f"{art_b['counters'].get('lgbm_gang_parity_checks', 0)}; each "
+        f"slot's model bitwise task=train of its shard: {plain}")
+    say(f"[multihost c3] ranks with num_leaves {ML_LEAVES} and 31: both "
+        f"exited non-zero at the config sync ({wave['cfg0'].s:.2f}s, "
+        f"{wave['cfg1'].s:.2f}s), naming the fingerprints: {mismatch}")
+    say(f"[multihost c4] desync_step:1: both ranks stopped with a "
+        f"DesyncError naming rank 1 at iteration 1: {named} "
+        f"({wave['ds0'].s:.2f}s, {wave['ds1'].s:.2f}s)")
+    check(art_b["counters"].get("lgbm_gang_parity_checks", 0) >= 1
+          and all(plain), "phase 27 (b): the sharded gang's models or "
+          "parity check")
+    check(mismatch, "phase 27 (c3): the config mismatch was not refused")
+    check(named, "phase 27 (c4): the desync was not named")
+    say(f"[multihost] wave 1 {wave1_s:.2f}s, wave 2 "
+        f"{time.perf_counter() - t2:.2f}s")
+    snaps = [_mh_snap(os.path.join(d, f"rank_{r}.json")) for r in (0, 1)
+             for d in (os.path.join(gdir_a, "obs"), os.path.join(gdir_b, "obs"),
+                       os.path.join(MH_DIR, "ml_obs"),
+                       os.path.join(MH_DIR, "tr_obs"))]
+    shutil.rmtree(MH_DIR, ignore_errors=True)
+    return _mh_launch_sum(snaps)
+
+
 def main() -> int:
     try:
         import torch
@@ -6728,6 +7151,7 @@ def main() -> int:
     files = timed("files", phase_files, torch, lt, params, routes["mega"])
     timed("forest_cli", phase_forest_cli, torch, lt, files)
     timed("resilience", phase_resilience, torch, lt, files)
+    mh_n = timed("multihost", phase_multihost, torch, lt, files)
     timed("capi", phase_capi, torch, lt, params, routes["mega"], files)
     del files
     sparse, s1_launches = timed("sparse", phase_sparse, torch, lt)
@@ -6835,6 +7259,14 @@ def main() -> int:
              path="forest", launches=forest_main["launches"]["F3"],
              bound_by="bytes", **forest_k["F3 step b8-n2048"]),
     ]
+    # the launches of phase 27's rank children (the gang's and the worlds'
+    # ranks, read from their rank snapshots)
+    mh_codes = {"histogram_record_window": "K1'", "search2": "K3",
+                "record_compact": "K6", "record_place": "K7",
+                "split_step": "K8"}
+    for k in kernels:
+        if k["name"] in mh_codes:
+            k["multihost_launches"] = mh_n.get(mh_codes[k["name"]], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

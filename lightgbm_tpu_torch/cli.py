@@ -17,7 +17,11 @@ merged over a config file (argv wins, application.cpp:46-104), then
 * ``task=train_many``: ``num_models`` models on one binned dataset, model
   i with ``seed + i``, saved to ``<output_model>.<i>``;
 * ``task=serve_fleet``: supervised ``task=serve`` replicas behind one
-  front end (serving/supervisor.py ``serve_fleet_from_config``).
+  front end (serving/supervisor.py ``serve_fleet_from_config``);
+* ``task=train_fleet``: a gang of ``train_ranks`` supervised
+  ``task=train`` rank processes with coordinated checkpoint barriers,
+  rolled back and re-formed when a rank dies or hangs
+  (resilience/gang.py ``train_fleet_from_config``).
 
 ``task=train`` checkpoints (resilience/checkpoint.py): every
 ``snapshot_freq`` iterations into ``snapshot_dir`` (default
@@ -32,15 +36,19 @@ key selects it.  ``boosting_type=dart`` trains DART (models/dart.py) and
 guard's parked counts drain before the model is saved).
 ``hist_dtype=float64`` trains (float64 histograms, A5).
 
-Under ``torchrun`` (``WORLD_SIZE > 1`` in the environment) ``task=train``
-joins the world the environment describes (:func:`torchrun_world`): each
-rank on ``cuda:LOCAL_RANK`` over NCCL, or on the CPU over gloo where
-``main`` is given ``device="cpu"``; ``tree_learner`` then picks the
-parallel learner and ``num_machines`` (if set) must equal the world's
-size, each rank loading its partition of ``data``.  Every rank writes the
-same model.  Bringing a world up from a machine list (``num_machines >
-1`` without one) and ``task=train_fleet`` are refused, naming ROADMAP A8
-step 3.
+With ``num_machines > 1`` ``task=train`` forms its world before any
+data loads (parallel/multihost.py ``config_world``, the JAX package's
+cli.py:154-164): from ``machine_list_file`` or the
+``LGBM_TPU_COORDINATOR`` env triple, each rank on the card its host
+position gives it (NCCL where the host's ranks have a card each, gloo on
+a shared card, gloo on the CPU with ``device="cpu"``), then syncs the
+config across the ranks (seeds and fractions to their minimum, the
+structural parameters checked equal).  Under ``torchrun``
+(``WORLD_SIZE > 1`` in the environment) it joins the world the
+environment describes instead (:func:`torchrun_world`).  ``tree_learner``
+then picks the parallel learner, each rank loading its partition of
+``data``; every rank writes the same model, and rank 0 writes the one
+manifest, with every rank's telemetry merged (obs/dist.py).
 """
 
 from __future__ import annotations
@@ -68,12 +76,6 @@ from .parallel.mesh import env_world, init_world, world_size
 from .objectives import create_objective
 from .resilience.atomic import atomic_write
 from .serving.batch import DEFAULT_CHUNK_ROWS, DEFAULT_STREAM_THRESHOLD
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to lightgbm_tpu_torch yet (ROADMAP queue "
-        f"{item})")
 
 
 def load_parameters(argv: List[str]) -> Dict[str, str]:
@@ -145,31 +147,29 @@ def _output_metrics(gbdt: GBDT, iter_num: int, names: List[str],
     return rows
 
 
-def _refuse_unported(cfg: Config) -> None:
-    """Fail before any data loads on what the port does not run."""
-    if cfg.num_machines > 1 and world_size() != cfg.num_machines:
-        raise _not_ported(
-            f"num_machines={cfg.num_machines} without a torch.distributed "
-            "world of that size", "A8 step 3: the machine-list bootstrap")
-    check_supported(cfg)
-
-
 @contextlib.contextmanager
 def torchrun_world(device=None):
     """The device to train on, inside the world ``torchrun``'s
     environment describes (``RANK``, ``WORLD_SIZE`` > 1, ``LOCAL_RANK``,
-    ``MASTER_ADDR`` / ``MASTER_PORT``): gloo with ``device="cpu"``, else
-    NCCL with this rank on ``cuda:LOCAL_RANK``.  A world already up, or
-    none described, is left as it is and ``device`` passes through.  A
-    failed join raises; the joined world is left on the way out."""
+    ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``): gloo with
+    ``device="cpu"``, else this rank on ``cuda:<LOCAL_RANK % cards>``,
+    over NCCL where the host's ranks have a card each and over gloo where
+    they share one (parallel/multihost.py ``plan_backend``).  A world
+    already up, or none described, is left as it is and ``device``
+    passes through.  A failed join raises; the joined world is left on
+    the way out."""
+    from .parallel.multihost import plan_backend
+
     env = env_world()
     if env is None or torch.distributed.is_initialized():
         yield device
         return
     rank, size, local = env
-    cpu = device is not None and torch.device(device).type == "cpu"
-    dev = torch.device("cpu") if cpu else resolve_device(f"cuda:{local}")
-    init_world("gloo" if cpu else "nccl", rank, size, device=dev)
+    backend, dev = plan_backend({"local_index": local, "local_count": int(
+        os.environ.get("LOCAL_WORLD_SIZE", "1"))}, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    init_world(backend, rank, size, device=dev if backend == "nccl" else None)
     try:
         yield dev
     finally:
@@ -183,15 +183,30 @@ def run_train(cfg: Config, device=None) -> GBDT:
     a corrupt one or one written under another config raises), and the
     loop runs inside a ``CheckpointManager`` (``snapshot_freq``, the
     stop signals).  A preempted run raises ``TrainingPreempted`` and
-    writes no model."""
-    from .resilience import checkpoint as ckpt
+    writes no model.  With ``num_machines > 1`` the world is formed and
+    the config synced first (Network::Init and GlobalSyncUpByMin,
+    application.cpp:190-198; parallel/multihost.py), on the device the
+    rank's place gives it."""
+    from .parallel.multihost import config_world
 
-    _refuse_unported(cfg)
-    dev = resolve_device(device)
+    check_supported(cfg)
     # a preempted or poisoned run dumps its flight recorder next to the
     # model it was training (LGBM_TPU_FLIGHTREC_DIR overrides)
     flightrec.configure_dir(
         os.path.dirname(os.path.abspath(cfg.output_model)))
+    with config_world(cfg, device) as dev:
+        return _train(cfg, resolve_device(dev))
+
+
+def _train(cfg: Config, dev) -> GBDT:
+    """:func:`run_train`'s body, inside the world: load, train, save,
+    write the manifest.  A rank of a gang (resilience/gang.py, its env
+    set by the supervisor) announces readiness before the loop,
+    heartbeats every completed iteration and stamps its gang block into
+    every checkpoint, as the JAX package's cli.py:228-248 does."""
+    from .resilience import checkpoint as ckpt
+    from .resilience.gang import beacon_from_env
+
     t0 = time.perf_counter()
     train = BinnedDataset.from_file(cfg.data, cfg)
     Log.info(f"Finish loading data, use {time.perf_counter() - t0:.6f} "
@@ -230,9 +245,18 @@ def run_train(cfg: Config, device=None) -> GBDT:
         else:
             Log.warning("resume=true but no checkpoint found in "
                         f"{ckpt.checkpoint_dir(cfg)}; starting fresh")
+    beacon = beacon_from_env()
+    gang_block = heartbeat = None
+    if beacon is not None:
+        gang_block = beacon.gang_block()
+        heartbeat = beacon.heartbeat
+        beacon.ready()
+        if start_iter:
+            beacon.heartbeat(start_iter)
     start = time.perf_counter()
     with _profiled(cfg, dev), ckpt.CheckpointManager(
-            cfg, booster, best_score, best_iter) as ckmgr:
+            cfg, booster, best_score, best_iter, gang=gang_block,
+            heartbeat=heartbeat) as ckmgr:
         stop_iter = _train_loop(cfg, booster, valid_names, best_score,
                                 best_iter, start, start_iter, ckmgr)
     # the guard's parked counts drain before the save and the manifest
@@ -245,7 +269,8 @@ def run_train(cfg: Config, device=None) -> GBDT:
     atomic_write(cfg.output_model,
                  booster.save_model_to_string(num_iteration), checksum=True)
     Log.info(f"Finished training, saved model to {cfg.output_model}")
-    _write_train_manifest(cfg, booster, time.perf_counter() - start)
+    _write_train_manifest(cfg, booster, time.perf_counter() - start,
+                          start_iter)
     return booster
 
 
@@ -260,7 +285,7 @@ def run_train_many(cfg: Config, params: Dict[str, str],
     from .basic import Dataset
     from .engine import train_many
 
-    _refuse_unported(cfg)
+    check_supported(cfg)
     if cfg.resume or cfg.snapshot_freq > 0:
         # the JAX package's run_train_many does not read them: a knob
         # accepted without being read would be silently ignored
@@ -310,19 +335,77 @@ def _profiled(cfg: Config, dev):
     Log.info(f"Saved profiler trace to {path}")
 
 
-def _write_train_manifest(cfg: Config, booster: GBDT, train_s: float) -> None:
+def _rank_extra(first_iteration: int) -> dict:
+    """What a rank snapshot carries beyond telemetry: the kernel launches
+    and learner host syncs of this process, and the first iteration it
+    trained (a resumed rank's launches cover the trees from there)."""
+    from .learners import serial
+    from .ops import launch_counts
+
+    return {"kernel_launches": {k: v for k, v in launch_counts().items()
+                                if v},
+            "learner_host_syncs": serial.HOST_SYNCS,
+            "first_iteration": int(first_iteration)}
+
+
+def _write_train_manifest(cfg: Config, booster: GBDT, train_s: float,
+                          first_iteration: int = 0) -> None:
     """A RunManifest beside the saved model (``<output_model>.manifest
     .json``).  Best-effort: a failed manifest does not fail a finished
-    training run."""
-    try:
-        from .obs import memory as obs_memory
+    training run.
 
+    In a world of more than one rank (obs/dist.py, the JAX package's
+    cli.py:300-340) every rank publishes its telemetry snapshot into the
+    exchange dir (``LGBM_TPU_RANK_OBS_DIR`` or ``<manifest>.rankobs``);
+    rank 0 gathers, merges and writes the ONE manifest, with ``ranks[]``
+    and ``extra.distributed`` (merged counters, skew, stragglers); the
+    other ranks write none.  A gather that fails degrades to rank 0's
+    own manifest with ``gather_error`` on record.  A gang rank (an
+    independent single-process training) publishes its gang-stamped
+    snapshot under its formation rank for the supervisor's
+    train-fleet manifest."""
+    try:
+        from .obs import dist
+        from .obs import memory as obs_memory
+        from .resilience.gang import beacon_from_env
+
+        ranks: list = []
+        extra: dict = {}
+        beacon = beacon_from_env()
+        if beacon is not None:
+            dist.write_rank_snapshot(
+                os.environ.get("LGBM_TPU_RANK_OBS_DIR") or
+                dist.exchange_dir_for(manifest_path(cfg.output_model)),
+                dist.rank_snapshot(rank=beacon.rank, world=beacon.world,
+                                   extra=_rank_extra(first_iteration)))
+        if world_size() > 1:
+            xdir = dist.exchange_dir_for(manifest_path(cfg.output_model))
+            dist.write_rank_snapshot(xdir, dist.rank_snapshot(
+                extra=_rank_extra(first_iteration)))
+            if dist.process_index() != 0:
+                Log.info(f"rank {dist.process_index()}: published telemetry "
+                         f"snapshot to {xdir}; rank 0 writes the merged "
+                         "manifest")
+                telemetry.emit_if_json()
+                return
+            try:
+                snaps = dist.gather_rank_snapshots(xdir, world_size(),
+                                                   timeout_s=120.0)
+                ranks = dist.ranks_section(snaps)
+                extra["distributed"] = dist.merged_manifest_extra(
+                    dist.merge_snapshots(snaps))
+            except Exception as e:  # noqa: BLE001 — degrade, do not lose
+                Log.warning(
+                    f"rank-snapshot gather failed ({type(e).__name__}: "
+                    f"{str(e)[:200]}); writing a single-rank manifest")
+                extra["distributed"] = {
+                    "gather_error": f"{type(e).__name__}: {str(e)[:300]}"}
         manifest = RunManifest.collect(
             "cli.train", config=cfg,
             result={"num_trees": booster.num_trees,
                     "train_wall_s": round(train_s, 3),
                     "output_model": cfg.output_model},
-            per_tree_reservoir="tree_dispatch_s",
+            per_tree_reservoir="tree_dispatch_s", ranks=ranks, extra=extra,
             memory={"watermarks": obs_memory.watermarks()})
         path = manifest.write(manifest_path(cfg.output_model))
         Log.info(f"Wrote run manifest to {path}")
@@ -426,11 +509,32 @@ def run_serve_fleet(cfg: Config, device=None) -> int:
     return int(serve_fleet_from_config(cfg) or 0)
 
 
+def run_train_fleet(cfg: Config, device=None) -> int:
+    """``task=train_fleet`` (the JAX package's cli.py:538-546): the gang
+    supervisor (resilience/gang.py) — ``train_ranks`` ``task=train`` rank
+    processes with coordinated checkpoint barriers every
+    ``gang_barrier_every`` iterations, rolled back to the last common
+    barrier and re-formed when a rank dies or its heartbeat goes stale
+    (restart, then shrink past a repeat offender, under a restart
+    budget); a SIGTERM is forwarded to every rank and the supervisor
+    exits 75.  Rank 0's model is copied to ``output_model``.  The ranks
+    are ``python -m lightgbm_tpu_torch`` processes, which run on the
+    card: ``device`` must be the card (in process, ``GangSupervisor``
+    over ``ThreadRank`` jobs trains a CPU gang)."""
+    from .resilience.gang import train_fleet_from_config
+
+    if resolve_device(device).type != "cuda":
+        raise ValueError(
+            "task=train_fleet runs its ranks as python -m "
+            "lightgbm_tpu_torch processes, on the card; in process, "
+            "supervise ThreadRank jobs with device='cpu' instead")
+    return int(train_fleet_from_config(cfg))
+
+
 def main(argv: Optional[List[str]] = None, device=None) -> int:
     """main.cpp:4-22: 0 on success, 1 (with the message on stderr) on an
     error, 75 (``EXIT_PREEMPTED``) when a stop signal preempted training
-    after its checkpoint; what the port does not run raises
-    ``NotImplementedError``."""
+    after its checkpoint (or a gang after forwarding it)."""
     from .resilience import EXIT_PREEMPTED
     from .resilience.checkpoint import TrainingPreempted
 
@@ -451,12 +555,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         elif cfg.task == "serve_fleet":
             return run_serve_fleet(cfg, device)
         elif cfg.task == "train_fleet":
-            raise _not_ported("task=train_fleet",
-                              "A8 step 3: the gang supervisor")
+            return run_train_fleet(cfg, device)
         else:
             Log.fatal(f"Unknown task: {cfg.task!r}")
-    except NotImplementedError:
-        raise
     except TrainingPreempted as ex:
         # sysexits EX_TEMPFAIL: a supervisor relaunches with resume=true
         # and loses nothing.  The flight recorder dumps last, so its tail

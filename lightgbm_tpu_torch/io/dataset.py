@@ -60,20 +60,22 @@ _SIDE = ("weights", "query_boundaries", "init_score")
 def _distributed_rank(config: Config) -> Optional[int]:
     """This process's rank where ``num_machines > 1`` asks for a
     partitioned load (``is_pre_partition=false``), else None.  The load
-    needs a ``torch.distributed`` world of exactly ``num_machines``
-    ranks; without one it is refused: bringing a world up from a
-    machine list is ROADMAP A8 step 3."""
+    needs a ``torch.distributed`` world of exactly ``num_machines`` ranks,
+    which the CLI forms before it loads (from ``machine_list_file``, the
+    ``LGBM_TPU_COORDINATOR`` env or torchrun's; parallel/multihost.py);
+    without one it raises (the JAX package partitions as rank 0)."""
     if config.num_machines <= 1 or config.is_pre_partition:
         return None
     import torch.distributed as dist
 
     up = dist.is_available() and dist.is_initialized()
     if not up or dist.get_world_size() != config.num_machines:
-        raise NotImplementedError(
+        raise ValueError(
             f"distributed loading with num_machines={config.num_machines} "
-            "needs a torch.distributed world of that many ranks (e.g. "
-            "torchrun); starting one from a machine list is not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP queue A8 step 3)")
+            f"needs a torch.distributed world of {config.num_machines} "
+            "ranks: the CLI forms it from machine_list_file (or "
+            "LGBM_TPU_COORDINATOR / torchrun's env); in the API call "
+            "init_process_group first")
     return dist.get_rank()
 
 

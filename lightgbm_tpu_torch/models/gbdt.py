@@ -53,7 +53,8 @@ the whole dataset's bins with its rows as every tree's root row set.
 The parallel learners (``tree_learner`` data, feature, voting, grid;
 parallel/*) grow where a ``torch.distributed`` world of more than one
 rank is up (``_create_tree_learner``); every rank runs this boosting
-loop on the same data and grows the same trees.
+loop on the same data and grows the same trees, checked tree by tree by
+the desync sentinel (parallel/multihost.py).
 Depthwise and hybrid growth ignore histogram_pool_size with the JAX
 package's warning.  The lagged stop check (the port's stop check is
 eager), checkpoints and telemetry are not carried.
@@ -89,9 +90,11 @@ from ..parallel.data_parallel import (data_parallel_sharded,
 from ..parallel.feature_parallel import make_feature_parallel_grower
 from ..parallel.grid_parallel import grid_mesh, make_grid_parallel_grower
 from ..parallel.mesh import data_mesh, world_size
+from ..parallel.multihost import make_multihost_grower
 from ..parallel.voting_parallel import make_voting_parallel_grower
 from ..resilience import faults
 from ..resilience.guards import make_guard
+from ..resilience.retry import collective_deadline_s
 from .tree import (TREE_FIELDS, BinnedTrees, PackedTrees, Tree, binned_table,
                    empty_tree, finalize_thresholds_device,
                    pack_threshold_bounds, pack_trees)
@@ -257,7 +260,9 @@ class GBDT:
         the config names, each rank's share on this booster's device.  A
         rank's partition of a file (a load with ``num_machines > 1``)
         always grows data-parallel, its rows being its own: a serial
-        learner there would train on a fraction of the data."""
+        learner there would train on a fraction of the data.  Every
+        parallel learner grows under ``make_multihost_grower``: its
+        ``dist.grow.*`` spans and one desync-sentinel check a tree."""
         cfg = self.config
         tl = cfg.tree_learner
         W = world_size()
@@ -276,24 +281,28 @@ class GBDT:
         kw = dict(num_bins=self._num_bins, max_leaves=self.max_leaves,
                   hist_pool=self._hist_pool_slots(),
                   hist_dtype=self._acc_dtype)
+        mesh = data_mesh(device=self.device)
         if partitioned:
             if tl != "data":
                 Log.warning(f"tree_learner={tl} runs data-parallel on a "
                             "partitioned load (each rank holds its rows)")
-            return data_parallel_sharded(data_mesh(device=self.device),
-                                         growth=cfg.tree_growth, **kw)
-        if tl == "feature":
-            return make_feature_parallel_grower(
-                data_mesh(device=self.device), **kw)
-        if tl == "grid":
+            grow = data_parallel_sharded(mesh, growth=cfg.tree_growth, **kw)
+        elif tl == "feature":
+            grow = make_feature_parallel_grower(mesh, **kw)
+        elif tl == "grid":
             c = max(1, min(int(cfg.grid_feature_shards), W))
-            return make_grid_parallel_grower(
+            grow = make_grid_parallel_grower(
                 grid_mesh((W // c, c), device=self.device), **kw)
-        if tl == "voting":
-            return make_voting_parallel_grower(
-                data_mesh(device=self.device), top_k=int(cfg.top_k), **kw)
-        return make_data_parallel_grower(data_mesh(device=self.device),
-                                         growth=cfg.tree_growth, **kw)
+        elif tl == "voting":
+            grow = make_voting_parallel_grower(mesh, top_k=int(cfg.top_k),
+                                               **kw)
+        else:
+            grow = make_data_parallel_grower(mesh, growth=cfg.tree_growth,
+                                             **kw)
+        # the dist.grow.* spans and the desync sentinel of each tree
+        # (parallel/multihost.py), under the config's collective deadline
+        return make_multihost_grower(
+            grow, mesh, collective_deadline=collective_deadline_s(cfg))
 
     def set_base_row_mask(self, mask) -> None:
         """Train on the rows where ``mask`` is nonzero only, over the whole

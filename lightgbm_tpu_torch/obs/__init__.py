@@ -16,11 +16,12 @@ memory layer on PyTorch's allocator:
   owner-tagged census, watermarks and OOM post-mortems.
 * :mod:`~lightgbm_tpu_torch.obs.manifest` — ``RunManifest``.
 
-* :mod:`~lightgbm_tpu_torch.obs.dist` — the collective census of the
-  parallel learners (``record_collective_site``).
+* :mod:`~lightgbm_tpu_torch.obs.dist` — the cross-rank layer: the
+  collective census of the parallel learners, rank snapshots, their
+  merge with skew and straggler attribution, traced collectives and the
+  desync sentinel.
 
-Not ported yet: the rest of ``dist`` (the cross-rank layer, ROADMAP A8
-step 3), ``device_time`` (profiler phases) and ``memmodel`` (the
+Not ported yet: ``device_time`` (profiler phases) and ``memmodel`` (the
 footprint model), ROADMAP A10.
 """
 

@@ -16,9 +16,11 @@ can never grow the buffer past the cap.  The dump lock only serializes
 dumps (and the rare capacity changes) against each other.
 
 Dump triggers in the port: a serving dispatcher-thread crash, a refused
-hot-swap and a serving process's SIGTERM/SIGINT.  The rank in the file
-name is 0 unless :func:`set_rank` says otherwise: the port runs one
-process (a rank of a parallel run sets its own).
+hot-swap, a serving process's SIGTERM/SIGINT, a training preemption or
+non-finite abort, a detected desync and the gang supervisor's recoveries.
+The rank in the file name is obs/dist.py's ``process_index`` (the
+``torch.distributed`` world's, else ``LGBM_TPU_PROCESS_ID``, else 0)
+unless :func:`set_rank` says otherwise.
 
 The dump directory: ``LGBM_TPU_FLIGHTREC_DIR`` (read at import) wins;
 otherwise an entry point calls :func:`configure_dir` (next to the served
@@ -71,11 +73,18 @@ def set_rank(rank: Optional[int]) -> None:
 
 
 def _resolve_rank() -> int:
-    """The rank baked into the dump filename: the explicit override, or
-    0 (one process; the JAX package asks its obs/dist, ROADMAP A8 step 3)."""
+    """The rank baked into the dump filename: the explicit override,
+    else obs/dist.py's (the world's, else the launcher env, else 0).
+    Guarded: this can run in a signal handler on the way down, and a
+    failed rank lookup must never cost the post-mortem."""
     if _STATE.get("rank") is not None:
         return int(_STATE["rank"])  # type: ignore[arg-type]
-    return 0
+    try:
+        from .dist import process_index
+
+        return process_index()
+    except Exception:  # noqa: BLE001
+        return 0
 
 
 def record(kind: str, **fields) -> None:

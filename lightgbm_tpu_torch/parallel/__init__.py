@@ -7,8 +7,9 @@ device mesh of one process; the port's ranks are processes, one a
 device (NCCL) or several sharing one (gloo), or CPU processes (gloo).
 The collectives are ``torch.distributed``'s (parallel/mesh.py); each
 rank's histograms and searches run the port's kernels on its own rows
-or feature block.  The machine-list bootstrap of a world across hosts
-(``parallel/multihost``) is ROADMAP A8 step 3.
+or feature block.  ``parallel/multihost`` forms a world from a machine
+list (or the ``LGBM_TPU_COORDINATOR`` env), syncs the config across its
+ranks and wraps every parallel learner with the desync sentinel.
 """
 
 from .mesh import data_mesh, default_device_count  # noqa: F401

@@ -9,8 +9,9 @@ Copies of the JAX package's stdlib-only modules:
 * :mod:`~lightgbm_tpu_torch.resilience.faults` — deterministic fault
   injection (``LGBM_TPU_FAULT``) in the training loop (``kill_after_tree``,
   ``hang_after_tree``), the checkpoint writer, the guarded collective,
-  the atomic write, the hot-swap, the serve dispatch and the training
-  gradients (``nan_grads``).
+  the atomic write, the hot-swap, the serve dispatch, the training
+  gradients (``nan_grads``), a straggling rank (``delay_collective``) and
+  a diverging one (``desync_step``).
 * :mod:`~lightgbm_tpu_torch.resilience.retry` — bounded retry of
   transient failures, deadlines, the backoff schedule the fleet's
   supervisor restarts with, the recovery ladder.
@@ -24,9 +25,9 @@ And the PyTorch ports:
   signal).
 * :mod:`~lightgbm_tpu_torch.resilience.guards` — the non-finite guards
   of ``nonfinite_policy`` (raise, skip_tree, clip).
-
-The gang supervisor (``resilience/gang.py``, ``task=train_fleet``) is
-ROADMAP A8 step 3.
+* :mod:`~lightgbm_tpu_torch.resilience.gang` — the training gang
+  (``task=train_fleet``): supervised rank processes, coordinated
+  checkpoint barriers, rollback, restart and shrink.
 """
 
 from .atomic import (  # noqa: F401

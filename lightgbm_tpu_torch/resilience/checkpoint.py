@@ -180,12 +180,19 @@ def _restore_models(groups: List[dict], device) -> List:
 def save_checkpoint(path: str, booster, cfg, *, iteration: int,
                     best_score: Optional[Dict[tuple, float]] = None,
                     best_iter: Optional[Dict[tuple, int]] = None,
-                    prev_sha: Optional[str] = None) -> str:
+                    prev_sha: Optional[str] = None,
+                    gang: Optional[dict] = None) -> str:
     """Serialize the full training state of ``booster`` (a GBDT / DART)
     after ``iteration`` completed boosting iterations.  Reading the
     device buffers is a deliberate host sync (counted; its seconds are
     the span ``checkpoint.device_read``); the checkpoint cadence, not
-    the tree loop, pays it."""
+    the tree loop, pays it.
+
+    ``gang`` (optional) is the rank-topology block a gang member stamps
+    into the payload, under the JAX package's keys (``schema``,
+    ``gang_id``, ``slot``, ``rank``, ``world_size``, ``barrier_every``,
+    ``barrier_id``, ``barrier``): the supervisor's barrier math then
+    need not trust file names alone."""
     telemetry.host_sync()
     with telemetry.span("checkpoint.device_read"):
         groups = _host_models(booster.models)
@@ -238,6 +245,8 @@ def save_checkpoint(path: str, booster, cfg, *, iteration: int,
         },
         "telemetry": telemetry.get_telemetry().snapshot(),
     }
+    if gang is not None:
+        payload["gang"] = dict(gang)
     if hasattr(booster, "_drop_rng"):  # DART extras
         payload["dart"] = {
             "drop_rng": _enc_rng(booster._drop_rng),
@@ -397,10 +406,12 @@ class CheckpointManager:
     restored on exit.  ``after_iteration(it)`` is the single hook the
     loop calls: the ``kill_after_tree`` fault, a stop signal's
     checkpoint (raising :class:`TrainingPreempted`), a due snapshot,
-    the heartbeat, then the ``hang_after_tree`` fault."""
+    the heartbeat, then the ``hang_after_tree`` fault.  A gang member
+    (resilience/gang.py) passes its ``gang`` block, stamped into every
+    checkpoint with the write's ``barrier_id`` and ``barrier``."""
 
     def __init__(self, cfg, booster, best_score: Dict, best_iter: Dict,
-                 heartbeat=None):
+                 gang: Optional[dict] = None, heartbeat=None):
         self.cfg = cfg
         self.booster = booster
         self.best_score = best_score
@@ -408,7 +419,10 @@ class CheckpointManager:
         self.freq = int(getattr(cfg, "snapshot_freq", 0) or 0)
         self.dir = checkpoint_dir(cfg)
         self.enabled = self.freq > 0
-        # a liveness beacon a supervisor's heartbeat deadline watches
+        # gang membership: the static topology stamped into every
+        # checkpoint, and a liveness beacon the supervisor's heartbeat
+        # deadline watches
+        self.gang = dict(gang) if gang else None
         self.heartbeat = heartbeat
         self._stop_signum: Optional[int] = None
         self._old_handlers: Dict[int, object] = {}
@@ -484,11 +498,20 @@ class CheckpointManager:
             return None
         os.makedirs(self.dir, exist_ok=True)
         path = checkpoint_file(self.dir, completed)
+        gang_block = None
+        if self.gang is not None:
+            gang_block = dict(self.gang)
+            every = int(gang_block.get("barrier_every", 0) or self.freq or 1)
+            gang_block["barrier_id"] = completed
+            # barrier-aligned writes are the coordinated ones; a stop
+            # signal's checkpoint can land at any iteration and says so
+            gang_block["barrier"] = (completed % every == 0)
         read0 = _span_s("checkpoint.device_read")
         t0 = time.perf_counter()
         save_checkpoint(path, self.booster, self.cfg,
                         iteration=completed, best_score=self.best_score,
-                        best_iter=self.best_iter, prev_sha=self._last_sha)
+                        best_iter=self.best_iter, prev_sha=self._last_sha,
+                        gang=gang_block)
         secs = time.perf_counter() - t0
         read_s = _span_s("checkpoint.device_read") - read0
         size = os.path.getsize(path)

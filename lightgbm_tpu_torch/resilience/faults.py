@@ -2,9 +2,8 @@
 loop and its checkpoints, the atomic write, the serving hot-swap, the
 serving dispatch, the training gradients and the guarded collective.
 
-A copy of the JAX package's ``resilience/faults.py`` (stdlib only)
-without the hooks of ``obs/dist``.  ``LGBM_TPU_FAULT`` holds a
-comma-separated list of fault specs:
+A copy of the JAX package's ``resilience/faults.py`` (stdlib only).
+``LGBM_TPU_FAULT`` holds a comma-separated list of fault specs:
 
 ==========================  ====================================================
 spec                        injection point
@@ -38,13 +37,18 @@ spec                        injection point
                             every class becomes NaN and its hessian +inf
                             (models/gbdt.py) — exercises the non-finite
                             guards (resilience/guards.py)
+``delay_collective:R:MS``   rank R sleeps MS milliseconds before every
+                            traced collective (obs/dist.py) — its peers
+                            wait for it at the barrier, and the merged
+                            manifest must name R as the straggler
+``desync_step:R``           rank R perturbs its desync-sentinel
+                            fingerprint once (obs/dist.py) — every rank
+                            must stop with a DesyncError naming R
 ==========================  ====================================================
 
-The JAX package's ``delay_collective`` and ``desync_step`` belong to
-``obs/dist``, not ported, and raise ``NotImplementedError`` naming ROADMAP
-A8 step 3.  The env var is read once at import; tests inject in-process via
-:func:`set_fault` / :func:`clear_faults`.  ``*_once`` faults
-self-consume.
+The env var is read once at import; tests inject in-process via
+:func:`set_fault` / :func:`clear_faults`.  ``*_once`` faults and
+``desync_step`` self-consume.
 """
 
 from __future__ import annotations
@@ -55,9 +59,7 @@ from typing import Dict, Optional
 
 _VALID = ("kill_after_tree", "hang_after_tree", "corrupt_checkpoint",
           "fail_collective_once", "fail_write_once", "corrupt_model",
-          "oom_dispatch", "nan_grads")
-# the JAX package's kinds whose injection points (obs/dist) are not ported
-_NOT_PORTED = ("delay_collective", "desync_step")
+          "oom_dispatch", "nan_grads", "delay_collective", "desync_step")
 
 
 class InjectedFault(Exception):
@@ -89,11 +91,6 @@ def _parse(spec: str) -> Dict[str, Optional[str]]:
         if not part:
             continue
         kind, _, param = part.partition(":")
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"LGBM_TPU_FAULT kind {kind!r} is not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP queue A8 step 3: "
-                "obs/dist)")
         if kind not in _VALID:
             raise ValueError(
                 f"unknown LGBM_TPU_FAULT kind {kind!r} "
@@ -210,6 +207,61 @@ def maybe_fail_collective() -> None:
         _note("fail_collective_once")
         raise InjectedCollectiveError(
             "UNAVAILABLE: injected transient collective failure")
+
+
+def _current_rank() -> int:
+    """This process's rank as obs/dist.py resolves it (the world's,
+    else the launcher env, else 0).  Guarded: a fault hook degrades to
+    rank 0, it does not raise."""
+    try:
+        from ..obs.dist import process_index
+
+        return process_index()
+    except Exception:  # noqa: BLE001
+        return 0
+
+
+def maybe_delay_collective(rank=None) -> None:
+    """obs/dist.traced_collective hook: where the active fault names
+    THIS rank, sleep its milliseconds before the barrier, so every peer
+    sees the delay as barrier wait attributable to this rank.
+    Recurring: a straggling rank straggles at every collective."""
+    p = fault_active("delay_collective")
+    if p is None:
+        return
+    want_rank, _, ms = p.partition(":")
+    try:
+        want, delay_ms = int(want_rank), float(ms or 0)
+    except ValueError:
+        raise ValueError(
+            f"delay_collective wants '<rank>:<ms>', got {p!r}") from None
+    me = _current_rank() if rank is None else int(rank)
+    if me != want or delay_ms <= 0:
+        return
+    import time
+
+    _note("delay_collective", rank=me, delay_ms=delay_ms)
+    time.sleep(delay_ms / 1000.0)
+
+
+def maybe_desync_step(rank=None) -> bool:
+    """Desync-sentinel hook (obs/dist.DesyncSentinel.local_row): where
+    the active fault names THIS rank, consume it and return True; the
+    sentinel then perturbs its fingerprint once, and every rank's
+    verify names this rank."""
+    p = fault_active("desync_step")
+    if p is None:
+        return False
+    try:
+        want = int(p)
+    except ValueError:
+        raise ValueError(f"desync_step wants '<rank>', got {p!r}") from None
+    me = _current_rank() if rank is None else int(rank)
+    if me != want:
+        return False
+    _consume("desync_step")
+    _note("desync_step", rank=me)
+    return True
 
 
 def maybe_corrupt_checkpoint(path: str) -> bool:

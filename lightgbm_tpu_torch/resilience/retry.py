@@ -19,11 +19,14 @@ Two production failure shapes this covers:
   any, exit nonzero — the supervisor restarts it.
 
 :func:`backoff_delay` is also the restart schedule of the serving
-fleet's supervisor (serving/supervisor.py).  No collective of the port
-calls :func:`guarded_collective` yet: the parallel learners' collectives
-run under their process group's deadline (parallel/mesh.py), and the
-gang supervisor (ROADMAP A8 step 3) will.  The classifier works on message text, so the module imports
-neither torch nor numpy.
+fleet's supervisor (serving/supervisor.py) and the training gang's
+(resilience/gang.py), whose recovery ladder is
+:class:`RecoveryEscalation`.  :func:`guarded_collective` carries the
+traced collectives of obs/dist.py (the config sync and the desync
+sentinel, under ``collective_deadline_s``); the parallel learners' own
+collectives run under their process group's deadline (parallel/mesh.py).
+The classifier works on message text, so the module imports neither
+torch nor numpy.
 """
 
 from __future__ import annotations

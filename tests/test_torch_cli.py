@@ -295,7 +295,11 @@ def test_refused_tasks_name_their_item(tmp_path, argv, item, capsys):
     checkpoint of iteration 5 beside the model.  ``task=serve_fleet``
     (A11) reaches the fleet's entry, which needs a model and the card
     (its replicas are ``python -m lightgbm_tpu_torch`` processes).
-    ``task=train_fleet`` names A8 alone."""
+    ``task=train_fleet`` (A8) reaches the gang's entry, which needs
+    checkpoint barriers and the card (its ranks are ``python -m
+    lightgbm_tpu_torch`` processes); ``num_machines=2`` (A8) forms no
+    world without a machine list, so the load refuses to train one
+    rank's partition alone."""
     train, valid, keys = _problem(tmp_path, "binary", n=300)
     conf = _conf(tmp_path, train, valid, keys)
     if item == "A3":
@@ -333,8 +337,19 @@ def test_refused_tasks_name_their_item(tmp_path, argv, item, capsys):
         assert "on the card" in capsys.readouterr().err
         assert not os.path.exists(tmp_path / "m.txt")
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
-        tcli.main([f"config={conf}", *argv], device="cpu")
+    assert item == "A8"
+    assert tcli.main([f"config={conf}", *argv], device="cpu") == 1
+    err = capsys.readouterr().err
+    if argv[0] == "task=train_fleet":
+        assert "on the card" in err
+        with pytest.raises(ValueError, match="gang_barrier_every"):
+            from lightgbm_tpu_torch.resilience.gang import \
+                train_fleet_from_config
+
+            train_fleet_from_config(tcli.Config.from_dict(
+                tcli.load_parameters([f"config={conf}", *argv])))
+    else:
+        assert "world of 2 ranks" in err
     assert not os.path.exists(tmp_path / "m.txt")
 
 

@@ -199,8 +199,11 @@ def test_enable_sparse_false_densifies(tmp_path):
 
 
 def test_distributed_loading_raises(tmp_path):
+    """A partitioned load needs a world of ``num_machines`` ranks (the
+    CLI forms it first); without one it refuses to load one rank's
+    partition alone."""
     path = _write(tmp_path / "d.csv", _table(100))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="world of 2 ranks"):
         BinnedDataset.from_file(path, Config(num_machines=2))
 
 

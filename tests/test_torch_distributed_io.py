@@ -9,7 +9,8 @@ the module, every rank killed past a deadline).
 * ``from_file`` with ``num_machines=2`` keeps each rank's partition
   (query by query for ranked data) with the whole file's mappers: the
   JAX package's ``from_file(..., rank=r)`` bitwise.  Without a world of
-  that size it raises naming ROADMAP A8 step 3.
+  that size it raises (the CLI forms the world first, from a machine
+  list or torchrun's env: tests/test_torch_multihost.py).
 * ``lt.train`` with ``tree_learner=data`` and ``voting`` (degenerate
   ``top_k``): the model text is the same on both ranks and, with a
   custom objective whose gradients are integers (every sum exact), the
@@ -181,7 +182,7 @@ def test_partitioned_ranked_load_keeps_queries(world, files):
 
 def test_num_machines_without_world_names_step_3(files):
     assert not dist.is_initialized()
-    with pytest.raises(NotImplementedError, match="A8 step 3"):
+    with pytest.raises(ValueError, match="world of 2 ranks"):
         BinnedDataset.from_file(str(files / "train.csv"),
                                 Config(num_machines=2))
 

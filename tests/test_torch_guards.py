@@ -203,10 +203,11 @@ def test_nan_grads_fault_is_ported_and_the_rest_still_refused():
     assert torch.isnan(pg[:, 0]).all() and torch.isinf(ph[:, 0]).all()
     assert torch.equal(g, torch.zeros(2, 4))  # copies, not in place
     assert faults.poison_grads(g, h, 2) == (g, h)  # fires once
-    # the checkpoint faults are ported with the checkpoints (A9); the
-    # collective straggler and desync faults go with obs/dist (A8)
+    # the checkpoint faults are ported with the checkpoints (A9), the
+    # collective straggler and desync faults with obs/dist (A8 step 3):
+    # every kind of the JAX package parses now
     faults.set_fault("corrupt_checkpoint")
     assert faults.fault_active("corrupt_checkpoint") == ""
-    for kind in ("delay_collective:0:5", "desync_step:0"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            faults.set_fault(kind)
+    faults.set_fault("delay_collective:0:5,desync_step:0")
+    assert faults.fault_active("delay_collective") == "0:5"
+    assert faults.fault_active("desync_step") == "0"
