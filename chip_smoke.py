@@ -329,7 +329,7 @@ git-ignored ``build/smoke_files``):
    split; AUC within +-0.005 of the float32 hybrid reference, C9), with
    the plain versions made to raise; then
    2**24 + 2**20 = 17,825,792 bench-shaped rows drawn on the card: float32
-   refused naming hist_dtype=float64, float64 trains 3 leaf-wise and 2
+   refused naming hist_dtype=float64, float64 trains 2 leaf-wise and 2
    depthwise trees on the float64 kernels only, every leaf count equal to
    the rows reaching it (exact, and its float32 rounding), K1-f64's root
    counts summing to the rows for every feature and its sums equal to
@@ -443,6 +443,20 @@ git-ignored ``build/smoke_files``):
    (both stop naming rank 1 at iteration 1).  The rank children's
    launches are added to the kernels' record as ``multihost_launches``.
 
+28. The rest of obs (after phase 22, on the bench data; (b) after phase
+   27, on phase 19's files): (a) ``obs/device_time.trace_phases`` around
+   3 trees of a mega booster at the bench width (launches and host syncs
+   exactly the route's), the phase buckets beside per-kernel sums, >= 90 %
+   of the trace's kernel time in named phases and the buckets summing to
+   its device time within 1 %; ``oom_dispatch`` at ``train_one_iter``
+   leaving an ``oom`` post-mortem with the census and the memory model's
+   prediction; the census's ``dataset`` and ``scores`` owners within
+   max(20 %, 8 KiB) of ``obs/memmodel``; (b) one ``task=train
+   profile=true`` CLI run (3 trees) whose manifest's ``phases`` has
+   histogram, partition and split-search seconds; (c) every earlier run's
+   measured peak beside the model's largest training phase, held within
+   20 % on mega, record, order, float64 leaf-wise and forest (d).
+
 The seconds each phase took are printed before the result.
 
 Every phase must pass or the script exits non-zero without a result.  The
@@ -454,6 +468,7 @@ exits non-zero.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1523,6 +1538,9 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
         torch.cuda.synchronize()
         del warm
         booster = lt.Booster(params=params, train_set=train_set)
+        # earlier runs' boosters sit in reference cycles until a
+        # collection: the peak is this run's only after one
+        gc.collect()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         torch.cuda.synchronize()
@@ -1535,6 +1553,7 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
         syncs, recomputes = serial.HOST_SYNCS, serial.POOL_RECOMPUTES
         levels, level_splits = depthwise.LEVELS, depthwise.LEVEL_SPLITS
         peak = torch.cuda.max_memory_allocated()
+        mm = booster._gbdt._memmodel_params()  # phase 28's memory model
     trees = booster._gbdt.models
     leaves = [t.num_leaves for t in trees]
     slots = booster._gbdt._hist_pool_slots()
@@ -1587,7 +1606,7 @@ def phase_main_path(torch, lt, route, params, train_set, valid_set, Xv):
     return dict(counts=counts, s_per_tree=elapsed / TREES,
                 auc=(train_auc, valid_auc), syncs_per_tree=syncs / TREES,
                 peak=peak, leaves=leaves, recomputes=recomputes,
-                text=booster.model_to_string())
+                text=booster.model_to_string(), mm=mm)
 
 
 # --------------------------------------------------------------- phase 9
@@ -2937,6 +2956,7 @@ def _forest_run(torch, fn, rounds, profiled=0):
     from lightgbm_tpu_torch.profile_slice import _busy_us
 
     torch.cuda.synchronize()
+    gc.collect()  # earlier runs' boosters in reference cycles
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -3015,6 +3035,8 @@ def phase_forest(torch, lt, params, train_set, cv_run):
     with route_env("order"):
         lanes, rec_l = _forest_run(torch, many(plist, "on"), FOREST_ROUNDS,
                                    profiled=FOREST_PROFILED)
+        rec_l["mm"] = dict(lanes[0]._gbdt._memmodel_params(),
+                           forest_batch=len(lanes))
         seq, rec_s = _forest_run(torch, many(plist, "off"), FOREST_ROUNDS,
                                  profiled=FOREST_PROFILED)
     with route_env("mega"):
@@ -3068,6 +3090,8 @@ def phase_forest(torch, lt, params, train_set, cv_run):
     with route_env("order"):
         w_on, rec_won = _forest_run(torch, many(wide, "on", train_set),
                                     FOREST_WIDE_ROUNDS)
+        rec_won["mm"] = dict(w_on[0]._gbdt._memmodel_params(),
+                             forest_batch=len(w_on))
         w_off, rec_woff = _forest_run(torch, many(wide, "off", train_set),
                                       FOREST_WIDE_ROUNDS)
     same_w = _texts(w_on) == _texts(w_off)
@@ -3717,7 +3741,7 @@ def phase_dart(torch, lt, params, train_set, valid_set, Xv,
 # depthwise AUC is held to AUC_REF["depthwise"], the float32 reference at
 # as many trees.
 ENVELOPE_ROWS = (1 << 24) + (1 << 20)  # past the float32 count envelope
-ENVELOPE_TREES = {"leafwise": 3, "depthwise": 2}
+ENVELOPE_TREES = {"leafwise": 2, "depthwise": 2}
 ENVELOPE_BLOCK = 1 << 20  # rows drawn at a time
 F64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores
 # the float64 histograms' sorted design, before the walk, as an earlier
@@ -4212,7 +4236,7 @@ def _raw_walks(torch, gb, ids, X):
 
 def _envelope(torch, lt, params):
     """2**24 + 2**20 bench-shaped rows: float32 refused naming
-    hist_dtype=float64; float64 trains 3 leaf-wise and 2 depthwise trees,
+    hist_dtype=float64; float64 trains 2 leaf-wise and 2 depthwise trees,
     only on the float64 kernels, with every count exact; K1-f64's root
     counts and sums against host float64 sums."""
     from lightgbm_tpu_torch.learners import depthwise, serial
@@ -4377,7 +4401,9 @@ def phase_f64(torch, lt, params, train_set, valid_set, Xv, order):
                          + lw["counts"]["K3-f64 step"],
                          root_launches=lw["counts"]["K3-f64"],
                          step_launches=lw["counts"]["K3-f64 step"])
-    return rec, env
+    runs = {"f64-leafwise": lw, "f64-depthwise": dw, "f64-pooled": pw,
+            "f64-hybrid": hw}
+    return rec, env, runs
 
 
 # ----------------------------------------------------------------- phase 18
@@ -7073,6 +7099,220 @@ def phase_multihost(torch, lt, files):
     return _mh_launch_sum(snaps)
 
 
+# -------------------------------------------------------------- phase 28
+OBS_TREES = 3  # trees traced on the mega route, and of the profiled CLI run
+OBS_DIR = os.path.join(ROOT, "build", "smoke_obs")
+# the runs whose measured peak the memory model must meet within
+# max(20 %, 8 KiB); the others' ratios are printed
+MEM_HELD = ("mega", "record", "order", "f64-leafwise", "forest d")
+GROW_PHASES = ("histogram", "partition", "split-search")
+
+
+def _kernel_name(name: str) -> str:
+    """A demangled kernel signature's function name."""
+    head = re.sub(r"<.*", "", name.split("(")[0]).replace("void ", "")
+    return head.strip().split("::")[-1] or name
+
+
+def _kernel_sums(events, trees):
+    """Per-kernel device ms a tree and launches a tree of a trace, the
+    largest first (profile_slice's ``kernel_ms_per_tree``)."""
+    from lightgbm_tpu_torch.obs import device_time as dt
+
+    sums = {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") == "kernel":
+            k = _kernel_name(str(ev.get("name", "")))
+            ms, n = sums.get(k, (0.0, 0))
+            sums[k] = (ms + float(ev["dur"]) / 1e3, n + 1)
+    return [(k, round(ms / trees, 4), n / trees,
+             dt.classify_event(k) or "unattributed")
+            for k, (ms, n) in sorted(sums.items(), key=lambda kv: -kv[1][0])]
+
+
+def _obs_oom(torch, booster, mm):
+    """``oom_dispatch`` at ``train_one_iter`` on the card: a flight-recorder
+    dump whose tail is ``oom`` with the census (a ``dataset`` owner) and
+    the memory model's prediction for the booster's shape, ``oom.train``
+    up by one, and the next iteration trains."""
+    from lightgbm_tpu_torch.obs import flightrec, memmodel, telemetry
+    from lightgbm_tpu_torch.resilience import faults
+
+    dump_dir = os.path.join(OBS_DIR, "flightrec")
+    os.makedirs(dump_dir, exist_ok=True)
+    tel = telemetry.get_telemetry()
+    before = tel.counter("oom.train")
+    flightrec.set_dump_dir(dump_dir)
+    flightrec.reset()
+    faults.set_fault("oom_dispatch")
+    try:
+        booster.update()
+        raised = False
+    except faults.InjectedResourceExhausted:
+        raised = True
+    finally:
+        faults.clear_faults()
+        flightrec.set_dump_dir(None)
+    dumps = sorted(f for f in os.listdir(dump_dir) if f.endswith(".json"))
+    check(raised and dumps, "obs: oom_dispatch at training left no dump")
+    with open(os.path.join(dump_dir, dumps[0])) as fh:
+        tail = json.load(fh)["events"][-1]
+    pred = memmodel.predict(**mm)
+    by_owner = tail["census"]["by_owner"]
+    say(f"[obs oom] tail kind={tail['kind']} where={tail['where']} "
+        f"census by_owner={json.dumps(by_owner)} predicted_peak_bytes="
+        f"{tail['predicted_peak_bytes']} hbm_bytes_in_use="
+        f"{tail['hbm']['hbm_bytes_in_use']} oom.train "
+        f"{before} -> {tel.counter('oom.train')}")
+    check(tail["kind"] == "oom" and "dataset" in by_owner
+          and tail["predicted_peak_bytes"] == pred["peak_bytes"]
+          and tel.counter("oom.train") == before + 1,
+          "obs: the training OOM post-mortem lacks its census, prediction "
+          "or count")
+    trees = booster.num_trees()
+    booster.update()
+    check(booster.num_trees() == trees + 1,
+          "obs: training did not go on after the injected OOM")
+
+
+def phase_obs(torch, lt, params, train_set, peaks):
+    """Phase 28 (a) and (c): ``trace_phases`` around OBS_TREES trees of
+    a mega booster at the bench width (its launches and host syncs
+    exactly the route's), the buckets beside per-kernel sums, >= 90 % of
+    the kernel time in named phases and the buckets summing to the
+    trace's device time within 1 %; the injected training OOM; the census
+    against the memory model; each earlier run's measured peak against
+    the model's largest training phase (``peaks``: run -> (peak bytes,
+    the booster's ``_memmodel_params``))."""
+    from lightgbm_tpu_torch.learners import serial
+    from lightgbm_tpu_torch.obs import device_time as dt
+    from lightgbm_tpu_torch.obs import memmodel, memory
+    from lightgbm_tpu_torch.ops import launch_counts
+
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    # ---- (a) the trace's buckets on the default route
+    with route_env("mega"):
+        booster = lt.Booster(params=params, train_set=train_set)
+        booster.update()  # a warm tree outside the trace
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with dt.trace_phases(OBS_DIR) as traced:
+            for _ in range(OBS_TREES):
+                booster.update()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, syncs = launch_counts(), serial.HOST_SYNCS
+        mm = booster._gbdt._memmodel_params()
+    trees = booster._gbdt.models[1:]
+    splits = sum(t.num_leaves - 1 for t in trees)
+    want = dict.fromkeys(counts, 0)
+    want.update({"K1'": OBS_TREES, "K3": OBS_TREES, "K8": splits,
+                 "K7": splits})
+    check(counts == want and syncs == 2 * OBS_TREES + splits,
+          f"obs: the traced trees' launches {counts} / {syncs} host syncs "
+          f"are not the mega route's {want} / {2 * OBS_TREES + splits}")
+    check(traced.path is not None, "obs: no trace was written")
+    t0 = time.perf_counter()
+    events = dt.load_trace_events(traced.path)
+    dev_s = dt.device_seconds(events)
+    kern_s = dt.device_seconds(events, ("kernel",))
+    kern = dt.bucket_events(events, cats=("kernel",))
+    named = sum(v for k, v in kern.items() if k != "unattributed")
+    total = sum(traced.phases.values())
+    read_s = time.perf_counter() - t0
+    say(f"[obs a] {OBS_TREES} mega trees traced in {wall:.3f}s "
+        f"({splits} splits; launches and host syncs the route's), trace "
+        f"{os.path.getsize(traced.path)} bytes, {len(events)} events, "
+        f"read and bucketed in {read_s:.3f}s; device ms a tree "
+        f"{dev_s * 1e3 / OBS_TREES:.4f}, kernels {kern_s * 1e3 / OBS_TREES:.4f}"
+        f"; buckets ms a tree " + " ".join(
+            f"{k}={v * 1e3 / OBS_TREES:.4f}"
+            for k, v in sorted(traced.phases.items())) +
+        f"; kernel time in named phases {named / max(kern_s, 1e-12):.4f}")
+    for k, ms, n, phase in _kernel_sums(events, OBS_TREES)[:10]:
+        say(f"[obs a kernel] {k}: {ms:.4f} ms a tree, {n:.1f} launches a "
+            f"tree -> {phase}")
+    check(kern_s > 0 and named >= 0.9 * kern_s,
+          f"obs: {named:.6f}s of {kern_s:.6f}s kernel time in named phases")
+    check(abs(total - dev_s) <= 0.01 * dev_s,
+          f"obs: the buckets sum to {total:.6f}s, the trace's device time "
+          f"is {dev_s:.6f}s")
+    check(all(traced.phases.get(p, 0) > 0 for p in GROW_PHASES),
+          f"obs: a grow phase has no device time: {traced.phases}")
+
+    # ---- the injected OOM at training, and the census against the model
+    _obs_oom(torch, booster, mm)
+    gc.collect()
+    census = memory.live_buffer_census()["by_owner"]
+    comp = memmodel.predict(**mm)["components"]
+    got_ds = census.get("dataset", {}).get("bytes", 0)
+    got_sc = census.get("scores", {}).get("bytes", 0)
+    model_sc = comp["scores"] + comp["bag_mask"]
+    say(f"[obs census] dataset {got_ds} bytes (model {comp['dataset']}, "
+        f"ratio {comp['dataset'] / max(got_ds, 1):.4f}); scores + bag "
+        f"{got_sc} (model {model_sc}, ratio {model_sc / max(got_sc, 1):.4f})"
+        f"; by_owner={json.dumps(census)}")
+    check(memmodel.within_tolerance(comp["dataset"], got_ds)
+          and memmodel.within_tolerance(model_sc, got_sc),
+          "obs: the census's dataset / scores owners are outside "
+          "max(20 %, 8 KiB) of the model")
+    del booster, traced, events
+
+    # ---- (c) each run's measured peak against the model
+    off = []
+    for run, (peak, params_mm) in peaks.items():
+        pred = memmodel.predict(**params_mm)
+        phase, bytes_ = memmodel.training_peak(pred)
+        limiter = memmodel.limiting_component(pred)
+        held = run in MEM_HELD
+        ok = memmodel.within_tolerance(bytes_, peak)
+        say(f"[obs memory] {run}: predicted {bytes_} bytes ({phase}; "
+            f"routing={params_mm['routing']} growth={params_mm['growth']} "
+            f"pool_slots={params_mm['pool_slots']} forest_batch="
+            f"{params_mm.get('forest_batch', 1)}) measured {peak} ratio "
+            f"{bytes_ / peak:.4f}; largest component {limiter[0]} "
+            f"{limiter[1]}; {'held' if held else 'printed'}"
+            f"{'' if ok else ' (outside 20 %)'}")
+        if held and not ok:
+            off.append(run)
+    check(not off, f"obs: the memory model is outside 20 % of {off}")
+
+
+def phase_obs_cli(torch, files):
+    """Phase 28 (b): one ``task=train profile=true`` CLI run on phase 19's
+    train.conf (OBS_TREES trees, no valid file): its manifest's
+    ``phases`` (the trace this run wrote) has positive histogram,
+    partition and split-search seconds, its ``per_tree`` the dispatch
+    reservoir."""
+    from lightgbm_tpu_torch import cli
+
+    conf = os.path.join(FILES_DIR, "train.conf")
+    check(os.path.exists(conf) and os.path.exists(files["train"]),
+          "obs cli: phase 19's files are gone")
+    prof = os.path.join(OBS_DIR, "prof")
+    out = os.path.join(OBS_DIR, "model-profiled.txt")
+    t0 = time.perf_counter()
+    load_s, train_s = _run_cli(torch, cli, [
+        f"config={conf}", f"output_model={out}", f"num_trees={OBS_TREES}",
+        "valid_data=", "profile=true", f"profile_dir={prof}"])
+    wall = time.perf_counter() - t0
+    with open(out + ".manifest.json") as fh:
+        man = json.load(fh)
+    phases, per_tree = man["phases"], man["per_tree"]
+    traces = sorted(os.listdir(prof))
+    say(f"[obs b] task=train profile=true, {OBS_TREES} trees: wall "
+        f"{wall:.3f}s load_s={load_s:.3f} train_s={train_s:.3f} (profiled)"
+        f"; trace files {traces}; manifest phases (device s) "
+        f"{json.dumps(phases, sort_keys=True)}; per_tree "
+        f"{json.dumps(per_tree, sort_keys=True)}")
+    check(all(phases.get(p, 0) > 0 for p in GROW_PHASES),
+          f"obs cli: the manifest's phases lack a grow phase: {phases}")
+    check(per_tree.get("count", 0) >= OBS_TREES,
+          f"obs cli: per_tree {per_tree}")
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -7134,7 +7374,15 @@ def main() -> int:
                         api.pop("cv_run"))
     dart = timed("dart", phase_dart, torch, lt, *data,
                  routes["mega"]["s_per_tree"])
-    f64, _ = timed("f64", phase_f64, torch, lt, *data, routes["order"])
+    f64, _, f64_runs = timed("f64", phase_f64, torch, lt, *data,
+                             routes["order"])
+    peaks = {r: (m["peak"], m["mm"]) for r, m in routes.items()}
+    peaks.update({r: (m["peak"], m["mm"]) for r, m in f64_runs.items()})
+    for tag, rec in (("forest b lanes", forest_main["b"][0]),
+                     ("forest d", forest_main["d"][0])):
+        peaks[tag] = (rec["peak"], rec["mm"])
+    timed("obs", phase_obs, torch, lt, *data[:2], peaks)
+    del f64_runs
     params, train_set, valid_set, Xv = data
     reset_counts()
     served, one_call, p1 = timed("predict", phase_predict, torch, lt, params,
@@ -7152,6 +7400,7 @@ def main() -> int:
     timed("forest_cli", phase_forest_cli, torch, lt, files)
     timed("resilience", phase_resilience, torch, lt, files)
     mh_n = timed("multihost", phase_multihost, torch, lt, files)
+    timed("obs_cli", phase_obs_cli, torch, files)
     timed("capi", phase_capi, torch, lt, params, routes["mega"], files)
     del files
     sparse, s1_launches = timed("sparse", phase_sparse, torch, lt)

@@ -9,7 +9,9 @@ merged over a config file (argv wins, application.cpp:46-104), then
   train with the per-iteration log, metric output every ``metric_freq``
   and early stopping (under a ``torch.profiler`` trace into
   ``profile_dir`` with ``profile=true``), save the model (atomically,
-  with its ``.sha256`` sidecar) and write a run manifest beside it;
+  with its ``.sha256`` sidecar) and write a run manifest beside it (the
+  trace's device seconds a phase in its ``phases``,
+  obs/device_time.py);
 * ``task=predict`` (application.cpp:242-256): stream ``data`` through the
   batch tier (serving/batch.py) into ``output_result``;
 * ``task=serve``: the online service (serving/server.py
@@ -254,7 +256,7 @@ def _train(cfg: Config, dev) -> GBDT:
         if start_iter:
             beacon.heartbeat(start_iter)
     start = time.perf_counter()
-    with _profiled(cfg, dev), ckpt.CheckpointManager(
+    with _profiled(cfg, dev) as trace, ckpt.CheckpointManager(
             cfg, booster, best_score, best_iter, gang=gang_block,
             heartbeat=heartbeat) as ckmgr:
         stop_iter = _train_loop(cfg, booster, valid_names, best_score,
@@ -270,7 +272,7 @@ def _train(cfg: Config, dev) -> GBDT:
                  booster.save_model_to_string(num_iteration), checksum=True)
     Log.info(f"Finished training, saved model to {cfg.output_model}")
     _write_train_manifest(cfg, booster, time.perf_counter() - start,
-                          start_iter)
+                          start_iter, trace.get("path"))
     return booster
 
 
@@ -316,22 +318,23 @@ def _profiled(cfg: Config, dev):
     """``profile=true``: a ``torch.profiler`` trace of the training loop
     (host, and the card's kernels on CUDA) written into ``profile_dir``
     as a Chrome trace (the JAX CLI's ``jax.profiler`` trace,
-    lightgbm_tpu/cli.py:218-226); no-op otherwise."""
+    lightgbm_tpu/cli.py:218-226); no-op otherwise.  Yields a dict that
+    holds the trace's ``path`` once it is written."""
+    trace: dict = {}
     if not cfg.profile:
-        yield
+        yield trace
         return
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.device(dev).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    Log.info("profile=true: the manifest's phase breakdown from the trace "
-             "is not ported (ROADMAP A10)")
     with profile(activities=acts) as prof:
-        yield
+        yield trace
     os.makedirs(cfg.profile_dir, exist_ok=True)
     path = os.path.join(cfg.profile_dir, f"train.{os.getpid()}.trace.json")
     prof.export_chrome_trace(path)
+    trace["path"] = path
     Log.info(f"Saved profiler trace to {path}")
 
 
@@ -349,10 +352,14 @@ def _rank_extra(first_iteration: int) -> dict:
 
 
 def _write_train_manifest(cfg: Config, booster: GBDT, train_s: float,
-                          first_iteration: int = 0) -> None:
+                          first_iteration: int = 0,
+                          trace_path: Optional[str] = None) -> None:
     """A RunManifest beside the saved model (``<output_model>.manifest
     .json``).  Best-effort: a failed manifest does not fail a finished
-    training run.
+    training run.  Its ``phases`` are the device seconds a phase of the
+    trace this run wrote (``trace_path``, ``profile=true``;
+    obs/device_time.py), its ``per_tree`` the ``tree_dispatch_s``
+    reservoir ``GBDT.train_one_iter`` records.
 
     In a world of more than one rank (obs/dist.py, the JAX package's
     cli.py:300-340) every rank publishes its telemetry snapshot into the
@@ -367,8 +374,11 @@ def _write_train_manifest(cfg: Config, booster: GBDT, train_s: float,
     try:
         from .obs import dist
         from .obs import memory as obs_memory
+        from .obs.device_time import phase_breakdown_from_trace
         from .resilience.gang import beacon_from_env
 
+        phases = (phase_breakdown_from_trace(trace_path) if trace_path
+                  else {})
         ranks: list = []
         extra: dict = {}
         beacon = beacon_from_env()
@@ -405,7 +415,8 @@ def _write_train_manifest(cfg: Config, booster: GBDT, train_s: float,
             result={"num_trees": booster.num_trees,
                     "train_wall_s": round(train_s, 3),
                     "output_model": cfg.output_model},
-            per_tree_reservoir="tree_dispatch_s", ranks=ranks, extra=extra,
+            phases=phases, per_tree_reservoir="tree_dispatch_s",
+            ranks=ranks, extra=extra,
             memory={"watermarks": obs_memory.watermarks()})
         path = manifest.write(manifest_path(cfg.output_model))
         Log.info(f"Wrote run manifest to {path}")

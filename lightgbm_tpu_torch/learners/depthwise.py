@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..models.tree import Tree
+from ..obs.device_time import phase_scope
 from ..ops.cuda_histogram import make_level_hist_fn
 from ..ops.histogram import leaf_totals, take_bins
 from ..ops.split import find_best_split_leaves
@@ -141,12 +142,15 @@ def grow_tree_depthwise(bins_T: torch.Tensor, grad: torch.Tensor,
     while True:
         # ---- one histogram pass, one search, one read for the level
         hist = hist_fn(bins_T, leaf_id, grad, hess, bag_mask, K)
-        tot = leaf_totals(hist)
+        with phase_scope("histogram"):
+            tot = leaf_totals(hist)
         if params.max_depth > 0:
             can = torch.from_numpy(leaf_depth[:K] < params.max_depth).to(dev)
         else:
             can = torch.ones(K, dtype=torch.bool, device=dev)
-        best = search_leaves_fn(hist, tot[:, 0], tot[:, 1], tot[:, 2], can)
+        with phase_scope("split-search"):
+            best = search_leaves_fn(hist, tot[:, 0], tot[:, 1], tot[:, 2],
+                                    can)
         dt = hist.dtype
         del hist  # the next level's histogram must not wait for it
         cat = is_cat[best.feature.clamp(min=0).to(torch.int64)]
@@ -192,7 +196,9 @@ def grow_tree_depthwise(bins_T: torch.Tensor, grad: torch.Tensor,
             # ---- one partition pass for the whole level
             tab = np.full((4, K), -1, np.int32)
             tab[:, lv] = [feat, thr, iscat, new]
-            leaf_id = _route(bins_T, leaf_id, torch.from_numpy(tab).to(dev))
+            with phase_scope("partition"):
+                leaf_id = _route(bins_T, leaf_id,
+                                 torch.from_numpy(tab).to(dev))
             LEVEL_SPLITS += n_sel
 
         K += n_sel

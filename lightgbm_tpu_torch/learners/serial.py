@@ -106,6 +106,7 @@ import numpy as np
 import torch
 
 from ..models.tree import Tree
+from ..obs.device_time import phase_scope
 from ..ops.cuda_histogram import histogram_single_leaf, make_level_hist_fn
 from ..ops.cuda_search import (F64Step, pack_meta, search2_pool,
                                search2_rows, search2_update)
@@ -483,23 +484,26 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         n0 = n if root_rows is None else int(root_rows.shape[0])
         if rec_route:
             k = bins_per_word(bins_T.dtype)
-            rec = build_record(bins_T, grad, hess, bag_mask)
-            if root_rows is not None:
-                rec = rec.index_select(1, root_rows)
+            with phase_scope("partition"):
+                rec = build_record(bins_T, grad, hess, bag_mask)
+                if root_rows is not None:
+                    rec = rec.index_select(1, root_rows)
             hist0 = hist_fn_raw(rec, 0, n0, F, k, num_bins)
         elif root_rows is None:
             order = torch.arange(n, dtype=torch.int64, device=dev)
             hist0 = hist_fn(bins_T, grad, hess, bag_mask)
         else:
             order = root_rows.clone()
-            hist0 = hist_fn(take_bins(bins_T, 1, order),
-                            grad.index_select(0, order),
-                            hess.index_select(0, order),
-                            bag_mask.index_select(0, order))
-        stats = ((grad, hess, bag_mask) if root_rows is None else
-                 (t.index_select(0, root_rows) for t in (grad, hess,
-                                                         bag_mask)))
-        sums0 = _root_sums(*stats, hist0.dtype)
+            with phase_scope("histogram"):
+                hist0 = hist_fn(take_bins(bins_T, 1, order),
+                                grad.index_select(0, order),
+                                hess.index_select(0, order),
+                                bag_mask.index_select(0, order))
+        with phase_scope("histogram"):
+            stats = ((grad, hess, bag_mask) if root_rows is None else
+                     (t.index_select(0, root_rows) for t in (grad, hess,
+                                                             bag_mask)))
+            sums0 = _root_sums(*stats, hist0.dtype)
         if reduce_fn is not None:
             # the tree-start allreduce (data_parallel_tree_learner.cpp:
             # 97-125): every rank's row-order sums, summed over ranks
@@ -566,8 +570,9 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                 nleft_t = partition_window(rec, f, thr, is_cat, b0, pcnt,
                                            best_leaf, new_leaf, k)
             else:
-                nleft_t = _partition(order, bins_T[f], thr, is_cat, b0,
-                                     pcnt)
+                with phase_scope("partition"):
+                    nleft_t = _partition(order, bins_T[f], thr, is_cat, b0,
+                                         pcnt)
             if hooked:
                 # one read: the local left count and the reduced counts
                 nleft_t = nleft_t.to(torch.int32)
@@ -592,10 +597,11 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             else:
                 def range_hist(b, cnt):
                     rs = order[b:b + cnt]
-                    return hist_fn(take_bins(bins_T, 1, rs),
-                                   grad.index_select(0, rs),
-                                   hess.index_select(0, rs),
-                                   bag_mask.index_select(0, rs))
+                    with phase_scope("histogram"):
+                        return hist_fn(take_bins(bins_T, 1, rs),
+                                       grad.index_select(0, rs),
+                                       hess.index_select(0, rs),
+                                       bag_mask.index_select(0, rs))
 
                 h_small = (hist_fn_raw(rec, begin_s, cnt_s, F, k, num_bins)
                            if rec_route else range_hist(begin_s, cnt_s))
@@ -619,12 +625,14 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                 else:
                     if not isinstance(h_parent, torch.Tensor):
                         h_parent = hists[h_parent]
-                    h_large = h_parent - h_small
-                    h_left, h_right = ((h_small, h_large) if small_is_left
-                                       else (h_large, h_small))
-                    rows = search2_fn(h_left, h_right, scal, meta)
-                    hists[s1] = h_left
-                    hists[s2] = h_right
+                    with phase_scope("split-search"):
+                        h_large = h_parent - h_small
+                        h_left, h_right = ((h_small, h_large)
+                                           if small_is_left
+                                           else (h_large, h_small))
+                        rows = search2_fn(h_left, h_right, scal, meta)
+                        hists[s1] = h_left
+                        hists[s2] = h_right
                 if pooled:
                     # evict the slots' occupants, then the children claim
                     # them (serial.py:1021-1029; the parent may be its own
@@ -651,16 +659,18 @@ def grow_tree(bins_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         # every split stamped its children's ids into the record's leaf-id
         # row (serial.py:1148-1154)
         W = rec.shape[0]
-        leaf_id[rec[row_id_row(W)].to(torch.int64)] = rec[leaf_row(W)]
+        with phase_scope("partition"):
+            leaf_id[rec[row_id_row(W)].to(torch.int64)] = rec[leaf_row(W)]
         return tree, leaf_id
     # ---- leaf of every row from the final ranges: leaves own disjoint
     # contiguous spans of ``order``, laid out in ``begin`` order
     live = [lf for lf in range(nleaves) if count[lf] > 0]
     live.sort(key=lambda lf: begin[lf])
-    leaf_of_pos = torch.repeat_interleave(
-        torch.tensor(live, dtype=torch.int32, device=dev),
-        torch.tensor([int(count[lf]) for lf in live], dtype=torch.int64,
-                     device=dev),
-        output_size=order.shape[0])
-    leaf_id[order] = leaf_of_pos
+    with phase_scope("partition"):
+        leaf_of_pos = torch.repeat_interleave(
+            torch.tensor(live, dtype=torch.int32, device=dev),
+            torch.tensor([int(count[lf]) for lf in live], dtype=torch.int64,
+                         device=dev),
+            output_size=order.shape[0])
+        leaf_id[order] = leaf_of_pos
     return tree, leaf_id

@@ -56,14 +56,25 @@ rank is up (``_create_tree_learner``); every rank runs this boosting
 loop on the same data and grows the same trees, checked tree by tree by
 the desync sentinel (parallel/multihost.py).
 Depthwise and hybrid growth ignore histogram_pool_size with the JAX
-package's warning.  The lagged stop check (the port's stop check is
-eager), checkpoints and telemetry are not carried.
+package's warning.  The lagged stop check is not carried (the port's
+stop check is eager).
+
+The obs hooks are the JAX package's (gbdt.py:203-224, :560-612):
+``train_one_iter`` counts ``train_iters``, records its host wall into the
+``tree_dispatch_s`` reservoir (dispatch time: the card may still be
+running), samples the allocator at ``phase_boundary("train")`` and turns
+an out-of-memory error (``faults.maybe_oom_dispatch("train")`` fakes one)
+into a flight-recorder post-mortem carrying the census and
+``obs/memmodel``'s prediction for ``_memmodel_params()``; the training
+data registers the ``dataset`` and ``scores`` census owners.  None of
+them reads the card.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -79,6 +90,9 @@ from ..learners.serial import TreeLearnerParams, grow_tree
 from ..log import Log
 from ..metrics import Metric, create_metrics
 from ..objectives import ObjectiveFunction, objective_kind
+from ..obs import memory as obs_memory
+from ..obs import telemetry
+from ..obs.device_time import phase_scope
 from ..ops.cuda_histogram import (hist_variant, histogram_record_window,
                                   histogram_single_leaf, make_level_hist_fn)
 from ..ops.cuda_sparse_hist import MAX_BINS as S1_MAX_BINS
@@ -250,6 +264,22 @@ class GBDT:
         self._root_rows: Optional[torch.Tensor] = None
         self.train_metrics = create_metrics(self.config, train_set.metadata, n)
         self._learner = self._create_tree_learner()
+        # census owners (obs/memory.py): the getters read the attributes
+        # at census time, so reassigned scores stay covered, and the
+        # registry holds this booster weakly, so dropping it frees all
+        for tok in getattr(self, "_mem_tokens", ()):
+            obs_memory.unregister_owner(tok)
+        self._mem_tokens = (
+            obs_memory.register_owner(
+                "dataset", self,
+                lambda b: (b._bins_T, b._nbpf, b._is_cat, b._bounds_mat,
+                           b._real_feat_dev)),
+            obs_memory.register_owner(
+                "scores", self,
+                lambda b: (b._scores, b._bag_mask, *b._valid_scores,
+                           *b._valid_bins)),
+        )
+        obs_memory.phase_boundary("binning")
 
     def _create_tree_learner(self):
         """TreeLearner::CreateTreeLearner (tree_learner.cpp:8-20; the JAX
@@ -531,7 +561,65 @@ class GBDT:
         Returns True when no tree could be grown (training should stop);
         False also when the ``skip_tree`` guard skipped the iteration.
         The K class trees grow as one forest's lanes where
-        ``_forest_eligible`` (gbdt.py:797-813), else one by one."""
+        ``_forest_eligible`` (gbdt.py:797-813), else one by one.
+
+        Around it the JAX package's obs hooks (gbdt.py:571-590): the
+        ``train_iters`` count, the ``tree_dispatch_s`` reservoir (host
+        wall: the card may still be running), the ``train`` allocator
+        watermark, and an OOM post-mortem with the census and
+        ``obs/memmodel``'s prediction; other errors pass untouched."""
+        t0 = time.perf_counter()
+        try:
+            # chaos hook (LGBM_TPU_FAULT=oom_dispatch): a fake
+            # RESOURCE_EXHAUSTED through the classifier a real one meets
+            faults.maybe_oom_dispatch("train")
+            return self._train_one_iter(grad, hess)
+        except Exception as e:
+            params = self._memmodel_params()
+            obs_memory.classify_dispatch_error(
+                e, "train.dispatch", shape=params, predict_params=params)
+            raise
+        finally:
+            telemetry.count("train_iters")
+            telemetry.record_value("tree_dispatch_s",
+                                   time.perf_counter() - t0)
+            obs_memory.phase_boundary("train")
+
+    def _memmodel_params(self) -> Optional[dict]:
+        """This booster's shape in ``obs/memmodel.predict``'s terms (the
+        JAX package's gbdt.py:592-612), in the port's routes: ``forest``
+        where its class trees grow as lanes, else the route ``grow``'s
+        leaf-wise splits take (``mega``, ``record`` or ``order``: the
+        pool's, depthwise's and hybrid's), the growth, the pool's slots
+        and the histograms' dtype.  None before the training data is
+        set."""
+        if getattr(self, "_bins_T", None) is None:
+            return None
+        try:
+            if self.num_class > 1 and self._forest_eligible():
+                routing = "forest"
+            elif (self._leafwise_hist_fn_raw() is None
+                  or self._hist_pool_slots()
+                  or self.config.tree_growth != "leafwise"):
+                routing = "order"
+            else:
+                routing = "mega" if self._fuse_hist() else "record"
+            return {
+                "rows": int(self.num_data),
+                "features": int(self._bins_T.shape[0]),
+                "bins": int(self._num_bins),
+                "leaves": int(self.max_leaves),
+                "num_class": int(self.num_class),
+                "world": int(world_size()),
+                "routing": routing,
+                "hist_prec": self.config.hist_dtype,
+                "growth": self.config.tree_growth,
+                "pool_slots": int(self._hist_pool_slots()),
+            }
+        except Exception:  # noqa: BLE001 — read inside an error handler
+            return None
+
+    def _train_one_iter(self, grad=None, hess=None) -> bool:
         pre = self._begin_iter(grad, hess)
         if pre is None:
             return False
@@ -603,10 +691,11 @@ class GBDT:
             tree = guard.check_tree(tree)
         # shrinkage + train-score update through the row -> leaf map
         # + threshold finalization (gbdt.cpp:229-247)
-        tree = tree.shrink(self.learning_rate)
-        self._scores[k] += tree.leaf_value[leaf_id.to(torch.int64)]
-        tree = finalize_thresholds_device(tree, self._bounds_mat,
-                                          self._real_feat_dev)
+        with phase_scope("leaf-update"):
+            tree = tree.shrink(self.learning_rate)
+            self._scores[k] += tree.leaf_value[leaf_id.to(torch.int64)]
+            tree = finalize_thresholds_device(tree, self._bounds_mat,
+                                              self._real_feat_dev)
         if self._valid_bins:
             self._walk_into(binned_table([tree], self.device), k, None, 1.0)
         self.models.append(tree)

@@ -1,7 +1,8 @@
-"""Runtime observability for the serving tier.
+"""Runtime observability for training and serving.
 
-Copies of the JAX package's stdlib-only ``obs/`` modules, and its device
-memory layer on PyTorch's allocator:
+Copies of the JAX package's stdlib-only ``obs/`` modules, its device
+memory layer on PyTorch's allocator and its trace phases on
+``torch.profiler``:
 
 * :mod:`~lightgbm_tpu_torch.obs.telemetry` — always-on spans /
   counters / reservoirs / histograms (near-zero overhead).
@@ -20,14 +21,18 @@ memory layer on PyTorch's allocator:
   collective census of the parallel learners, rank snapshots, their
   merge with skew and straggler attribution, traced collectives and the
   desync sentinel.
-
-Not ported yet: ``device_time`` (profiler phases) and ``memmodel`` (the
-footprint model), ROADMAP A10.
+* :mod:`~lightgbm_tpu_torch.obs.device_time` — device seconds a grow-loop
+  phase from a ``torch.profiler`` trace (``phase_scope``,
+  ``trace_phases``, the CLI's ``profile=true``).
+* :mod:`~lightgbm_tpu_torch.obs.memmodel` — the analytic device-memory
+  model of each training phase (``predict``, ``max_rows``), the OOM
+  post-mortem's prediction.
 """
 
 from __future__ import annotations
 
-from . import export, flightrec, memory, telemetry, tracing  # noqa: F401
+from . import (device_time, export, flightrec, memmodel,  # noqa: F401
+               memory, telemetry, tracing)
 from .manifest import (  # noqa: F401
     RunManifest,
     config_fingerprint,

@@ -1,27 +1,28 @@
 """Device-memory observability: where the bytes live.
 
 Counterpart of the JAX package's ``obs/memory.py`` for the parts the
-serving tier calls, on PyTorch's caching allocator:
+training and serving tiers call, on PyTorch's caching allocator:
 
 * ``device_memory_stats()`` — ``torch.cuda.memory_allocated`` /
   ``max_memory_allocated`` / ``memory_reserved`` and the card's
   capacity, normalized to ``hbm_*`` keys.  A process that has not
   touched the card (every CPU run) reads none: ``hbm_stats_supported``
   is false and :func:`memory_gauges` is empty.
-* ``register_owner`` / ``live_buffer_census()`` — owners (the serving
-  engine's packed model) register a getter of their tensors; the
+* ``register_owner`` / ``live_buffer_census()`` — owners (a training
+  booster's ``dataset`` and ``scores``, the serving engine's packed
+  model) register a getter of their tensors; the
   registry holds only weakrefs, so it never causes the retention it is
   built to detect.  PyTorch has no list of every live tensor (the JAX
   package walks ``jax.live_arrays()``), so the census covers registered
   owners, and the allocator's own totals cover the rest.
 * ``phase_boundary(name)`` — allocator watermarks at the boundaries the
-  host sees (``serve``, ``swap``).
+  host sees (``binning``, ``train``, ``serve``, ``swap``).
 * OOM post-mortems — ``classify_dispatch_error`` turns a
   ``torch.cuda.OutOfMemoryError`` (or a RESOURCE_EXHAUSTED /
   "out of memory" message, which the fault injector raises) escaping a
-  serving dispatch into a flight-recorder dump (tail kind ``oom``)
-  carrying the last census.  The JAX package also attaches its analytic
-  footprint model's prediction (``obs/memmodel``, ROADMAP A10).
+  training or serving dispatch into a flight-recorder dump (tail kind
+  ``oom``) carrying the last census and, where the caller knows its
+  shape, the analytic footprint model's prediction (``obs/memmodel``).
 
 The gauge names are the JAX package's (``lgbm_memory_*``).
 """
@@ -89,13 +90,20 @@ def device_memory_stats(device: Any = None) -> dict:
 # owner registry + census
 
 def register_owner(tag: str, owner: Any,
-                   getter: Callable[[Any], Iterable[torch.Tensor]]) -> None:
+                   getter: Callable[[Any], Iterable[torch.Tensor]]) -> int:
     """Register ``owner`` as holding device tensors under ``tag``;
     ``getter(owner)`` returns them at census time.  Only a weakref to
-    ``owner`` is kept; a dead owner drops out at the next census."""
+    ``owner`` is kept; a dead owner drops out at the next census.
+    Returns a token for :func:`unregister_owner`."""
     token = next(_owner_counter)
     with _lock:
         _owners[token] = (str(tag), weakref.ref(owner), getter)
+    return token
+
+
+def unregister_owner(token: int) -> None:
+    with _lock:
+        _owners.pop(token, None)
 
 
 def _owner_tensors() -> Iterable[Tuple[str, torch.Tensor]]:
@@ -232,11 +240,14 @@ def is_oom_error(exc: BaseException) -> bool:
 
 
 def oom_postmortem(exc: BaseException, where: str,
-                   shape: Optional[dict] = None) -> dict:
+                   shape: Optional[dict] = None,
+                   predict_params: Optional[dict] = None) -> dict:
     """Record and dump the post-mortem of an OOM at a dispatch boundary
-    (flight-recorder tail kind ``oom``, with the last census).  Never
-    raises: a post-mortem that throws inside an OOM handler would mask
-    the real failure."""
+    (flight-recorder tail kind ``oom``): the last census and, with
+    ``predict_params``, ``obs/memmodel.predict``'s footprint for the
+    failing shape, so the dump says both what was resident and what the
+    model expected.  Never raises: a post-mortem that throws inside an
+    OOM handler would mask the real failure."""
     from . import flightrec, telemetry
 
     try:
@@ -244,6 +255,14 @@ def oom_postmortem(exc: BaseException, where: str,
     except Exception:  # noqa: BLE001
         census = last_census() or {"total_bytes": 0, "buffers": 0,
                                    "by_owner": {}, "groups": []}
+    predicted = None
+    if predict_params:
+        try:
+            from . import memmodel
+
+            predicted = memmodel.predict(**predict_params)
+        except Exception:  # noqa: BLE001 — as the census
+            predicted = None
     event = {
         "where": where,
         "error": f"{type(exc).__name__}: {str(exc)[:400]}",
@@ -255,6 +274,10 @@ def oom_postmortem(exc: BaseException, where: str,
             "by_owner": census.get("by_owner", {}),
             "top": (census.get("groups") or [])[:8],
         },
+        "predicted_peak_bytes": (
+            predicted.get("peak_bytes") if predicted else None),
+        "predicted_phases": (
+            predicted.get("phases") if predicted else None),
     }
     try:
         telemetry.count("oom." + where.split(".")[0])
@@ -266,10 +289,13 @@ def oom_postmortem(exc: BaseException, where: str,
 
 
 def classify_dispatch_error(exc: BaseException, where: str,
-                            shape: Optional[dict] = None) -> Optional[dict]:
+                            shape: Optional[dict] = None,
+                            predict_params: Optional[dict] = None,
+                            ) -> Optional[dict]:
     """Dispatch-boundary hook: post-mortem iff ``exc`` is an OOM.
     Returns the post-mortem event (or None); callers re-raise ``exc``
     either way."""
     if not is_oom_error(exc):
         return None
-    return oom_postmortem(exc, where, shape=shape)
+    return oom_postmortem(exc, where, shape=shape,
+                          predict_params=predict_params)

@@ -452,7 +452,7 @@ class CheckpointManager:
         # signals are delivered on the main thread between bytecodes and
         # one reference assignment is atomic: no lock (one could
         # self-deadlock the handler)
-        self._stop_signum = signum
+        self._stop_signum = signum  # jaxlint: disable=shared-state-unlocked
         flightrec.record("signal", signal=signal.Signals(signum).name,
                          second=False)
         Log.warning(
@@ -463,8 +463,12 @@ class CheckpointManager:
 
     def __enter__(self) -> "CheckpointManager":
         try:
+            # invariant: __enter__ and the handler both run on the main
+            # thread (signals are delivered there between bytecodes) and
+            # one item assignment is atomic: no lock
             for sig in (signal.SIGTERM, signal.SIGINT):
-                self._old_handlers[sig] = signal.signal(sig, self._on_signal)
+                self._old_handlers[sig] = signal.signal(  # jaxlint: disable=shared-state-unlocked
+                    sig, self._on_signal)
         except ValueError:
             # not the main thread (embedded use): periodic snapshots
             # still work, signal capture does not

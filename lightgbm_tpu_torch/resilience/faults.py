@@ -1,6 +1,7 @@
 """Deterministic fault injection for the paths the port has: the training
 loop and its checkpoints, the atomic write, the serving hot-swap, the
-serving dispatch, the training gradients and the guarded collective.
+training and serving dispatch, the training gradients and the guarded
+collective.
 
 A copy of the JAX package's ``resilience/faults.py`` (stdlib only).
 ``LGBM_TPU_FAULT`` holds a comma-separated list of fault specs:
@@ -29,7 +30,7 @@ spec                        injection point
                             mid-file before verification
                             (serving/hotswap.py) — the swap must be
                             refused and the old model keeps answering
-``oom_dispatch``            the next serve dispatch raises a fake
+``oom_dispatch``            the next train or serve dispatch raises a fake
                             ``RESOURCE_EXHAUSTED`` (self-consuming) —
                             exercises the OOM classifier + flight
                             recorder post-mortem (obs/memory.py)
@@ -276,8 +277,9 @@ def maybe_corrupt_checkpoint(path: str) -> bool:
 
 
 def maybe_oom_dispatch(where: str) -> None:
-    """Serve dispatch hook (serving/engine.py _dispatch_rows): one fake
-    RESOURCE_EXHAUSTED at the next dispatch.  Self-consuming — a real OOM kills one dispatch;
+    """Train/serve dispatch hook (models/gbdt.py train_one_iter,
+    serving/engine.py _dispatch_rows): one fake RESOURCE_EXHAUSTED at the
+    next dispatch.  Self-consuming — a real OOM kills one dispatch;
     the interesting behavior is the post-mortem, not a crash loop."""
     if fault_active("oom_dispatch") is not None:
         _consume("oom_dispatch")

@@ -342,7 +342,7 @@ class MicroBatchQueue:
         if expired:
             # invariant: callers hold self._cond (the ``_locked`` suffix
             # contract) — every write to _pending_rows is under that lock
-            self._pending_rows -= sum(r.n for r in expired)
+            self._pending_rows -= sum(r.n for r in expired)  # jaxlint: disable=shared-state-unlocked
             self._note_shed_locked("deadline", len(expired),
                                    sum(r.n for r in expired))
         return expired

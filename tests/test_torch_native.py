@@ -16,12 +16,10 @@ native reader.
 
 import contextlib
 import os
-import subprocess
 
 import numpy as np
 import pytest
 
-from lightgbm_tpu import native as jax_native
 from lightgbm_tpu.io import parser as jp
 
 import lightgbm_tpu_torch as lt
@@ -32,6 +30,7 @@ from lightgbm_tpu_torch.io.dataset import BinnedDataset
 from lightgbm_tpu_torch.io.metadata import Metadata
 from lightgbm_tpu_torch.obs import telemetry
 from lightgbm_tpu_torch.ops import _build
+from torch_jax_reader import jax_reader  # noqa: F401  (a fixture)
 
 
 @contextlib.contextmanager
@@ -45,25 +44,6 @@ def numpy_only():
             del os.environ["LIGHTGBM_TPU_NO_NATIVE"]
         else:
             os.environ["LIGHTGBM_TPU_NO_NATIVE"] = saved
-
-
-@pytest.fixture(scope="module")
-def jax_reader(tmp_path_factory):
-    """The JAX package's native reader, its source compiled here into a
-    private directory and loaded by its own bindings: its Makefile writes
-    ``lightgbm_tpu/lib`` in place, so workers building it at once could
-    hand a test a half-written library (and the JAX reader would then
-    fall back to pandas)."""
-    out = str(tmp_path_factory.mktemp("jax_native") / "liblgbm_native.so")
-    subprocess.run(["g++", "-O3", "-std=c++17", "-fPIC", "-fopenmp",
-                    "-shared", "-o", out, jax_native._SRC], check=True,
-                   capture_output=True, timeout=600)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_native, "_LIB_PATH", out)
-        mp.setattr(jax_native, "_lib", None)
-        mp.setattr(jax_native, "_tried", False)
-        assert jax_native.available()
-        yield jax_native
 
 
 def _fallbacks():

@@ -112,9 +112,10 @@ def test_serving_modules_are_scanned():
     names = {os.path.relpath(p, PKG) for p in _sources()}
     for sub, mods in (("serving", ("engine", "queue", "hotswap", "server")),
                       ("obs", ("telemetry", "tracing", "export", "flightrec",
-                               "memory", "manifest")),
+                               "memory", "manifest", "device_time",
+                               "memmodel")),
                       ("resilience", ("atomic", "faults")),
-                      ("analysis", ("lockcheck",)),
+                      ("analysis", ("lockcheck", "concurrency")),
                       ("ops", ("predict", "cuda_predict"))):
         for m in mods + ("__init__",):
             assert os.path.join(sub, m + ".py") in names, (sub, m)

@@ -24,6 +24,11 @@ from lightgbm_tpu.obs import telemetry as jax_tel
 from lightgbm_tpu_torch.io import parser as tp
 from lightgbm_tpu_torch.io.binner import find_bin_mappers
 from lightgbm_tpu_torch.obs import telemetry as port_tel
+from torch_jax_reader import jax_reader  # noqa: F401  (a fixture)
+
+# the JAX package's native reader built privately for this module: its
+# own build rewrites lightgbm_tpu/lib in place under other test workers
+pytestmark = pytest.mark.usefixtures("jax_reader")
 
 # pandas' float parser (the JAX package's lenient re-read and parse_lines)
 # is not correctly rounded: up to 12 ulp from the written float64 on this
